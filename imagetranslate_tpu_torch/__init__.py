@@ -7,13 +7,18 @@ checkpoint and tokenizer formats, and is tested against it on the CPU. The
 port imports neither jax nor the JAX package.
 
 - ``models``    — config, transformer stacks and ``Seq2Seq`` as ``nn.Module``s.
-- ``ops``       — plain attention, and the hand-written CUDA kernels with
-                  their plain PyTorch versions (``ops/topk_project.py``).
+- ``ops``       — plain attention, the label-smoothed loss, and the
+                  hand-written CUDA kernels with their plain PyTorch versions
+                  (``ops/topk_project.py``, ``ops/train_attention.py``).
 - ``decoding``  — KV-cached beam search (gather cache semantics).
 - ``text``      — the BPE tokenizer and the ``TextProcessor`` facade.
-- ``data``      — length-bucketed ``MTBatcher`` and ``PrefetchIterator``.
-- ``train``     — weight bridge to the flax tree and the msgpack checkpoint.
-- ``cli``       — ``translate``.
+- ``data``      — ``.mt`` binarization, length-bucketed ``MTBatcher`` and
+                  ``PrefetchIterator``.
+- ``train``     — inverse-sqrt Adam, the MT train step, ``MTTrainer``, the
+                  weight and optimizer-state bridge to the flax/optax trees
+                  and the msgpack checkpoint.
+- ``utils``     — step meters.
+- ``cli``       — ``translate``, ``train_mt``.
 """
 
 __version__ = "0.1.0"

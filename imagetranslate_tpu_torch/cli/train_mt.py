@@ -1,0 +1,234 @@
+"""Supervised MT training CLI (port of imagetranslate_tpu/cli/train_mt.py):
+the same flags and defaults, plus ``--device``.
+
+    python -m imagetranslate_tpu_torch.cli.train_mt --tok TOKDIR --model OUT \
+        --train_mt train.mt [--dev_mt dev.mt] --step N [--device cuda]
+
+Checkpoints are the JAX package's directory layout, so either package resumes
+from and translates with what the other trained. A flag whose path is not
+ported yet stops the run with a message that names the ROADMAP module.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+
+# dest -> (flag, where the path is planned), for flags that are parsed (the
+# command lines stay interchangeable) but whose path is not ported: any value
+# but the flag's default stops the run.
+UNPORTED = {
+    "mass_train_path": ("--mass_train", "MASS pretraining: ROADMAP module 8"),
+    "ignore_mt_mass": ("--ignore-mt-mass",
+                       "MASS pretraining: ROADMAP module 8"),
+    "mask_prob": ("--mask", "MASS masking: ROADMAP module 8"),
+    "bt_beam_width": ("--bt-beam", "back-translation: ROADMAP module 8"),
+    "finetune_step": ("--fstep", "back-translation: ROADMAP module 8"),
+    "bt_langs": ("--langs", "back-translation: ROADMAP module 8"),
+    "train_path": ("--train", "the image stream: ROADMAP module 9"),
+    "image_dir": ("--image", "the image stream: ROADMAP module 9"),
+    "img_capacity": ("--img_capacity", "the image stream: ROADMAP module 9"),
+    "max_image": ("--max-image", "the image stream: ROADMAP module 9"),
+    "resnet_depth": ("--img-depth", "the image encoder: ROADMAP module 9"),
+    "mm_mode": ("--mmode", "the image stream: ROADMAP module 9"),
+    "lm_path": ("--lm", "the MLM graft: ROADMAP module 10"),
+    "moe_experts": ("--moe-experts", "MoE FFN: ROADMAP module 13"),
+    "moe_top_k": ("--moe-top-k", "MoE FFN: ROADMAP module 13"),
+    "mesh_spec": ("--mesh", "multi-device training: ROADMAP module 14"),
+    "pp_microbatches": ("--pp-microbatches",
+                        "pipeline parallelism: ROADMAP module 14"),
+    "zero": ("--zero", "ZeRO-1: ROADMAP module 14"),
+    "pack_mt": ("--pack", "sequence packing (data/packing.py): ROADMAP "
+                          "module 15"),
+    "profile_dir": ("--profile", "the step profiler (utils/profiling.py): "
+                                 "ROADMAP module 15"),
+}
+
+
+def get_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser("train_mt")
+    p.add_argument("--tok", dest="tokenizer_path", required=True)
+    p.add_argument("--model", dest="model_path", required=True)
+    p.add_argument("--pretrained", dest="pretrained_path", default=None)
+    p.add_argument("--epoch", dest="num_epochs", type=int, default=100)
+    p.add_argument("--clip", type=float, default=1.0)
+    p.add_argument("--batch", type=int, default=20000)
+    p.add_argument("--mask", dest="mask_prob", type=float, default=0.5)
+    p.add_argument("--lr", dest="learning_rate", type=float, default=0.0001)
+    p.add_argument("--warmup", type=int, default=12500)
+    p.add_argument("--step", type=int, default=125000)
+    p.add_argument("--fstep", dest="finetune_step", type=int, default=0)
+    p.add_argument("--dropout", type=float, default=0.1)
+    p.add_argument("--attn-dropout", dest="attention_dropout", type=float,
+                   default=None,
+                   help="attention-probability dropout (default: --dropout); "
+                        "0 disables it")
+    p.add_argument("--enc", dest="encoder_layer", type=int, default=6)
+    p.add_argument("--dec", dest="decoder_layer", type=int, default=6)
+    p.add_argument("--embed", dest="embed_dim", type=int, default=768)
+    p.add_argument("--intermediate", dest="intermediate_layer_dim", type=int,
+                   default=3072)
+    p.add_argument("--capacity", dest="total_capacity", type=int, default=600)
+    p.add_argument("--moe-experts", dest="moe_experts", type=int, default=0)
+    p.add_argument("--moe-top-k", dest="moe_top_k", type=int, default=2)
+    p.add_argument("--beam", dest="beam_width", type=int, default=5)
+    p.add_argument("--bt-beam", dest="bt_beam_width", type=int, default=1)
+    p.add_argument("--max_len_a", type=float, default=1.3)
+    p.add_argument("--max_len_b", type=int, default=5)
+    p.add_argument("--len-penalty", dest="len_penalty_ratio", type=float,
+                   default=0.8)
+    p.add_argument("--max_seq_len", type=int, default=175)
+    p.add_argument("--ldec", dest="lang_decoder", action="store_true")
+    p.add_argument("--nll", dest="nll_loss", action="store_true")
+    p.add_argument("--tie", dest="tie_embed", action="store_true")
+    p.add_argument("--dev_mt", dest="mt_dev_path", default=None)
+    p.add_argument("--train_mt", dest="mt_train_path", default=None)
+    p.add_argument("--mass_train", dest="mass_train_path", default=None)
+    p.add_argument("--train", dest="train_path", default=None)
+    p.add_argument("--image", dest="image_dir", default="")
+    p.add_argument("--img_capacity", type=int, default=50)
+    p.add_argument("--max-image", dest="max_image", type=int, default=32)
+    p.add_argument("--img-depth", dest="resnet_depth", type=int, default=1)
+    p.add_argument("--mmode", dest="mm_mode", default="mixed",
+                   choices=["mixed", "masked", "contrastive"])
+    p.add_argument("--langs", dest="bt_langs", default="")
+    p.add_argument("--acc", dest="accum", type=int, default=1)
+    p.add_argument("--ignore-mt-mass", dest="ignore_mt_mass",
+                   action="store_true")
+    p.add_argument("--save-opt", dest="save_opt", action="store_true",
+                   help="accepted for compatibility; optimizer state is "
+                        "always saved")
+    p.add_argument("--cont", dest="continue_train", action="store_true")
+    p.add_argument("--eval-every", type=int, default=5000)
+    p.add_argument("--save-every", type=int, default=10000)
+    p.add_argument("--dtype", default="bfloat16")
+    p.add_argument("--profile", dest="profile_dir", default=None)
+    p.add_argument("--dict", dest="dict_path", default=None,
+                   help="lexical proposal dictionary")
+    p.add_argument("--lm", dest="lm_path", default=None)
+    p.add_argument("--bucket_step", type=int, default=16,
+                   help="length bucket multiple")
+    p.add_argument("--pack", dest="pack_mt", action="store_true")
+    p.add_argument("--mesh", dest="mesh_spec", default="")
+    p.add_argument("--pp-microbatches", dest="pp_microbatches", type=int,
+                   default=0)
+    p.add_argument("--zero", dest="zero", action="store_true")
+    p.add_argument("--device", default="cuda",
+                   help="torch device to train on (cuda, cuda:N or cpu)")
+    return p
+
+
+def main(argv=None):
+    parser = get_parser()
+    options = parser.parse_args(argv)
+    for dest, (flag, where) in UNPORTED.items():
+        if getattr(options, dest) != parser.get_default(dest):
+            raise SystemExit(f"{flag} is not ported yet ({where})")
+
+    from imagetranslate_tpu_torch.data.binarize import load_mt
+    from imagetranslate_tpu_torch.data.loader import MTBatcher, get_lex_dict
+    from imagetranslate_tpu_torch.models.config import Seq2SeqConfig
+    from imagetranslate_tpu_torch.text.processor import TextProcessor
+    from imagetranslate_tpu_torch.train.checkpoint import (
+        load_checkpoint,
+        load_config,
+    )
+    from imagetranslate_tpu_torch.train.trainer_mt import MTTrainer
+    from imagetranslate_tpu_torch.train.weights import opt_state_from_flax
+
+    tp = TextProcessor(options.tokenizer_path)
+    if tp.pad_token_id() != 0:
+        raise SystemExit("the tokenizer's <pad> must have id 0")
+    lex_dict = (get_lex_dict(options.dict_path)
+                if options.dict_path is not None else None)
+
+    if options.pretrained_path is not None:
+        cfg = load_config(options.pretrained_path)
+    else:
+        cfg = Seq2SeqConfig(
+            vocab_size=tp.vocab_size(),
+            num_languages=max(1, len(tp.languages)),
+            hidden_size=options.embed_dim,
+            intermediate_size=options.intermediate_layer_dim,
+            enc_layers=options.encoder_layer,
+            dec_layers=options.decoder_layer,
+            dropout=options.dropout,
+            attention_dropout=(options.dropout
+                               if options.attention_dropout is None
+                               else options.attention_dropout),
+            lang_dec=options.lang_decoder,
+            tie_embed=options.tie_embed,
+            use_proposals=lex_dict is not None,
+            resnet_depth=options.resnet_depth,
+            dtype=options.dtype,
+            moe_top_k=options.moe_top_k,
+        )
+
+    trainer = MTTrainer(
+        cfg, tp, lr=options.learning_rate, warmup=options.warmup,
+        clip=options.clip, accum=options.accum, mask_prob=options.mask_prob,
+        beam_width=options.beam_width, bt_beam_width=options.bt_beam_width,
+        max_len_a=options.max_len_a, max_len_b=options.max_len_b,
+        len_penalty_ratio=options.len_penalty_ratio,
+        label_smoothing=0.0 if options.nll_loss else 0.1,
+        device=options.device)
+
+    if options.pretrained_path is not None:
+        params, opt_tree, meta = load_checkpoint(
+            options.pretrained_path, with_opt_state=options.continue_train)
+        trainer.set_reference_params(params)
+        if opt_tree is not None:
+            trainer.state.opt_state = opt_state_from_flax(
+                opt_tree, trainer.optimizer, cfg, trainer.device)
+        print(f"Restored pretrained model (step {meta.get('step', 0)})")
+
+    pad = tp.pad_token_id()
+
+    def batcher(paths, max_batch, capacity_mb):
+        examples = []
+        for path in paths.split(","):
+            examples.extend(load_mt(path))
+        return MTBatcher(examples, pad_id=pad, max_batch=max_batch,
+                         capacity_mb=capacity_mb,
+                         max_seq_len=options.max_seq_len,
+                         bucket_step=options.bucket_step, lex_dict=lex_dict)
+
+    mt_batcher = None
+    if options.mt_train_path is not None:
+        mt_batcher = batcher(options.mt_train_path, options.batch // 2,
+                             options.total_capacity // 2)
+        if len(mt_batcher) == 0:
+            raise SystemExit(f"--train_mt {options.mt_train_path!r} matched "
+                             "no examples: refusing to train on an empty "
+                             "stream")
+        print(f"MT train batches: {len(mt_batcher)}")
+
+    dev_batcher = None
+    if options.mt_dev_path is not None:
+        dev_batcher = batcher(
+            options.mt_dev_path,
+            int(options.batch / (options.beam_width * 2)),
+            options.total_capacity)
+        print(f"MT dev batches: {len(dev_batcher)}")
+
+    os.makedirs(options.model_path, exist_ok=True)
+    step, epoch = 0, 0
+    while options.step > 0 and step < options.step:
+        print(f"train epoch {epoch}")
+        step_before = step
+        step = trainer.train_epoch(
+            step, options.model_path, mt_batcher=mt_batcher,
+            dev_batcher=dev_batcher, max_step=options.step,
+            eval_every=options.eval_every, save_every=options.save_every,
+            epoch_seed=epoch)
+        if step == step_before:
+            raise SystemExit("an epoch produced zero train steps (no "
+                             "--train_mt stream?): aborting instead of "
+                             "looping forever")
+        epoch += 1
+
+    print("Finished Training!")
+
+
+if __name__ == "__main__":
+    main()

@@ -15,6 +15,7 @@ same order.
 from __future__ import annotations
 
 import dataclasses
+import random
 from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -153,3 +154,11 @@ class MTBatcher:
 
     def __iter__(self) -> Iterator[MTBatch]:
         return iter(self.batches)
+
+    def shuffled(self, seed: int) -> Iterator[MTBatch]:
+        """The batches in the order ``random.Random(seed)`` shuffles them
+        into (the JAX batcher's order for the same seed)."""
+        order = list(range(len(self.batches)))
+        random.Random(seed).shuffle(order)
+        for i in order:
+            yield self.batches[i]

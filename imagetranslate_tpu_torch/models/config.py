@@ -1,11 +1,14 @@
 """Typed model configuration (port of imagetranslate_tpu/models/config.py).
 
 Same fields, defaults and JSON as the JAX ``Seq2SeqConfig``, so a
-``config.json`` written by either package loads in the other. Knobs that
-select TPU kernels or XLA lowerings (``use_pallas_*``,
-``decode_attention_impl``, ``dense_decode_cross``, ``fused_attn_dropout``,
+``config.json`` written by either package loads in the other.
+``fused_attn_dropout`` routes training attention through the fused dropout
+kernel (``ops/train_attention.py``) and ``use_pallas_attention`` refuses
+S >= 1024 until the flash kernel is ported; ``use_pallas_xent`` is refused by
+the train step until its kernel is. The other knobs that select TPU kernels
+or XLA lowerings (``decode_attention_impl``, ``dense_decode_cross``,
 ``fused_project_topk``, ``remat*``) are read and kept but have no effect
-here: the port has one path per operation.
+here: the port has one path per operation, and recomputation is not ported.
 """
 
 from __future__ import annotations

@@ -18,11 +18,13 @@ from imagetranslate_tpu_torch.models.config import Seq2SeqConfig
 from imagetranslate_tpu_torch.models.transformer import (
     Cache,
     Decoder,
+    DropoutRng,
     Encoder,
     OutputLayer,
     causal_pad_bias,
     layer_norm,
     pad_bias,
+    segment_bias,
 )
 from imagetranslate_tpu_torch.ops import topk_project as tkp
 from imagetranslate_tpu_torch.ops.attention import NEG_INF
@@ -69,19 +71,24 @@ class ProposalAttention(nn.Module):
 
 
 class Seq2Seq(nn.Module):
-    def __init__(self, cfg: Seq2SeqConfig, device=None):
+    """``param_dtype`` is the dtype the Linear and Embedding weights are
+    stored in: None (the default) stores the compute dtype, for serving;
+    ``torch.float32`` holds fp32 masters, for training. Either way they are
+    used in ``cfg.compute_dtype``."""
+
+    def __init__(self, cfg: Seq2SeqConfig, device=None, param_dtype=None):
         super().__init__()
         self.cfg = cfg
         n_dec = cfg.num_languages if cfg.lang_dec else 1
-        self.encoder = Encoder(cfg, device)
+        self.encoder = Encoder(cfg, device, param_dtype)
         if cfg.lang_dec:
-            self.decoder = nn.ModuleList([Decoder(cfg, device)
+            self.decoder = nn.ModuleList([Decoder(cfg, device, param_dtype)
                                           for _ in range(n_dec)])
-            self.output_layer = nn.ModuleList([OutputLayer(cfg, device)
-                                               for _ in range(n_dec)])
+            self.output_layer = nn.ModuleList([
+                OutputLayer(cfg, device, param_dtype) for _ in range(n_dec)])
         else:
-            self.decoder = Decoder(cfg, device)
-            self.output_layer = OutputLayer(cfg, device)
+            self.decoder = Decoder(cfg, device, param_dtype)
+            self.output_layer = OutputLayer(cfg, device, param_dtype)
         if cfg.use_proposals:
             self.proposal_attn = ProposalAttention(cfg, device)
 
@@ -97,28 +104,47 @@ class Seq2Seq(nn.Module):
         return self._heads(self.decoder)[lang_idx if self.cfg.lang_dec else 0]
 
     def _head(self, lang_idx: int):
-        """(weight [V, E] in the compute dtype, fp32 bias [V]) of the
+        """(weight [V, E] cast to the compute dtype, fp32 bias [V]) of the
         language's output projection."""
         ol = self._heads(self.output_layer)[
             lang_idx if self.cfg.lang_dec else 0]
         w = (self.embeddings.word_embeddings.weight if self.cfg.tie_embed
              else ol.layer.weight)
-        return w, ol.layer.bias
+        return w.to(self.cfg.compute_dtype), ol.layer.bias
+
+    def _drop(self, deterministic: bool, rng, device):
+        if deterministic:
+            return None
+        if rng is None:
+            raise ValueError("deterministic=False needs rng, the "
+                             "torch.Generator the dropout seeds come from")
+        return rng if isinstance(rng, DropoutRng) else DropoutRng(rng, device)
 
     # ---------------- encoding ----------------
 
-    def encode(self, src_ids, src_mask, src_langs):
+    def encode(self, src_ids, src_mask, src_langs, deterministic: bool = True,
+               src_positions=None, src_segments=None, rng=None):
+        """With ``src_segments`` (packed rows) attention stays inside each
+        example's segment and ``src_positions`` restart per example.
+        ``rng`` (a host torch.Generator) feeds the dropout when
+        ``deterministic`` is False."""
         B, S = src_ids.shape
-        pos = torch.arange(S, device=src_ids.device)[None, :].expand(B, S)
-        x = self.embeddings(src_ids, pos, expand_langs(src_langs, S))
-        return self.encoder(x, pad_bias(src_mask))
+        drop = self._drop(deterministic, rng, src_ids.device)
+        if src_positions is None:
+            pos = torch.arange(S, device=src_ids.device)[None, :].expand(B, S)
+        else:
+            pos = src_positions
+        x = self.embeddings(src_ids, pos, expand_langs(src_langs, S), drop)
+        bias = (pad_bias(src_mask) if src_segments is None
+                else segment_bias(src_segments, src_segments))
+        return self.encoder(x, bias, drop)
 
     # ---------------- projections ----------------
 
     def project(self, hidden, lang_idx: int = 0):
         """hidden -> vocab logits (fp32 unless cfg.fp32_logits is off)."""
         w, b = self._head(lang_idx)
-        logits = torch.nn.functional.linear(hidden, w)
+        logits = torch.nn.functional.linear(hidden.to(w.dtype), w)
         if self.cfg.fp32_logits:
             return logits.to(torch.float32) + b
         return logits + b.to(logits.dtype)
@@ -134,19 +160,40 @@ class Seq2Seq(nn.Module):
     # ---------------- teacher-forced forward ----------------
 
     def forward(self, src_ids, src_mask, tgt_ids, tgt_mask, src_langs,
-                tgt_langs, proposals=None, proposal_mask=None):
+                tgt_langs, tgt_positions=None, proposals=None,
+                proposal_mask=None, deterministic: bool = True,
+                src_positions=None, src_segments=None, tgt_segments=None,
+                rng=None):
         """Decoder consumes tgt[:, :-1]; returns logits [B, T-1, V] for
-        tgt[:, 1:]."""
+        tgt[:, 1:]. ``tgt_positions`` [B, T]: explicit decoder positions.
+        ``src_segments``/``tgt_segments``: packed-row segment ids; self- and
+        cross-attention stay inside each example's segment and the caller
+        masks the cross-boundary loss slots. ``deterministic=False`` turns
+        dropout on, its seeds drawn from ``rng`` (a host torch.Generator)."""
         B, T = tgt_ids.shape
-        enc_states = self.encode(src_ids, src_mask, src_langs)
-        lang_idx = first_lang(tgt_langs)
-        pos = torch.arange(T - 1, device=tgt_ids.device)[None, :].expand(
-            B, T - 1)
+        drop = self._drop(deterministic, rng, tgt_ids.device)
+        enc_states = self.encode(src_ids, src_mask, src_langs, deterministic,
+                                 src_positions=src_positions,
+                                 src_segments=src_segments, rng=drop)
+        # Only per-language decoders need the language on the host (a device
+        # sync); the shared decoder's step stays asynchronous.
+        lang_idx = first_lang(tgt_langs) if self.cfg.lang_dec else 0
+        if tgt_positions is None:
+            pos = torch.arange(T - 1, device=tgt_ids.device)[None, :].expand(
+                B, T - 1)
+        else:
+            pos = tgt_positions[:, :-1]
         x = self.embeddings(tgt_ids[:, :-1], pos,
-                            expand_langs(tgt_langs, T)[:, :-1])
-        hidden = self._decoder(lang_idx)(
-            x, enc_states, causal_pad_bias(tgt_mask[:, :-1]),
-            pad_bias(src_mask))
+                            expand_langs(tgt_langs, T)[:, :-1], drop)
+        if tgt_segments is None:
+            self_bias = causal_pad_bias(tgt_mask[:, :-1])
+            cross_bias = pad_bias(src_mask)
+        else:
+            tseg = tgt_segments[:, :-1]
+            self_bias = segment_bias(tseg, tseg, causal=True)
+            cross_bias = segment_bias(tseg, src_segments)
+        hidden = self._decoder(lang_idx)(x, enc_states, self_bias, cross_bias,
+                                         drop)
         if self.cfg.use_proposals and proposals is not None:
             pe = self.embeddings.word_embeddings(proposals)
             hidden = self.proposal_attn(hidden, pe, proposal_mask)

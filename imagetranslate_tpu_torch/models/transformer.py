@@ -1,6 +1,6 @@
 """BERT-style encoder/decoder stacks (port of
 imagetranslate_tpu/models/transformer.py: Embeddings, Attention, FeedForward,
-the layers and stacks, OutputLayer, pad_bias, causal_pad_bias).
+the layers and stacks, OutputLayer, pad_bias, causal_pad_bias, segment_bias).
 
 Post-LayerNorm blocks, exact-gelu FFN, additive -10000 masks, the language
 id as a per-token token-type embedding and learned positions: the math of HF
@@ -10,11 +10,19 @@ id as a per-token token-type embedding and learned positions: the math of HF
 ``imagetranslate_tpu/train/torch_import.py::import_seq2seq`` maps onto the
 flax tree.
 
-Dtypes follow the JAX modules: Linear and Embedding weights live in the
-compute dtype (``cfg.dtype``), LayerNorms run in fp32 on fp32 parameters and
-cast back, and the decode KV cache is stored in ``cfg.kv_cache_dtype`` and
-read back in the compute dtype. Everything here is deterministic (no
-dropout): the slice is inference.
+Dtypes follow the JAX modules (flax ``param_dtype`` / ``dtype``): Linear and
+Embedding weights are STORED in ``param_dtype`` and cast to the compute dtype
+(``cfg.dtype``) at each use. A model built for training holds fp32 masters
+(``param_dtype=torch.float32``); a model built for serving stores the compute
+dtype (the default; the casts are then no-ops, the counterpart of the JAX
+``cast_params``). LayerNorms run in fp32 on fp32 parameters and cast back, and
+the decode KV cache is stored in ``cfg.kv_cache_dtype`` and read back in the
+compute dtype.
+
+Dropout (after the embedding LayerNorm, on the attention probabilities, on
+the attention output projection and on the FFN output, as in the JAX
+modules) is on where a ``DropoutRng`` is handed down (``drop``), and off
+where it is None: the decode path never takes one.
 """
 
 from __future__ import annotations
@@ -36,8 +44,58 @@ from imagetranslate_tpu_torch.ops.attention import (
 Cache = List[Dict[str, torch.Tensor]]
 
 
-def _linear(cfg: Seq2SeqConfig, din: int, dout: int, device) -> nn.Linear:
-    return nn.Linear(din, dout, device=device, dtype=cfg.compute_dtype)
+class DropoutRng:
+    """The dropout stream of one forward pass, the counterpart of flax's
+    ``rngs={"dropout": key}`` + ``make_rng``. Seeds for the fused attention
+    kernel are drawn from the caller's host generator (no device sync);
+    elementwise masks come from a device generator seeded from it."""
+
+    def __init__(self, generator: torch.Generator, device):
+        self.host = generator
+        self.dev = torch.Generator(device=device)
+        self.dev.manual_seed(self.next_seed())
+
+    def next_seed(self) -> int:
+        return int(torch.randint(0, 2 ** 31 - 1, (1,), generator=self.host))
+
+    def dropout(self, x: torch.Tensor, rate: float) -> torch.Tensor:
+        """flax ``nn.Dropout``: keep with probability 1 - rate, kept values
+        divided by it."""
+        if rate == 0.0:
+            return x
+        keep = torch.rand(x.shape, generator=self.dev,
+                          device=x.device) >= rate
+        return torch.where(keep, x / (1.0 - rate), 0.0)
+
+
+class Linear(nn.Linear):
+    """nn.Linear whose weight and bias are cast to the input's (compute)
+    dtype at each use, so they may be stored as fp32 masters."""
+
+    def forward(self, x):
+        return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
+
+
+class Embedding(nn.Embedding):
+    """nn.Embedding that returns rows in the compute dtype whatever dtype
+    the table is stored in."""
+
+    def __init__(self, num, dim, compute_dtype, **kw):
+        super().__init__(num, dim, **kw)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, ids):
+        return F.embedding(ids, self.weight).to(self.compute_dtype)
+
+
+def _param_dtype(cfg: Seq2SeqConfig, param_dtype) -> torch.dtype:
+    return cfg.compute_dtype if param_dtype is None else param_dtype
+
+
+def _linear(cfg: Seq2SeqConfig, din: int, dout: int, device,
+            param_dtype=None) -> Linear:
+    return Linear(din, dout, device=device,
+                  dtype=_param_dtype(cfg, param_dtype))
 
 
 def _layer_norm(cfg: Seq2SeqConfig, device) -> nn.LayerNorm:
@@ -51,38 +109,44 @@ def layer_norm(ln: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
 
 
 class Embeddings(nn.Module):
-    """word + position + language (token-type) embeddings -> LayerNorm."""
+    """word + position + language (token-type) embeddings -> LayerNorm ->
+    dropout."""
 
-    def __init__(self, cfg: Seq2SeqConfig, device=None):
+    def __init__(self, cfg: Seq2SeqConfig, device=None, param_dtype=None):
         super().__init__()
-        cd, E = cfg.compute_dtype, cfg.hidden_size
-        self.word_embeddings = nn.Embedding(cfg.vocab_size, E, device=device,
-                                            dtype=cd)
-        self.position_embeddings = nn.Embedding(cfg.max_position_embeddings,
-                                                E, device=device, dtype=cd)
-        self.token_type_embeddings = nn.Embedding(max(1, cfg.num_languages),
-                                                  E, device=device, dtype=cd)
+        self.cfg = cfg
+        E = cfg.hidden_size
+        kw = dict(device=device, dtype=_param_dtype(cfg, param_dtype))
+        cd = cfg.compute_dtype
+        self.word_embeddings = Embedding(cfg.vocab_size, E, cd, **kw)
+        self.position_embeddings = Embedding(cfg.max_position_embeddings, E,
+                                             cd, **kw)
+        self.token_type_embeddings = Embedding(max(1, cfg.num_languages), E,
+                                               cd, **kw)
         self.LayerNorm = _layer_norm(cfg, device)
 
-    def forward(self, input_ids, position_ids, lang_ids):
+    def forward(self, input_ids, position_ids, lang_ids,
+                drop: Optional[DropoutRng] = None):
         x = (self.word_embeddings(input_ids)
              + self.position_embeddings(position_ids)
              + self.token_type_embeddings(lang_ids))
-        return layer_norm(self.LayerNorm, x)
+        x = layer_norm(self.LayerNorm, x)
+        return x if drop is None else drop.dropout(x, self.cfg.dropout)
 
 
 class Attention(nn.Module):
     """BertSelfAttention + BertSelfOutput: multi-head attention with a
     post-LN residual block, and an optional KV cache for one-token decode."""
 
-    def __init__(self, cfg: Seq2SeqConfig, device=None):
+    def __init__(self, cfg: Seq2SeqConfig, device=None, param_dtype=None):
         super().__init__()
         self.cfg = cfg
         E = cfg.hidden_size
-        self.self = nn.ModuleDict({n: _linear(cfg, E, E, device)
+        self.self = nn.ModuleDict({n: _linear(cfg, E, E, device, param_dtype)
                                    for n in ("query", "key", "value")})
-        self.output = nn.ModuleDict({"dense": _linear(cfg, E, E, device),
-                                     "LayerNorm": _layer_norm(cfg, device)})
+        self.output = nn.ModuleDict({
+            "dense": _linear(cfg, E, E, device, param_dtype),
+            "LayerNorm": _layer_norm(cfg, device)})
 
     def _heads(self, x: torch.Tensor) -> torch.Tensor:
         return x.reshape(*x.shape[:-1], self.cfg.num_heads, self.cfg.head_dim)
@@ -94,12 +158,14 @@ class Attention(nn.Module):
                 self._heads(self.self["value"](kv)))
 
     def forward(self, x, kv, bias, cache: Optional[Dict] = None,
-                index: Optional[int] = None, precomputed_kv=None):
+                index: Optional[int] = None, precomputed_kv=None,
+                drop: Optional[DropoutRng] = None):
         """x [B, T, E] queries; kv [B, S, E] keys/values (self-attention:
         kv = x). With ``cache`` (a layer's dict) the new K/V are written in
         place at position ``index`` of cache["k"]/["v"] and attention reads
         the whole buffer; with ``precomputed_kv`` = (k, v) the projections
-        are skipped (cross-attention in decode)."""
+        are skipped (cross-attention in decode). ``drop`` turns on the
+        attention-probability and output dropout."""
         cfg = self.cfg
         q = self._heads(self.self["query"](x))
         if precomputed_kv is not None:
@@ -112,9 +178,15 @@ class Attention(nn.Module):
                 cache["v"][:, index:index + T] = v.to(cache["v"].dtype)
                 k = cache["k"].to(cfg.compute_dtype)
                 v = cache["v"].to(cfg.compute_dtype)
-        ctx = dot_product_attention(q, k, v, bias,
-                                    use_pallas=cfg.use_pallas_attention)
+        ctx = dot_product_attention(
+            q, k, v, bias, dropout_rate=cfg.attention_dropout,
+            deterministic=drop is None,
+            seed=None if drop is None else drop.next_seed(),
+            use_pallas=cfg.use_pallas_attention,
+            use_fused_dropout=cfg.fused_attn_dropout)
         out = self.output["dense"](ctx.reshape(*ctx.shape[:2], -1))
+        if drop is not None:
+            out = drop.dropout(out, cfg.dropout)
         return layer_norm(self.output["LayerNorm"], out + x)
 
 
@@ -122,35 +194,40 @@ class EncoderLayer(nn.Module):
     """BertLayer: self-attention, then the dense-gelu-dense FFN with a
     post-LN residual (BertIntermediate + BertOutput)."""
 
-    def __init__(self, cfg: Seq2SeqConfig, device=None):
+    def __init__(self, cfg: Seq2SeqConfig, device=None, param_dtype=None):
         super().__init__()
+        self.cfg = cfg
         E, FF = cfg.hidden_size, cfg.intermediate_size
-        self.attention = Attention(cfg, device)
-        self.intermediate = nn.ModuleDict({"dense": _linear(cfg, E, FF,
-                                                            device)})
-        self.output = nn.ModuleDict({"dense": _linear(cfg, FF, E, device),
-                                     "LayerNorm": _layer_norm(cfg, device)})
+        self.attention = Attention(cfg, device, param_dtype)
+        self.intermediate = nn.ModuleDict({
+            "dense": _linear(cfg, E, FF, device, param_dtype)})
+        self.output = nn.ModuleDict({
+            "dense": _linear(cfg, FF, E, device, param_dtype),
+            "LayerNorm": _layer_norm(cfg, device)})
 
-    def ffn(self, x):
+    def ffn(self, x, drop: Optional[DropoutRng] = None):
         h = F.gelu(self.intermediate["dense"](x))   # exact (erf) gelu
-        return layer_norm(self.output["LayerNorm"],
-                          self.output["dense"](h) + x)
+        out = self.output["dense"](h)
+        if drop is not None:
+            out = drop.dropout(out, self.cfg.dropout)
+        return layer_norm(self.output["LayerNorm"], out + x)
 
-    def forward(self, x, bias):
-        return self.ffn(self.attention(x, x, bias))
+    def forward(self, x, bias, drop: Optional[DropoutRng] = None):
+        return self.ffn(self.attention(x, x, bias, drop=drop), drop)
 
 
 class DecoderLayer(EncoderLayer):
     """BertLayer with cross-attention over the encoder states."""
 
-    def __init__(self, cfg: Seq2SeqConfig, device=None):
-        super().__init__(cfg, device)
-        self.crossattention = Attention(cfg, device)
+    def __init__(self, cfg: Seq2SeqConfig, device=None, param_dtype=None):
+        super().__init__(cfg, device, param_dtype)
+        self.crossattention = Attention(cfg, device, param_dtype)
 
-    def forward(self, x, enc, self_bias, cross_bias):
-        x = self.attention(x, x, self_bias)
-        x = self.crossattention(x, enc, cross_bias)
-        return self.ffn(x)
+    def forward(self, x, enc, self_bias, cross_bias,
+                drop: Optional[DropoutRng] = None):
+        x = self.attention(x, x, self_bias, drop=drop)
+        x = self.crossattention(x, enc, cross_bias, drop=drop)
+        return self.ffn(x, drop)
 
     def step(self, x, cache: Dict, index: int, cross_bias, self_bias):
         """One-token decode; writes this token's K/V into ``cache``."""
@@ -182,20 +259,34 @@ def causal_pad_bias(pad_mask: torch.Tensor) -> torch.Tensor:
     return make_attention_bias(keep[:, None, :, :])
 
 
+def segment_bias(seg_q: torch.Tensor, seg_k: torch.Tensor,
+                 causal: bool = False) -> torch.Tensor:
+    """Packed-sequence attention bias: [B, Tq] x [B, Tk] segment ids (0 =
+    padding) -> additive [B, 1, Tq, Tk] bias keeping only same-segment pairs
+    (and the causal triangle for decoder self-attention). With one segment
+    per row this reduces exactly to the pad/causal biases."""
+    keep = (seg_q[:, :, None] == seg_k[:, None, :]) & (seg_k[:, None, :] > 0)
+    if causal:
+        T = seg_q.shape[1]
+        keep = keep & torch.tril(torch.ones((T, T), dtype=torch.bool,
+                                            device=seg_q.device))[None]
+    return make_attention_bias(keep[:, None, :, :])
+
+
 class Encoder(nn.Module):
     """The reference's encoder BertModel: the (shared) embeddings and the
     layer stack. ``forward`` takes embedded input so the parent owns the
     embedding call."""
 
-    def __init__(self, cfg: Seq2SeqConfig, device=None):
+    def __init__(self, cfg: Seq2SeqConfig, device=None, param_dtype=None):
         super().__init__()
-        self.embeddings = Embeddings(cfg, device)
-        self.encoder = LayerStack([EncoderLayer(cfg, device)
+        self.embeddings = Embeddings(cfg, device, param_dtype)
+        self.encoder = LayerStack([EncoderLayer(cfg, device, param_dtype)
                                    for _ in range(cfg.enc_layers)])
 
-    def forward(self, x, bias):
+    def forward(self, x, bias, drop: Optional[DropoutRng] = None):
         for layer in self.encoder.layer:
-            x = layer(x, bias)
+            x = layer(x, bias, drop)
         return x
 
 
@@ -203,15 +294,16 @@ class Decoder(nn.Module):
     """Causal decoder stack with cross-attention (reference
     BertDecoderModel). Its embeddings are the encoder's (shared)."""
 
-    def __init__(self, cfg: Seq2SeqConfig, device=None):
+    def __init__(self, cfg: Seq2SeqConfig, device=None, param_dtype=None):
         super().__init__()
         self.cfg = cfg
-        self.decoder = LayerStack([DecoderLayer(cfg, device)
+        self.decoder = LayerStack([DecoderLayer(cfg, device, param_dtype)
                                    for _ in range(cfg.dec_layers)])
 
-    def forward(self, x, enc, self_bias, cross_bias):
+    def forward(self, x, enc, self_bias, cross_bias,
+                drop: Optional[DropoutRng] = None):
         for layer in self.decoder.layer:
-            x = layer(x, enc, self_bias, cross_bias)
+            x = layer(x, enc, self_bias, cross_bias, drop)
         return x
 
     def init_cache(self, enc_states, batch: int, max_len: int) -> Cache:
@@ -244,17 +336,17 @@ class Decoder(nn.Module):
 
 class OutputLayer(nn.Module):
     """Reference BertOutputLayer, a Linear with bias, as the parameters
-    ``layer.weight`` [V, E] (compute dtype) and ``layer.bias`` [V] (fp32,
-    the precision the projection adds it in). With ``tie_embed`` the weight
-    is the word-embedding table and only the bias is a parameter here.
-    ``Seq2Seq.project``/``project_topk`` do the math."""
+    ``layer.weight`` [V, E] (stored in ``param_dtype``) and ``layer.bias``
+    [V] (fp32, the precision the projection adds it in). With ``tie_embed``
+    the weight is the word-embedding table and only the bias is a parameter
+    here. ``Seq2Seq.project``/``project_topk`` do the math."""
 
-    def __init__(self, cfg: Seq2SeqConfig, device=None):
+    def __init__(self, cfg: Seq2SeqConfig, device=None, param_dtype=None):
         super().__init__()
         V, E = cfg.vocab_size, cfg.hidden_size
         self.layer = nn.Module()
         if not cfg.tie_embed:
             self.layer.weight = nn.Parameter(torch.zeros(
-                (V, E), dtype=cfg.compute_dtype, device=device))
+                (V, E), dtype=_param_dtype(cfg, param_dtype), device=device))
         self.layer.bias = nn.Parameter(torch.zeros(
             V, dtype=torch.float32, device=device))

@@ -1,6 +1,7 @@
 """Build the port's CUDA kernels and load them with ctypes.
 
-``nvcc`` compiles every ``imagetranslate_tpu_torch/csrc/*.cu`` into one shared
+``nvcc`` compiles every ``imagetranslate_tpu_torch/csrc/*.cu`` (one process
+per source, all started together) and links the objects into one shared
 library with a plain C interface, for ``sm_90a`` (Hopper), at first use. The
 library lands in ``imagetranslate_tpu_torch/_build/<hash>/``, keyed on a hash
 of the sources and the flags, so a changed source rebuilds and an unchanged
@@ -22,7 +23,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-Xcompiler", "-fPIC"]
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -56,24 +57,34 @@ def library_path() -> str:
                         "libitt_kernels.so")
 
 
+def _run(cmds):
+    """Start every command at once, wait for all, raise on the first that
+    failed."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    outputs = [proc.communicate()[0] for proc in procs]
+    for cmd, proc, output in zip(cmds, procs, outputs):
+        if proc.returncode != 0:
+            raise RuntimeError("nvcc failed:\n" + " ".join(cmd) + "\n"
+                               + output)
+
+
 def build() -> str:
     """Compile the sources if their library is missing; return its path."""
     out = library_path()
     if os.path.exists(out):
         return out
     os.makedirs(os.path.dirname(out), exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=os.path.dirname(out))
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *_sources()]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError("nvcc failed:\n" + " ".join(cmd) + "\n"
-                               + proc.stdout + proc.stderr)
-        os.replace(tmp, out)  # atomic: a concurrent build sees all or nothing
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=os.path.dirname(out)) as tmp:
+        objects = [os.path.join(tmp, os.path.basename(src) + ".o")
+                   for src in _sources()]
+        _run([[nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+              for src, obj in zip(_sources(), objects)])
+        lib = os.path.join(tmp, "lib.so")
+        _run([[nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objects]])
+        os.replace(lib, out)  # atomic: a concurrent build sees all or nothing
     return out
 
 
@@ -84,8 +95,21 @@ def load() -> ctypes.CDLL:
     if _lib is None:
         lib = ctypes.CDLL(build())
         p, i = ctypes.c_void_p, ctypes.c_int
+        f, u = ctypes.c_float, ctypes.c_uint
         lib.itt_project_topk_bf16.argtypes = [p] * 9 + [i] * 5 + [p]
         lib.itt_project_topk_bf16.restype = ctypes.c_int
+        # q k v bias out | B T S H D bias_rows | scale keep_prob | threshold
+        # seed_lo seed_hi | stream
+        lib.itt_fused_attn_fwd_bf16.argtypes = (
+            [p] * 5 + [i] * 6 + [f] * 2 + [u] * 3 + [p])
+        lib.itt_fused_attn_fwd_bf16.restype = ctypes.c_int
+        # q k v bias g dq dk dv dkv_acc db_part dbias | then as the forward
+        lib.itt_fused_attn_bwd_bf16.argtypes = (
+            [p] * 11 + [i] * 6 + [f] * 2 + [u] * 3 + [p])
+        lib.itt_fused_attn_bwd_bf16.restype = ctypes.c_int
+        # B T S H D backward
+        lib.itt_fused_attn_supported.argtypes = [i] * 6
+        lib.itt_fused_attn_supported.restype = ctypes.c_int
         lib.itt_error_string.argtypes = [i]
         lib.itt_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -1,8 +1,11 @@
-"""Scaled dot-product attention (port of imagetranslate_tpu/ops/attention.py,
-deterministic path): scores = QK^T/sqrt(d) + additive bias (-10000 at masked
-positions), softmax in fp32, probs cast to the V dtype, then PV.
+"""Scaled dot-product attention (port of imagetranslate_tpu/ops/attention.py):
+scores = QK^T/sqrt(d) + additive bias (-10000 at masked positions), softmax in
+fp32, dropout on the fp32 probs, probs cast to the V dtype, then PV.
 
-Dropout waits for the training slice (it is the job of kernel K1).
+With dropout on and ``use_fused_dropout`` the call goes through the fused
+kernel of ``ops/train_attention.py`` when the shape gate passes; every other
+call takes the plain path below. The sharded (mesh) dispatch of the JAX module
+is not ported (ROADMAP module 14).
 """
 
 from __future__ import annotations
@@ -32,18 +35,47 @@ def dot_product_attention(
     k: torch.Tensor,                       # [B, S, H, D]
     v: torch.Tensor,                       # [B, S, H, D]
     bias: Optional[torch.Tensor] = None,   # broadcastable to [B, H, T, S]
+    dropout_rate: float = 0.0,
+    deterministic: bool = True,
+    seed: Optional[int] = None,
     use_pallas: bool = False,
+    use_fused_dropout: bool = False,
 ) -> torch.Tensor:
-    """Returns [B, T, H, D] in v's dtype; scores and softmax in fp32."""
-    if use_pallas and k.shape[1] >= 1024:
+    """Returns [B, T, H, D] in v's dtype; scores and softmax in fp32.
+    ``seed`` (an int) fixes the dropout mask; it is required when dropout is
+    on (``dropout_rate > 0 and not deterministic``)."""
+    if use_pallas and deterministic and k.shape[1] >= 1024:
         raise NotImplementedError(
             "attention over S >= 1024 with use_pallas_attention runs the "
             "flash-attention kernel, which is not ported yet (ROADMAP K3)")
+    dropout = dropout_rate > 0.0 and not deterministic
+    if dropout and seed is None:
+        raise ValueError("attention dropout needs a seed")
+    if dropout and use_fused_dropout:
+        from imagetranslate_tpu_torch.ops.train_attention import (
+            fused_attention_supported,
+            fused_dropout_attention,
+        )
+
+        # On the CPU the fused op is its plain version with the same mask,
+        # so it takes every dtype; the gate is the CUDA kernels'.
+        if q.device.type == "cpu" or fused_attention_supported(q, k, bias):
+            b = (bias if bias is not None else torch.zeros(
+                (q.shape[0], 1, 1, k.shape[1]), dtype=torch.float32,
+                device=q.device))
+            return fused_dropout_attention(q, k, v, b, float(dropout_rate),
+                                           seed)
     qh = q.permute(0, 2, 1, 3).to(torch.float32)          # [B, H, T, D]
     kh = k.permute(0, 2, 3, 1).to(torch.float32)          # [B, H, D, S]
     scores = torch.matmul(qh, kh) * attention_scale(q.shape[-1])
     if bias is not None:
         scores = scores + bias.to(torch.float32)
-    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    probs = torch.softmax(scores, dim=-1)
+    if dropout:
+        gen = torch.Generator(device=q.device).manual_seed(seed)
+        keep = torch.rand(probs.shape, generator=gen,
+                          device=q.device) >= dropout_rate
+        probs = torch.where(keep, probs / (1.0 - dropout_rate), 0.0)
+    probs = probs.to(v.dtype)
     ctx = torch.matmul(probs, v.permute(0, 2, 1, 3))      # [B, H, T, D]
     return ctx.permute(0, 2, 1, 3)

@@ -1,0 +1,300 @@
+"""Fused training attention with in-kernel dropout (port of
+imagetranslate_tpu/ops/train_attention.py::fused_dropout_attention).
+
+``softmax(q k^T * scale + bias)`` in fp32, a Bernoulli keep-mask drawn from a
+seed, kept probs divided by ``1 - rate``, cast to v's dtype, times v. On a
+CUDA tensor ``fused_dropout_attention`` launches the hand-written kernels of
+``csrc/train_attention.cu`` (a forward and a backward that recomputes the
+probs and regenerates the mask, so only the inputs are saved between them).
+On a CPU tensor it runs ``fused_dropout_attention_reference``, the plain
+PyTorch version of the same function.
+
+The mask is a pure function of ``(seed, b, h, t, s)``: Philox-4x32-10 keyed on
+the 64-bit seed with the counter ``(s // 4, t, h, b)``, output ``s % 4``; a
+prob is kept iff its 32 bits are >= ``round(rate * 2**32)``. The plain
+version draws the same bits with torch integer ops (``philox_bits``), so the
+kernels are held against it element by element at rate > 0, forward and
+gradients. (The TPU kernel seeds a per-program hardware stream; the two
+masks differ bit for bit and are equally distributed.)
+
+Numerics contract (that of the JAX kernel): fp32 scores and softmax, the
+scale of ``ops.attention.attention_scale``, probs cast to v's dtype before
+the product with v, fp32 contractions in the backward, fp32 dbias in the
+bias's shape.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from imagetranslate_tpu_torch.ops.attention import attention_scale
+
+# Kernel launches, counted where each kernel is launched and nowhere else.
+FWD_LAUNCHES = 0
+BWD_LAUNCHES = 0
+
+_M0, _M1 = 0xD2511F53, 0xCD9E8D57
+_W0, _W1 = 0x9E3779B9, 0xBB67AE85
+_MASK32 = 0xFFFFFFFF
+
+# The kernels' tile constants (csrc/train_attention.cu), repeated here so
+# that the shape gate answers without a build; chip_smoke.py holds the gate
+# against the library's own itt_fused_attn_supported on the card.
+_TQ, _PADK, _PATCH_BYTES, _SMEM_LIMIT = 64, 8, 8 * 256 * 4, 232448
+_MAX_S = 512
+_HOPPER = {}   # device -> its compute capability, asked once
+
+
+def _keep_threshold(rate: float) -> int:
+    """uint32 threshold t: keep iff bits >= t, so P(keep) = 1 - rate to
+    within 2^-32."""
+    t = int(round(rate * 4294967296.0))
+    return min(max(t, 0), 4294967295)
+
+
+def _mulhilo(m: int, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """High and low 32 bits of m * x for x in [0, 2^32) held in int64,
+    without overflowing int64: x is split into 16-bit halves."""
+    p1 = (x >> 16) * m                       # < 2^48
+    low = (x & 0xFFFF) * m + ((p1 & 0xFFFF) << 16)
+    return (p1 >> 16) + (low >> 32), low & _MASK32
+
+
+def philox4x32_10(counter, key):
+    """Philox-4x32-10 (Salmon et al., "Parallel random numbers: as easy as
+    1, 2, 3"). counter: four int64 tensors (or ints) with values in
+    [0, 2^32); key: two ints. Returns the four output words as int64
+    tensors."""
+    c0, c1, c2, c3 = (torch.as_tensor(c, dtype=torch.int64) for c in counter)
+    k0, k1 = (int(k) & _MASK32 for k in key)
+    for _ in range(10):
+        hi0, lo0 = _mulhilo(_M0, c0)
+        hi1, lo1 = _mulhilo(_M1, c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+        k0, k1 = (k0 + _W0) & _MASK32, (k1 + _W1) & _MASK32
+    return c0, c1, c2, c3
+
+
+def philox_bits(seed: int, B: int, H: int, T: int, S: int,
+                device=None) -> torch.Tensor:
+    """The 32 random bits of every (b, h, t, s), as int64 [B, H, T, S]."""
+    def ar(n):
+        return torch.arange(n, dtype=torch.int64, device=device)
+
+    groups = -(-S // 4)
+    words = philox4x32_10(
+        (ar(groups)[None, None, None, :], ar(T)[None, None, :, None],
+         ar(H)[None, :, None, None], ar(B)[:, None, None, None]),
+        (seed & _MASK32, (seed >> 32) & _MASK32))
+    bits = torch.stack([w.expand(B, H, T, groups) for w in words], dim=-1)
+    return bits.reshape(B, H, T, groups * 4)[..., :S]
+
+
+def keep_mask(rate: float, seed: int, B: int, H: int, T: int, S: int,
+              device=None) -> torch.Tensor:
+    """The boolean keep-mask [B, H, T, S] both kernels draw."""
+    return philox_bits(seed, B, H, T, S, device) >= _keep_threshold(rate)
+
+
+def _probs(q, k, bias):
+    scores = torch.einsum("bthd,bshd->bhts", q.to(torch.float32),
+                          k.to(torch.float32)) * attention_scale(q.shape[-1])
+    return torch.softmax(scores + bias.to(torch.float32), dim=-1)
+
+
+def fused_dropout_attention_reference(q, k, v, bias, rate: float, seed: int):
+    """Plain version. q [B, T, H, D]; k, v [B, S, H, D]; bias fp32
+    [B, 1, 1|T, S]. Returns [B, T, H, D] in v's dtype; differentiable by
+    autograd."""
+    B, T, H, _ = q.shape
+    probs = _probs(q, k, bias)
+    if rate > 0.0:
+        keep = keep_mask(rate, seed, B, H, T, k.shape[1], q.device)
+        probs = torch.where(keep, probs / (1.0 - rate), 0.0)
+    return torch.einsum("bhts,bshd->bthd", probs.to(v.dtype), v)
+
+
+def fused_dropout_attention_backward_reference(q, k, v, bias, g, rate: float,
+                                               seed: int):
+    """The backward kernel's formulas in plain PyTorch, fp32 contractions:
+    returns (dq, dk, dv) in the input dtypes and dbias fp32 in bias's
+    shape."""
+    B, T, H, _ = q.shape
+    scale = attention_scale(q.shape[-1])
+    p = _probs(q, k, bias)
+    g32, v32 = g.to(torch.float32), v.to(torch.float32)
+    dp = torch.einsum("bthd,bshd->bhts", g32, v32)
+    p_drop = p
+    if rate > 0.0:
+        keep = keep_mask(rate, seed, B, H, T, k.shape[1], q.device)
+        p_drop = torch.where(keep, p / (1.0 - rate), 0.0)
+        dp = torch.where(keep, dp / (1.0 - rate), 0.0)
+    dv = torch.einsum("bhts,bthd->bshd", p_drop, g32)
+    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+    dq = torch.einsum("bhts,bshd->bthd", ds, k.to(torch.float32)) * scale
+    dk = torch.einsum("bhts,bthd->bshd", ds, q.to(torch.float32)) * scale
+    dbias = ds.sum(dim=1, keepdim=True)
+    if bias.shape[2] == 1:
+        dbias = dbias.sum(dim=2, keepdim=True)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), dbias
+
+
+def _smem_bytes(S: int, D: int) -> int:
+    """The backward kernel's shared memory at its unpadded score stride (the
+    larger of the two kernels')."""
+    sp = -(-S // 16) * 16
+    return (2 * _TQ * sp * 4 + 2 * (_TQ + sp) * (D + _PADK) * 2
+            + _PATCH_BYTES)
+
+
+def fused_attention_supported(q: torch.Tensor, k: torch.Tensor,
+                              bias: Optional[torch.Tensor]) -> bool:
+    """The shape gate of the CUDA kernels: bf16 q/k, bias None or fp32
+    [B, 1, 1|T, S], D a multiple of 16, S <= 512, B <= 65535, and the
+    backward's shared memory (score and dp rows of a 64-query tile, whole K
+    and V) within the 227 KB a block may use: S <= 256 at D = 64. T is free
+    (ragged tiles are masked). What fails the gate takes the plain path."""
+    B, T, H, D = q.shape
+    S = k.shape[1]
+    if q.dtype != torch.bfloat16 or k.dtype != torch.bfloat16:
+        return False
+    if bias is not None:
+        if bias.ndim != 4 or bias.shape[0] != B or bias.shape[1] != 1:
+            return False
+        if bias.shape[2] not in (1, T) or bias.shape[3] != S:
+            return False
+    if D < 16 or D % 16 != 0 or S > _MAX_S or B > 65535 or H > 65535:
+        return False
+    return _smem_bytes(S, D) <= _SMEM_LIMIT
+
+
+def _check_cuda_args(q, k, v, bias, extra=()):
+    B, T, H, D = q.shape
+    S = k.shape[1]
+    if k.shape != (B, S, H, D) or v.shape != k.shape:
+        raise ValueError(f"k and v must be [{B}, S, {H}, {D}], got "
+                         f"{tuple(k.shape)} and {tuple(v.shape)}")
+    for name, t in (("q", q), ("k", k), ("v", v), *extra):
+        if t.dtype != torch.bfloat16:
+            raise TypeError(f"the fused attention kernels take bf16 {name}, "
+                            f"got {t.dtype}")
+    if bias.dtype != torch.float32:
+        raise TypeError(f"the fused attention kernels take an fp32 bias, "
+                        f"got {bias.dtype}")
+    if not fused_attention_supported(q, k, bias):
+        raise ValueError(
+            f"shape outside the fused attention kernels' gate: q "
+            f"{tuple(q.shape)}, k {tuple(k.shape)}, bias "
+            f"{tuple(bias.shape)} (see fused_attention_supported)")
+    for name, t in (("q", q), ("k", k), ("v", v), ("bias", bias), *extra):
+        if t.device != q.device:
+            raise ValueError(f"{name} must be on {q.device}, got {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+    if q.device not in _HOPPER:
+        _HOPPER[q.device] = torch.cuda.get_device_capability(q.device)
+    if _HOPPER[q.device][0] < 9:
+        raise RuntimeError("the fused attention kernels are built for sm_90a "
+                           f"(Hopper); device {q.device} has capability "
+                           f"{_HOPPER[q.device]}")
+
+
+def _scalars(q, rate: float, seed: int):
+    return (attention_scale(q.shape[-1]), float(1.0 - rate),
+            _keep_threshold(rate) if rate > 0.0 else 0,
+            seed & _MASK32, (seed >> 32) & _MASK32)
+
+
+def _launch_fwd(q, k, v, bias, rate, seed):
+    global FWD_LAUNCHES
+    from imagetranslate_tpu_torch.ops import _build
+
+    _check_cuda_args(q, k, v, bias)
+    lib = _build.load()
+    B, T, H, D = q.shape
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        err = lib.itt_fused_attn_fwd_bf16(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+            out.data_ptr(), B, T, k.shape[1], H, D, int(bias.shape[2] != 1),
+            *_scalars(q, rate, seed),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError("fused attention forward launch failed: "
+                           + lib.itt_error_string(err).decode())
+    FWD_LAUNCHES += 1
+    return out
+
+
+def _launch_bwd(q, k, v, bias, g, rate, seed, want_dbias: bool):
+    global BWD_LAUNCHES
+    from imagetranslate_tpu_torch.ops import _build
+
+    _check_cuda_args(q, k, v, bias, extra=(("g", g),))
+    lib = _build.load()
+    B, T, H, D = q.shape
+    S = k.shape[1]
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    # dk and dv of several query tiles accumulate in fp32 before the cast.
+    acc = (torch.empty((2, B, S, H, D), dtype=torch.float32, device=q.device)
+           if T > _TQ else None)
+    part = dbias = None
+    if want_dbias:
+        part = torch.empty((B, H, bias.shape[2], S), dtype=torch.float32,
+                           device=q.device)
+        dbias = torch.empty_like(bias)
+    with torch.cuda.device(q.device):
+        err = lib.itt_fused_attn_bwd_bf16(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+            g.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            None if acc is None else acc.data_ptr(),
+            None if part is None else part.data_ptr(),
+            None if dbias is None else dbias.data_ptr(),
+            B, T, S, H, D, int(bias.shape[2] != 1), *_scalars(q, rate, seed),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError("fused attention backward launch failed: "
+                           + lib.itt_error_string(err).decode())
+    BWD_LAUNCHES += 1
+    return dq, dk, dv, dbias
+
+
+class _FusedDropoutAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, bias, rate, seed):
+        ctx.save_for_backward(q, k, v, bias)
+        ctx.rate, ctx.seed = rate, seed
+        return _launch_fwd(q, k, v, bias, rate, seed)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, bias = ctx.saved_tensors
+        dq, dk, dv, dbias = _launch_bwd(q, k, v, bias, g.contiguous(),
+                                        ctx.rate, ctx.seed,
+                                        ctx.needs_input_grad[3])
+        return dq, dk, dv, dbias, None, None
+
+
+def fused_dropout_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            bias: torch.Tensor, rate: float,
+                            seed: int) -> torch.Tensor:
+    """q [B, T, H, D]; k, v [B, S, H, D]; bias additive fp32 [B, 1, 1|T, S];
+    rate: dropout rate; seed: int in [0, 2^64), same seed -> same mask (which
+    is how the backward reproduces it). Returns [B, T, H, D].
+
+    A CPU tensor runs the plain version; a CUDA tensor launches the kernels
+    (bf16 q/k/v, fp32 bias, contiguous, inside ``fused_attention_supported``)
+    or raises."""
+    rate, seed = float(rate), int(seed)
+    if not 0.0 <= rate < 1.0:
+        raise ValueError(f"dropout rate must be in [0, 1), got {rate}")
+    if q.device.type == "cpu":
+        return fused_dropout_attention_reference(q, k, v, bias, rate, seed)
+    if q.device.type != "cuda":
+        raise ValueError("fused_dropout_attention runs on cpu or cuda, not "
+                         f"{q.device}")
+    return _FusedDropoutAttention.apply(q, k, v, bias, rate, seed)

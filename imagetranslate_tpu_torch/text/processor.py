@@ -1,12 +1,12 @@
-"""TextProcessor — the tokenizer facade the translate path needs (port of the
+"""TextProcessor — the tokenizer facade the MT paths need (port of the
 sentence-level part of imagetranslate_tpu/text/processor.py).
 
 Same artifact directory (``vocab.json`` + ``merges.txt`` + a pickled
 ``langs`` dict ``{"<en>": 0, ...}``), the same special tokens in id order
 (<pad> <s> <unk> <mask> </s>, then one token per language; so pad is 0), and
 the same sentence layout ``[<lang>] ids... </s>`` cut at 512. Document-level
-tokenization (``tokenize_lines``, ``split_tokenized``) serves training and is
-not ported yet.
+tokenization (``tokenize_lines``, ``split_tokenized``) serves the LM
+trainers and is not ported yet.
 """
 
 from __future__ import annotations
@@ -52,6 +52,12 @@ class TextProcessor:
                + [self.token_id(eos)])
         return ids[:MAX_LEN]
 
+    def tokenize_one_sentence_with_langid(self, line: str,
+                                          lang_id: int) -> List[int]:
+        """text -> [lang_id, ids..., sep_id][:512] (the binarizer's form)."""
+        ids = [lang_id] + self.tokenizer.encode(line) + [self.sep_token_id()]
+        return ids[:MAX_LEN]
+
     def decode(self, ids: Sequence[int], skip_special: bool = False) -> str:
         skip = ({self.token_id(t) for t in self.special_tokens}
                 if skip_special else None)
@@ -60,6 +66,9 @@ class TextProcessor:
     def token_id(self, token: str) -> int:
         tid = self.tokenizer.token_to_id(token)
         return 0 if tid is None else tid
+
+    def id2token(self, i: int) -> str:
+        return self.tokenizer.id_to_tok.get(int(i))
 
     def pad_token_id(self) -> int:
         return self.tokenizer.token_to_id("<pad>")

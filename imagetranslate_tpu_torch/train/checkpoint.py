@@ -2,10 +2,11 @@
 imagetranslate_tpu/train/checkpoint.py), so a checkpoint written by either
 package loads and decodes in the other:
 
-    config.json     — Seq2SeqConfig (JSON)
-    params.msgpack  — the flax parameter tree, as flax's msgpack_serialize
-                      writes it
-    meta.json       — {"step": int, ...}
+    config.json        — Seq2SeqConfig (JSON)
+    params.msgpack     — the flax parameter tree, as flax's msgpack_serialize
+                         writes it (fp32 masters from a trainer)
+    opt_state.msgpack  — the optax optimizer state tree (optional)
+    meta.json          — {"step": int, "best_metric": float}
 
 Neither flax nor the msgpack package is needed: this module reads and writes
 the subset of msgpack that flax emits for a parameter tree — nested maps with
@@ -20,7 +21,7 @@ from __future__ import annotations
 import json
 import os
 import struct
-from typing import Any, Dict, Mapping, Optional
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -208,18 +209,32 @@ def _atomic_write(path: str, data, mode: str = "wb"):
     os.replace(tmp, path)
 
 
-def save_params(out_dir: str, cfg: Seq2SeqConfig, params: Mapping,
-                step: int = 0):
-    """Write ``config.json``, ``params.msgpack`` and ``meta.json``. ``params``
-    is the flax-layout tree (``{"params": {...}}``) of tensors or numpy
-    arrays; ``train/weights.flax_from_state_dict`` makes it from a port
-    ``state_dict``."""
+def save_checkpoint(out_dir: str, cfg: Seq2SeqConfig, params: Mapping,
+                    opt_state: Optional[Mapping] = None, step: int = 0,
+                    best_metric: Optional[float] = None):
+    """Write a checkpoint directory. ``params`` is the flax-layout tree
+    (``{"params": {...}}``) of tensors or numpy arrays
+    (``train/weights.flax_from_state_dict`` makes it from a port
+    ``state_dict``); ``opt_state`` the optax-layout tree
+    (``train/weights.flax_from_opt_state``), written when given."""
     os.makedirs(out_dir, exist_ok=True)
     _atomic_write(os.path.join(out_dir, "config.json"), cfg.to_json(), "w")
     _atomic_write(os.path.join(out_dir, "params.msgpack"),
                   msgpack_dumps(params))
-    _atomic_write(os.path.join(out_dir, "meta.json"),
-                  json.dumps({"step": int(step)}), "w")
+    if opt_state is not None:
+        _atomic_write(os.path.join(out_dir, "opt_state.msgpack"),
+                      msgpack_dumps(opt_state))
+    meta = {"step": int(step)}
+    if best_metric is not None:
+        meta["best_metric"] = float(best_metric)
+    _atomic_write(os.path.join(out_dir, "meta.json"), json.dumps(meta), "w")
+
+
+def save_params(out_dir: str, cfg: Seq2SeqConfig, params: Mapping,
+                step: int = 0):
+    """A weights-only checkpoint: ``config.json``, ``params.msgpack`` and
+    ``meta.json``."""
+    save_checkpoint(out_dir, cfg, params, step=step)
 
 
 def load_config(out_dir: str) -> Seq2SeqConfig:
@@ -229,6 +244,31 @@ def load_config(out_dir: str) -> Seq2SeqConfig:
 
 def load_params(out_dir: str) -> dict:
     """The flax-layout parameter tree of ``params.msgpack``, leaves as CPU
-    tensors."""
+    tensors. A text ``Seq2Seq`` also loads from a multimodal checkpoint: its
+    weights are that tree's ``core`` subtree."""
     with open(os.path.join(out_dir, "params.msgpack"), "rb") as f:
-        return msgpack_loads(f.read())
+        tree = msgpack_loads(f.read())
+    p = tree.get("params", tree)
+    if "core" in p and "embeddings" not in p:
+        return {"params": p["core"]}
+    return tree
+
+
+def load_checkpoint(out_dir: str,
+                    with_opt_state: bool = False) -> Tuple[dict,
+                                                           Optional[dict],
+                                                           dict]:
+    """(params tree, optax-layout optimizer state tree or None, meta). The
+    optimizer state is read when asked for and present."""
+    params = load_params(out_dir)
+    opt_state = None
+    opt_path = os.path.join(out_dir, "opt_state.msgpack")
+    if with_opt_state and os.path.exists(opt_path):
+        with open(opt_path, "rb") as f:
+            opt_state = msgpack_loads(f.read())
+    meta = {"step": 0}
+    meta_path = os.path.join(out_dir, "meta.json")
+    if os.path.exists(meta_path):
+        with open(meta_path) as f:
+            meta = json.load(f)
+    return params, opt_state, meta

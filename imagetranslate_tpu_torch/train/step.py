@@ -1,0 +1,135 @@
+"""The supervised MT train step (port of imagetranslate_tpu/train/step.py:
+TrainState, create_train_state, wrap_accum, make_mt_train_step for padded and
+packed batches, and the batch staging helpers).
+
+The JAX step is a pure function of an immutable state. Here the parameters
+are the model's own ``nn.Parameter``s and the step updates them, and the
+optimizer state, IN PLACE (no second copy of the fp32 masters); it returns
+the same ``TrainState`` with ``step`` advanced. Metrics are device scalars
+(sum_loss, ntokens): nothing in a step waits for the device.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict
+
+import torch
+
+from imagetranslate_tpu_torch.ops.losses import smoothed_nll_loss
+from imagetranslate_tpu_torch.train.optimizer import (
+    AnyOptState,
+    MultiSteps,
+    Optimizer,
+)
+
+
+@dataclasses.dataclass
+class TrainState:
+    params: Dict[str, torch.Tensor]   # dict(model.named_parameters())
+    opt_state: AnyOptState
+    step: int
+
+
+def create_train_state(params: Dict[str, torch.Tensor],
+                       optimizer: Optimizer) -> TrainState:
+    return TrainState(params=params, opt_state=optimizer.init(params), step=0)
+
+
+def wrap_accum(optimizer, accum: int):
+    """Gradient accumulation: the mean of ``accum`` micro-gradients, one
+    update every ``accum``-th step (optax.MultiSteps semantics)."""
+    if accum and accum > 1:
+        return MultiSteps(optimizer, accum)
+    return optimizer
+
+
+def _loss_impl(model) -> Callable:
+    if getattr(model.cfg, "use_pallas_xent", False):
+        raise NotImplementedError(
+            "use_pallas_xent: the fused softmax-xent kernel is not ported "
+            "yet (ROADMAP K5)")
+    return smoothed_nll_loss
+
+
+def make_mt_train_step(model, optimizer: Optimizer,
+                       label_smoothing: float = 0.1) -> Callable:
+    """Returns ``step_fn(state, batch, rng) -> (state, metrics)``. ``batch``
+    is a dict of tensors on the model's device, padded (``src_mask`` ...) or
+    packed (``src_seg`` ...; ``mt_batch_to_device`` /
+    ``packed_mt_batch_to_device``); ``rng`` is the host torch.Generator the
+    dropout seeds of this step are drawn from. ``state.params`` must be this
+    model's ``dict(named_parameters())``."""
+    loss_fn_impl = _loss_impl(model)
+
+    def step_fn(state: TrainState, batch: Dict[str, torch.Tensor],
+                rng: torch.Generator):
+        packed = "src_seg" in batch
+        if packed:
+            logits = model(
+                batch["src"], batch["src_seg"] > 0, batch["dst"],
+                batch["dst_seg"] > 0, batch["src_langs"], batch["dst_langs"],
+                tgt_positions=batch["dst_pos"],
+                src_positions=batch["src_pos"],
+                src_segments=batch["src_seg"], tgt_segments=batch["dst_seg"],
+                deterministic=False, rng=rng)
+            seg = batch["dst_seg"]
+            # Position t is a valid loss target only when t-1 belongs to
+            # the same example: cross-boundary slots are excluded.
+            mask = (seg[:, 1:] == seg[:, :-1]) & (seg[:, 1:] > 0)
+        else:
+            logits = model(
+                batch["src"], batch["src_mask"], batch["dst"],
+                batch["dst_mask"], batch["src_langs"], batch["dst_langs"],
+                tgt_positions=batch.get("tgt_positions"),
+                proposals=batch.get("proposals"),
+                proposal_mask=batch.get("proposal_mask"),
+                deterministic=False, rng=rng)
+            mask = batch["dst_mask"][:, 1:] & batch["row_mask"][:, None]
+        sum_l, n = loss_fn_impl(logits, batch["dst"][:, 1:], mask,
+                                epsilon=label_smoothing)
+        n = torch.clamp(n, min=1.0)
+        params = list(state.params.values())
+        grads = torch.autograd.grad(sum_l / n, params, allow_unused=True)
+        # A parameter the batch did not reach (another language's decoder)
+        # gets a zero gradient, as jax.grad gives it.
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(params, grads)]
+        optimizer.update(grads, state.opt_state, state.params)
+        state.step += 1
+        return state, {"sum_loss": sum_l.detach(), "ntokens": n}
+
+    return step_fn
+
+
+def _to(x, device) -> torch.Tensor:
+    return torch.as_tensor(x).to(device, non_blocking=True)
+
+
+def mt_batch_to_device(b, device, tgt_positions=None) -> Dict[str,
+                                                              torch.Tensor]:
+    """MTBatch (data/loader.py) -> dict of tensors on ``device`` for
+    ``make_mt_train_step``."""
+    out = {
+        "src": _to(b.src, device), "src_mask": _to(b.src_mask, device),
+        "dst": _to(b.dst, device), "dst_mask": _to(b.dst_mask, device),
+        "src_langs": _to(b.src_langs, device),
+        "dst_langs": _to(b.dst_langs, device),
+        "row_mask": _to(b.row_mask, device),
+    }
+    if tgt_positions is not None:
+        out["tgt_positions"] = _to(tgt_positions, device)
+    if getattr(b, "proposals", None) is not None:
+        out["proposals"] = _to(b.proposals, device)
+        out["proposal_mask"] = _to(b.proposal_mask, device)
+    return out
+
+
+def packed_mt_batch_to_device(b, device) -> Dict[str, torch.Tensor]:
+    """A packed batch (rows holding several examples: ``src``, ``src_seg``,
+    ``src_pos``, ``dst``, ``dst_seg``, ``dst_pos``, ``src_langs``,
+    ``dst_langs``) -> dict of tensors; ``make_mt_train_step`` dispatches on
+    the ``src_seg`` key."""
+    return {name: _to(getattr(b, name), device)
+            for name in ("src", "src_seg", "src_pos", "dst", "dst_seg",
+                         "dst_pos", "src_langs", "dst_langs")}

@@ -9,6 +9,16 @@ The port's parameter names are the reference's HF-2.9 ``state_dict`` keys, so
 flax Dense kernels are [in, out], torch Linear weights [out, in]; attention
 projections are DenseGeneral [E, H, D] and out [H, D, E]; the encoder and
 decoder share one embedding table, written under ``encoder.embeddings.*``.
+Both directions keep each leaf's dtype, so a trainer's fp32 masters cross as
+fp32 and a serving model's bf16 weights as bf16.
+
+``flax_from_opt_state`` / ``opt_state_from_flax`` carry the optimizer state
+across in the optax chain's layout (what flax serializes a chain state to:
+a map numbered by chain position, ``ScaleByAdamState`` as count/mu/nu,
+``ScaleByScheduleState`` as count, the stateless members as empty maps, and
+``optax.MultiSteps`` around it when gradients accumulate); the moments and the
+accumulated gradients are parameter-shaped trees and go through the same
+layout maps as the parameters.
 """
 
 from __future__ import annotations
@@ -19,6 +29,13 @@ import numpy as np
 import torch
 
 from imagetranslate_tpu_torch.models.config import Seq2SeqConfig
+from imagetranslate_tpu_torch.train.optimizer import (
+    AnyOptState,
+    MultiSteps,
+    MultiStepsState,
+    Optimizer,
+    OptState,
+)
 
 
 def _t(x) -> torch.Tensor:
@@ -214,3 +231,61 @@ def random_params(cfg: Seq2SeqConfig, seed: int = 0) -> dict:
         p["proposal_attn"] = {"gate": np.full((1, E), 0.1, np.float32),
                               "ln": ln()}
     return {"params": p}
+
+
+def _count(n: int) -> torch.Tensor:
+    return torch.tensor(int(n), dtype=torch.int32)
+
+
+def flax_from_opt_state(opt_state: AnyOptState, optimizer: Optimizer,
+                        cfg: Seq2SeqConfig) -> dict:
+    """The port's optimizer state -> the optax state tree as flax writes it
+    (``checkpoint.save_checkpoint`` takes it as ``opt_state``)."""
+    def tree(sd):
+        return flax_from_state_dict(sd, cfg)
+
+    if isinstance(opt_state, MultiStepsState):
+        return {"mini_step": _count(opt_state.mini_step),
+                "gradient_step": _count(opt_state.gradient_step),
+                "inner_opt_state": flax_from_opt_state(
+                    opt_state.inner_opt_state, optimizer.inner, cfg),
+                "acc_grads": tree(opt_state.acc_grads),
+                "skip_state": {}}
+    out = {}
+    for i, member in enumerate(optimizer.chain):
+        if member == "adam":
+            out[str(i)] = {"count": _count(opt_state.count),
+                           "mu": tree(opt_state.mu), "nu": tree(opt_state.nu)}
+        elif member == "schedule":
+            out[str(i)] = {"count": _count(opt_state.schedule_count)}
+        else:
+            out[str(i)] = {}
+    return out
+
+
+def opt_state_from_flax(tree: Mapping, optimizer: Optimizer,
+                        cfg: Seq2SeqConfig, device=None) -> AnyOptState:
+    """The optax state tree (``checkpoint.load_checkpoint``'s second result)
+    -> the port's optimizer state for ``optimizer``, tensors on ``device``.
+    The tree must have the optimizer's layout (same chain, same
+    accumulation)."""
+    def sd(sub):
+        return {k: v.to(device) for k, v in
+                state_dict_from_flax(sub, cfg).items()}
+
+    if isinstance(optimizer, MultiSteps) != ("inner_opt_state" in tree):
+        raise ValueError("the saved optimizer state and the optimizer differ "
+                         "in gradient accumulation (MultiSteps)")
+    if isinstance(optimizer, MultiSteps):
+        return MultiStepsState(
+            int(tree["mini_step"]), int(tree["gradient_step"]),
+            opt_state_from_flax(tree["inner_opt_state"], optimizer.inner, cfg,
+                                device),
+            sd(tree["acc_grads"]))
+    if len(tree) != len(optimizer.chain):
+        raise ValueError(f"the saved optimizer chain has {len(tree)} members, "
+                         f"the optimizer {len(optimizer.chain)}")
+    adam = tree[str(optimizer.chain.index("adam"))]
+    sched = tree[str(optimizer.chain.index("schedule"))]
+    return OptState(int(adam["count"]), sd(adam["mu"]), sd(adam["nu"]),
+                    int(sched["count"]))

@@ -1,0 +1,277 @@
+"""The port's fused dropout attention (ops/train_attention.py) against the
+JAX package, on the CPU.
+
+At rate 0 the plain version must give what the JAX ``fused_dropout_attention``
+gives in Pallas interpret mode (as tests/test_train_attention.py runs it) and
+what ``_xla_attention`` gives: forward atol/rtol 1e-5, dq/dk/dv/dbias 2e-4
+(the JAX test's own tolerances; fp32 sums in another order), both bias
+layouts, inputs from a numpy seed. At rate > 0 the masks of the two packages
+differ bit for bit by design, so the contract is the distribution: keep
+rate, unbiased mean over seeds, the same mask per seed, and autograd through
+the plain version equal to the hand-derived backward formulas under the same
+mask (atol 1e-5). The Philox generator is held bit-exactly to the published
+known-answer vectors. The CUDA kernels themselves are compared with the
+plain version in the ``cuda``-marked test, which skips without a card.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from imagetranslate_tpu.ops.attention import _xla_attention
+from imagetranslate_tpu.ops.train_attention import (
+    _keep_threshold as jax_keep_threshold,
+)
+from imagetranslate_tpu.ops.train_attention import (
+    fused_dropout_attention as jax_fused,
+)
+from imagetranslate_tpu_torch.ops import train_attention as ta
+from imagetranslate_tpu_torch.ops.attention import dot_product_attention
+
+B, T, S, H, D = 2, 16, 24, 3, 8
+
+
+def _inputs(layout, seed=0):
+    rng = np.random.RandomState(seed)
+    q = rng.randn(B, T, H, D).astype(np.float32)
+    k = rng.randn(B, S, H, D).astype(np.float32)
+    v = rng.randn(B, S, H, D).astype(np.float32)
+    g = rng.randn(B, T, H, D).astype(np.float32)
+    rows = T if layout == "rows" else 1
+    bias = rng.randn(B, 1, rows, S).astype(np.float32)
+    bias[1, :, :, -5:] = -10000.0                      # masked keys
+    if layout == "rows":
+        bias[0, 0, 3, :] = -10000.0                    # a fully masked query
+    return q, k, v, bias, g
+
+
+def _torch_grads(fn, arrays, g):
+    ts = [torch.tensor(a, requires_grad=True) for a in arrays]
+    out = fn(*ts)
+    return out, torch.autograd.grad(out, ts, torch.tensor(g))
+
+
+@pytest.mark.parametrize("layout", ["keys", "rows"])
+def test_rate0_forward_matches_jax(layout):
+    q, k, v, bias, _ = _inputs(layout)
+    got = ta.fused_dropout_attention(*map(torch.tensor, (q, k, v, bias)),
+                                     0.0, 7)
+    kern = jax_fused(q, k, v, bias, 0.0, jnp.int32(7))    # interpret mode
+    ref = _xla_attention(*map(jnp.asarray, (q, k, v, bias)))
+    assert np.isfinite(got.numpy()).all()
+    np.testing.assert_allclose(got.numpy(), np.asarray(kern), 1e-5, 1e-5)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), 1e-5, 1e-5)
+
+
+@pytest.mark.parametrize("layout", ["keys", "rows"])
+def test_rate0_grads_match_jax(layout):
+    q, k, v, bias, g = _inputs(layout)
+    _, got = _torch_grads(
+        lambda *a: ta.fused_dropout_attention(*a, 0.0, 7), (q, k, v, bias), g)
+    hand = ta.fused_dropout_attention_backward_reference(
+        *map(torch.tensor, (q, k, v, bias, g)), 0.0, 7)
+
+    def vjp(fn):
+        _, pull = jax.vjp(fn, *map(jnp.asarray, (q, k, v, bias)))
+        return pull(jnp.asarray(g))
+
+    kern = vjp(lambda *a: jax_fused(*a, 0.0, jnp.int32(7)))
+    ref = vjp(_xla_attention)
+    assert float(np.abs(np.asarray(ref[3])).max()) > 0
+    for name, a, h_, b_, c_ in zip("q k v bias".split(), got, hand, kern,
+                                   ref):
+        assert a.shape == np.shape(b_), name
+        np.testing.assert_allclose(a.numpy(), np.asarray(b_), 2e-4, 2e-4,
+                                   err_msg=name)
+        np.testing.assert_allclose(a.numpy(), np.asarray(c_), 2e-4, 2e-4,
+                                   err_msg=name)
+        np.testing.assert_allclose(h_.numpy(), np.asarray(b_), 2e-4, 2e-4,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("counter,key,want", [
+    ((0, 0, 0, 0), (0, 0),
+     "6627e8d5 e169c58d bc57ac4c 9b00dbd8"),
+    ((0xffffffff,) * 4, (0xffffffff,) * 2,
+     "408f276d 41c83b0e a20bc7c6 6d5451fd"),
+    ((0x243f6a88, 0x85a308d3, 0x13198a2e, 0x03707344),
+     (0xa4093822, 0x299f31d0), "d16cfe09 94fdcceb 5001e420 24126ea1"),
+])
+def test_philox_known_answers(counter, key, want):
+    """The known-answer vectors of the Random123 distribution for
+    philox4x32-10."""
+    got = ta.philox4x32_10(counter, key)
+    assert " ".join(f"{int(x):08x}" for x in got) == want
+
+
+def test_philox_bits_are_a_function_of_the_coordinates():
+    """Element (b, h, t, s) draws word s % 4 of the block at counter
+    (s // 4, t, h, b), whatever the tensor's extent."""
+    seed = (5 << 32) | 1234
+    bits = ta.philox_bits(seed, 3, 2, 5, 11)
+    assert bits.shape == (3, 2, 5, 11)
+    assert int(bits.min()) >= 0 and int(bits.max()) < 2 ** 32
+    for b, h, t, s in ((0, 0, 0, 0), (2, 1, 4, 10), (1, 0, 3, 6)):
+        words = ta.philox4x32_10((s // 4, t, h, b), (1234, 5))
+        assert int(bits[b, h, t, s]) == int(words[s % 4])
+    bigger = ta.philox_bits(seed, 4, 3, 7, 16)
+    assert torch.equal(bigger[:3, :2, :5, :11], bits)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1, 0.5, 0.999999])
+def test_keep_threshold_is_the_jax_rule(rate):
+    assert ta._keep_threshold(rate) == jax_keep_threshold(rate)
+
+
+def test_keep_rate_and_seed_determinism():
+    rate, n = 0.1, 4 * 6 * 32 * 64
+    a = ta.keep_mask(rate, 11, 4, 6, 32, 64)
+    assert torch.equal(a, ta.keep_mask(rate, 11, 4, 6, 32, 64))
+    other = ta.keep_mask(rate, 12, 4, 6, 32, 64)
+    assert 0.1 < (a != other).float().mean() < 0.26       # ~2 * 0.1 * 0.9
+    sigma = (rate * (1 - rate) / n) ** 0.5
+    assert abs(a.float().mean().item() - (1 - rate)) < 4 * sigma
+
+
+def test_dropout_is_unbiased_over_seeds():
+    q, k, v, bias, _ = _inputs("keys")
+    args = tuple(map(torch.tensor, (q, k, v, bias)))
+    clean = ta.fused_dropout_attention(*args, 0.0, 0)
+    n = 300
+    mean = sum(ta.fused_dropout_attention(*args, 0.3, s)
+               for s in range(n)) / n
+    # The mean of n draws strays by ~|v| * sqrt(rate / ((1 - rate) n S)).
+    assert (mean - clean).abs().mean() < 0.03
+    assert (mean - clean).abs().max() < 0.25
+    one = ta.fused_dropout_attention(*args, 0.3, 5)
+    assert torch.equal(one, ta.fused_dropout_attention(*args, 0.3, 5))
+    assert not torch.equal(one, ta.fused_dropout_attention(*args, 0.3, 6))
+
+
+@pytest.mark.parametrize("layout", ["keys", "rows"])
+def test_autograd_equals_hand_backward_under_the_same_mask(layout):
+    q, k, v, bias, g = _inputs(layout, seed=3)
+    rate, seed = 0.25, 99
+    out, got = _torch_grads(
+        lambda *a: ta.fused_dropout_attention(*a, rate, seed),
+        (q, k, v, bias), g)
+    hand = ta.fused_dropout_attention_backward_reference(
+        *map(torch.tensor, (q, k, v, bias, g)), rate, seed)
+    for name, a, b_ in zip("q k v bias".split(), got, hand):
+        assert a.shape == b_.shape, name
+        np.testing.assert_allclose(a.numpy(), b_.numpy(), atol=1e-5, rtol=1e-5,
+                                   err_msg=name)
+    # out is linear in v for a fixed mask: the same mask ran in both passes.
+    v2 = torch.tensor(v) + 0.5
+    out2 = ta.fused_dropout_attention(torch.tensor(q), torch.tensor(k), v2,
+                                      torch.tensor(bias), rate, seed)
+    lin = (torch.tensor(g) * (out2 - out.detach())).sum()
+    np.testing.assert_allclose(lin.item(), (got[2] * 0.5).sum().item(),
+                               rtol=1e-4)
+
+
+def test_dispatch_order_and_gate():
+    """dot_product_attention: dropout off -> plain path, no seed needed;
+    dropout on with use_fused_dropout -> the fused op (same mask as calling
+    it directly); without -> the plain path's own mask. The CUDA gate takes
+    bf16 at the flagship and packed shapes and refuses what the kernels do
+    not take."""
+    q, k, v, bias, _ = _inputs("keys")
+    tq, tk, tv, tb = map(torch.tensor, (q, k, v, bias))
+    clean = dot_product_attention(tq, tk, tv, tb)
+    same = dot_product_attention(tq, tk, tv, tb, dropout_rate=0.3,
+                                 deterministic=True, use_fused_dropout=True)
+    assert torch.equal(clean, same)
+    fused = dot_product_attention(tq, tk, tv, tb, dropout_rate=0.3,
+                                  deterministic=False, seed=5,
+                                  use_fused_dropout=True)
+    assert torch.equal(fused,
+                       ta.fused_dropout_attention(tq, tk, tv, tb, 0.3, 5))
+    no_bias = dot_product_attention(tq, tk, tv, None, dropout_rate=0.3,
+                                    deterministic=False, seed=5,
+                                    use_fused_dropout=True)
+    assert torch.equal(no_bias, ta.fused_dropout_attention(
+        tq, tk, tv, torch.zeros(B, 1, 1, S), 0.3, 5))
+    plain = dot_product_attention(tq, tk, tv, tb, dropout_rate=0.3,
+                                  deterministic=False, seed=5)
+    assert plain.shape == clean.shape and not torch.equal(plain, fused)
+    assert torch.equal(plain, dot_product_attention(
+        tq, tk, tv, tb, dropout_rate=0.3, deterministic=False, seed=5))
+    with pytest.raises(ValueError, match="seed"):
+        dot_product_attention(tq, tk, tv, tb, dropout_rate=0.3,
+                              deterministic=False)
+
+    def ok(shape_q, shape_k, bias_shape=None, dtype=torch.bfloat16):
+        bias_ = None if bias_shape is None else torch.zeros(bias_shape)
+        return ta.fused_attention_supported(
+            torch.zeros(shape_q, dtype=dtype), torch.zeros(shape_k,
+                                                           dtype=dtype),
+            bias_)
+
+    assert ok((256, 64, 12, 64), (256, 64, 12, 64), (256, 1, 1, 64))
+    assert ok((32, 256, 12, 64), (32, 256, 12, 64), (32, 1, 256, 256))
+    assert ok((2, 7, 3, 16), (2, 33, 3, 16))                # ragged, no bias
+    assert not ok((2, 8, 3, 64), (2, 8, 3, 64), dtype=torch.float32)
+    assert not ok((2, 8, 3, 64), (2, 272, 3, 64))           # shared memory
+    assert not ok((2, 8, 3, 8), (2, 8, 3, 8))               # D % 16
+    assert not ok((2, 8, 3, 64), (2, 8, 3, 64), (2, 3, 1, 8))   # head axis
+    assert not ok((2, 8, 3, 64), (2, 8, 3, 64), (2, 1, 4, 8))   # rows != T
+
+
+def test_refuses_other_devices_and_rates():
+    q = torch.zeros((1, 4, 1, 16), device="meta")
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        ta.fused_dropout_attention(q, q, q, torch.zeros((1, 1, 1, 4),
+                                                        device="meta"), 0.1, 0)
+    c = torch.zeros((1, 4, 1, 16))
+    with pytest.raises(ValueError, match="rate"):
+        ta.fused_dropout_attention(c, c, c, torch.zeros(1, 1, 1, 4), 1.0, 0)
+
+
+@pytest.mark.cuda
+def test_cuda_kernels_match_plain():
+    """The CUDA forward and backward kernels against the plain version on the
+    card, element by element under the shared Philox mask: the train step's
+    three shapes (encoder, decoder self- and cross-attention), packed,
+    cross-attention (T != S) and ragged shapes, both bias layouts, rate 0 and
+    0.1. Tolerance: 2^-6 of the plain result's largest magnitude (a few bf16
+    ulps) for the bf16 outputs, 1e-4 of it for the fp32 dbias."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA CUDA card: the kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    fwd, bwd = ta.FWD_LAUNCHES, ta.BWD_LAUNCHES
+    cases = [(256, 64, 64, 12, 64), (256, 63, 63, 12, 64),
+             (256, 63, 64, 12, 64), (32, 256, 256, 12, 64),
+             (8, 40, 72, 3, 64), (3, 100, 33, 2, 32), (2, 130, 16, 1, 128)]
+    n = 0
+    for b, t, s, h, d in cases:
+        for rows in (1, t):
+            for rate in (0.0, 0.1):
+                q, k, v, g = (
+                    torch.randn(b, n_, h, d, generator=gen,
+                                device="cuda").bfloat16()
+                    for n_ in (t, s, s, t))
+                bias = torch.randn(b, 1, rows, s, generator=gen,
+                                   device="cuda")
+                bias[:, :, :, -3:] = -10000.0
+                leaves = [x.clone().requires_grad_(True)
+                          for x in (q, k, v, bias)]
+                out = ta.fused_dropout_attention(*leaves, rate, 5)
+                grads = torch.autograd.grad(out, leaves, g)
+                torch.cuda.synchronize()
+                n += 1
+                want = ta.fused_dropout_attention_reference(q, k, v, bias,
+                                                            rate, 5)
+                hand = ta.fused_dropout_attention_backward_reference(
+                    q, k, v, bias, g, rate, 5)
+                for got, ref, tol in zip(
+                        (out, *grads), (want, *hand),
+                        (2 ** -6,) * 4 + (1e-4,)):
+                    err = (got.float() - ref.float()).abs().max()
+                    assert err <= tol * ref.float().abs().max(), (b, t, s, h,
+                                                                  d, rows,
+                                                                  rate)
+    assert ta.FWD_LAUNCHES == fwd + n and ta.BWD_LAUNCHES == bwd + n

@@ -154,7 +154,7 @@ def test_msgpack_round_trip_dtypes():
 _NO_JAX = textwrap.dedent("""
     import importlib.abc, importlib, pkgutil, sys
 
-    BLOCKED = ("jax", "jaxlib", "flax", "imagetranslate_tpu")
+    BLOCKED = ("jax", "jaxlib", "flax", "optax", "imagetranslate_tpu")
 
     class Block(importlib.abc.MetaPathFinder):
         def find_spec(self, name, path, target=None):
@@ -173,9 +173,10 @@ _NO_JAX = textwrap.dedent("""
 
 
 def test_port_runs_without_jax(workdir):
-    """Every port module imports, and the CLI translates, with jax, jaxlib,
-    flax and the JAX package unimportable; and with ``sys.modules['jax'] =
-    None`` the CLI module imports cleanly. The output equals the in-process
+    """Every port module imports (the training CLI and trainer too), and the
+    CLI translates, with jax, jaxlib, flax, optax and the JAX package
+    unimportable; and with ``sys.modules['jax'] = None`` the CLI modules
+    import cleanly. The output equals the in-process
     port's."""
     d = workdir[0]
     env = {**os.environ, "PYTHONPATH": REPO + os.pathsep
@@ -187,8 +188,11 @@ def test_port_runs_without_jax(workdir):
     subprocess.run([sys.executable, "-c",
                     "import sys; sys.modules['jax'] = None; "
                     "sys.modules['flax'] = None; "
+                    "sys.modules['optax'] = None; "
                     "sys.modules['imagetranslate_tpu'] = None; "
-                    "import imagetranslate_tpu_torch.cli.translate"],
+                    "import imagetranslate_tpu_torch.cli.translate; "
+                    "import imagetranslate_tpu_torch.cli.train_mt; "
+                    "import imagetranslate_tpu_torch.train.trainer_mt"],
                    check=True, cwd=REPO, env=env, timeout=120)
     from imagetranslate_tpu_torch.cli.translate import main as port_main
 
