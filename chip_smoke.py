@@ -1,9 +1,11 @@
 """Smoke test of the PyTorch port (imagetranslate_tpu_torch) on one NVIDIA
 H100: builds the CUDA kernels from this checkout, holds each against its plain
 PyTorch version on the card, drives the serving path at BERT-base width
-(encode -> KV-cached beam search, then the translate CLI end to end) and the
-training path at the same width (MTTrainer steps, then the training CLI end to
-end), and checks that each path went through its kernels.
+(encode -> KV-cached beam search, then the translate CLI end to end), the
+supervised training path at the same width (MTTrainer steps, then the training
+CLI end to end) and the unsupervised-MT path (MASS steps, then
+back-translation steps, through MTTrainer and through the training CLI), and
+checks that each path went through its kernels.
 
 Run from the root of a checkout, with one visible CUDA card:
 
@@ -29,8 +31,11 @@ Phases, each fatal on failure:
                Philox mask: forward and dq, dk, dv, dbias at rate 0 and 0.1,
                both bias layouts, at the training shape (B=256, T=S=64, H=12,
                D=64), the packed shape (B=32, T=S=256), T != S, and ragged
-               shapes at the gate's edges, and the decoder's shapes of phase
-               7 (T=S=63; T=63, S=64); bf16 outputs within 2^-6 of the
+               shapes at the gate's edges, the decoder's shapes of phase
+               7 (T=S=63; T=63, S=64) and the shapes of the MASS and
+               back-translation steps of phases 10 and 11 (the MASS decoder's
+               T=S=32 and T=32, S=64; the translation buffer's odd width 81
+               as the encoder's T=S); bf16 outputs within 2^-6 of the
                plain result's largest magnitude (a few bf16 ulps), fp32 dbias
                within 1e-4 of it. Mask statistics straight from the kernel
                (keep rate within 4 sigma, same seed -> same output, another
@@ -39,29 +44,63 @@ Phases, each fatal on failure:
                path) at the training shape; kernel times at the packed shape.
   7. train   — MTTrainer at BERT-base width (fp32 masters, bf16 compute,
                dropout 0.1) on numpy batches of B=256, S=T=64 over the full
-               vocabulary: 3 warm-up steps, 12 timed; the loss is finite and
+               vocabulary: 3 warm-up steps, 9 timed; the loss is finite and
                falls; forward and backward launches = 12 per step, each at a
-               shape that phase 6 held against the plain version.
+               shape that phase 6 held against the plain version. Then a
+               paired reading of the same step with the fused cross-entropy
+               (use_pallas_xent) off and on: two fresh trainers from one seed
+               on the same batches, first losses equal to 1e-4, then blocks
+               of steps in the order off, on, on, off; ms/step and peak
+               memory of each arm.
   8. train   — generated parallel corpus -> tokenizer -> data.binarize ->
      cli       cli.train_mt.main at full width -> cli.translate.main on the
                checkpoint it wrote -> load_checkpoint with the optimizer state.
+
+  9. kernel  — the fused label-smoothed cross-entropy kernels (forward and
+     (K5)      backward; runs between phases 6 and 7) vs their plain version:
+               the MT step's shape (N=16128, V=32000), the MASS step's
+               (N=8192), the back-translation step's, ragged V (84, 30522,
+               32003), N not a multiple of 8, N=1, fp32 and bf16 logits,
+               eps 0 and 0.1, targets outside the vocabulary, an all-masked
+               g, and two shapes past 2^31 bytes (one of them past 2^31
+               elements); loss rows within 1e-4 relative, dx within 1e-6 +
+               1e-4 relative (fp32) or one bf16 ulp (bf16). Times of kernel,
+               plain version and F.cross_entropy(label_smoothing=) (a
+               yardstick, never on the path) at N=16128, V=32000.
+ 10. umt     — MTTrainer with use_pallas_xent at BERT-base width: MASS steps
+     train     on numpy MassBatches (B=256, S=64, full vocabulary), then
+               reset_for_finetune and back-translation steps (greedy decode
+               with frozen weights + an MT step on the synthetic pairs, B=128);
+               losses finite, the MASS loss falls, parameters change, K5
+               launches = 1 + 1 per train step, K1 launches = 12 + 12 per
+               train step, K2 launches = the decodes' steps; every shape the
+               steps give K1 and K5 was held against the plain version.
+ 11. umt     — two generated monolingual corpora -> a two-language tokenizer
+     cli       -> monolingual shards (data.binarize.write_mt) ->
+               cli.train_mt.main --mass_train --step --fstep --langs from a
+               checkpoint whose config.json sets use_pallas_xent ->
+               cli.translate.main on the result; the same launch and shape
+               checks as phase 10.
 
 ``--profile`` adds a phase after 4 (one more decode) and one after 7 (three
 more train steps) under torch.profiler, printing the device time by operation
 and the device's busy share of that same profiled run (the union of kernel
 intervals over its wall time), then three more train steps with input shapes
-recorded, printing the dtype casts' (aten::copy_) device time by shape.
+recorded, printing the dtype casts' (aten::copy_) device time by shape, and
+three steps of the paired reading's fused-cross-entropy arm.
 
 The second-to-last line is a JSON object describing each kernel, with its
 launches on its main path, its times, and its bound: the larger of the bytes
-it must move over 3.35 TB/s and its operations over 989 TFLOP/s (the H100's
-published memory rate and dense bf16 rate). The last line is
+it must move over 3.35 TB/s and its operations over the H100's published
+rate for their type (989 TFLOP/s dense bf16 on the tensor cores; 67 TFLOP/s
+fp32 outside them, for the cross-entropy). The last line is
 {"ok": true, "device": {...}}. Without a CUDA card, or outside a checkout,
 the script exits non-zero and prints no result.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -74,11 +113,12 @@ TOL = 1e-4  # fp32 sums of 768 bf16 products taken in another order
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, published
 BF16_FLOPS_PER_S = 989e12     # H100 SXM dense bf16 tensor cores, published
+FP32_FLOPS_PER_S = 67e12      # H100 SXM fp32 outside the tensor cores
 
 
-def bound(nbytes: float, flops: float):
+def bound(nbytes: float, flops: float, flops_per_s: float = BF16_FLOPS_PER_S):
     """(least ms the card could take, what bounds it)."""
-    t_bytes, t_flops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S
+    t_bytes, t_flops = nbytes / HBM_BYTES_PER_S, flops / flops_per_s
     return (1e3 * max(t_bytes, t_flops),
             "bytes" if t_bytes >= t_flops else "operations")
 
@@ -494,9 +534,10 @@ DBIAS_TOL = 1e-4       # fp32 dbias: sums of ~2^-17-accurate terms
 RATE = 0.1
 
 
-def phase_kernel_attention():
+def phase_kernel_attention(extra_shapes=()):
     """Phase 6: the fused dropout attention kernels against their plain
-    versions, their mask statistics, and their times."""
+    versions, their mask statistics, and their times. ``extra_shapes``:
+    (B, T, S, H, D) of the later phases' steps, checked like the rest."""
     import torch
     import torch.nn.functional as F
 
@@ -564,7 +605,13 @@ def phase_kernel_attention():
         (2, 130, 16, 1, 128),     # D = 128, three query tiles
         (1, 9, 352, 2, 16),       # D = 16: the longest S the gate takes
         (2, 1, 1, 1, 16),         # one query, one key
+        (256, 32, 32, 12, 64),    # MASS decoder self-attention over the span
+        (256, 32, 64, 12, 64),    # MASS decoder cross-attention
+        (128, 81, 81, 12, 64),    # BT encoder over the translation buffer
+        (128, 63, 81, 12, 64),    # BT decoder cross-attention
+        (128, 63, 63, 12, 64),    # BT decoder self-attention
     ]
+    shapes += [shape for shape in extra_shapes if shape not in shapes]
     for shape in shapes:
         for rows in (0, 1):
             for rate in (0.0, RATE):
@@ -707,6 +754,259 @@ def phase_kernel_attention():
             entry("kernel_bwd", worst["bwd"], bwd_bound, lib_bwd), checked)
 
 
+XENT_ROWS_TOL = 1e-4          # loss rows, relative (+ 1e-6 absolute)
+XENT_DX_TOL = (1e-6, 1e-4)    # fp32 dx: absolute + relative
+BF16_ULP = 2.0 ** -7          # bf16 dx: one ulp of the plain result
+
+
+def phase_kernel_xent(extra_shapes=()):
+    """Phase 9: the fused cross-entropy kernels against their plain version,
+    and their times. ``extra_shapes``: (N, V) of the later phases' steps.
+    Returns the two kernel entries and the set of (N, V, dtype) checked."""
+    import torch
+    import torch.nn.functional as F
+
+    from imagetranslate_tpu_torch.ops import xent
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    worst = {"fwd": 0.0, "bwd": 0.0}
+    checked = set()
+
+    def case(N, V, dtype, eps, masked=False, chunk=4096):
+        x = torch.empty((N, V), dtype=dtype, device="cuda")
+        for r0 in range(0, N, 16384):      # fp32 draws of a large x in parts
+            x[r0:r0 + 16384] = torch.randn(
+                (min(16384, N - r0), V), generator=gen, device="cuda") * 3
+        t = torch.randint(0, V, (N,), generator=gen, device="cuda")
+        t[0] = V + 7                       # outside the vocabulary
+        t[N // 3] = -1
+        g = torch.rand(N, generator=gen, device="cuda")
+        if N > 1:
+            g[N // 2] = 0.0                # a masked row
+        if masked:
+            g.zero_()
+        leaf = x.requires_grad_(True)
+        # g arrives non-contiguous, as the step's mask / n broadcast does.
+        g2 = torch.stack([g, g], dim=1)[:, 0]
+        rows = xent.smoothed_xent_rows(leaf, t, eps)
+        (dx,) = torch.autograd.grad(rows, leaf, g2)
+        torch.cuda.synchronize()
+        x = x.detach()
+        if dx.dtype != dtype or dx.shape != x.shape or rows.shape != (N,):
+            raise AssertionError(f"K5 outputs {rows.shape} {dx.shape} "
+                                 f"{dx.dtype} at N={N} V={V} {dtype}")
+        if not (torch.isfinite(rows).all() and torch.isfinite(dx).all()):
+            raise AssertionError(f"K5 output not finite at N={N} V={V}")
+        if masked and dx.count_nonzero().item():
+            raise AssertionError("an all-masked g gave a non-zero dx")
+        err_rows = err_dx = 0.0
+        for r0 in range(0, N, chunk):      # the plain version, in row chunks
+            sl = slice(r0, min(N, r0 + chunk))
+            want = xent.smoothed_xent_rows_reference(x[sl], t[sl], eps)
+            wdx = xent.smoothed_xent_backward_reference(
+                x[sl], t[sl], g[sl], eps).float()
+            d_rows = (rows[sl] - want).abs()
+            d_dx = (dx[sl].float() - wdx).abs()
+            if dtype == torch.float32:
+                limit = XENT_DX_TOL[0] + XENT_DX_TOL[1] * wdx.abs()
+            else:
+                # ...plus the fp32 arithmetic's own error where exp(x - logZ)
+                # and eps / V nearly cancel.
+                limit = BF16_ULP * wdx.abs() + 1e-8
+            if ((d_rows > XENT_ROWS_TOL * want.abs() + 1e-6).any()
+                    or (d_dx > limit).any()):
+                raise AssertionError(
+                    f"K5 kernel vs plain at N={N} V={V} {dtype} eps={eps} "
+                    f"rows {r0}..: loss err {d_rows.max().item():.3g}, dx "
+                    f"err over its limit {(d_dx - limit).max().item():.3g}")
+            err_rows = max(err_rows, d_rows.max().item())
+            err_dx = max(err_dx, d_dx.max().item())
+        worst["fwd"] = max(worst["fwd"], err_rows)
+        if dtype == torch.float32:
+            worst["bwd"] = max(worst["bwd"], err_dx)
+        checked.add((N, V, dtype))
+        log(f"[kernel K5] N={N} V={V} {str(dtype)[6:]} eps={eps}"
+            f"{' all rows masked' if masked else ''}: max abs err loss "
+            f"{err_rows:.3g}, dx {err_dx:.3g}")
+
+    f32, b16 = torch.float32, torch.bfloat16
+    cases = [
+        (16128, 32000, f32, 0.1), (16128, 32000, f32, 0.0),   # the MT step
+        (16128, 32000, b16, 0.1),
+        (8192, 32000, f32, 0.1), (8192, 32000, b16, 0.0),     # the MASS step
+        (8064, 32000, f32, 0.1),                              # the BT step
+        (100, 84, f32, 0.1), (100, 84, b16, 0.1),             # ragged V
+        (257, 30522, f32, 0.0), (257, 30522, b16, 0.1),
+        (64, 32003, f32, 0.1), (64, 32003, b16, 0.0),
+        (13, 32003, f32, 0.1), (13, 32001, b16, 0.1),         # N % 8 != 0
+        (1, 32000, f32, 0.1), (1, 84, b16, 0.0), (3, 5, f32, 0.1),
+        # past 2^31 bytes (fp32) and past 2^31 elements (bf16)
+        (33000, 32768, f32, 0.1), (67200, 32003, b16, 0.1),
+    ]
+    cases += [(N, V, f32, 0.1) for N, V in extra_shapes
+              if (N, V, f32, 0.1) not in cases]
+    for c in cases:
+        case(*c)
+    case(64, 32000, f32, 0.1, masked=True)
+    case(64, 32003, b16, 0.1, masked=True)
+    torch.cuda.empty_cache()
+
+    # What is outside the gate raises before any launch.
+    launches = xent.FWD_LAUNCHES
+    x = torch.randn(8, 64, device="cuda")
+    t = torch.zeros(8, dtype=torch.int64, device="cuda")
+    misaligned = x.flatten()[1:65].view(1, 64)
+    for bad in (x.half(), x.double(), x[:, ::2], misaligned):
+        try:
+            xent.smoothed_xent_rows(bad, t[:bad.shape[0]], 0.1)
+        except (ValueError, TypeError):
+            continue
+        raise AssertionError("logits outside the gate were launched")
+    if xent.FWD_LAUNCHES != launches:
+        raise AssertionError("a refused call counted as a launch")
+
+    # Times at the MT step's shape, cold L2, plain-kernel-kernel-plain.
+    N, V, eps = 16128, 32000, 0.1
+    x = torch.randn(N, V, generator=gen, device="cuda") * 3
+    t = torch.randint(0, V, (N,), generator=gen, device="cuda")
+    g = torch.rand(N, generator=gen, device="cuda")
+    _, log_z = xent._launch_fwd(x, t, eps)
+    runs = {"plain": [], "kernel": [], "plain_bwd": [], "kernel_bwd": []}
+    for name in ("plain", "kernel", "kernel", "plain"):
+        if name == "kernel":
+            runs["kernel"].append(_time_ms(
+                lambda: xent._launch_fwd(x, t, eps), iters=20))
+            runs["kernel_bwd"].append(_time_ms(
+                lambda: xent._launch_bwd(x, t, log_z, g, eps), iters=20))
+        else:
+            runs["plain"].append(_time_ms(
+                lambda: xent.smoothed_xent_rows_reference(x, t, eps),
+                iters=5))
+            runs["plain_bwd"].append(_time_ms(
+                lambda: xent.smoothed_xent_backward_reference(x, t, g, eps),
+                iters=5))
+    # The library yardstick: one PyTorch call, never on the port's path.
+    xl = x.detach().requires_grad_(True)
+    held = {}
+
+    def library():
+        held["rows"] = F.cross_entropy(xl, t, reduction="none",
+                                       label_smoothing=eps)
+
+    lib_fwd = _time_ms(library, iters=10)
+    lib_bwd = _time_ms(lambda: torch.autograd.grad(held["rows"], xl, g),
+                       setup=library, iters=10)
+    # Forward: x read, loss and logZ written; ~6 fp32 operations and an exp
+    # per element. Backward: x read, dx written; about as many operations.
+    fwd_bound = bound(N * V * 4 + N * 16, 7.0 * N * V, FP32_FLOPS_PER_S)
+    bwd_bound = bound(N * V * 8 + N * 16, 6.0 * N * V, FP32_FLOPS_PER_S)
+    log(f"[kernel K5] N={N} V={V} fp32 eps={eps}: forward kernel "
+        f"{runs['kernel']} ms, plain {runs['plain']} ms, F.cross_entropy "
+        f"{lib_fwd:.4f} ms, bound {fwd_bound[0]:.4f} ms; backward kernel "
+        f"{runs['kernel_bwd']} ms, plain {runs['plain_bwd']} ms, "
+        f"F.cross_entropy backward {lib_bwd:.4f} ms, bound "
+        f"{bwd_bound[0]:.4f} ms")
+    xb = x.to(torch.bfloat16)
+    b16_ms = [_time_ms(lambda: xent._launch_fwd(xb, t, eps), iters=20),
+              _time_ms(lambda: xent._launch_bwd(xb, t, log_z, g, eps),
+                       iters=20)]
+    log(f"[kernel K5] N={N} V={V} bf16 logits: forward kernel "
+        f"{b16_ms[0]:.4f} ms (bound {fwd_bound[0] / 2:.4f}), backward kernel "
+        f"{b16_ms[1]:.4f} ms (bound {bwd_bound[0] / 2:.4f})")
+    del x, xb, xl, held
+    torch.cuda.empty_cache()
+
+    def entry(key, err, bnd, lib):
+        return {"max_abs_err": err, "ms": sum(runs[key]) / 2,
+                "plain_ms": sum(runs["plain" + key[6:]]) / 2,
+                "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": lib}
+
+    return (entry("kernel", worst["fwd"], fwd_bound, lib_fwd),
+            entry("kernel_bwd", worst["bwd"], bwd_bound, lib_bwd), checked)
+
+
+class FullVocab:
+    """The tokenizer facade MTTrainer reads (special tokens, the two language
+    tokens, pad / mask / separator ids), over a 32000-entry vocabulary whose
+    ordinary tokens are their own ids: the trainer phases run at the
+    model's full vocabulary without training a 32000-entry BPE."""
+
+    special_tokens = ["<pad>", "<s>", "<unk>", "<mask>", "</s>", "<aa>",
+                      "<bb>"]
+    languages = {"<aa>": 0, "<bb>": 1}
+
+    def token_id(self, token: str) -> int:
+        return self.special_tokens.index(token)
+
+    def id2token(self, i: int):
+        i = int(i)
+        return self.special_tokens[i] if i < len(self.special_tokens) else None
+
+    def pad_token_id(self) -> int:
+        return 0
+
+    def mask_token_id(self) -> int:
+        return 3
+
+    def sep_token_id(self) -> int:
+        return 4
+
+
+class Recorder:
+    """Records the shapes a run gives the K1 and K5 kernels (wrapping the
+    modules' launch functions), to be held against the shapes the kernel
+    phases checked."""
+
+    def __init__(self):
+        from imagetranslate_tpu_torch.ops import train_attention as ta
+        from imagetranslate_tpu_torch.ops import xent
+
+        self.ta, self.xent = ta, xent
+        self.k1, self.k5 = set(), set()
+
+    def __enter__(self):
+        ta, xent = self.ta, self.xent
+        self.saved = (ta._launch_fwd, ta._launch_bwd, xent._launch_fwd,
+                      xent._launch_bwd)
+
+        def k1(fn):
+            def wrapped(q, k, v, bias, *rest):
+                self.k1.add((*q.shape[:2], k.shape[1], *q.shape[2:],
+                             bias.shape[2]))
+                return fn(q, k, v, bias, *rest)
+            return wrapped
+
+        def k5(fn):
+            def wrapped(logits, *rest):
+                self.k5.add((*logits.shape, logits.dtype))
+                return fn(logits, *rest)
+            return wrapped
+
+        ta._launch_fwd, ta._launch_bwd = k1(self.saved[0]), k1(self.saved[1])
+        xent._launch_fwd = k5(self.saved[2])
+        xent._launch_bwd = k5(self.saved[3])
+        return self
+
+    def __exit__(self, *exc):
+        (self.ta._launch_fwd, self.ta._launch_bwd, self.xent._launch_fwd,
+         self.xent._launch_bwd) = self.saved
+
+    def require_checked(self, what: str, checked_k1, checked_k5,
+                        want_k5: bool = True):
+        for name, seen, checked in (("K1", self.k1, checked_k1),
+                                    ("K5", self.k5, checked_k5)):
+            if (not seen and (name == "K1" or want_k5)) or seen - checked:
+                raise AssertionError(
+                    f"{what} gave the {name} kernels shapes that were not "
+                    f"held against the plain version: "
+                    f"{sorted(map(str, seen - checked))} (seen "
+                    f"{sorted(map(str, seen))})")
+        log(f"[{what}] K1 shapes (B, T, S, H, D, bias rows) "
+            f"{sorted(self.k1)} and K5 shapes "
+            f"{sorted((n, v, str(d)[6:]) for n, v, d in self.k5)}: all "
+            "checked by the kernel phases")
+
+
 def train_batches(cfg, n: int, B: int, S: int, T: int, device, seed=SEED):
     """n staged batches of full rows over the whole vocabulary, ids drawn
     with a skew (id ~ V u^3) so that there is something to learn."""
@@ -731,23 +1031,25 @@ def train_batches(cfg, n: int, B: int, S: int, T: int, device, seed=SEED):
     return out
 
 
-def phase_train(card, profile: bool, checked):
-    """Phase 7: MTTrainer steps at full width. ``checked``: the attention
-    shapes phase 6 held against the plain version; every shape the step gives
-    the kernels must be one of them."""
+def phase_train(card, profile: bool, checked, checked_xent):
+    """Phase 7: MTTrainer steps at full width, then the paired reading of
+    the step with the fused cross-entropy off and on. ``checked`` /
+    ``checked_xent``: the shapes phases 6 and 9 held against the plain
+    versions; every shape a step gives the kernels must be one of them."""
     import dataclasses
 
     import torch
 
     from imagetranslate_tpu_torch.ops import train_attention as ta
+    from imagetranslate_tpu_torch.ops import xent
     from imagetranslate_tpu_torch.train.trainer_mt import MTTrainer
 
     device = torch.device("cuda")
     cfg = dataclasses.replace(bert_base(32000), dropout=RATE,
                               attention_dropout=RATE)
-    B, S, T, warm, timed = 256, 64, 64, 3, 12
+    B, S, T, warm, timed = 256, 64, 64, 3, 9
     torch.cuda.reset_peak_memory_stats()
-    trainer = MTTrainer(cfg, None, lr=5e-4, warmup=8, seed=SEED,
+    trainer = MTTrainer(cfg, FullVocab(), lr=5e-4, warmup=8, seed=SEED,
                         device=device)
     masters = {p.dtype for p in trainer.model.parameters()}
     if masters != {torch.float32}:
@@ -757,41 +1059,20 @@ def phase_train(card, profile: bool, checked):
     ta.FWD_LAUNCHES = ta.BWD_LAUNCHES = 0
     metrics = []
 
-    def steps(n):
+    def steps(n, tr=trainer, into=metrics):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(n):
-            batch = batches[len(metrics) % len(batches)]
-            trainer.state, m = trainer.mt_step(trainer.state, batch,
-                                               trainer.rng)
-            metrics.append(m)
+            batch = batches[len(into) % len(batches)]
+            tr.state, m = tr.mt_step(tr.state, batch, tr.rng)
+            into.append(m)
         torch.cuda.synchronize()
         return time.perf_counter() - t0
 
     # The warm-up steps also record the shapes the step gives each kernel.
-    seen = {"forward": set(), "backward": set()}
-    launch = {"forward": ta._launch_fwd, "backward": ta._launch_bwd}
-
-    def recording(which):
-        def wrapped(q, k, v, bias, *rest):
-            seen[which].add((*q.shape[:2], k.shape[1], *q.shape[2:],
-                             bias.shape[2]))
-            return launch[which](q, k, v, bias, *rest)
-        return wrapped
-
-    ta._launch_fwd, ta._launch_bwd = recording("forward"), recording("backward")
-    try:
+    with Recorder() as rec:
         steps(warm)
-    finally:
-        ta._launch_fwd, ta._launch_bwd = launch["forward"], launch["backward"]
-    for which, shapes in seen.items():
-        if not shapes or shapes - checked:
-            raise AssertionError(
-                f"the train step gave the {which} kernel shapes that were "
-                f"not held against the plain version: "
-                f"{sorted(shapes - checked)} (seen {sorted(shapes)})")
-    log(f"[train] attention shapes (B, T, S, H, D, bias rows) of a step, all "
-        f"checked in phase 6: {sorted(seen['forward'])}")
+    rec.require_checked("train", checked, checked_xent, want_k5=False)
     seconds = steps(timed)
     fwd, bwd = ta.FWD_LAUNCHES, ta.BWD_LAUNCHES
     n_steps = warm + timed
@@ -827,7 +1108,177 @@ def phase_train(card, profile: bool, checked):
         log(f"[profile train] unprofiled walls {walls} s per step")
         _profile(lambda: (steps(3), "3 steps"), "train", card)
         _profile_shapes(lambda: (steps(3), "3 steps"), "train", "aten::copy_")
+    del trainer, before, after
+    torch.cuda.empty_cache()
+
+    # The paired reading: the same step with the fused cross-entropy off and
+    # on, two fresh trainers from one seed on the same batches.
+    arms = {}
+    for fused in (False, True):
+        arm_cfg = dataclasses.replace(cfg, use_pallas_xent=fused)
+        arms[fused] = (MTTrainer(arm_cfg, FullVocab(), lr=5e-4, warmup=8,
+                                 seed=SEED, device=device), [])
+    xent.FWD_LAUNCHES = xent.BWD_LAUNCHES = 0
+    with Recorder() as rec:
+        for fused in (False, True):
+            steps(2, *arms[fused])                      # warm-up
+    rec.require_checked("train, fused xent", checked, checked_xent)
+    first = {fused: [(m["sum_loss"] / m["ntokens"]).item() for m in ms]
+             for fused, (_, ms) in arms.items()}
+    if abs(first[True][0] - first[False][0]) > 1e-4 * abs(first[False][0]):
+        raise AssertionError(f"the first step's loss with the fused "
+                             f"cross-entropy {first[True]} differs from the "
+                             f"plain one's {first[False]}")
+    block, ms, peaks = 4, {False: [], True: []}, {}
+    for fused in (False, True, True, False):
+        torch.cuda.reset_peak_memory_stats()
+        ms[fused].append(1e3 * steps(block, *arms[fused]) / block)
+        peaks[fused] = torch.cuda.max_memory_allocated() / 2 ** 30
+    n_on = len(arms[True][1])
+    if not (xent.FWD_LAUNCHES == xent.BWD_LAUNCHES == n_on):
+        raise AssertionError(f"{xent.FWD_LAUNCHES} forward and "
+                             f"{xent.BWD_LAUNCHES} backward K5 launches in "
+                             f"{n_on} steps of the fused arm")
+    log(f"[train] paired, same batches, blocks of {block} steps in the order "
+        f"off, on, on, off: plain loss {ms[False]} ms/step (mean "
+        f"{sum(ms[False]) / 2:.2f}), fused cross-entropy {ms[True]} ms/step "
+        f"(mean {sum(ms[True]) / 2:.2f}); peak memory with both trainers "
+        f"resident {peaks[False]:.2f} GiB (plain) and {peaks[True]:.2f} GiB "
+        f"(fused); first losses {first[False][0]:.5f} and "
+        f"{first[True][0]:.5f}; {n_on} + {n_on} K5 launches ({card})")
+    if profile:
+        _profile(lambda: (steps(3, *arms[True]), "3 steps, fused xent"),
+                 "train fused", card)
     return fwd, bwd
+
+
+def mass_batches(cfg, n: int, B: int, S: int, seed=SEED):
+    """n numpy MassBatches over the whole vocabulary: rows of 32..S tokens,
+    ``<lang> ids... </s>``, ids drawn with a skew (id ~ V u^3), half the rows
+    in each language."""
+    import numpy as np
+
+    from imagetranslate_tpu_torch.data.loader import MassBatch
+
+    vocab = FullVocab()
+    first = len(vocab.special_tokens)
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(n):
+        src = (first + (cfg.vocab_size - first)
+               * rng.rand(B, S) ** 3).astype(np.int32)
+        lengths = rng.randint(32, S + 1, B).astype(np.int32)
+        langs = (np.arange(B) % 2).astype(np.int32)
+        src[:, 0] = np.where(langs == 0, vocab.token_id("<aa>"),
+                             vocab.token_id("<bb>"))
+        src[np.arange(B), lengths - 1] = vocab.sep_token_id()
+        src = np.where(np.arange(S)[None, :] < lengths[:, None], src,
+                       cfg.pad_id).astype(np.int32)
+        out.append(MassBatch(src, src != cfg.pad_id, langs, src[:, 0].copy(),
+                             lengths, np.ones((B,), bool)))
+    return out
+
+
+@contextlib.contextmanager
+def counting_decode_steps():
+    """Counts the calls of ``Seq2Seq.decode_step`` made inside the block, in
+    the one-element list it yields."""
+    from imagetranslate_tpu_torch.models.seq2seq import Seq2Seq
+
+    count = [0]
+    step = Seq2Seq.decode_step
+
+    def counted(self, *a, **kw):
+        count[0] += 1
+        return step(self, *a, **kw)
+
+    Seq2Seq.decode_step = counted
+    try:
+        yield count
+    finally:
+        Seq2Seq.decode_step = step
+
+
+def phase_umt_train(card, checked, checked_xent):
+    """Phase 10: MASS steps, then back-translation steps, through MTTrainer
+    with the fused cross-entropy at full width."""
+    import dataclasses
+
+    import torch
+
+    from imagetranslate_tpu_torch.ops import topk_project as tkp
+    from imagetranslate_tpu_torch.ops import train_attention as ta
+    from imagetranslate_tpu_torch.ops import xent
+    from imagetranslate_tpu_torch.train.step import mass_batch_to_device
+    from imagetranslate_tpu_torch.train.trainer_mt import MTTrainer
+
+    device = torch.device("cuda")
+    cfg = dataclasses.replace(bert_base(32000), dropout=RATE,
+                              attention_dropout=RATE, use_pallas_xent=True)
+    B, S, n_mass, n_bt = 256, 64, 10, 3
+    vocab = FullVocab()
+    trainer = MTTrainer(cfg, vocab, lr=5e-4, warmup=4, seed=SEED,
+                        bt_beam_width=1, max_len_a=1.1, max_len_b=5,
+                        device=device)
+    before = {k: v.clone() for k, v in trainer.model.state_dict().items()}
+    staged = [mass_batch_to_device(b, device)
+              for b in mass_batches(cfg, 4, B, S)]
+    bt = mass_batches(cfg, n_bt, B // 2, S, seed=SEED + 1)
+    dirs = MTTrainer.lang_directions(["aa", "bb"], vocab)
+    ta.FWD_LAUNCHES = ta.BWD_LAUNCHES = 0
+    xent.FWD_LAUNCHES = xent.BWD_LAUNCHES = tkp.LAUNCHES = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with Recorder() as rec, counting_decode_steps() as decode_steps:
+        mass_m = []
+        for i in range(n_mass):
+            trainer.state, m = trainer.mass_step(
+                trainer.state, staged[i % len(staged)], trainer.rng)
+            mass_m.append(m)
+        torch.cuda.synchronize()
+        t_mass = time.perf_counter() - t0
+        trainer.reset_for_finetune()
+        bt_m = [trainer._bt_step(b, dirs, trainer.rng) for b in bt]
+        torch.cuda.synchronize()
+        t_bt = time.perf_counter() - t0 - t_mass
+    counts = (ta.FWD_LAUNCHES, ta.BWD_LAUNCHES, xent.FWD_LAUNCHES,
+              xent.BWD_LAUNCHES, tkp.LAUNCHES)
+    rec.require_checked("umt train", checked, checked_xent)
+    n_steps = n_mass + n_bt
+    per_step = cfg.enc_layers + 2 * cfg.dec_layers
+    want = (per_step * n_steps, per_step * n_steps, n_steps, n_steps,
+            decode_steps[0])
+    if counts != want or decode_steps[0] == 0:
+        raise AssertionError(
+            f"umt train: (K1 fwd, K1 bwd, K5 fwd, K5 bwd, K2) launches "
+            f"{counts} in {n_mass} MASS + {n_bt} BT steps with "
+            f"{decode_steps[0]} decode steps, want {want}")
+    mass_l = [(m["sum_loss"] / m["ntokens"]).item() for m in mass_m]
+    bt_l = [(m["sum_loss"] / m["ntokens"]).item() for m in bt_m]
+    if not all(x == x and abs(x) != float("inf") for x in mass_l + bt_l):
+        raise AssertionError(f"loss not finite: {mass_l} {bt_l}")
+    first, last = sum(mass_l[:3]) / 3, sum(mass_l[-3:]) / 3
+    if not last < first - 0.05:
+        raise AssertionError(f"the MASS loss did not fall: {mass_l}")
+    after = trainer.model.state_dict()
+    changed = sum(not torch.equal(before[k], after[k]) for k in before)
+    if (changed < len(before) - 2 or trainer.state.step != n_steps
+            or trainer.state.opt_state.schedule_count != n_bt
+            or not all(torch.isfinite(v).all() for v in after.values())):
+        raise AssertionError(
+            f"umt train: {changed} of {len(before)} parameters changed in "
+            f"{trainer.state.step} steps, schedule count "
+            f"{trainer.state.opt_state.schedule_count}")
+    mass_tokens = sum(int(m["ntokens"].item()) for m in mass_m)
+    log(f"[umt train] BERT-base, fused cross-entropy, dropout {RATE}: "
+        f"{n_mass} MASS steps (B={B} S={S}, {mass_tokens} span tokens) in "
+        f"{t_mass:.3f} s, first included, loss {first:.4f} -> {last:.4f}; "
+        f"{n_bt} back-translation steps (B={B // 2}, greedy decode of "
+        f"{decode_steps[0]} steps in all + MT step) in {t_bt:.3f} s, losses "
+        f"{bt_l}; launches K1 {counts[0]} + {counts[1]}, K5 {counts[2]} + "
+        f"{counts[3]}, K2 {counts[4]}; {changed}/{len(before)} parameters "
+        f"changed ({card})")
+    return counts[2], counts[3]
 
 
 def phase_train_cli():
@@ -898,6 +1349,132 @@ def phase_train_cli():
         f"40 lines with {tkp.LAUNCHES} project_topk launches in "
         f"{seconds:.1f} s, e.g. {hyps[0]!r}")
 
+UMT_CLI_BATCH = 8192   # --batch of phase 11: 128 rows of 32 tokens a batch
+
+
+def umt_cli_shapes(vocab_size: int):
+    """The shapes phase 11's MASS and back-translation steps give K1 and K5,
+    from its flags and the port's own batch arithmetic: ((B, T, S, H, D)
+    list, (N, V) list). Every line of its corpus fits the shortest bucket."""
+    from imagetranslate_tpu_torch.data.loader import _batch_rows, bucket_len
+    from imagetranslate_tpu_torch.decoding.beam import max_len_for
+
+    s, H, D = bucket_len(1), 12, 64
+    rows = _batch_rows(1, s, s, UMT_CLI_BATCH, 600)
+    bt_rows = _batch_rows(1, s, s, UMT_CLI_BATCH // 2, 300)
+    span = s // 2                                # the MASS decoder's length
+    L = -(-max_len_for(s, 1.3, 5, 512) // 16) * 16
+    k1 = [(rows, s, s), (rows, span, span), (rows, span, s),
+          (bt_rows, L + 1, L + 1), (bt_rows, s - 1, s - 1),
+          (bt_rows, s - 1, L + 1)]
+    return ([(*shape, H, D) for shape in k1],
+            [(rows * span, vocab_size), (bt_rows * (s - 1), vocab_size)])
+
+
+def prepare_umt_corpus(workdir):
+    """Two monolingual corpora (the second language is the first one's lines
+    reversed), a two-language tokenizer and the monolingual shards. Returns
+    (tokenizer dir, shard prefix, the first corpus' lines, TextProcessor)."""
+    import numpy as np
+
+    from imagetranslate_tpu_torch.data.binarize import write_mt
+    from imagetranslate_tpu_torch.text.processor import TextProcessor
+
+    rng = np.random.RandomState(SEED + 2)
+    lines = [" ".join(WORDS[j] for j in rng.randint(
+        0, len(WORDS), rng.randint(2, 12))) for _ in range(600)]
+    texts = {"en": lines,
+             "fa": [" ".join(reversed(ln.split())) for ln in lines]}
+    for lang, rows in texts.items():
+        with open(os.path.join(workdir, f"{lang}.txt"), "w") as f:
+            f.write("\n".join(rows) + "\n")
+    tok = os.path.join(workdir, "tok")
+    TextProcessor().train_tokenizer([os.path.join(workdir, "en.txt")], 300,
+                                    tok, {"<en>": 0, "<fa>": 1})
+    tp = TextProcessor(tok)
+    prefix = os.path.join(workdir, "mono.")
+    for lang in texts:
+        n = write_mt(tp, prefix + lang, os.path.join(workdir, f"{lang}.txt"),
+                     tp.token_id(f"<{lang}>"), shard_size=250)
+        if n != len(lines):
+            raise AssertionError(f"write_mt kept {n} of {len(lines)} lines")
+    return tok, prefix, lines, tp
+
+
+def phase_umt_cli(workdir, corpus, checked, checked_xent):
+    """Phase 11: monolingual shards -> cli.train_mt (MASS, then
+    back-translation, fused cross-entropy through --pretrained's config) ->
+    cli.translate on the checkpoint it wrote."""
+    import dataclasses
+
+    from imagetranslate_tpu_torch.cli.train_mt import main as train_main
+    from imagetranslate_tpu_torch.cli.translate import main as translate_main
+    from imagetranslate_tpu_torch.ops import topk_project as tkp
+    from imagetranslate_tpu_torch.ops import train_attention as ta
+    from imagetranslate_tpu_torch.ops import xent
+    from imagetranslate_tpu_torch.train.checkpoint import (
+        load_checkpoint,
+        load_config,
+        save_params,
+    )
+    from imagetranslate_tpu_torch.train.weights import random_params
+
+    tok, prefix, lines, tp = corpus
+    n_mass, n_bt = 4, 3
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(bert_base(tp.vocab_size()), dropout=RATE,
+                              attention_dropout=RATE, use_pallas_xent=True)
+    init = os.path.join(workdir, "init")
+    save_params(init, cfg, random_params(cfg, SEED))
+    model = os.path.join(workdir, "model")
+    ta.FWD_LAUNCHES = ta.BWD_LAUNCHES = 0
+    xent.FWD_LAUNCHES = xent.BWD_LAUNCHES = tkp.LAUNCHES = 0
+    with Recorder() as rec, counting_decode_steps() as decode_steps:
+        train_main(["--tok", tok, "--model", model, "--pretrained", init,
+                    "--mass_train", prefix, "--batch", str(UMT_CLI_BATCH),
+                    "--step", str(n_mass), "--fstep", str(n_bt),
+                    "--langs", "en,fa", "--lr", "0.001", "--warmup", "10",
+                    "--device", "cuda"])
+    counts = (ta.FWD_LAUNCHES, ta.BWD_LAUNCHES, xent.FWD_LAUNCHES,
+              xent.BWD_LAUNCHES, tkp.LAUNCHES)
+    rec.require_checked("umt cli", checked, checked_xent)
+    n_steps = n_mass + n_bt
+    want = (12 * n_steps, 12 * n_steps, n_steps, n_steps, decode_steps[0])
+    if counts != want or decode_steps[0] == 0:
+        raise AssertionError(
+            f"umt cli: (K1 fwd, K1 bwd, K5 fwd, K5 bwd, K2) launches "
+            f"{counts} in {n_mass} MASS + {n_bt} BT steps with "
+            f"{decode_steps[0]} decode steps, want {want}")
+    latest = model + ".latest"
+    _, opt_tree, meta = load_checkpoint(latest, with_opt_state=True)
+    if (meta["step"] != n_steps or int(opt_tree["1"]["count"]) != n_steps
+            or int(opt_tree["2"]["count"]) != n_bt
+            or not load_config(latest).use_pallas_xent):
+        raise AssertionError(
+            f"umt cli checkpoint: meta {meta}, Adam count "
+            f"{int(opt_tree['1']['count'])}, schedule count "
+            f"{int(opt_tree['2']['count'])}")
+    inp, out = (os.path.join(workdir, n) for n in ("in.txt", "out.txt"))
+    with open(inp, "w") as f:
+        f.write("\n".join(lines[:40]) + "\n")
+    tkp.LAUNCHES = 0
+    translate_main(["--tok", tok, "--model", latest, "--input", inp,
+                    "--output", out, "--src", "en", "--target", "fa",
+                    "--device", "cuda"])
+    with open(out) as f:
+        hyps = f.read().splitlines()
+    if len(hyps) != 40 or tkp.LAUNCHES == 0:
+        raise AssertionError(f"translate wrote {len(hyps)} lines with "
+                             f"{tkp.LAUNCHES} kernel launches")
+    log(f"[umt cli] 2 x {len(lines)} monolingual lines, vocab "
+        f"{tp.vocab_size()}, width 768, 6+3 layers, fused cross-entropy: "
+        f"{n_mass} MASS + {n_bt} back-translation steps with launches K1 "
+        f"{counts[0]} + {counts[1]}, K5 {counts[2]} + {counts[3]}, K2 "
+        f"{counts[4]} (= the decodes' steps); checkpoint at step "
+        f"{meta['step']} with the schedule restarted; translated 40 lines "
+        f"with {tkp.LAUNCHES} project_topk launches in "
+        f"{time.perf_counter() - t0:.1f} s, e.g. {hyps[0]!r}")
+
 
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "imagetranslate_tpu_torch")):
@@ -921,11 +1498,21 @@ def main() -> int:
     del model
     torch.cuda.empty_cache()
     phase_cli()
-    attn_fwd, attn_bwd, checked = phase_kernel_attention()
-    fwd_launches, bwd_launches = phase_train(card, profile, checked)
-    torch.cuda.empty_cache()
-    phase_train_cli()
+    with tempfile.TemporaryDirectory() as umt_dir:
+        corpus = prepare_umt_corpus(umt_dir)
+        cli_k1, cli_k5 = umt_cli_shapes(corpus[3].vocab_size())
+        attn_fwd, attn_bwd, checked = phase_kernel_attention(cli_k1)
+        xent_fwd, xent_bwd, checked_xent = phase_kernel_xent(cli_k5)
+        fwd_launches, bwd_launches = phase_train(card, profile, checked,
+                                                 checked_xent)
+        torch.cuda.empty_cache()
+        phase_train_cli()
+        torch.cuda.empty_cache()
+        xent_launches = phase_umt_train(card, checked, checked_xent)
+        torch.cuda.empty_cache()
+        phase_umt_cli(umt_dir, corpus, checked, checked_xent)
     attn_src = "imagetranslate_tpu_torch/csrc/train_attention.cu"
+    xent_src = "imagetranslate_tpu_torch/csrc/xent.cu"
     print(card)
     print(json.dumps({"kernels": [
         {"name": "project_topk", "route": "cuda",
@@ -940,6 +1527,14 @@ def main() -> int:
          "source": attn_src,
          "replaces": "imagetranslate_tpu/ops/train_attention.py:256",
          "launches": bwd_launches, **attn_bwd},
+        {"name": "smoothed_xent_rows_fwd", "route": "cuda",
+         "source": xent_src,
+         "replaces": "imagetranslate_tpu/ops/xent_pallas.py:118",
+         "launches": xent_launches[0], **xent_fwd},
+        {"name": "smoothed_xent_rows_bwd", "route": "cuda",
+         "source": xent_src,
+         "replaces": "imagetranslate_tpu/ops/xent_pallas.py:141",
+         "launches": xent_launches[1], **xent_bwd},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,15 @@
-"""Supervised MT training CLI (port of imagetranslate_tpu/cli/train_mt.py):
-the same flags and defaults, plus ``--device``.
+"""MT / MASS / back-translation training CLI (port of
+imagetranslate_tpu/cli/train_mt.py): the same flags and defaults, plus
+``--device``.
 
     python -m imagetranslate_tpu_torch.cli.train_mt --tok TOKDIR --model OUT \
         --train_mt train.mt [--dev_mt dev.mt] --step N [--device cuda]
+
+Unsupervised MT: MASS pretraining on monolingual shards for ``--step`` steps,
+then ``--fstep`` steps of back-translation between the two ``--langs``:
+
+    python -m imagetranslate_tpu_torch.cli.train_mt --tok TOKDIR --model OUT \
+        --mass_train PREFIX --step N --fstep M --langs aa,bb [--device cuda]
 
 Checkpoints are the JAX package's directory layout, so either package resumes
 from and translates with what the other trained. A flag whose path is not
@@ -18,13 +25,6 @@ import os
 # command lines stay interchangeable) but whose path is not ported: any value
 # but the flag's default stops the run.
 UNPORTED = {
-    "mass_train_path": ("--mass_train", "MASS pretraining: ROADMAP module 8"),
-    "ignore_mt_mass": ("--ignore-mt-mass",
-                       "MASS pretraining: ROADMAP module 8"),
-    "mask_prob": ("--mask", "MASS masking: ROADMAP module 8"),
-    "bt_beam_width": ("--bt-beam", "back-translation: ROADMAP module 8"),
-    "finetune_step": ("--fstep", "back-translation: ROADMAP module 8"),
-    "bt_langs": ("--langs", "back-translation: ROADMAP module 8"),
     "train_path": ("--train", "the image stream: ROADMAP module 9"),
     "image_dir": ("--image", "the image stream: ROADMAP module 9"),
     "img_capacity": ("--img_capacity", "the image stream: ROADMAP module 9"),
@@ -125,8 +125,18 @@ def main(argv=None):
         if getattr(options, dest) != parser.get_default(dest):
             raise SystemExit(f"{flag} is not ported yet ({where})")
 
-    from imagetranslate_tpu_torch.data.binarize import load_mt
-    from imagetranslate_tpu_torch.data.loader import MTBatcher, get_lex_dict
+    bt_langs = [lang for lang in options.bt_langs.strip().split(",") if lang]
+    if options.finetune_step > 0 and len(set(bt_langs)) != 2:
+        raise SystemExit("--fstep back-translates between exactly two "
+                         f"languages: give --langs aa,bb (got "
+                         f"{options.bt_langs!r})")
+
+    from imagetranslate_tpu_torch.data.binarize import load_mass, load_mt
+    from imagetranslate_tpu_torch.data.loader import (
+        MassBatcher,
+        MTBatcher,
+        get_lex_dict,
+    )
     from imagetranslate_tpu_torch.models.config import Seq2SeqConfig
     from imagetranslate_tpu_torch.text.processor import TextProcessor
     from imagetranslate_tpu_torch.train.checkpoint import (
@@ -163,6 +173,19 @@ def main(argv=None):
             dtype=options.dtype,
             moe_top_k=options.moe_top_k,
         )
+
+    if cfg.hidden_size % cfg.num_heads:
+        raise SystemExit(
+            f"--embed {cfg.hidden_size} is not a multiple of the model's "
+            f"{cfg.num_heads} attention heads (the CLI has no heads flag): "
+            f"pick a multiple of {cfg.num_heads}")
+    if options.finetune_step > 0:
+        missing = [lang for lang in bt_langs
+                   if f"<{lang}>" not in tp.languages]
+        if missing:
+            raise SystemExit(f"--langs {options.bt_langs!r}: the tokenizer "
+                             f"has no language token for {missing} (it has "
+                             f"{sorted(tp.languages)})")
 
     trainer = MTTrainer(
         cfg, tp, lr=options.learning_rate, warmup=options.warmup,
@@ -203,6 +226,27 @@ def main(argv=None):
                              "stream")
         print(f"MT train batches: {len(mt_batcher)}")
 
+    def build_mass_batcher(max_batch, capacity_mb):
+        examples = []
+        for prefix in options.mass_train_path.split(","):
+            examples.extend(load_mass(prefix))
+        return MassBatcher(examples, pad_id=pad, max_batch=max_batch,
+                           capacity_mb=capacity_mb,
+                           max_seq_len=options.max_seq_len,
+                           bucket_step=options.bucket_step)
+
+    mass_batcher = None
+    if options.mass_train_path is not None:
+        mass_batcher = build_mass_batcher(options.batch,
+                                          options.total_capacity)
+        if len(mass_batcher) == 0:
+            raise SystemExit(
+                f"--mass_train {options.mass_train_path!r} matched no "
+                "examples (shards are globbed as '<prefix>*', e.g. out.0, "
+                "out.1 from data.binarize.write_mt): refusing to train on "
+                "an empty stream")
+        print(f"MASS train batches: {len(mass_batcher)}")
+
     dev_batcher = None
     if options.mt_dev_path is not None:
         dev_batcher = batcher(
@@ -218,14 +262,43 @@ def main(argv=None):
         step_before = step
         step = trainer.train_epoch(
             step, options.model_path, mt_batcher=mt_batcher,
-            dev_batcher=dev_batcher, max_step=options.step,
-            eval_every=options.eval_every, save_every=options.save_every,
-            epoch_seed=epoch)
+            mass_batcher=mass_batcher, dev_batcher=dev_batcher,
+            max_step=options.step, eval_every=options.eval_every,
+            save_every=options.save_every, epoch_seed=epoch)
         if step == step_before:
-            raise SystemExit("an epoch produced zero train steps (no "
-                             "--train_mt stream?): aborting instead of "
+            raise SystemExit("an epoch produced zero train steps (all "
+                             "streams empty?): aborting instead of "
                              "looping forever")
         epoch += 1
+
+    if options.finetune_step > 0:
+        if options.ignore_mt_mass:
+            mt_batcher = None
+        trainer.reset_for_finetune()
+        lang_directions = MTTrainer.lang_directions(bt_langs, tp)
+        print("lang dirs", lang_directions)
+        fepoch = 0
+        # The back-translation phase holds a decode and a train step per
+        # batch: its budgets are divided by max(2, --bt-beam).
+        if mass_batcher is not None:
+            denom = max(2, options.bt_beam_width)
+            mass_batcher = build_mass_batcher(
+                options.batch // denom, options.total_capacity // denom)
+        while step < options.finetune_step + options.step:
+            print(f"finetune epoch {fepoch}")
+            step_before = step
+            step = trainer.train_epoch(
+                step, options.model_path, mt_batcher=mt_batcher,
+                mass_batcher=mass_batcher, dev_batcher=dev_batcher,
+                max_step=options.finetune_step + options.step,
+                fine_tune=True, lang_directions=lang_directions,
+                eval_every=options.eval_every, save_every=options.save_every,
+                epoch_seed=1000 + fepoch)
+            if step == step_before:
+                raise SystemExit("a fine-tune epoch produced zero train "
+                                 "steps: aborting instead of looping "
+                                 "forever")
+            fepoch += 1
 
     print("Finished Training!")
 

@@ -1,16 +1,19 @@
-"""Offline binarization of parallel text (port of the MT part of
-imagetranslate_tpu/data/binarize.py).
+"""Offline binarization of parallel and monolingual text (port of the MT and
+MASS parts of imagetranslate_tpu/data/binarize.py).
 
 The ``.mt`` artifact is a marshal list of (src_ids, dst_ids, src_lang_type,
 dst_lang_type), length-filtered to [min_len, max_len] and sorted by target
-length; the lang entries are language TYPE ids (``TextProcessor.languages``
-values), not token ids. Either package reads what the other wrote. The
-packed record format (``packed=True``) and the monolingual (MASS) shards are
-not ported yet.
+length. The MASS artifact is a set of shards ``out.0, out.1, ...``, each a
+marshal list of (ids, lang_type) sorted by length, a new shard every
+``shard_size`` examples. The lang entries are language TYPE ids
+(``TextProcessor.languages`` values), not token ids. Either package reads
+what the other wrote. The packed record format (``packed=True``, files that
+start with the ITR1 magic) is not ported yet.
 """
 
 from __future__ import annotations
 
+import glob
 import marshal
 from typing import List, Optional, Tuple
 
@@ -22,17 +25,19 @@ _PACKED_MAGIC = b"ITR1"
 def write_mt(tp: TextProcessor, output_file: str, src_txt_file: str,
              src_lang_token_id: int, dst_txt_file: Optional[str] = None,
              dst_lang_token_id: Optional[int] = None, min_len: int = 1,
-             max_len: int = 175, packed: bool = False) -> int:
-    """Parallel text -> one ``.mt`` file; returns the number of examples."""
+             max_len: int = 175, shard_size: int = 6_000_000,
+             packed: bool = False) -> int:
+    """Parallel text (``dst_txt_file`` given) -> one ``.mt`` file;
+    monolingual text -> MASS shards ``output_file.N``. Returns the number of
+    examples kept."""
     if packed:
         raise NotImplementedError(
             "packed=True: the packed record format is not ported yet "
             "(ROADMAP module 15)")
-    if dst_txt_file is None:
-        raise NotImplementedError(
-            "monolingual mode writes MASS shards, which are not ported yet "
-            "(ROADMAP module 8)")
     src_lang_type = tp.languages[tp.id2token(src_lang_token_id)]
+    if dst_txt_file is None:
+        return _write_mass(tp, output_file, src_txt_file, src_lang_token_id,
+                           src_lang_type, min_len, max_len, shard_size)
     dst_lang_type = tp.languages[tp.id2token(dst_lang_token_id)]
     examples: List[Tuple] = []
     with open(src_txt_file) as s_fp, open(dst_txt_file) as d_fp:
@@ -53,9 +58,36 @@ def write_mt(tp: TextProcessor, output_file: str, src_txt_file: str,
     return len(examples)
 
 
-def load_mt(path: str):
-    """A marshal ``.mt`` file -> list of (src_ids, dst_ids, src_lang_type,
-    dst_lang_type)."""
+def _write_mass(tp, output_file, src_txt_file, lang_token_id, lang_type,
+                min_len, max_len, shard_size) -> int:
+    part_num, total = 0, 0
+    examples: List[Tuple] = []
+
+    def flush():
+        nonlocal examples, part_num
+        examples.sort(key=lambda e: len(e[0]))
+        with open(f"{output_file}.{part_num}", "wb") as fw:
+            marshal.dump(examples, fw)
+        examples = []
+        part_num += 1
+
+    with open(src_txt_file) as s_fp:
+        for line in s_fp:
+            if not line.strip():
+                continue
+            ids = tp.tokenize_one_sentence_with_langid(line.strip(),
+                                                       lang_token_id)
+            if min_len <= len(ids) <= max_len:
+                examples.append((ids, lang_type))
+                total += 1
+            if len(examples) >= shard_size:
+                flush()
+    if examples:
+        flush()
+    return total
+
+
+def _load_marshal(path: str):
     with open(path, "rb") as fr:
         if fr.read(len(_PACKED_MAGIC)) == _PACKED_MAGIC:
             raise NotImplementedError(
@@ -63,3 +95,18 @@ def load_mt(path: str):
                 "yet (ROADMAP module 15)")
         fr.seek(0)
         return marshal.load(fr)
+
+
+def load_mt(path: str):
+    """A marshal ``.mt`` file -> list of (src_ids, dst_ids, src_lang_type,
+    dst_lang_type)."""
+    return _load_marshal(path)
+
+
+def load_mass(path_prefix: str) -> List[Tuple]:
+    """Every shard ``path_prefix*`` in sorted order -> list of
+    (ids, lang_type)."""
+    examples: List[Tuple] = []
+    for path in sorted(glob.glob(path_prefix + "*")):
+        examples.extend(_load_marshal(path))
+    return examples

@@ -1,5 +1,6 @@
-"""Length-bucketed, fixed-shape host batching for translation (port of
-``MTBatcher`` and the lexical dictionary of imagetranslate_tpu/data/loader.py).
+"""Length-bucketed, fixed-shape host batching for translation and MASS (port
+of ``MTBatcher``, ``MassBatcher`` and the lexical dictionary of
+imagetranslate_tpu/data/loader.py).
 
 Sequence lengths round up to a bucket multiple and row counts are a
 deterministic function of the bucketed shape, under the reference's budget:
@@ -158,6 +159,76 @@ class MTBatcher:
     def shuffled(self, seed: int) -> Iterator[MTBatch]:
         """The batches in the order ``random.Random(seed)`` shuffles them
         into (the JAX batcher's order for the same seed)."""
+        order = list(range(len(self.batches)))
+        random.Random(seed).shuffle(order)
+        for i in order:
+            yield self.batches[i]
+
+
+@dataclasses.dataclass
+class MassBatch:
+    src: np.ndarray          # [N, S] int32
+    src_mask: np.ndarray     # [N, S] bool
+    langs: np.ndarray        # [N] language type ids
+    lang_tokens: np.ndarray  # [N] the row's first token (language token id)
+    lengths: np.ndarray      # [N] index of the first pad
+    row_mask: np.ndarray     # [N] bool, False for padding rows
+
+
+class MassBatcher:
+    """Monolingual batches for MASS and back-translation. examples:
+    (ids, lang_type) tuples, length-sorted; consecutive examples share a
+    batch while their bucketed length and the row budget (the MT formula at
+    sb = db = s) allow. Building batches from a packed record file
+    (``from_packed``) is not ported."""
+
+    def __init__(self, examples: Sequence[Tuple], pad_id: int = 0,
+                 max_batch: int = 4000, capacity_mb: int = 600,
+                 max_seq_len: int = 512, bucket_step: int = 16):
+        self.pad_id = pad_id
+        self.batches: List[MassBatch] = []
+        cur: List[Tuple] = []
+        cur_s = 0
+        for ex in examples:
+            if len(ex[0]) > max_seq_len:
+                continue
+            s = bucket_len(len(ex[0]), bucket_step)
+            ns = max(cur_s, s)
+            if cur and (ns != cur_s or len(cur) + 1 >
+                        _rows_for(ns, ns, max_batch, capacity_mb)):
+                self._flush(cur, cur_s, max_batch, capacity_mb)
+                cur, ns = [], s
+            cur.append(ex)
+            cur_s = ns
+        if cur:
+            self._flush(cur, cur_s, max_batch, capacity_mb)
+
+    def _flush(self, rows_data, s, max_batch, capacity_mb):
+        n = len(rows_data)
+        rows = _batch_rows(n, s, s, max_batch, capacity_mb)
+        src = np.full((rows, s), self.pad_id, np.int32)
+        langs = np.zeros((rows,), np.int32)
+        lengths = np.ones((rows,), np.int32)
+        row_mask = np.zeros((rows,), bool)
+        for i, (ids, lang_type) in enumerate(rows_data):
+            src[i, :len(ids)] = ids
+            langs[i] = lang_type
+            lengths[i] = len(ids)
+            row_mask[i] = True
+        # Padding rows copy row 0, so no row is wholly empty.
+        src[n:], langs[n:], lengths[n:] = src[0], langs[0], lengths[0]
+        self.batches.append(MassBatch(src, src != self.pad_id, langs,
+                                      src[:, 0].copy(), lengths, row_mask))
+
+    def __len__(self):
+        return len(self.batches)
+
+    def __iter__(self) -> Iterator[MassBatch]:
+        return iter(self.batches)
+
+    def shuffled(self, seed: int) -> Iterator[MassBatch]:
+        """The batches in ``random.Random(seed)``'s order (the JAX batcher's
+        for the same seed)."""
         order = list(range(len(self.batches)))
         random.Random(seed).shuffle(order)
         for i in order:

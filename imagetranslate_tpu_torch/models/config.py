@@ -3,9 +3,10 @@
 Same fields, defaults and JSON as the JAX ``Seq2SeqConfig``, so a
 ``config.json`` written by either package loads in the other.
 ``fused_attn_dropout`` routes training attention through the fused dropout
-kernel (``ops/train_attention.py``) and ``use_pallas_attention`` refuses
-S >= 1024 until the flash kernel is ported; ``use_pallas_xent`` is refused by
-the train step until its kernel is. The other knobs that select TPU kernels
+kernel (``ops/train_attention.py``), ``use_pallas_xent`` routes the train
+steps' loss through the fused cross-entropy kernels (``ops/xent.py``; the key
+keeps the name both packages read), and ``use_pallas_attention`` refuses
+S >= 1024 until the flash kernel is ported. The other knobs that select TPU kernels
 or XLA lowerings (``decode_attention_impl``, ``dense_decode_cross``,
 ``fused_project_topk``, ``remat*``) are read and kept but have no effect
 here: the port has one path per operation, and recomputation is not ported.

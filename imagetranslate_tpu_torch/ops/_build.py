@@ -110,6 +110,14 @@ def load() -> ctypes.CDLL:
         # B T S H D backward
         lib.itt_fused_attn_supported.argtypes = [i] * 6
         lib.itt_fused_attn_supported.restype = ctypes.c_int
+        # x targets loss logz | N V is_bf16 | 1-eps eps/V | stream
+        lib.itt_xent_fwd.argtypes = (
+            [p] * 4 + [ctypes.c_longlong, i, i] + [f] * 2 + [p])
+        lib.itt_xent_fwd.restype = ctypes.c_int
+        # x targets logz g dx | then as the forward
+        lib.itt_xent_bwd.argtypes = (
+            [p] * 5 + [ctypes.c_longlong, i, i] + [f] * 2 + [p])
+        lib.itt_xent_bwd.restype = ctypes.c_int
         lib.itt_error_string.argtypes = [i]
         lib.itt_error_string.restype = ctypes.c_char_p
         _lib = lib

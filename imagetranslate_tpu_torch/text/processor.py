@@ -73,6 +73,9 @@ class TextProcessor:
     def pad_token_id(self) -> int:
         return self.tokenizer.token_to_id("<pad>")
 
+    def mask_token_id(self) -> int:
+        return self.tokenizer.token_to_id("<mask>")
+
     def sep_token_id(self) -> int:
         return self.tokenizer.token_to_id("</s>")
 

@@ -1,6 +1,6 @@
-"""The supervised MT train step (port of imagetranslate_tpu/train/step.py:
+"""The MT and MASS train steps (port of imagetranslate_tpu/train/step.py:
 TrainState, create_train_state, wrap_accum, make_mt_train_step for padded and
-packed batches, and the batch staging helpers).
+packed batches, make_mass_train_step, and the batch staging helpers).
 
 The JAX step is a pure function of an immutable state. Here the parameters
 are the model's own ``nn.Parameter``s and the step updates them, and the
@@ -12,11 +12,18 @@ the same ``TrainState`` with ``step`` advanced. Metrics are device scalars
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import torch
 
+from imagetranslate_tpu_torch.models.transformer import DropoutRng
 from imagetranslate_tpu_torch.ops.losses import smoothed_nll_loss
+from imagetranslate_tpu_torch.ops.masking import (
+    MassDraws,
+    draw_mass,
+    mass_mask_core,
+)
+from imagetranslate_tpu_torch.ops.xent import smoothed_nll_loss_fused
 from imagetranslate_tpu_torch.train.optimizer import (
     AnyOptState,
     MultiSteps,
@@ -45,11 +52,25 @@ def wrap_accum(optimizer, accum: int):
 
 
 def _loss_impl(model) -> Callable:
+    """The fused softmax-xent kernels (ops/xent.py) when the model config
+    asks for them (``use_pallas_xent``: the key keeps the name both packages
+    read from config.json); the same function either way."""
     if getattr(model.cfg, "use_pallas_xent", False):
-        raise NotImplementedError(
-            "use_pallas_xent: the fused softmax-xent kernel is not ported "
-            "yet (ROADMAP K5)")
+        return smoothed_nll_loss_fused
     return smoothed_nll_loss
+
+
+def _update(state: TrainState, optimizer: Optimizer, sum_l, n):
+    """Backward of sum_l / n, the optimizer update in place, the metrics."""
+    params = list(state.params.values())
+    grads = torch.autograd.grad(sum_l / n, params, allow_unused=True)
+    # A parameter the batch did not reach (another language's decoder)
+    # gets a zero gradient, as jax.grad gives it.
+    grads = [torch.zeros_like(p) if g is None else g
+             for p, g in zip(params, grads)]
+    optimizer.update(grads, state.opt_state, state.params)
+    state.step += 1
+    return state, {"sum_loss": sum_l.detach(), "ntokens": n}
 
 
 def make_mt_train_step(model, optimizer: Optimizer,
@@ -88,16 +109,46 @@ def make_mt_train_step(model, optimizer: Optimizer,
             mask = batch["dst_mask"][:, 1:] & batch["row_mask"][:, None]
         sum_l, n = loss_fn_impl(logits, batch["dst"][:, 1:], mask,
                                 epsilon=label_smoothing)
-        n = torch.clamp(n, min=1.0)
-        params = list(state.params.values())
-        grads = torch.autograd.grad(sum_l / n, params, allow_unused=True)
-        # A parameter the batch did not reach (another language's decoder)
-        # gets a zero gradient, as jax.grad gives it.
-        grads = [torch.zeros_like(p) if g is None else g
-                 for p, g in zip(params, grads)]
-        optimizer.update(grads, state.opt_state, state.params)
-        state.step += 1
-        return state, {"sum_loss": sum_l.detach(), "ntokens": n}
+        return _update(state, optimizer, sum_l, torch.clamp(n, min=1.0))
+
+    return step_fn
+
+
+def make_mass_train_step(model, optimizer: Optimizer, cfg,
+                         mask_prob: float = 0.5, n_specials: int = 5,
+                         mask_id: int = 3,
+                         label_smoothing: float = 0.1) -> Callable:
+    """MASS pretraining step: corrupt a span of each source row on the
+    device, then predict the span from the corrupted row.
+
+    Returns ``step_fn(state, batch, rng, draws=None) -> (state, metrics)``.
+    ``batch``: ``mass_batch_to_device``'s dict (src [B, S], src_mask, langs,
+    lengths, row_mask). ``rng``: the host torch.Generator; it seeds the
+    device generator that the span draws and the dropout masks come from.
+    ``draws``: a ``MassDraws`` to use in place of drawing (the tests feed the
+    JAX package's draws)."""
+    loss_fn_impl = _loss_impl(model)
+
+    def step_fn(state: TrainState, batch: Dict[str, torch.Tensor],
+                rng: torch.Generator, draws: Optional[MassDraws] = None):
+        src = batch["src"]
+        drop = DropoutRng(rng, src.device)
+        if draws is None:
+            draws = draw_mass(drop.dev, src, batch["lengths"], mask_prob,
+                              n_specials=n_specials,
+                              vocab_size=cfg.vocab_size)
+        masked = mass_mask_core(
+            draws, src, batch["lengths"], mask_prob, mask_id=mask_id,
+            pad_id=cfg.pad_id, span_width=src.shape[1] // 2 + 1)
+        dec_mask = masked.dec_inputs != cfg.pad_id
+        logits = model(masked.src, batch["src_mask"], masked.dec_inputs,
+                       dec_mask, batch["langs"], batch["langs"],
+                       tgt_positions=masked.positions, deterministic=False,
+                       rng=drop)
+        mask = dec_mask[:, 1:] & batch["row_mask"][:, None]
+        sum_l, n = loss_fn_impl(logits, masked.dec_inputs[:, 1:], mask,
+                                epsilon=label_smoothing)
+        return _update(state, optimizer, sum_l, torch.clamp(n, min=1.0))
 
     return step_fn
 
@@ -133,3 +184,11 @@ def packed_mt_batch_to_device(b, device) -> Dict[str, torch.Tensor]:
     return {name: _to(getattr(b, name), device)
             for name in ("src", "src_seg", "src_pos", "dst", "dst_seg",
                          "dst_pos", "src_langs", "dst_langs")}
+
+
+def mass_batch_to_device(b, device) -> Dict[str, torch.Tensor]:
+    """MassBatch (data/loader.py) -> dict of tensors on ``device`` for
+    ``make_mass_train_step``."""
+    return {name: _to(getattr(b, name), device)
+            for name in ("src", "src_mask", "langs", "lang_tokens",
+                         "lengths", "row_mask")}

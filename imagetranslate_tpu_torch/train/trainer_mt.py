@@ -1,8 +1,14 @@
-"""Supervised MT trainer (port of imagetranslate_tpu/train/trainer_mt.py:
-``MTTrainer`` with the ``mt`` stream, dev BLEU and two-slot checkpoints).
+"""MT / MASS / back-translation trainer (port of
+imagetranslate_tpu/train/trainer_mt.py: ``MTTrainer`` with the ``mass`` and
+``mt`` streams, the back-translation fine-tune phase, dev BLEU and two-slot
+checkpoints).
 
-- one batch from the MT stream per step, batches shuffled per epoch, staged
+- each tick takes one batch from every stream in the order mass, mt (the
+  epoch ends at the shortest stream), batches shuffled per epoch and staged
   onto the device by a prefetch thread while the previous step runs;
+- in the fine-tune phase a batch of the mass stream is back-translated: a
+  decode in the other language with frozen weights, then an MT step on
+  translation -> original;
 - telemetry every ``log_every`` steps through ``AsyncStepMeter`` (one host
   sync per window), dev BLEU every ``eval_every``, a rolling ``.latest``
   checkpoint every ``save_every`` and at epoch end;
@@ -12,8 +18,7 @@
 
 The model holds fp32 master parameters and computes in ``cfg.dtype``. One
 device: a mesh, pipeline microbatches and ZeRO are refused (ROADMAP module
-14). The MASS stream, back-translation and the image stream are not ported
-yet (ROADMAP modules 8 and 9).
+14). The image stream is not ported yet (ROADMAP module 9).
 """
 
 from __future__ import annotations
@@ -25,7 +30,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from imagetranslate_tpu_torch.data.loader import MTBatcher
+from imagetranslate_tpu_torch.data.loader import MassBatcher, MTBatcher
 from imagetranslate_tpu_torch.decoding.beam import (
     beam_search,
     max_len_for,
@@ -42,7 +47,9 @@ from imagetranslate_tpu_torch.train.optimizer import (
 )
 from imagetranslate_tpu_torch.train.step import (
     create_train_state,
+    make_mass_train_step,
     make_mt_train_step,
+    mass_batch_to_device,
     mt_batch_to_device,
     packed_mt_batch_to_device,
     wrap_accum,
@@ -66,9 +73,9 @@ class MTTrainer:
                  zero: bool = False, device="cuda"):
         """``params``: a flax-layout parameter tree to start from (None:
         random, the JAX model's initializers from ``seed``). ``device``: where
-        the model trains; ``cuda`` fails without a card. ``mask_prob`` and
-        ``bt_beam_width`` belong to the MASS and back-translation phases and
-        are accepted for the JAX trainer's signature only."""
+        the model trains; ``cuda`` fails without a card. ``mask_prob`` bounds
+        where a MASS span may start; ``bt_beam_width`` is the beam of the
+        back-translation decode (1: greedy)."""
         if mesh is not None or pp_microbatches or zero:
             raise NotImplementedError(
                 "mesh, pp_microbatches and zero: multi-device training is "
@@ -80,6 +87,7 @@ class MTTrainer:
                              param_dtype=torch.float32)
         self.rng = torch.Generator().manual_seed(seed)  # the dropout seeds
         self.beam_width = beam_width
+        self.bt_beam_width = bt_beam_width
         self.max_len_a = max_len_a
         self.max_len_b = max_len_b
         self.len_penalty_ratio = len_penalty_ratio
@@ -90,6 +98,10 @@ class MTTrainer:
             accum)
         self.mt_step = make_mt_train_step(self.model, self.optimizer,
                                           label_smoothing=label_smoothing)
+        self.mass_step = make_mass_train_step(
+            self.model, self.optimizer, cfg, mask_prob=mask_prob,
+            n_specials=len(tp.special_tokens), mask_id=tp.mask_token_id(),
+            label_smoothing=label_smoothing)
         self.set_reference_params(
             random_params(cfg, seed) if params is None else params)
 
@@ -130,7 +142,7 @@ class MTTrainer:
 
     def train_epoch(self, step: int, saving_path: str,
                     mt_batcher: Optional[MTBatcher] = None,
-                    mass_batcher=None,
+                    mass_batcher: Optional[MassBatcher] = None,
                     dev_batcher: Optional[MTBatcher] = None,
                     img_batcher=None, image_root: str = "",
                     max_step: int = 300_000, fine_tune: bool = False,
@@ -140,29 +152,58 @@ class MTTrainer:
         from imagetranslate_tpu_torch.data.prefetch import PrefetchIterator
         from imagetranslate_tpu_torch.utils.metrics import AsyncStepMeter
 
-        if mass_batcher is not None or fine_tune or lang_directions:
-            raise NotImplementedError(
-                "the MASS stream and the back-translation phase are not "
-                "ported yet (ROADMAP module 8)")
         if img_batcher is not None:
             raise NotImplementedError(
                 "the image stream is not ported yet (ROADMAP module 9)")
-        if mt_batcher is None:
+        if fine_tune and mass_batcher is not None and not lang_directions:
+            raise ValueError("fine_tune back-translates the mass stream and "
+                             "needs lang_directions (see "
+                             "MTTrainer.lang_directions)")
+        streams = []
+        if mass_batcher is not None:
+            streams.append(("mass", mass_batcher.shuffled(epoch_seed)))
+        if mt_batcher is not None:
+            streams.append(("mt", mt_batcher.shuffled(epoch_seed)))
+        if not streams:
             return step
 
-        def stage(b):
+        def interleaved():
+            # One batch from every stream per tick; the shortest stream ends
+            # the epoch.
+            while True:
+                tick = []
+                try:
+                    for kind, it in streams:
+                        tick.append((kind, next(it)))
+                except StopIteration:
+                    return
+                yield from tick
+
+        def stage(item):
             # Runs in the prefetch thread: staging batch N+1 onto the device
-            # overlaps the step on batch N.
-            to_dev = (packed_mt_batch_to_device if hasattr(b, "src_seg")
-                      else mt_batch_to_device)
-            return to_dev(b, self.device)
+            # overlaps the step on batch N. A back-translation batch (the
+            # mass stream in the fine-tune phase) stays on the host: its
+            # step starts with a decode of the batch itself.
+            kind, b = item
+            if kind == "mt":
+                to_dev = (packed_mt_batch_to_device if hasattr(b, "src_seg")
+                          else mt_batch_to_device)
+                return kind, b, to_dev(b, self.device)
+            if not fine_tune:
+                return kind, b, mass_batch_to_device(b, self.device)
+            return kind, b, None
 
         meter = AsyncStepMeter(log_every=log_every)
-        prefetcher = PrefetchIterator(mt_batcher.shuffled(epoch_seed), stage,
-                                      depth=3)
+        prefetcher = PrefetchIterator(interleaved(), stage, depth=3)
         try:
-            for staged in prefetcher:
-                self.state, m = self.mt_step(self.state, staged, self.rng)
+            for kind, b, staged in prefetcher:
+                if kind == "mt":
+                    self.state, m = self.mt_step(self.state, staged, self.rng)
+                elif not fine_tune:
+                    self.state, m = self.mass_step(self.state, staged,
+                                                   self.rng)
+                else:
+                    m = self._bt_step(b, lang_directions, self.rng)
                 step += 1
                 # Device scalars: the meter syncs once per log window.
                 meter.update(step, m["sum_loss"], m["ntokens"])
@@ -197,8 +238,43 @@ class MTTrainer:
             "the image stream is not ported yet (ROADMAP module 9)")
 
     def _bt_step(self, b, lang_directions: Dict[int, int], rng):
-        raise NotImplementedError(
-            "back-translation is not ported yet (ROADMAP module 8)")
+        """Back-translation of one MassBatch: decode each row into the other
+        language with frozen weights (beam ``bt_beam_width``), then train on
+        translating back."""
+        tp = self.tp
+        pad = tp.pad_token_id()
+        lang_tok_of_row = np.asarray(b.src[:, 0])
+        # Flip each row's language token through lang_directions.
+        first_tokens = lang_tok_of_row.astype(np.int32).copy()
+        for src_tok, dst_tok in lang_directions.items():
+            first_tokens[lang_tok_of_row == src_tok] = dst_tok
+        dst_lang_types = first_tokens.copy()
+        for t in np.unique(first_tokens):
+            dst_lang_types[first_tokens == t] = tp.languages.get(
+                tp.id2token(int(t)), 0)
+
+        best, lengths = self._decode_batch(
+            b.src, b.src_mask, b.langs, first_tokens, dst_lang_types,
+            b.lengths, beam_width=self.bt_beam_width)
+
+        # The synthetic pairs: translation (closed by the separator at its
+        # length) -> original.
+        best, lengths = best.cpu().numpy(), lengths.cpu().numpy()
+        N, T = best.shape
+        trans = np.full((N, T + 1), pad, np.int32)
+        keep = np.arange(T)[None, :] < lengths[:, None]
+        trans[:, :T] = np.where(keep, best, pad)
+        trans[np.arange(N), lengths] = tp.sep_token_id()
+        batch = {
+            "src": trans, "src_mask": trans != pad,
+            "dst": b.src, "dst_mask": b.src_mask,
+            "src_langs": dst_lang_types, "dst_langs": b.langs,
+            "row_mask": b.row_mask,
+        }
+        batch = {k: torch.as_tensor(v).to(self.device)
+                 for k, v in batch.items()}
+        self.state, m = self.mt_step(self.state, batch, rng)
+        return m
 
     # ---------------- evaluation ----------------
 
@@ -280,6 +356,11 @@ class MTTrainer:
         reset_schedule(self.state.opt_state)
 
     @staticmethod
-    def lang_directions(bt_langs: List[str], tp: TextProcessor):
-        raise NotImplementedError(
-            "back-translation is not ported yet (ROADMAP module 8)")
+    def lang_directions(bt_langs: List[str],
+                        tp: TextProcessor) -> Dict[int, int]:
+        """{lang_token_id: other_lang_token_id} for exactly two languages."""
+        ids = sorted({tp.token_id(f"<{lang}>") for lang in bt_langs})
+        if len(ids) != 2:
+            raise ValueError("back-translation needs exactly two languages, "
+                             f"got {bt_langs}")
+        return {ids[0]: ids[1], ids[1]: ids[0]}

@@ -290,7 +290,8 @@ def test_loss_trajectory_and_final_parameters(accum):
 
 def test_all_masked_batch_and_refused_options():
     """n = max(n, 1): a batch whose rows are all padding gives loss 0 and a
-    finite update. use_pallas_xent is refused with a message."""
+    finite update, with the plain loss and with use_pallas_xent (once
+    refused; now the fused loss, whose masked rows get a zero gradient)."""
     cfg = tiny_config(V)
     model = Seq2Seq(cfg, param_dtype=torch.float32)
     optim = opt.build_optimizer(**OPT)
@@ -301,9 +302,14 @@ def test_all_masked_batch_and_refused_options():
         state, pstep.mt_batch_to_device(b, CPU), torch.Generator())
     assert m["sum_loss"].item() == 0.0 and m["ntokens"].item() == 1.0
     assert all(torch.isfinite(p).all() for p in model.parameters())
-    with pytest.raises(NotImplementedError, match="K5"):
-        pstep.make_mt_train_step(
-            Seq2Seq(tiny_config(V, use_pallas_xent=True)), optim)
+    fused = Seq2Seq(tiny_config(V, use_pallas_xent=True),
+                    param_dtype=torch.float32)
+    assert pstep._loss_impl(fused) is not pstep._loss_impl(model)
+    state = pstep.create_train_state(dict(fused.named_parameters()), optim)
+    state, m = pstep.make_mt_train_step(fused, optim)(
+        state, pstep.mt_batch_to_device(b, CPU), torch.Generator())
+    assert m["sum_loss"].item() == 0.0 and m["ntokens"].item() == 1.0
+    assert all(torch.isfinite(p).all() for p in fused.parameters())
 
 
 def test_fp32_masters_with_bf16_compute_and_dropout():

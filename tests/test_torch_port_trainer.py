@@ -11,7 +11,8 @@ tiny size.
 - ``cli.train_mt`` -> ``cli.translate`` through files, the checkpoint the
   port trained translated identically by the JAX CLI, and ``--pretrained
   --cont`` resuming with the optimizer state;
-- flags whose path is not ported stop the run with the ROADMAP module named;
+- flags whose path is not ported stop the run with the ROADMAP module named,
+  and the flags of the MASS and back-translation phases are accepted;
 - the training CLI runs with jax, flax, optax and the JAX package impossible
   to import.
 """
@@ -32,7 +33,7 @@ from imagetranslate_tpu.data.loader import MTBatcher as JaxMTBatcher
 from imagetranslate_tpu.text.processor import TextProcessor as JaxTextProcessor
 from imagetranslate_tpu.utils import metrics as jmetrics
 from imagetranslate_tpu_torch.data import binarize
-from imagetranslate_tpu_torch.data.loader import MTBatcher
+from imagetranslate_tpu_torch.data.loader import MassBatcher, MTBatcher
 from imagetranslate_tpu_torch.models.config import tiny_config
 from imagetranslate_tpu_torch.text.processor import TextProcessor
 from imagetranslate_tpu_torch.train import checkpoint as ckpt
@@ -212,19 +213,36 @@ def test_trainer_refuses_what_is_not_ported(corpus, tmp_path):
         with pytest.raises(NotImplementedError, match="module 14"):
             MTTrainer(cfg, tp, device="cpu", **kw)
     trainer = _trainer(tp)
-    with pytest.raises(NotImplementedError, match="module 8"):
-        trainer.train_epoch(0, str(tmp_path), mass_batcher=[1])
-    with pytest.raises(NotImplementedError, match="module 8"):
-        trainer.train_epoch(0, str(tmp_path), fine_tune=True)
     with pytest.raises(NotImplementedError, match="module 9"):
         trainer.train_epoch(0, str(tmp_path), img_batcher=[1])
-    with pytest.raises(NotImplementedError, match="module 8"):
-        trainer._bt_step(None, {}, None)
     with pytest.raises(NotImplementedError, match="module 9"):
         trainer._img_step(None, "", None)
-    with pytest.raises(NotImplementedError, match="module 8"):
-        MTTrainer.lang_directions(["aa", "bb"], tp)
     assert trainer.train_epoch(3, str(tmp_path)) == 3    # no stream
+    assert trainer.train_epoch(3, str(tmp_path), fine_tune=True) == 3
+
+
+def test_trainer_runs_the_mass_and_bt_streams(corpus, tmp_path):
+    """What the trainer once refused (ROADMAP module 8): a MASS stream, the
+    fine-tune phase and lang_directions run."""
+    d, tp = corpus
+    mono = [(ex[0], 0) for ex in binarize.load_mt(str(d / "dev.mt"))]
+    mono += [(ex[1], 1) for ex in binarize.load_mt(str(d / "dev.mt"))]
+    mono.sort(key=lambda e: len(e[0]))
+    mass = MassBatcher(mono, pad_id=tp.pad_token_id(), max_batch=400)
+    trainer = _trainer(tp)
+    path = str(tmp_path / "m")
+    kw = dict(eval_every=10 ** 9, save_every=10 ** 9, log_every=10 ** 9)
+    assert trainer.train_epoch(0, path, mass_batcher=mass, **kw) == len(mass)
+    dirs = MTTrainer.lang_directions(["aa", "bb"], tp)
+    aa, bb = tp.token_id("<aa>"), tp.token_id("<bb>")
+    assert dirs == {aa: bb, bb: aa}
+    with pytest.raises(ValueError, match="exactly two"):
+        MTTrainer.lang_directions(["aa"], tp)
+    with pytest.raises(ValueError, match="lang_directions"):
+        trainer.train_epoch(0, path, mass_batcher=mass, fine_tune=True)
+    m = trainer._bt_step(mass.batches[0], dirs, trainer.rng)
+    assert torch.isfinite(m["sum_loss"]) and m["ntokens"].item() > 0
+    assert trainer.state.step == len(mass) + 1
 
 
 def _train_args(d, model, *extra):
@@ -294,14 +312,12 @@ def test_cli_resumes_with_optimizer_state(corpus, trained, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags,module", [
-    (["--mass_train", "x"], "module 8"), (["--fstep", "5"], "module 8"),
-    (["--langs", "aa,bb"], "module 8"), (["--train", "x"], "module 9"),
+    (["--train", "x"], "module 9"),
     (["--image", "x"], "module 9"), (["--lm", "x"], "module 10"),
     (["--moe-experts", "4"], "module 13"), (["--mesh", "2x1"], "module 14"),
     (["--pp-microbatches", "2"], "module 14"), (["--zero"], "module 14"),
     (["--pack"], "module 15"), (["--profile", "x"], "module 15"),
-    (["--ignore-mt-mass"], "module 8"), (["--mask", "0.3"], "module 8"),
-    (["--bt-beam", "2"], "module 8"), (["--mmode", "masked"], "module 9"),
+    (["--mmode", "masked"], "module 9"),
     (["--img_capacity", "40"], "module 9"), (["--max-image", "8"], "module 9"),
     (["--img-depth", "2"], "module 9"), (["--moe-top-k", "1"], "module 13"),
 ])
@@ -310,6 +326,48 @@ def test_cli_refuses_unported_flags(corpus, tmp_path, flags, module):
 
     with pytest.raises(SystemExit, match=module):
         main(_train_args(corpus[0], tmp_path / "m", "--step", "1", *flags))
+    assert not (tmp_path / "m").exists()
+
+
+@pytest.mark.parametrize("flags", [
+    ["--mass_train", "PREFIX"], ["--fstep", "2", "--langs", "aa,bb"],
+    ["--langs", "aa,bb"], ["--ignore-mt-mass"], ["--mask", "0.3"],
+    ["--bt-beam", "2"],
+])
+def test_cli_accepts_the_umt_flags(corpus, tmp_path, flags):
+    """The flags of the MASS and back-translation phases, once refused
+    (ROADMAP module 8), train: with --mass_train two steps take one MASS and
+    one MT batch; --fstep adds back-translation steps."""
+    from imagetranslate_tpu_torch.cli.train_mt import main
+
+    d, tp = corpus
+    if "--mass_train" in flags:
+        prefix = str(tmp_path / "mono")
+        assert binarize.write_mt(tp, prefix, str(d / "dev.src"),
+                                 tp.token_id("<aa>")) == 12
+        flags = ["--mass_train", prefix]
+    model = tmp_path / "m"
+    main(_train_args(d, model, "--step", "2", *flags))
+    want = 4 if "--fstep" in flags else 2
+    assert ckpt.load_checkpoint(str(model) + ".latest")[2]["step"] == want
+
+
+@pytest.mark.parametrize("flags,message", [
+    (["--embed", "50"], "multiple of the model's 12"),
+    (["--fstep", "3"], "exactly two"),
+    (["--fstep", "3", "--langs", "aa"], "exactly two"),
+    (["--fstep", "3", "--langs", "aa,zz"], "no language token"),
+    (["--mass_train", "no-such-prefix"], "matched no examples"),
+])
+def test_cli_names_what_is_wrong(corpus, tmp_path, flags, message):
+    from imagetranslate_tpu_torch.cli.train_mt import main
+
+    args = _train_args(corpus[0], tmp_path / "m", "--step", "1")
+    if "--embed" in flags:
+        args[args.index("--embed") + 1] = flags[1]
+        flags = []
+    with pytest.raises(SystemExit, match=message):
+        main(args + list(flags))
     assert not (tmp_path / "m").exists()
 
 
