@@ -3,8 +3,10 @@ H100: builds the CUDA kernels from this checkout, holds each against its plain
 PyTorch version on the card, drives the serving path at BERT-base width
 (encode -> KV-cached beam search, then the translate CLI end to end), the
 supervised training path at the same width (MTTrainer steps, then the training
-CLI end to end) and the unsupervised-MT path (MASS steps, then
-back-translation steps, through MTTrainer and through the training CLI), and
+CLI end to end), the unsupervised-MT path (MASS steps, then
+back-translation steps, through MTTrainer and through the training CLI) and
+the long-sequence path (a 2048-token source through encode and beam search,
+the masked LM and the long-document LM through their trainers and CLIs), and
 checks that each path went through its kernels.
 
 Run from the root of a checkout, with one visible CUDA card:
@@ -82,12 +84,56 @@ Phases, each fatal on failure:
                cli.translate.main on the result; the same launch and shape
                checks as phase 10.
 
+ 12. kernel  — the flash attention kernel (runs between phases 9 and 7) vs its
+     (K3)      plain version (the same tile-by-tile arithmetic in tensor ops)
+               and, on a sample of query rows, vs an fp64 computation, with a
+               padding bias (rows padded to random lengths, one row wholly
+               padded, the bias a view of a wider buffer) and without one:
+               B=8, T=S=2048, H=12, D=64; S = 1024, 1032, 1536, 4096, 5000;
+               T=64 and T=8 against S=2048; a ragged T=2000; D=32 and D=128;
+               the shape phase 13's CLI batches have; bf16 outputs within
+               2^-7 of the plain result's largest magnitude and 2^-6 of the
+               fp64 one's. Outside the gate (fp32 on the card, a per-query
+               bias, T < 8) the dispatch takes the plain attention and the
+               wrapper raises, as it does on strides or dtypes the kernel
+               cannot read; the gradient behind the kernel equals the plain
+               attention's. Times at B=8, T=S=2048 of the kernel, its plain
+               version, the plain attention and
+               F.scaled_dot_product_attention (a yardstick, never on the path).
+ 13. long    — BERT-base with 2048 positions, bf16: encode + beam_search
+     source    (beam 4, L=2048) on B=8 sources of 2048 tokens: K3 launches = 6
+               (one per encoder layer, none in the decode), K2 launches = the
+               decode steps. Then the encode alone with use_pallas_attention
+               on and off, blocks in the order on, off, off, on: tokens/s of
+               each, outputs within 2^-4 of the largest value. Then 6 lines of
+               1025..1040 tokens through cli.translate.main (the tokenizer
+               cuts a line at 512 tokens: no K3 launch) and, whole, through
+               the CLI's build_model + translate_batches: 6 K3 launches per
+               batch.
+ 14. lm      — LMTrainer at the LM CLI's default width (768/12/3072, 6 layers,
+               512 positions, V=32000, fp32 masters, bf16 compute) over
+               generated block files: train_epoch of 10 steps at B=16, T=512
+               (the masked-budget projection) with a validation and both
+               checkpoint slots, then 8 timed steps; the loss falls, every
+               parameter changes, no K1/K3/K5 launch. Then a 2048-position LM
+               of the same width: validate_and_save on two dev batches of
+               B=8, T=2048: 6 K3 launches per batch, dev loss within 5e-4
+               relative of the same evaluation with use_pallas_attention off.
+               Then LongDocTrainer.from_options at preset 3 (hidden 256, 6
+               layers, 4096 positions): train_epoch of 6 steps at B=8, T=4096
+               with a validation, then 6 timed steps.
+ 15. lm cli  — documents -> cli.create_batches -> cli.train_lm -> cli.train_lm
+               --reformer --size 1 -> cli.train_mt --lm (the weights start
+               from the LM's) -> cli.translate, through files.
+
 ``--profile`` adds a phase after 4 (one more decode) and one after 7 (three
 more train steps) under torch.profiler, printing the device time by operation
 and the device's busy share of that same profiled run (the union of kernel
 intervals over its wall time), then three more train steps with input shapes
-recorded, printing the dtype casts' (aten::copy_) device time by shape, and
-three steps of the paired reading's fused-cross-entropy arm.
+recorded, printing the dtype casts' (aten::copy_) device time by shape,
+three steps of the paired reading's fused-cross-entropy arm, five long
+encodes with K3 and five with the plain attention (phase 13), and three MLM
+steps (phase 14).
 
 The second-to-last line is a JSON object describing each kernel, with its
 launches on its main path, its times, and its bound: the larger of the bytes
@@ -101,6 +147,7 @@ the script exits non-zero and prints no result.
 from __future__ import annotations
 
 import contextlib
+import itertools
 import json
 import os
 import subprocess
@@ -925,6 +972,194 @@ def phase_kernel_xent(extra_shapes=()):
             entry("kernel_bwd", worst["bwd"], bwd_bound, lib_bwd), checked)
 
 
+FLASH_TOL = 2.0 ** -7    # bf16 outputs: two bf16 ulps of the largest value
+FLASH_TOL64 = 2.0 ** -6  # against fp64: the bf16 rounding of p and of the output
+
+
+def phase_kernel_flash(extra_shapes=()):
+    """Phase 12: the flash attention kernel against its plain version (the
+    same tile-by-tile arithmetic in tensor ops) and, on a sample of rows,
+    against an fp64 computation; its times. ``extra_shapes``: (B, T, S, H, D,
+    has_bias) of the later phases, checked like the rest. Returns the kernel
+    entry and the set of shapes checked."""
+    import torch
+    import torch.nn.functional as F
+
+    from imagetranslate_tpu_torch.ops import flash_attention as fa
+    from imagetranslate_tpu_torch.ops.attention import (
+        attention_scale,
+        dot_product_attention,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    worst = 0.0
+    checked = set()
+
+    def inputs(B, T, S, H, D, has_bias):
+        q, k, v = (torch.randn(B, n, H, D, generator=gen,
+                               device="cuda").bfloat16() for n in (T, S, S))
+        if not has_bias:
+            return q, k, v, None
+        # Rows padded to a random length (about half on average), one row
+        # whose every key is padded; the bias arrives as a view of a wider
+        # buffer, as a slice of a batch's mask does.
+        lengths = torch.randint(1, S + 1, (B,), generator=gen, device="cuda")
+        lengths[0] = 0
+        lengths[-1] = S
+        keep = torch.arange(S, device="cuda")[None, :] < lengths[:, None]
+        wide = torch.zeros((B, 1, 1, S + 3), device="cuda")
+        wide[..., :S] = (1.0 - keep.float())[:, None, None, :] * -10000.0
+        return q, k, v, wide[..., :S]
+
+    def fp64_rows(q, k, v, bias, rows):
+        """softmax(q k^T scale + bias) v in fp64 for query rows ``rows``."""
+        q64 = q[:, rows].double().permute(0, 2, 1, 3)
+        s = torch.matmul(q64, k.double().permute(0, 2, 3, 1))
+        s = s * attention_scale(q.shape[-1])
+        if bias is not None:
+            s = s + bias.double()
+        out = torch.matmul(torch.softmax(s, dim=-1),
+                           v.double().permute(0, 2, 1, 3))
+        return out.permute(0, 2, 1, 3)
+
+    def case(B, T, S, H, D, has_bias):
+        nonlocal worst
+        q, k, v, bias = inputs(B, T, S, H, D, has_bias)
+        if not fa.flash_supported(q, k, bias):
+            raise AssertionError(f"gate refuses {(B, T, S, H, D, has_bias)}")
+        out = fa.flash_attention(q, k, v, bias)
+        torch.cuda.synchronize()
+        want = fa.flash_attention_reference(q, k, v, bias)
+        if out.shape != want.shape or out.dtype != torch.bfloat16:
+            raise AssertionError(f"K3 output {out.shape} {out.dtype}")
+        if not torch.isfinite(out).all():
+            raise AssertionError(f"K3 output not finite at {(B, T, S, H, D)}")
+        err = (out.float() - want.float()).abs().max().item()
+        scale = want.float().abs().max().item()
+        rows = torch.unique(torch.randint(0, T, (16,), generator=gen,
+                                          device="cuda"))
+        exact = fp64_rows(q, k, v, bias, rows)
+        err64 = (out[:, rows].double() - exact).abs().max().item()
+        scale64 = exact.abs().max().item()
+        if err > FLASH_TOL * scale or err64 > FLASH_TOL64 * scale64:
+            raise AssertionError(
+                f"K3 at {(B, T, S, H, D)} bias={has_bias}: err vs plain "
+                f"{err:.3g} (limit {FLASH_TOL * scale:.3g}), vs fp64 "
+                f"{err64:.3g} (limit {FLASH_TOL64 * scale64:.3g})")
+        worst = max(worst, err)
+        checked.add((B, T, S, H, D, has_bias))
+        log(f"[kernel K3] B={B} T={T} S={S} H={H} D={D} "
+            f"{'padding bias' if has_bias else 'no bias'}: max abs err vs "
+            f"plain {err:.3g} ({err / scale:.2e} of max), vs fp64 on "
+            f"{len(rows)} rows {err64:.3g} ({err64 / scale64:.2e} of max)")
+
+    shapes = [
+        (8, 2048, 2048, 12, 64),     # the long-source encode / LM dev batch
+        (2, 1024, 1024, 12, 64),     # the dispatch's shortest S
+        (2, 1032, 1032, 4, 64),      # S not a multiple of the key tile
+        (2, 1536, 1536, 4, 64),
+        (1, 4096, 4096, 4, 64),
+        (1, 5000, 5000, 2, 64),      # ragged in both
+        (2, 64, 2048, 12, 64),       # T != S
+        (2, 8, 2048, 12, 64),        # the fewest queries the gate takes
+        (2, 2000, 2048, 4, 64),      # a ragged last query tile
+        (2, 1100, 1100, 4, 32),      # D = 32
+        (2, 1100, 1100, 4, 128),     # D = 128
+    ]
+    for shape in shapes:
+        for has_bias in (True, False):
+            case(*shape, has_bias)
+    for shape in extra_shapes:
+        if shape not in checked:
+            case(*shape)
+
+    # Outside the gate: the dispatch takes the plain attention (fp32 on the
+    # card, a per-query bias, T < 8), and the wrapper raises before a launch.
+    q, k, v, bias = inputs(2, 16, 1024, 2, 64, True)
+    launches = fa.LAUNCHES
+    per_query = bias.expand(2, 1, 16, 1024)
+    for args in ((q.float(), k.float(), v.float(), bias),
+                 (q, k, v, per_query), (q[:, :4], k, v, bias)):
+        if fa.flash_supported(args[0], args[1], args[3]):
+            raise AssertionError("the gate takes a call outside its rules")
+        got = dot_product_attention(*args, use_pallas=True)
+        want = dot_product_attention(*args, use_pallas=False)
+        if not torch.equal(got, want):
+            raise AssertionError("a call outside the gate did not take the "
+                                 "plain attention")
+        try:
+            fa.flash_attention(*args)
+        except (ValueError, TypeError):
+            continue
+        raise AssertionError("a call outside the gate was launched")
+    for bad in ((q.transpose(1, 2).contiguous().transpose(1, 2), k, v, bias),
+                (q, k, v, bias.double()),
+                (q, k, v, torch.zeros((2, 1, 1, 2048), device="cuda")[..., ::2])):
+        try:
+            fa.flash_attention(*bad)
+        except (ValueError, TypeError):
+            continue
+        raise AssertionError("strides or dtypes the kernel cannot read were "
+                             "launched")
+    if fa.LAUNCHES != launches:
+        raise AssertionError("a refused call counted as a launch")
+    # Through the dispatch, and the gradient of the plain attention behind it.
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out = dot_product_attention(*leaves, bias, use_pallas=True)
+    g = torch.randn(out.shape, generator=gen, device="cuda").bfloat16()
+    grads = torch.autograd.grad(out, leaves, g)
+    plain = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    pgrads = torch.autograd.grad(
+        dot_product_attention(*plain, bias, use_pallas=False), plain, g)
+    if fa.LAUNCHES != launches + 1:
+        raise AssertionError("the dispatch did not launch K3")
+    for name, a, b in zip("qkv", grads, pgrads):
+        if not torch.equal(a, b):
+            raise AssertionError(f"d{name} behind K3 is not the plain "
+                                 "attention's gradient")
+    log("[kernel K3] outside the gate the dispatch takes the plain attention "
+        "and the wrapper raises; the gradient behind the kernel is the plain "
+        "attention's")
+
+    # Times at the long-source shape, cold L2, plain-kernel-kernel-plain.
+    B, T, S, H, D = 8, 2048, 2048, 12, 64
+    q, k, v, bias = inputs(B, T, S, H, D, True)
+    runs = {"plain": [], "kernel": [], "attention": []}
+    for name in ("plain", "kernel", "kernel", "plain"):
+        if name == "kernel":
+            runs["kernel"].append(_time_ms(
+                lambda: fa._launch(q, k, v, bias), iters=20))
+        else:
+            runs["plain"].append(_time_ms(
+                lambda: fa.flash_attention_reference(q, k, v, bias), iters=3))
+            # What the dispatch runs with use_pallas_attention off.
+            runs["attention"].append(_time_ms(
+                lambda: dot_product_attention(q, k, v, bias), iters=5))
+    nobias_ms = _time_ms(lambda: fa._launch(q, k, v, None), iters=20)
+    # The library yardstick: one fused PyTorch call, never on the port's path.
+    qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+    mask = bias.to(torch.bfloat16).contiguous()
+    lib_ms = _time_ms(lambda: F.scaled_dot_product_attention(
+        qh, kh, vh, attn_mask=mask), iters=20)
+    lib_nomask_ms = _time_ms(lambda: F.scaled_dot_product_attention(
+        qh, kh, vh), iters=20)
+    bnd = bound(2 * B * H * D * (2 * T + 2 * S) + B * S * 4,
+                4.0 * B * H * T * S * D)
+    ms = sum(runs["kernel"]) / 2
+    log(f"[kernel K3] B={B} T={T} S={S} H={H} D={D} bf16, padding bias: "
+        f"kernel {runs['kernel']} ms ({4e-9 * B * H * T * S * D / ms:.1f} "
+        f"TFLOP/s), without a bias {nobias_ms:.4f} ms; plain version (tile "
+        f"by tile) {runs['plain']} ms; plain attention (fp32 scores stored) "
+        f"{runs['attention']} ms; SDPA with the mask {lib_ms:.4f} ms, "
+        f"without {lib_nomask_ms:.4f} ms; bound {bnd[0]:.4f} ms by {bnd[1]}")
+    entry = {"max_abs_err": worst, "ms": ms,
+             "plain_ms": sum(runs["plain"]) / 2, "bound_ms": bnd[0],
+             "bound_by": bnd[1], "library_ms": lib_ms}
+    del q, k, v
+    torch.cuda.empty_cache()
+    return entry, checked
+
+
 class FullVocab:
     """The tokenizer facade MTTrainer reads (special tokens, the two language
     tokens, pad / mask / separator ids), over a 32000-entry vocabulary whose
@@ -950,6 +1185,9 @@ class FullVocab:
 
     def sep_token_id(self) -> int:
         return 4
+
+    def vocab_size(self) -> int:
+        return 32000
 
 
 class Recorder:
@@ -1476,6 +1714,558 @@ def phase_umt_cli(workdir, corpus, checked, checked_xent):
         f"{time.perf_counter() - t0:.1f} s, e.g. {hyps[0]!r}")
 
 
+@contextlib.contextmanager
+def recording_flash():
+    """Records the shapes (B, T, S, H, D, has a bias) a run gives the K3
+    kernel, in the set it yields (wrapping the module's launch function)."""
+    from imagetranslate_tpu_torch.ops import flash_attention as fa
+
+    seen = set()
+    launch = fa._launch
+
+    def wrapped(q, k, v, bias):
+        seen.add((*q.shape[:2], k.shape[1], *q.shape[2:], bias is not None))
+        return launch(q, k, v, bias)
+
+    fa._launch = wrapped
+    try:
+        yield seen
+    finally:
+        fa._launch = launch
+
+
+def require_flash(what: str, seen, checked, launches: int, want: int):
+    """K3 was launched ``want`` times, each at a shape that phase 12 held
+    against the plain version."""
+    if launches != want or not seen or seen - checked:
+        raise AssertionError(
+            f"{what}: {launches} K3 launches, want {want}, at shapes "
+            f"{sorted(seen)}, not checked by the kernel phase: "
+            f"{sorted(seen - checked)}")
+
+
+def long_config(vocab_size: int):
+    """BERT-base with 2048 positions: the long-source serving config. (A
+    source longer than the position table is an error here.)"""
+    import dataclasses
+
+    return dataclasses.replace(bert_base(vocab_size),
+                               max_position_embeddings=2048)
+
+
+LONG_B, LONG_S = 8, 2048
+LONG_CLI_LINES, LONG_CLI_S = 6, 1040   # source lines of 1025..1040 tokens
+LONG_ENC_TOL = 2.0 ** -4   # six bf16 layers after attention outputs that
+                           # agree to a bf16 ulp or two
+LM_DEV_RTOL = 5e-4         # dev loss with K3 on vs off, bf16 compute
+
+
+def long_cli_shape():
+    """The shape phase 13's translate_batches gives K3, from the port's own
+    batch arithmetic: 3 rows fit the 4000-token budget at S=1040, and a batch
+    pads up to 8 rows."""
+    from imagetranslate_tpu_torch.data.loader import _batch_rows
+
+    rows = _batch_rows(3, LONG_CLI_S, 32, 4000, 600)
+    rows = max(8, 1 << (rows - 1).bit_length())
+    return (rows, LONG_CLI_S, LONG_CLI_S, 12, 64, True)
+
+
+def phase_long_source(card, profile: bool, checked_flash):
+    """Phase 13: a long source (S >= 1024) through the serving path at full
+    width. Returns the K3 launches of its counted runs."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from imagetranslate_tpu_torch.cli import translate
+    from imagetranslate_tpu_torch.data.loader import MTBatcher
+    from imagetranslate_tpu_torch.models.seq2seq import Seq2Seq
+    from imagetranslate_tpu_torch.ops import flash_attention as fa
+    from imagetranslate_tpu_torch.ops import topk_project as tkp
+    from imagetranslate_tpu_torch.text.processor import TextProcessor
+    from imagetranslate_tpu_torch.train.checkpoint import save_params
+    from imagetranslate_tpu_torch.train.weights import random_params
+
+    device = torch.device("cuda")
+    cfg = long_config(32000)
+    model = build_model(cfg, device)
+    B, S, K = LONG_B, LONG_S, 4
+    fa.LAUNCHES = tkp.LAUNCHES = 0
+    with recording_flash() as seen:
+        _, lengths, steps, seconds = run_decode(model, B, S, K, device)
+    launches = fa.LAUNCHES
+    require_flash("long-source decode", seen, checked_flash, launches,
+                  cfg.enc_layers)
+    if tkp.LAUNCHES != steps or steps == 0:
+        raise AssertionError(f"project_topk launched {tkp.LAUNCHES} times in "
+                             f"{steps} decode steps")
+    tokens = int(lengths.sum())
+    log(f"[long source] BERT-base bf16, 2048 positions, B={B} S={S} beam={K} "
+        f"L={lengths.max().item()}: encode launched K3 {launches} times (one "
+        f"per encoder layer), the decode none; {steps} decode steps = "
+        f"{tkp.LAUNCHES} K2 launches, {tokens} tokens in {seconds:.3f} s = "
+        f"{tokens / seconds:.1f} tok/s, first call included ({card})")
+
+    # The encode alone with K3 on and off: two models over the same weights.
+    plain = Seq2Seq(dataclasses.replace(cfg, use_pallas_attention=False),
+                    device=device)
+    plain.load_state_dict(model.state_dict())
+    plain.eval()
+    rng = np.random.RandomState(SEED)
+    src = torch.as_tensor(rng.randint(5, cfg.vocab_size, (B, S))).to(device)
+    lens = torch.as_tensor(rng.randint(S // 2, S + 1, (B,))).to(device)
+    mask = torch.arange(S, device=device)[None, :] < lens[:, None]
+    langs = torch.zeros((B,), dtype=torch.int32, device=device)
+
+    def encodes(m, n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            for _ in range(n):
+                enc = m.encode(src, mask, langs)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / n, enc
+
+    _, enc_on = encodes(model, 1)
+    _, enc_off = encodes(plain, 1)
+    if enc_on.shape != (B, S, cfg.hidden_size) or not (
+            torch.isfinite(enc_on).all() and torch.isfinite(enc_off).all()):
+        raise AssertionError(f"long encode: {tuple(enc_on.shape)}, finite "
+                             f"{torch.isfinite(enc_on).all().item()}")
+    keep = mask[:, :, None]
+    diff = ((enc_on.float() - enc_off.float()).abs() * keep).max().item()
+    scale = (enc_off.float().abs() * keep).max().item()
+    if diff > LONG_ENC_TOL * scale:
+        raise AssertionError(f"long encode with K3 differs from the plain "
+                             f"attention's by {diff:.3g} (limit "
+                             f"{LONG_ENC_TOL * scale:.3g})")
+    n, secs = 5, {True: [], False: []}
+    for on in (True, False, False, True):
+        secs[on].append(encodes(model if on else plain, n)[0])
+    tps = {on: B * S / (sum(v) / 2) for on, v in secs.items()}
+    log(f"[long source] encode B={B} S={S} (rows of {S // 2}..{S} tokens), "
+        f"blocks of {n} in the order on, off, off, on: with K3 "
+        f"{[1e3 * s for s in secs[True]]} ms = {tps[True]:.1f} tok/s, plain "
+        f"attention {[1e3 * s for s in secs[False]]} ms = {tps[False]:.1f} "
+        f"tok/s; outputs differ by {diff:.3g} at most ({diff / scale:.2e} of "
+        f"the largest value, limit {LONG_ENC_TOL:.2e}) ({card})")
+    if profile:
+        _profile(lambda: (n * encodes(model, n)[0], f"{n} encodes with K3"),
+                 "long encode", card)
+        _profile(lambda: (n * encodes(plain, n)[0],
+                          f"{n} encodes, plain attention"),
+                 "long encode plain", card)
+    del model, plain, enc_on, enc_off
+    torch.cuda.empty_cache()
+
+    # The translate CLI's own functions on sources of more than 1024 tokens.
+    with tempfile.TemporaryDirectory() as workdir:
+        corpus = os.path.join(workdir, "corpus.txt")
+        with open(corpus, "w") as f:
+            f.write("\n".join(" ".join(WORDS[j] for j in rng.randint(
+                0, len(WORDS), rng.randint(2, 9))) for _ in range(400)))
+        tok = os.path.join(workdir, "tok")
+        TextProcessor().train_tokenizer([corpus], 300, tok,
+                                        {"<en>": 0, "<fa>": 1})
+        tp = TextProcessor(tok)
+        ccfg = long_config(tp.vocab_size())
+        ckpt = os.path.join(workdir, "model")
+        save_params(ckpt, ccfg, random_params(ccfg, SEED))
+        lines, examples = [], []
+        for i in range(LONG_CLI_LINES):
+            want = LONG_CLI_S - 15 + 3 * i           # 1025..1040 tokens
+            words = [WORDS[j] for j in rng.randint(0, len(WORDS), want)]
+            ids = tp.tokenize_one_line("<en> " + " ".join(words) + " </s>")
+            while len(ids) > want:                   # whole words come off
+                words.pop()
+                ids = tp.tokenize_one_line("<en> " + " ".join(words) + " </s>")
+            if not 1024 < len(ids) <= LONG_CLI_S:
+                raise AssertionError(f"a source line of {len(ids)} tokens")
+            lines.append(" ".join(words))
+            examples.append((ids, [tp.token_id("<fa>")], 0, 1))
+        inp, out = (os.path.join(workdir, n) for n in ("in.txt", "out.txt"))
+        with open(inp, "w") as f:
+            f.write("\n".join(lines) + "\n")
+        argv = ["--tok", tok, "--model", ckpt, "--input", inp, "--output",
+                out, "--src", "en", "--target", "fa", "--max_len_a", "0.1",
+                "--device", "cuda"]
+        options = translate.get_parser().parse_args(argv)
+        # From a file the tokenizer cuts a line at 512 tokens (in both
+        # packages), so cli.translate.main gives the encoder S = 512 and the
+        # dispatch takes the plain attention.
+        fa.LAUNCHES = tkp.LAUNCHES = 0
+        translate.main(argv)
+        with open(out) as f:
+            n_main = len(f.read().splitlines())
+        if n_main != LONG_CLI_LINES or fa.LAUNCHES != 0 or tkp.LAUNCHES == 0:
+            raise AssertionError(
+                f"cli.translate from a file: {n_main} lines, {fa.LAUNCHES} "
+                f"K3 and {tkp.LAUNCHES} K2 launches")
+        # Whole, the same lines go through the CLI's model loader and its
+        # decode loop (translate_batches), as a caller with its own batcher
+        # runs them.
+        t0 = time.perf_counter()
+        cli_model, _, _ = translate.build_model(options)
+        batcher = MTBatcher(examples, pad_id=tp.pad_token_id(),
+                            max_batch=options.batch,
+                            capacity_mb=options.total_capacity,
+                            max_seq_len=10000, bucket_step=options.bucket_step)
+        fa.LAUNCHES = tkp.LAUNCHES = 0
+        with recording_flash() as seen, open(out, "w") as writer:
+            translate.translate_batches(cli_model, ccfg, tp, batcher, options,
+                                        writer)
+        cli_launches = fa.LAUNCHES
+        require_flash("long-source translate_batches", seen, checked_flash,
+                      cli_launches, ccfg.enc_layers * len(batcher))
+        with open(out) as f:
+            hyps = f.read().splitlines()
+        if len(hyps) != LONG_CLI_LINES or tkp.LAUNCHES == 0:
+            raise AssertionError(f"translate_batches wrote {len(hyps)} lines "
+                                 f"with {tkp.LAUNCHES} K2 launches")
+        log(f"[long source] cli.translate from a file of {LONG_CLI_LINES} "
+            f"lines of 1025..{LONG_CLI_S} tokens: the tokenizer cuts each at "
+            f"512, 0 K3 launches; the same lines whole through build_model + "
+            f"translate_batches: {len(batcher)} batches at {sorted(seen)}, "
+            f"{cli_launches} K3 launches ({ccfg.enc_layers} per batch), "
+            f"{tkp.LAUNCHES} K2 launches, {len(hyps)} lines in "
+            f"{time.perf_counter() - t0:.1f} s")
+    return launches + cli_launches
+
+
+def write_blocks(cache_dir: str, rows: int, T: int, vocab_size: int,
+                 block_rows: int, seed: int):
+    """Document blocks as ``data.binarize.write_doc_blocks`` lays them out
+    (``N.pkl`` marshal dicts {row number: (ids, language type)} and
+    ``info.txt``), holding full rows over the whole vocabulary, ids drawn
+    with a skew (id ~ V u^3), alternating between two languages."""
+    import marshal
+
+    import numpy as np
+
+    vocab = FullVocab()
+    first = len(vocab.special_tokens)
+    rng = np.random.RandomState(seed)
+    os.makedirs(cache_dir, exist_ok=True)
+    ids = (first + (vocab_size - first)
+           * rng.rand(rows, T) ** 3).astype(np.int32)
+    ids[:, 0] = np.where(np.arange(rows) % 2 == 0, vocab.token_id("<aa>"),
+                         vocab.token_id("<bb>"))
+    ids[:, -1] = vocab.sep_token_id()
+    n_blocks = 0
+    for start in range(0, rows, block_rows):
+        block = {i: (ids[i].tolist(), i % 2)
+                 for i in range(start, min(rows, start + block_rows))}
+        with open(os.path.join(cache_dir, f"{n_blocks}.pkl"), "wb") as f:
+            marshal.dump(block, f)
+        n_blocks += 1
+    with open(os.path.join(cache_dir, "info.txt"), "w") as f:
+        f.write(f"{block_rows}\t{rows}\t{n_blocks}")
+
+
+def _lm_epoch(trainer, workdir, name, B, T, n_steps, n_timed, card):
+    """``train_epoch`` over generated blocks (with a dev set: one validation
+    and both checkpoint slots), then ``n_timed`` more steps timed alone.
+    Returns the per-step losses."""
+    import torch
+
+    from imagetranslate_tpu_torch.data.loader import DocBlockDataset
+    from imagetranslate_tpu_torch.train.checkpoint import load_checkpoint
+    from imagetranslate_tpu_torch.train.step import lm_batch_to_device
+
+    V = trainer.cfg.vocab_size
+    train_dir, dev_dir = (os.path.join(workdir, f"{name}_{n}")
+                          for n in ("train", "dev"))
+    write_blocks(train_dir, B * n_steps, T, V, 2 * B, SEED)
+    write_blocks(dev_dir, B, T, V, B, SEED + 1)
+    train, dev = DocBlockDataset(train_dir), DocBlockDataset(dev_dir,
+                                                             load_all=True)
+    before = {k: v.clone() for k, v in trainer.model.state_dict().items()}
+    metrics, inner = [], trainer.step_fn
+
+    def collecting(state, batch, rng):
+        state, m = inner(state, batch, rng)
+        metrics.append(m)
+        return state, m
+
+    trainer.step_fn = collecting
+    slot = os.path.join(workdir, f"{name}_model")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step = trainer.train_epoch(0, slot, train, dev, B, n_steps,
+                               eval_every=10 ** 9)
+    torch.cuda.synchronize()
+    t_epoch = time.perf_counter() - t0
+    for path in (slot, slot + ".latest"):
+        _, opt_tree, meta = load_checkpoint(path, with_opt_state=True)
+        if meta["step"] != n_steps or int(opt_tree["1"]["count"]) != n_steps:
+            raise AssertionError(f"{name}: checkpoint {path} at {meta}")
+    staged = [lm_batch_to_device(b, trainer.device)
+              for b in itertools.islice(train.batches(B, pad_id=0), 4)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(n_timed):
+        trainer.state, _ = trainer.step_fn(trainer.state,
+                                           staged[i % len(staged)],
+                                           trainer.rng)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / n_timed
+    trainer.step_fn = inner
+    losses = [(m["sum_loss"] / m["ntokens"]).item() for m in metrics]
+    after = trainer.model.state_dict()
+    changed = sum(not torch.equal(before[k], after[k]) for k in before)
+    if (step != n_steps or trainer.state.step != n_steps + n_timed
+            or not all(x == x and abs(x) != float("inf") for x in losses)
+            or changed != len(before)
+            or not all(torch.isfinite(v).all() for v in after.values())
+            or not trainer.best_dev_loss < float("inf")):
+        raise AssertionError(
+            f"{name}: {step} epoch steps, state at {trainer.state.step}, "
+            f"losses {losses}, {changed} of {len(before)} parameters "
+            f"changed, dev loss {trainer.best_dev_loss}")
+    masked = sum(int(m["ntokens"].item()) for m in metrics[-n_timed:])
+    log(f"[{name}] B={B} T={T}: train_epoch of {n_steps} steps + one "
+        f"validation + both checkpoint slots in {t_epoch:.2f} s; then "
+        f"{n_timed} steps at {ms:.1f} ms/step = {1e3 * B * T / ms:.1f} "
+        f"positions/s ({masked / n_timed:.0f} masked targets a step); loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}; dev loss "
+        f"{trainer.best_dev_loss:.4f}; {changed}/{len(before)} parameters "
+        f"changed ({card})")
+    return losses
+
+
+def phase_lm(card, profile: bool, checked_flash):
+    """Phase 14: the MLM trainer at the CLI's default width, dev evaluation
+    at 2048 positions through K3, and the long-document trainer at preset 3.
+    Returns the K3 launches of the dev evaluation."""
+    import argparse
+    import dataclasses
+
+    import torch
+
+    from imagetranslate_tpu_torch.data.loader import DocBlockDataset
+    from imagetranslate_tpu_torch.models.config import Seq2SeqConfig
+    from imagetranslate_tpu_torch.ops import flash_attention as fa
+    from imagetranslate_tpu_torch.ops import train_attention as ta
+    from imagetranslate_tpu_torch.ops import xent
+    from imagetranslate_tpu_torch.train.checkpoint import load_config
+    from imagetranslate_tpu_torch.train.step import lm_batch_to_device
+    from imagetranslate_tpu_torch.train.trainer_lm import LMTrainer
+    from imagetranslate_tpu_torch.train.trainer_longdoc import LongDocTrainer
+
+    device = torch.device("cuda")
+    vocab = FullVocab()
+    # What cli.train_lm builds from its defaults, at the full vocabulary.
+    cfg = Seq2SeqConfig(vocab_size=32000, num_languages=2, hidden_size=768,
+                        intermediate_size=3072, enc_layers=6, dropout=RATE,
+                        attention_dropout=RATE, dtype="bfloat16")
+    with tempfile.TemporaryDirectory() as workdir:
+        # B * T = 8192: the masked-budget projection.
+        B, T = 16, 512
+        counters = (fa, "LAUNCHES"), (ta, "FWD_LAUNCHES"), (xent,
+                                                           "FWD_LAUNCHES")
+        for mod, name in counters:
+            setattr(mod, name, 0)
+        trainer = LMTrainer(cfg, vocab, lr=5e-4, warmup=8, seed=SEED,
+                            device=device)
+        masters = {p.dtype for p in trainer.model.parameters()}
+        if masters != {torch.float32}:
+            raise AssertionError(f"master parameters are {masters}")
+        torch.cuda.reset_peak_memory_stats()
+        losses = _lm_epoch(trainer, workdir, "lm", B, T, 10, 8, card)
+        if not sum(losses[-3:]) / 3 < sum(losses[:3]) / 3 - 0.05:
+            raise AssertionError(f"the MLM loss did not fall: {losses}")
+        if any(getattr(mod, name) for mod, name in counters):
+            raise AssertionError("an MLM step at T=512 launched K1, K3 or K5")
+        log(f"[lm] BERT-base LM (768/12/3072, 6 layers, 512 positions, "
+            f"V=32000, fp32 masters / bf16 compute, dropout {RATE}), budget "
+            f"projection; peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; no K1, "
+            f"K3 or K5 launch (plain dropout attention at S=512, plain NLL)")
+        if profile:
+            staged = [lm_batch_to_device(b, device)
+                      for b in itertools.islice(DocBlockDataset(os.path.join(
+                          workdir, "lm_train")).batches(B, pad_id=0), 3)]
+
+            def three():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for b in staged:
+                    trainer.state, _ = trainer.step_fn(trainer.state, b,
+                                                       trainer.rng)
+                torch.cuda.synchronize()
+                return time.perf_counter() - t0, "3 MLM steps"
+
+            _profile(three, "lm train", card)
+        del trainer
+        torch.cuda.empty_cache()
+
+        # Dev evaluation of a 2048-position LM of the same width: K3.
+        B, T = LONG_B, LONG_S
+        long_cfg = dataclasses.replace(cfg, max_position_embeddings=T)
+        dev_dir = os.path.join(workdir, "dev2048")
+        write_blocks(dev_dir, 2 * B, T, cfg.vocab_size, B, SEED + 2)
+        dev = DocBlockDataset(dev_dir, load_all=True)
+        trainer = LMTrainer(long_cfg, vocab, seed=SEED, device=device)
+        slot = os.path.join(workdir, "lm2048")
+        fa.LAUNCHES = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with recording_flash() as seen:
+            loss_on = trainer.validate_and_save(slot, dev, B)
+        t_on = time.perf_counter() - t0
+        dev_launches = fa.LAUNCHES
+        require_flash("lm dev evaluation", seen, checked_flash, dev_launches,
+                      long_cfg.enc_layers * 2)
+        if load_config(slot).max_position_embeddings != T:
+            raise AssertionError("the best slot was not written")
+        plain = LMTrainer(
+            dataclasses.replace(long_cfg, use_pallas_attention=False), vocab,
+            seed=SEED, device=device, params=trainer.params_tree())
+        plain.best_dev_loss = -1.0                      # nothing is saved
+        t0 = time.perf_counter()
+        loss_off = plain.validate_and_save(slot, dev, B)
+        t_off = time.perf_counter() - t0
+        if (fa.LAUNCHES != dev_launches or not loss_on == loss_on
+                or abs(loss_on - loss_off) > LM_DEV_RTOL * abs(loss_off)):
+            raise AssertionError(
+                f"lm dev loss with K3 {loss_on} and with the plain attention "
+                f"{loss_off} (rtol {LM_DEV_RTOL}); {fa.LAUNCHES} launches")
+        log(f"[lm] dev evaluation at 2048 positions, 2 batches of B={B} "
+            f"T={T}: {dev_launches} K3 launches ({long_cfg.enc_layers} per "
+            f"batch); dev loss {loss_on:.5f} with K3 (validate_and_save with "
+            f"the checkpoint written: {t_on:.2f} s), {loss_off:.5f} with the "
+            f"plain attention ({t_off:.2f} s, nothing saved); relative "
+            f"difference {abs(loss_on - loss_off) / abs(loss_off):.2e}, "
+            f"limit {LM_DEV_RTOL:.0e} ({card})")
+        del trainer, plain
+        torch.cuda.empty_cache()
+
+        # The long-document LM as cli.train_lm --reformer --size 3 builds it.
+        options = argparse.Namespace(
+            model_size=3, dropout=RATE, dtype="bfloat16", learning_rate=5e-4,
+            warmup=8, clip=1.0, mask_prob=0.15)
+        trainer = LongDocTrainer.from_options(options, vocab, device=device)
+        lcfg = trainer.cfg
+        if (lcfg.hidden_size, lcfg.enc_layers, lcfg.max_position_embeddings,
+                lcfg.vocab_size) != (256, 6, 4096, 32000):
+            raise AssertionError(f"longdoc preset 3 built {lcfg}")
+        torch.cuda.reset_peak_memory_stats()
+        _lm_epoch(trainer, workdir, "longdoc", 8, 4096, 6, 6, card)
+        log(f"[longdoc] preset 3 (256/2 heads/512, 6 layers, 4096 positions, "
+            f"V=32000), local block attention in plain tensor code (no "
+            f"kernel of its own in either package); peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+        del trainer
+        torch.cuda.empty_cache()
+    return dev_launches
+
+
+def phase_lm_cli(workdir, corpus):
+    """Phase 15: documents -> cli.create_batches -> cli.train_lm ->
+    cli.train_lm --reformer -> cli.train_mt --lm -> cli.translate, through
+    files, on the card at the CLIs' default width."""
+    from imagetranslate_tpu_torch.cli.create_batches import (
+        main as create_batches_main,
+    )
+    from imagetranslate_tpu_torch.cli.train_lm import main as train_lm_main
+    from imagetranslate_tpu_torch.cli.train_mt import main as train_main
+    from imagetranslate_tpu_torch.cli.translate import main as translate_main
+    from imagetranslate_tpu_torch.data.binarize import write_mt
+    from imagetranslate_tpu_torch.data.loader import DocBlockDataset
+    from imagetranslate_tpu_torch.ops import topk_project as tkp
+    from imagetranslate_tpu_torch.ops import train_attention as ta
+    from imagetranslate_tpu_torch.train.checkpoint import (
+        load_checkpoint,
+        load_config,
+        load_params,
+    )
+
+    tok, _, lines, tp = corpus
+    t0 = time.perf_counter()
+    docs = os.path.join(workdir, "docs.txt")
+    with open(docs, "w") as f:                     # 12 sentences a document
+        for i in range(0, len(lines), 12):
+            lang = "en" if (i // 12) % 2 == 0 else "fa"
+            f.write(f"<{lang}> " + " </s> ".join(lines[i:i + 12])
+                    + " </s>\n")
+    blocks = os.path.join(workdir, "blocks")
+    create_batches_main(["--data", docs, "--cache", blocks, "--tok", tok,
+                         "--seq_len", "128", "--block", "16"])
+    data = DocBlockDataset(blocks)
+    if len(data) < 16 or data.file_count < 2 or len(data[0]) != 128:
+        raise AssertionError(f"create_batches wrote {len(data)} rows in "
+                             f"{data.file_count} blocks")
+    lm, longdoc = (os.path.join(workdir, n) for n in ("lm", "longdoc"))
+    steps = 4
+    common = ["--tok", tok, "--train", blocks, "--dev", blocks, "--step",
+              str(steps), "--batch", "8", "--lr", "0.001", "--warmup", "10",
+              "--device", "cuda"]
+    train_lm_main(["--model", lm, *common])
+    train_lm_main(["--model", longdoc, "--reformer", "--size", "1", *common])
+    for path, want in ((lm, (768, 6, 512)), (longdoc, (64, 4, 4096))):
+        cfg = load_config(path)
+        _, opt_tree, meta = load_checkpoint(path, with_opt_state=True)
+        got = (cfg.hidden_size, cfg.enc_layers, cfg.max_position_embeddings)
+        if (got != want or meta["step"] != steps
+                or int(opt_tree["1"]["count"]) != steps
+                or not meta["best_metric"] < float("inf")):
+            raise AssertionError(f"train_lm checkpoint {path}: {got}, {meta}")
+    mt = os.path.join(workdir, "lm_train.mt")
+    write_mt(tp, mt, os.path.join(workdir, "en.txt"), tp.token_id("<en>"),
+             os.path.join(workdir, "fa.txt"), tp.token_id("<fa>"))
+    model = os.path.join(workdir, "lm_mt_model")
+    ta.FWD_LAUNCHES = ta.BWD_LAUNCHES = 0
+    train_main(["--tok", tok, "--model", model, "--train_mt", mt, "--lm", lm,
+                "--dec", "3", "--step", str(steps), "--lr", "0.0001",
+                "--warmup", "10", "--device", "cuda"])
+    fwd, bwd = ta.FWD_LAUNCHES, ta.BWD_LAUNCHES
+    if not (fwd == bwd == 12 * steps):
+        raise AssertionError(f"train_mt --lm: {fwd} forward and {bwd} "
+                             f"backward K1 launches in {steps} steps")
+    latest = model + ".latest"
+    got = load_params(latest)["params"]
+    start = load_params(lm)["params"]
+    moved = {}
+    for name, a, b in (
+            ("word table", got["embeddings"]["word"]["embedding"],
+             start["embeddings"]["word"]["embedding"]),
+            ("encoder layer 5 FFN",
+             got["encoder"]["layers_5"]["ffn"]["output"]["kernel"],
+             start["encoder"]["layers_5"]["ffn"]["output"]["kernel"]),
+            ("output kernel", got["output_layers_0"]["proj"]["kernel"],
+             start["embeddings"]["word"]["embedding"].T),
+            ("output bias", got["output_layers_0"]["proj"]["bias"],
+             start["out_bias"])):
+        moved[name] = (a.float() - b.float()).abs().max().item()
+    # Four steps at lr 1e-4 move a weight by 4e-4 at most; a fresh init
+    # (std 0.02) would lie ~0.1 from the LM's tables.
+    if max(moved.values()) > 2e-3:
+        raise AssertionError(f"train_mt --lm did not start from the LM: "
+                             f"{moved}")
+    inp, out = (os.path.join(workdir, n) for n in ("lm_in.txt", "lm_out.txt"))
+    with open(inp, "w") as f:
+        f.write("\n".join(lines[:40]) + "\n")
+    tkp.LAUNCHES = 0
+    translate_main(["--tok", tok, "--model", latest, "--input", inp,
+                    "--output", out, "--src", "en", "--target", "fa",
+                    "--device", "cuda"])
+    with open(out) as f:
+        hyps = f.read().splitlines()
+    if len(hyps) != 40 or tkp.LAUNCHES == 0:
+        raise AssertionError(f"translate wrote {len(hyps)} lines with "
+                             f"{tkp.LAUNCHES} kernel launches")
+    log(f"[lm cli] {len(data)} rows of 128 tokens in {data.file_count} "
+        f"blocks; cli.train_lm ({steps} steps, 768 wide, 6 layers) and "
+        f"--reformer --size 1 ({steps} steps) wrote checkpoints with "
+        f"optimizer state and a dev loss; cli.train_mt --lm started from the "
+        f"LM (largest distance after {steps} steps {max(moved.values()):.2e}) "
+        f"with {fwd} + {bwd} K1 launches; translated 40 lines with "
+        f"{tkp.LAUNCHES} project_topk launches in "
+        f"{time.perf_counter() - t0:.1f} s, e.g. {hyps[0]!r}")
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "imagetranslate_tpu_torch")):
         print("chip_smoke.py must run from a checkout of the repository "
@@ -1503,6 +2293,7 @@ def main() -> int:
         cli_k1, cli_k5 = umt_cli_shapes(corpus[3].vocab_size())
         attn_fwd, attn_bwd, checked = phase_kernel_attention(cli_k1)
         xent_fwd, xent_bwd, checked_xent = phase_kernel_xent(cli_k5)
+        flash, checked_flash = phase_kernel_flash([long_cli_shape()])
         fwd_launches, bwd_launches = phase_train(card, profile, checked,
                                                  checked_xent)
         torch.cuda.empty_cache()
@@ -1511,6 +2302,10 @@ def main() -> int:
         xent_launches = phase_umt_train(card, checked, checked_xent)
         torch.cuda.empty_cache()
         phase_umt_cli(umt_dir, corpus, checked, checked_xent)
+        torch.cuda.empty_cache()
+        flash_launches = phase_long_source(card, profile, checked_flash)
+        flash_launches += phase_lm(card, profile, checked_flash)
+        phase_lm_cli(umt_dir, corpus)
     attn_src = "imagetranslate_tpu_torch/csrc/train_attention.cu"
     xent_src = "imagetranslate_tpu_torch/csrc/xent.cu"
     print(card)
@@ -1535,6 +2330,10 @@ def main() -> int:
          "source": xent_src,
          "replaces": "imagetranslate_tpu/ops/xent_pallas.py:141",
          "launches": xent_launches[1], **xent_bwd},
+        {"name": "flash_attention", "route": "cuda",
+         "source": "imagetranslate_tpu_torch/csrc/flash_attention.cu",
+         "replaces": "imagetranslate_tpu/ops/flash_attention.py:97",
+         "launches": flash_launches, **flash},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

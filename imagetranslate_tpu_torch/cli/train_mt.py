@@ -11,6 +11,9 @@ then ``--fstep`` steps of back-translation between the two ``--langs``:
     python -m imagetranslate_tpu_torch.cli.train_mt --tok TOKDIR --model OUT \
         --mass_train PREFIX --step N --fstep M --langs aa,bb [--device cuda]
 
+``--lm LMDIR`` starts the embeddings, the encoder and (when it is untied) the
+output layer from a checkpoint of ``cli.train_lm``.
+
 Checkpoints are the JAX package's directory layout, so either package resumes
 from and translates with what the other trained. A flag whose path is not
 ported yet stops the run with a message that names the ROADMAP module.
@@ -31,7 +34,6 @@ UNPORTED = {
     "max_image": ("--max-image", "the image stream: ROADMAP module 9"),
     "resnet_depth": ("--img-depth", "the image encoder: ROADMAP module 9"),
     "mm_mode": ("--mmode", "the image stream: ROADMAP module 9"),
-    "lm_path": ("--lm", "the MLM graft: ROADMAP module 10"),
     "moe_experts": ("--moe-experts", "MoE FFN: ROADMAP module 13"),
     "moe_top_k": ("--moe-top-k", "MoE FFN: ROADMAP module 13"),
     "mesh_spec": ("--mesh", "multi-device training: ROADMAP module 14"),
@@ -142,6 +144,7 @@ def main(argv=None):
     from imagetranslate_tpu_torch.train.checkpoint import (
         load_checkpoint,
         load_config,
+        load_params,
     )
     from imagetranslate_tpu_torch.train.trainer_mt import MTTrainer
     from imagetranslate_tpu_torch.train.weights import opt_state_from_flax
@@ -195,6 +198,19 @@ def main(argv=None):
         len_penalty_ratio=options.len_penalty_ratio,
         label_smoothing=0.0 if options.nll_loss else 0.1,
         device=options.device)
+
+    if options.lm_path is not None:
+        lm = load_params(options.lm_path)["params"]
+        p = dict(trainer.params_tree()["params"])
+        p["embeddings"], p["encoder"] = lm["embeddings"], lm["encoder"]
+        # An untied output layer takes the word table transposed and the
+        # MLM's bias (the MLM head is tied to the word embeddings).
+        if not cfg.tie_embed and "output_layers_0" in p:
+            p["output_layers_0"] = {"proj": {
+                "kernel": lm["embeddings"]["word"]["embedding"].T,
+                "bias": lm["out_bias"]}}
+        trainer.set_reference_params({"params": p})
+        print("Initialized encoder/embeddings/output from the MLM LM")
 
     if options.pretrained_path is not None:
         params, opt_tree, meta = load_checkpoint(

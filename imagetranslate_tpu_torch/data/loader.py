@@ -1,5 +1,6 @@
-"""Length-bucketed, fixed-shape host batching for translation and MASS (port
-of ``MTBatcher``, ``MassBatcher`` and the lexical dictionary of
+"""Length-bucketed, fixed-shape host batching for translation and MASS, and
+block-cached document rows for the LMs (port of ``MTBatcher``,
+``MassBatcher``, ``DocBlockDataset`` and the lexical dictionary of
 imagetranslate_tpu/data/loader.py).
 
 Sequence lengths round up to a bucket multiple and row counts are a
@@ -16,6 +17,8 @@ same order.
 from __future__ import annotations
 
 import dataclasses
+import marshal
+import os
 import random
 from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
@@ -233,3 +236,101 @@ class MassBatcher:
         random.Random(seed).shuffle(order)
         for i in order:
             yield self.batches[i]
+
+
+class DocBlockDataset:
+    """Block-cached random access over ``write_doc_blocks`` output: ``N.pkl``
+    blocks and the ``info.txt`` header "block size, rows, blocks". Rows are
+    fixed-length vectors, so batches have one shape.
+
+    Reads the marshal dict {global row number: (ids, lang_type)} and the
+    older marshal list of bare id rows (language type 0). A block in the
+    packed record format (ITR1) is refused: not ported yet."""
+
+    def __init__(self, cache_dir: str, max_cache_size: int = 100,
+                 load_all: bool = False):
+        self.cache_dir = cache_dir
+        self.max_cache_size = max_cache_size
+        with open(os.path.join(cache_dir, "info.txt")) as fr:
+            spl = fr.read().strip().split("\t")
+        self.sentence_block_size = int(spl[0])
+        self.line_num = int(spl[1])
+        self.file_count = int(spl[2])
+        self.cache: Dict[int, list] = {}
+        self._langs: Dict[int, list] = {}
+        if load_all:
+            self._fill(0, self.file_count)
+
+    @staticmethod
+    def _normalize(block):
+        """-> (rows, langs). A dict block carries GLOBAL row numbers as keys;
+        sorted keys give the block's own order, because consecutive numbers
+        fill each block."""
+        if isinstance(block, dict):
+            block = [block[k] for k in sorted(block)]
+        rows, langs = [], []
+        for r in block:
+            if (isinstance(r, (tuple, list)) and len(r) == 2
+                    and isinstance(r[0], (list, tuple))):
+                rows.append(list(r[0]))
+                langs.append(int(r[1]))
+            else:
+                rows.append(list(r))
+                langs.append(0)
+        return rows, langs
+
+    def _fill(self, start: int, end: int):
+        self.cache = {}
+        self._langs = {}
+        for n in range(start, min(end, self.file_count)):
+            path = os.path.join(self.cache_dir, f"{n}.pkl")
+            with open(path, "rb") as fp:
+                if fp.read(4) == b"ITR1":
+                    raise NotImplementedError(
+                        f"{path} is a packed record file; that format is "
+                        "not ported yet (ROADMAP module 15)")
+                fp.seek(0)
+                block = marshal.load(fp)
+            self.cache[n], self._langs[n] = self._normalize(block)
+
+    def __len__(self):
+        return self.line_num
+
+    def _block(self, item: int) -> int:
+        file_num = item // self.sentence_block_size
+        if file_num not in self.cache:
+            self._fill(file_num, file_num + self.max_cache_size)
+        return file_num
+
+    def __getitem__(self, item: int):
+        block = self._block(item)      # may refill (replace) the cache
+        return self.cache[block][item % self.sentence_block_size]
+
+    def lang_at(self, item: int) -> int:
+        """The language TYPE id stored with the row; 0 where the block
+        carries none."""
+        block = self._block(item)
+        return self._langs[block][item % self.sentence_block_size]
+
+    def batches(self, batch_rows: int, pad_id: int = 0, lang_of=None):
+        """Fixed-shape [batch_rows, seq_len] batches as dicts of numpy arrays
+        (texts, pad_mask, langs, row_mask); the last, partial batch fills up
+        with copies of its first row, masked out by ``row_mask``. ``lang_of``:
+        fn(row ids) -> language type id, in place of the stored one."""
+        n = len(self)
+        for start in range(0, n, batch_rows):
+            idx = list(range(start, min(n, start + batch_rows)))
+            rows = [self[i] for i in idx]
+            real = len(rows)
+            while len(rows) < batch_rows:
+                rows.append(rows[0])
+                idx.append(idx[0])
+            texts = np.asarray(rows, np.int32)
+            if lang_of is not None:
+                langs = np.array([lang_of(r) for r in rows], np.int32)
+            else:
+                langs = np.array([self.lang_at(i) for i in idx], np.int32)
+            row_mask = np.zeros((batch_rows,), bool)
+            row_mask[:real] = True
+            yield {"texts": texts, "pad_mask": texts != pad_id,
+                   "langs": langs, "row_mask": row_mask}

@@ -18,10 +18,10 @@ from imagetranslate_tpu_torch.models.config import Seq2SeqConfig
 from imagetranslate_tpu_torch.models.transformer import (
     Cache,
     Decoder,
-    DropoutRng,
     Encoder,
     OutputLayer,
     causal_pad_bias,
+    dropout_stream,
     layer_norm,
     pad_bias,
     segment_bias,
@@ -112,13 +112,7 @@ class Seq2Seq(nn.Module):
              else ol.layer.weight)
         return w.to(self.cfg.compute_dtype), ol.layer.bias
 
-    def _drop(self, deterministic: bool, rng, device):
-        if deterministic:
-            return None
-        if rng is None:
-            raise ValueError("deterministic=False needs rng, the "
-                             "torch.Generator the dropout seeds come from")
-        return rng if isinstance(rng, DropoutRng) else DropoutRng(rng, device)
+    _drop = staticmethod(dropout_stream)
 
     # ---------------- encoding ----------------
 

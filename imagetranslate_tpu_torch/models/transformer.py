@@ -68,6 +68,18 @@ class DropoutRng:
         return torch.where(keep, x / (1.0 - rate), 0.0)
 
 
+def dropout_stream(deterministic: bool, rng, device) -> Optional[DropoutRng]:
+    """The ``drop`` a model's forward hands down: None when deterministic,
+    else ``rng`` itself if it is a DropoutRng, else a new one over ``rng``
+    (the host torch.Generator the dropout seeds come from)."""
+    if deterministic:
+        return None
+    if rng is None:
+        raise ValueError("deterministic=False needs rng, the "
+                         "torch.Generator the dropout seeds come from")
+    return rng if isinstance(rng, DropoutRng) else DropoutRng(rng, device)
+
+
 class Linear(nn.Linear):
     """nn.Linear whose weight and bias are cast to the input's (compute)
     dtype at each use, so they may be stored as fp32 masters."""

@@ -26,6 +26,19 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC"]
 
 _lib: Optional[ctypes.CDLL] = None
+_capability = {}   # device -> its compute capability, asked once
+
+
+def require_hopper(device, what: str):
+    """Raise unless ``device`` is a Hopper card: ``what`` (the kernels' name
+    in the message) is built for sm_90a only."""
+    import torch
+
+    if device not in _capability:
+        _capability[device] = torch.cuda.get_device_capability(device)
+    if _capability[device][0] < 9:
+        raise RuntimeError(f"{what} built for sm_90a (Hopper); device "
+                           f"{device} has capability {_capability[device]}")
 
 
 def _nvcc() -> str:
@@ -118,6 +131,10 @@ def load() -> ctypes.CDLL:
         lib.itt_xent_bwd.argtypes = (
             [p] * 5 + [ctypes.c_longlong, i, i] + [f] * 2 + [p])
         lib.itt_xent_bwd.restype = ctypes.c_int
+        # q k v bias out | B T S H D | bias batch stride | scale | stream
+        lib.itt_flash_attn_fwd_bf16.argtypes = (
+            [p] * 5 + [i] * 5 + [ctypes.c_longlong, f, p])
+        lib.itt_flash_attn_fwd_bf16.restype = ctypes.c_int
         lib.itt_error_string.argtypes = [i]
         lib.itt_error_string.restype = ctypes.c_char_p
         _lib = lib

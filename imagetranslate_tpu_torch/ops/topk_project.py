@@ -19,6 +19,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from imagetranslate_tpu_torch.ops import _build
+
 # Kernel launches, counted where the kernel is launched and nowhere else.
 LAUNCHES = 0
 
@@ -76,17 +78,11 @@ def _check_cuda_args(h, w, b, k):
                         f"{b.dtype}")
     if e % 8:
         raise ValueError(f"project_topk kernel needs E % 8 == 0, got E={e}")
-    major, _ = torch.cuda.get_device_capability(h.device)
-    if major < 9:
-        raise RuntimeError("project_topk kernel is built for sm_90a "
-                           f"(Hopper); device {h.device} has capability "
-                           f"{torch.cuda.get_device_capability(h.device)}")
+    _build.require_hopper(h.device, "project_topk kernel is")
 
 
 def _launch(h, w, b, k):
     global LAUNCHES
-    from imagetranslate_tpu_torch.ops import _build
-
     lib = _build.load()
     m, v = h.shape[0], w.shape[0]
     chunks = -(-v // CHUNK_COLS)

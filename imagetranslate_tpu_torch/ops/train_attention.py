@@ -29,6 +29,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from imagetranslate_tpu_torch.ops import _build
 from imagetranslate_tpu_torch.ops.attention import attention_scale
 
 # Kernel launches, counted where each kernel is launched and nowhere else.
@@ -44,7 +45,6 @@ _MASK32 = 0xFFFFFFFF
 # against the library's own itt_fused_attn_supported on the card.
 _TQ, _PADK, _PATCH_BYTES, _SMEM_LIMIT = 64, 8, 8 * 256 * 4, 232448
 _MAX_S = 512
-_HOPPER = {}   # device -> its compute capability, asked once
 
 
 def _keep_threshold(rate: float) -> int:
@@ -195,12 +195,7 @@ def _check_cuda_args(q, k, v, bias, extra=()):
             raise ValueError(f"{name} must be contiguous")
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
-    if q.device not in _HOPPER:
-        _HOPPER[q.device] = torch.cuda.get_device_capability(q.device)
-    if _HOPPER[q.device][0] < 9:
-        raise RuntimeError("the fused attention kernels are built for sm_90a "
-                           f"(Hopper); device {q.device} has capability "
-                           f"{_HOPPER[q.device]}")
+    _build.require_hopper(q.device, "the fused attention kernels are")
 
 
 def _scalars(q, rate: float, seed: int):
@@ -211,8 +206,6 @@ def _scalars(q, rate: float, seed: int):
 
 def _launch_fwd(q, k, v, bias, rate, seed):
     global FWD_LAUNCHES
-    from imagetranslate_tpu_torch.ops import _build
-
     _check_cuda_args(q, k, v, bias)
     lib = _build.load()
     B, T, H, D = q.shape
@@ -232,8 +225,6 @@ def _launch_fwd(q, k, v, bias, rate, seed):
 
 def _launch_bwd(q, k, v, bias, g, rate, seed, want_dbias: bool):
     global BWD_LAUNCHES
-    from imagetranslate_tpu_torch.ops import _build
-
     _check_cuda_args(q, k, v, bias, extra=(("g", g),))
     lib = _build.load()
     B, T, H, D = q.shape

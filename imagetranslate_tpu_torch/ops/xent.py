@@ -26,11 +26,12 @@ from typing import Tuple
 
 import torch
 
+from imagetranslate_tpu_torch.ops import _build
+
 # Kernel launches, counted where each kernel is launched and nowhere else.
 FWD_LAUNCHES = 0
 BWD_LAUNCHES = 0
 
-_HOPPER = {}   # device -> its compute capability, asked once
 
 
 def _reference_rows(logits, targets, epsilon: float):
@@ -87,13 +88,7 @@ def _check_cuda_args(logits, extra):
             raise ValueError(f"{name} must be contiguous")
     if logits.data_ptr() % 16:
         raise ValueError("logits must be 16-byte aligned")
-    if logits.device not in _HOPPER:
-        _HOPPER[logits.device] = torch.cuda.get_device_capability(
-            logits.device)
-    if _HOPPER[logits.device][0] < 9:
-        raise RuntimeError("the fused xent kernels are built for sm_90a "
-                           f"(Hopper); device {logits.device} has capability "
-                           f"{_HOPPER[logits.device]}")
+    _build.require_hopper(logits.device, "the fused xent kernels are")
 
 
 def _scalars(vocab: int, epsilon: float):
@@ -103,8 +98,6 @@ def _scalars(vocab: int, epsilon: float):
 def _launch_fwd(logits, targets, epsilon: float):
     """logits [N, V], targets [N] int64 -> (loss [N], logZ [N]) fp32."""
     global FWD_LAUNCHES
-    from imagetranslate_tpu_torch.ops import _build
-
     _check_cuda_args(logits, (("targets", targets, torch.int64),))
     lib = _build.load()
     n, vocab = logits.shape
@@ -126,8 +119,6 @@ def _launch_fwd(logits, targets, epsilon: float):
 def _launch_bwd(logits, targets, log_z, g, epsilon: float):
     """dx [N, V] in the logits' dtype; g [N] fp32."""
     global BWD_LAUNCHES
-    from imagetranslate_tpu_torch.ops import _build
-
     _check_cuda_args(logits, (("targets", targets, torch.int64),
                               ("log_z", log_z, torch.float32),
                               ("g", g, torch.float32)))

@@ -1,6 +1,7 @@
-"""The MT and MASS train steps (port of imagetranslate_tpu/train/step.py:
+"""The MT, MASS and MLM train steps (port of imagetranslate_tpu/train/step.py:
 TrainState, create_train_state, wrap_accum, make_mt_train_step for padded and
-packed batches, make_mass_train_step, and the batch staging helpers).
+packed batches, make_mass_train_step, make_mlm_train_step, make_mlm_eval_step,
+and the batch staging helpers).
 
 The JAX step is a pure function of an immutable state. Here the parameters
 are the model's own ``nn.Parameter``s and the step updates them, and the
@@ -17,10 +18,13 @@ from typing import Callable, Dict, Optional
 import torch
 
 from imagetranslate_tpu_torch.models.transformer import DropoutRng
-from imagetranslate_tpu_torch.ops.losses import smoothed_nll_loss
+from imagetranslate_tpu_torch.ops.losses import nll_loss, smoothed_nll_loss
 from imagetranslate_tpu_torch.ops.masking import (
     MassDraws,
+    MLMDraws,
     draw_mass,
+    draw_mlm,
+    mask_text_core,
     mass_mask_core,
 )
 from imagetranslate_tpu_torch.ops.xent import smoothed_nll_loss_fused
@@ -153,6 +157,90 @@ def make_mass_train_step(model, optimizer: Optimizer, cfg,
     return step_fn
 
 
+MLM_BUDGET_MIN_TOKENS = 8192   # B * T from which the budget projection runs
+
+
+def mlm_budget(n_tokens: int, mask_prob: float) -> int:
+    """Rows the masked-budget projection keeps: twice the expected masked
+    count, rounded up to 128."""
+    return -(-int(n_tokens * min(1.0, 2.0 * mask_prob)) // 128) * 128
+
+
+def make_mlm_train_step(model, optimizer: Optimizer, cfg,
+                        mask_prob: float = 0.15, n_specials: int = 5,
+                        mask_id: int = 3) -> Callable:
+    """MLM step: 80/10/10 corruption on the device, then plain NLL at the
+    masked positions.
+
+    Masked-budget projection: the loss reads only about ``mask_prob`` of the
+    positions, while projecting every position stores [B * T, V] fp32 logits.
+    From B * T >= 8192 the step gathers a fixed budget of positions (the
+    masked ones first, in index order; ``mlm_budget``) and projects only
+    those. A masked count above the budget (a many-sigma event at that size)
+    drops the masked positions of the highest indices, as the JAX step does.
+    Smaller batches project every position.
+
+    Returns ``step_fn(state, batch, rng, draws=None) -> (state, metrics)``.
+    ``batch``: ``lm_batch_to_device``'s dict (texts [B, T], pad_mask, langs,
+    row_mask). ``rng``: the host torch.Generator; it seeds the device
+    generator that the mask draws and the dropout masks come from. ``draws``:
+    an ``MLMDraws`` to use in place of drawing (the tests feed the JAX
+    package's draws)."""
+
+    def step_fn(state: TrainState, batch: Dict[str, torch.Tensor],
+                rng: torch.Generator, draws: Optional[MLMDraws] = None):
+        texts = batch["texts"]
+        drop = DropoutRng(rng, texts.device)
+        if draws is None:
+            draws = draw_mlm(drop.dev, texts, n_specials=n_specials,
+                             vocab_size=cfg.vocab_size)
+        masked = mask_text_core(draws, texts, batch["pad_mask"], mask_prob,
+                                mask_id=mask_id, eos_id=cfg.eos_id)
+        mask = masked.target_mask & batch["row_mask"][:, None]
+        B, T = texts.shape
+        if B * T >= MLM_BUDGET_MIN_TOKENS:
+            h = model.encode(masked.texts, batch["pad_mask"], batch["langs"],
+                             deterministic=False, rng=drop)
+            flat = mask.reshape(-1)
+            # A stable descending sort of the 0/1 vector: the masked positions
+            # first, each group in index order (what top_k gives in JAX;
+            # torch.topk promises no order among equals).
+            order = torch.argsort(flat.to(torch.int8), descending=True,
+                                  stable=True)[:mlm_budget(B * T, mask_prob)]
+            logits = model.project_hidden(h.reshape(B * T, -1)[order])
+            sum_l, n = nll_loss(logits, texts.reshape(-1)[order], flat[order])
+        else:
+            logits = model(masked.texts, batch["pad_mask"], batch["langs"],
+                           deterministic=False, rng=drop)
+            sum_l, n = nll_loss(logits, texts, mask)
+        return _update(state, optimizer, sum_l, torch.clamp(n, min=1.0))
+
+    return step_fn
+
+
+def make_mlm_eval_step(model, cfg, mask_prob: float = 0.15,
+                       n_specials: int = 5, mask_id: int = 3) -> Callable:
+    """Dev loss of the MLM. Returns ``eval_fn(batch, gen, draws=None) ->
+    (sum_loss, count)``: ``gen`` is a generator on the batch's device that
+    the mask draws come from; the model runs deterministically on all
+    positions, without gradients."""
+
+    @torch.no_grad()
+    def eval_fn(batch: Dict[str, torch.Tensor], gen: Optional[torch.Generator],
+                draws: Optional[MLMDraws] = None):
+        texts = batch["texts"]
+        if draws is None:
+            draws = draw_mlm(gen, texts, n_specials=n_specials,
+                             vocab_size=cfg.vocab_size)
+        masked = mask_text_core(draws, texts, batch["pad_mask"], mask_prob,
+                                mask_id=mask_id, eos_id=cfg.eos_id)
+        logits = model(masked.texts, batch["pad_mask"], batch["langs"])
+        mask = masked.target_mask & batch["row_mask"][:, None]
+        return nll_loss(logits, texts, mask)
+
+    return eval_fn
+
+
 def _to(x, device) -> torch.Tensor:
     return torch.as_tensor(x).to(device, non_blocking=True)
 
@@ -192,3 +280,10 @@ def mass_batch_to_device(b, device) -> Dict[str, torch.Tensor]:
     return {name: _to(getattr(b, name), device)
             for name in ("src", "src_mask", "langs", "lang_tokens",
                          "lengths", "row_mask")}
+
+
+def lm_batch_to_device(b: Dict, device) -> Dict[str, torch.Tensor]:
+    """A ``DocBlockDataset.batches`` dict of numpy arrays -> dict of tensors
+    on ``device`` for the MLM steps."""
+    return {name: _to(b[name], device)
+            for name in ("texts", "pad_mask", "langs", "row_mask")}

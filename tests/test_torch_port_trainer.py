@@ -313,7 +313,8 @@ def test_cli_resumes_with_optimizer_state(corpus, trained, tmp_path, capsys):
 
 @pytest.mark.parametrize("flags,module", [
     (["--train", "x"], "module 9"),
-    (["--image", "x"], "module 9"), (["--lm", "x"], "module 10"),
+    (["--image", "x"], "module 9"),
+    (["--lm", "x", "--train", "y"], "module 9"),   # --lm alone is ported
     (["--moe-experts", "4"], "module 13"), (["--mesh", "2x1"], "module 14"),
     (["--pp-microbatches", "2"], "module 14"), (["--zero"], "module 14"),
     (["--pack"], "module 15"), (["--profile", "x"], "module 15"),
