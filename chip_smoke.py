@@ -6,8 +6,10 @@ supervised training path at the same width (MTTrainer steps, then the training
 CLI end to end), the unsupervised-MT path (MASS steps, then
 back-translation steps, through MTTrainer and through the training CLI) and
 the long-sequence path (a 2048-token source through encode and beam search,
-the masked LM and the long-document LM through their trainers and CLIs), and
-checks that each path went through its kernels.
+the masked LM and the long-document LM through their trainers and CLIs) and
+the captioning path (ResNet grid -> beam search over the grid, the text +
+image and the grid + object dual decodes, the caption CLI's loop and the CLI
+itself), and checks that each path went through its kernels.
 
 Run from the root of a checkout, with one visible CUDA card:
 
@@ -126,6 +128,38 @@ Phases, each fatal on failure:
                --reformer --size 1 -> cli.train_mt --lm (the weights start
                from the LM's) -> cli.translate, through files.
 
+ 16. kernel  — the beam decode attention kernel (runs after phase 12) vs its
+     (K4)      plain version: the gather form (no row maps, a slice of a
+               longer cache read in place) at every shape phases 17 and 18
+               launch (R = 256, 768, 32, 96 rows; 1 .. L-1 live positions)
+               and at edge shapes (one position, 7, 88, 512 and 20000
+               positions, D = 8, 24, 32, 64, 128, odd row counts); with random
+               rowsel/wanc row maps on the TPU kernel's own inputs (window
+               only, an unaligned prefix of 44, the first and the last
+               window slot); bf16 outputs within 2^-7 of the plain result's
+               largest magnitude. What the kernel cannot take raises before
+               a launch. Times of kernel, plain version and
+               F.scaled_dot_product_attention (a yardstick, never on the
+               path) at R=256, n=88 and R=768, n=32, H=12, D=64.
+ 17. decode  — phase 4's decode with decode_attention_impl="fused": K4
+     K4        launches = 3 per step, each at a shape phase 16 held; beside it
+               the same decode with "onehot" on the same weights, blocks in
+               the order fused, onehot, onehot, fused: tok/s of each, the
+               share of equal tokens, and the two results' sequence scores
+               under one model within 2e-2 relative.
+ 18. caption — ImageSeq2Seq at BERT-base width with the ResNet-18 grid
+               encoder at 224 pixels and the object stream, bf16, random
+               weights and batch statistics from a numpy seed: the bf16 grid
+               against an fp32 model's on 4 images (within 2^-4 of the
+               largest value); encode_images + beam_search at B=192, beam 4,
+               L=32 on uint8 images (K4 = 3 a step, K2 = 1 a step);
+               beam_search_dual over text + image and over grid + objects
+               (K4 = 6 a step); cli.caption.caption_batches over batches
+               built from arrays (a full batch, a tail, a tail with
+               detections); images/s and peak memory of each; then, where
+               Pillow is installed, cli.caption.main over a folder of 20
+               JPEGs written here.
+
 ``--profile`` adds a phase after 4 (one more decode) and one after 7 (three
 more train steps) under torch.profiler, printing the device time by operation
 and the device's busy share of that same profiled run (the union of kernel
@@ -133,7 +167,8 @@ intervals over its wall time), then three more train steps with input shapes
 recorded, printing the dtype casts' (aten::copy_) device time by shape,
 three steps of the paired reading's fused-cross-entropy arm, five long
 encodes with K3 and five with the plain attention (phase 13), and three MLM
-steps (phase 14).
+steps (phase 14), and one caption decode over the grid and one over grid +
+objects (phase 18).
 
 The second-to-last line is a JSON object describing each kernel, with its
 launches on its main path, its times, and its bound: the larger of the bytes
@@ -2266,6 +2301,562 @@ def phase_lm_cli(workdir, corpus):
         f"{time.perf_counter() - t0:.1f} s, e.g. {hyps[0]!r}")
 
 
+K4_TOL = 2.0 ** -7    # bf16 outputs: two bf16 ulps of the largest value (both
+                      # sides round p to bf16; the fp32 sums differ in order)
+MT_DECODE = (64, 64, 4, 88)        # B, S, beam, L of phases 4 and 17
+CAPTION_B, CAPTION_K, CAPTION_L = 192, 4, 32
+CAPTION_TAIL = 5                   # real rows of caption_batches' tail batch
+CAPTION_JPEGS = 20                 # files of the CLI's folder
+DECODE_SCORE_RTOL = 2e-2          # sequence log-probability, fused vs plain
+CAPTION_GRID_TOL = 2.0 ** -4       # bf16 ResNet grid vs the fp32 one
+
+
+def decode_path_shapes():
+    """The (R, H, D, live positions) that the decode paths of phases 17 and
+    18 give K4: a decode of L positions launches at 1 .. L-1 live ones."""
+    rows = {MT_DECODE[0] * MT_DECODE[2]: MT_DECODE[3],
+            CAPTION_B * CAPTION_K: CAPTION_L,
+            -(-CAPTION_TAIL // 8) * 8 * CAPTION_K: CAPTION_L,
+            -(-CAPTION_JPEGS // 8) * 8 * CAPTION_K: CAPTION_L}
+    return [(R, 12, 64, n) for R, L in rows.items() for n in range(1, L)]
+
+
+@contextlib.contextmanager
+def recording_decode_attention():
+    """Records (R, H, D, prefix positions, live window slots, row maps) of
+    every K4 launch of a run, in the set it yields."""
+    from imagetranslate_tpu_torch.ops import decode_attention as da
+
+    seen = set()
+    launch = da._launch
+
+    def wrapped(q, mk, mv, wk, wv, rowsel, wanc, t0, wlive, K):
+        seen.add((*q.shape, t0, wlive,
+                  rowsel is not None or wanc is not None))
+        return launch(q, mk, mv, wk, wv, rowsel, wanc, t0, wlive, K)
+
+    da._launch = wrapped
+    try:
+        yield seen
+    finally:
+        da._launch = launch
+
+
+def require_decode_attention(what: str, seen, checked, launches: int,
+                             want: int):
+    if launches != want or not seen or seen - checked:
+        raise AssertionError(
+            f"{what}: {launches} K4 launches, want {want}; shapes not held "
+            f"against the plain version: {sorted(seen - checked)[:8]}")
+
+
+def phase_kernel_decode_attention(path_shapes):
+    """Phase 16: the beam decode attention kernel against its plain version,
+    and its times. ``path_shapes``: (R, H, D, n) of the later phases' gather
+    form calls. Returns the kernel entry and the set of shapes checked."""
+    import torch
+    import torch.nn.functional as F
+
+    from imagetranslate_tpu_torch.ops import decode_attention as da
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    worst = 0.0
+    checked = set()
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").bfloat16()
+
+    def hold(what, q, mk, mv, wk, wv, rowsel, wanc, j):
+        nonlocal worst
+        with recording_decode_attention() as seen:
+            out = da.decode_attention(q, mk, mv, wk, wv, rowsel, wanc, j)
+        torch.cuda.synchronize()
+        want = da.decode_attention_reference(q, mk, mv, wk, wv, rowsel, wanc,
+                                             j)
+        if out.shape != q.shape or out.dtype != torch.bfloat16 or not (
+                torch.isfinite(out).all()):
+            raise AssertionError(f"K4 output {out.shape} {out.dtype} at "
+                                 f"{what}")
+        err = (out.float() - want.float()).abs().max().item()
+        scale = want.float().abs().max().item()
+        if err > K4_TOL * scale:
+            raise AssertionError(f"K4 at {what}: err {err:.3g}, limit "
+                                 f"{K4_TOL * scale:.3g}")
+        worst = max(worst, err)
+        checked.update(seen)
+        return err, scale
+
+    # The gather form at every shape of the paths: a slice [:, :n] of a
+    # longer cache, read in place, as the decode step passes it.
+    caches = {}
+    errs = []
+    for R, H, D, n in path_shapes:
+        if (R, H, D) not in caches:
+            L = max(m for r, h, d, m in path_shapes if (r, h, d) == (R, H, D))
+            caches[R, H, D] = (rand(R, H, D), rand(R, L + 1, H, D),
+                               rand(R, L + 1, H, D))
+        q, k, v = caches[R, H, D]
+        errs.append(hold((R, H, D, n), q, k[:, :n], v[:, :n], None, None,
+                         None, None, None)[0])
+    log(f"[kernel K4] gather form at the {len(path_shapes)} shapes of the "
+        f"decode paths (R in {sorted({s[0] for s in path_shapes})}, 1 .. L-1 "
+        f"live positions of a longer cache): max abs err {max(errs):.3g}")
+    del caches
+
+    # Edge shapes of the gather form: one position, odd counts, a long row
+    # (more than 48 KB of scores), every head width, odd row counts.
+    for R, H, D, n in [(8, 12, 64, 1), (7, 12, 64, 7), (256, 12, 64, 88),
+                       (5, 12, 64, 512), (3, 2, 64, 20000), (9, 4, 32, 33),
+                       (9, 4, 128, 33), (6, 3, 24, 19), (2, 1, 8, 3)]:
+        err, scale = hold((R, H, D, n), rand(R, H, D), rand(R, n, H, D),
+                          rand(R, n, H, D), None, None, None, None, None)
+        log(f"[kernel K4] R={R} H={H} D={D} n={n}, no row maps: max abs err "
+            f"{err:.3g} ({err / scale:.2e} of max)")
+
+    # With row maps, on the JAX kernel's own inputs: a prefix selected by
+    # rowsel, window slots selected by wanc, slots 0 .. j live.
+    for B, K, W, H, D, t0, j in [(64, 4, 44, 12, 64, 0, 43),
+                                 (64, 4, 44, 12, 64, 44, 0),
+                                 (64, 4, 44, 12, 64, 44, 17),
+                                 (192, 4, 26, 12, 64, 0, 25),
+                                 (3, 5, 7, 4, 32, 11, 6),
+                                 (2, 3, 4, 2, 128, 5, 2)]:
+        R = B * K
+        rowsel = torch.randint(0, K, (B, K), generator=gen, device="cuda",
+                               dtype=torch.int32)
+        wanc = torch.randint(0, K, (B, K, W), generator=gen, device="cuda",
+                             dtype=torch.int32)
+        mk, mv = (rand(R, t0, H, D), rand(R, t0, H, D)) if t0 else (None,
+                                                                    None)
+        err, scale = hold((B, K, W, H, D, t0, j), rand(R, H, D), mk, mv,
+                          rand(R, W, H, D), rand(R, W, H, D), rowsel, wanc, j)
+        log(f"[kernel K4] B={B} K={K} W={W} H={H} D={D} t0={t0} j={j}, "
+            f"random rowsel/wanc: max abs err {err:.3g} ({err / scale:.2e} "
+            "of max)")
+    # A map on one part only.
+    B, K, W, H, D, t0, j = 8, 4, 6, 12, 64, 9, 3
+    R = B * K
+    args = (rand(R, H, D), rand(R, t0, H, D), rand(R, t0, H, D),
+            rand(R, W, H, D), rand(R, W, H, D))
+    rowsel = torch.randint(0, K, (B, K), generator=gen, device="cuda",
+                           dtype=torch.int32)
+    hold("rowsel only", *args, rowsel, None, j)
+
+    # Outside the gate or the kernel's layout the wrapper raises before a
+    # launch, and counts nothing.
+    launches = da.LAUNCHES
+    q, k, v = rand(8, 12, 64), rand(8, 5, 12, 64), rand(8, 5, 12, 64)
+    for bad in ((q.float(), k, v), (q, k.float(), v.float()),
+                (q, k.to(torch.float8_e4m3fn), v.to(torch.float8_e4m3fn)),
+                (q, k.transpose(1, 2).contiguous().transpose(1, 2), v),
+                (q.transpose(0, 1).contiguous().transpose(0, 1), k, v),
+                (rand(8, 12, 60), rand(8, 5, 12, 60), rand(8, 5, 12, 60)),
+                (q, k, v, None, None,
+                 torch.zeros((2, 4), dtype=torch.int64, device="cuda"))):
+        try:
+            da.decode_attention(*bad)
+        except (ValueError, TypeError):
+            continue
+        raise AssertionError("a call the kernel cannot take was launched")
+    if da.LAUNCHES != launches:
+        raise AssertionError("a refused call counted as a launch")
+    log("[kernel K4] fp32 q, an fp32 or fp8 cache, strides the kernel cannot "
+        "read, D % 8 != 0 and int64 maps raise before a launch")
+
+    # Times, cold L2, at the last steps of the two decodes.
+    entries = {}
+    for name, R, n in (("MT decode", 256, 88), ("caption decode", 768, 32)):
+        H, D = 12, 64
+        q, k, v = rand(R, H, D), rand(R, n, H, D), rand(R, n, H, D)
+        qs, ks, vs = q[:, :, None, :], k.transpose(1, 2), v.transpose(1, 2)
+        runs = {"plain": [], "kernel": []}
+        for arm in ("plain", "kernel", "kernel", "plain"):
+            fn = (da.decode_attention_reference if arm == "plain"
+                  else da.decode_attention)
+            runs[arm].append(_time_ms(lambda: fn(q, k, v)))
+        # The library yardstick: one fused PyTorch call on the same prefix,
+        # never on the port's path.
+        lib_ms = _time_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs))
+        nbytes = (2 * R * n * H * D + 2 * R * H * D) * 2
+        bnd = bound(nbytes, 4.0 * R * n * H * D)
+        ms = sum(runs["kernel"]) / 2
+        log(f"[kernel K4] {name}: R={R} n={n} H={H} D={D} bf16: kernel "
+            f"{runs['kernel']} ms ({nbytes / ms / 1e6:.1f} GB/s), plain "
+            f"version {runs['plain']} ms, SDPA {lib_ms:.4f} ms; bound "
+            f"{bnd[0]:.4f} ms by {bnd[1]}")
+        entries[name] = {"max_abs_err": worst, "ms": ms,
+                         "plain_ms": sum(runs["plain"]) / 2,
+                         "bound_ms": bnd[0], "bound_by": bnd[1],
+                         "library_ms": lib_ms}
+    torch.cuda.empty_cache()
+    # The kernels line carries this slice's shape, the caption decode's.
+    return entries["caption decode"], checked
+
+
+def sequence_scores(model, src, best):
+    """Log-probability of each decoded row ``best`` [B, L] given ``src``
+    under ``model`` (teacher-forced, fp32 log-softmax of its logits)."""
+    import torch
+
+    B, S = src.shape
+    dev = src.device
+    with torch.no_grad():
+        logits = model(src, torch.ones((B, S), dtype=torch.bool, device=dev),
+                       best, torch.ones_like(best, dtype=torch.bool),
+                       torch.zeros((B,), dtype=torch.int32, device=dev),
+                       torch.ones((B,), dtype=torch.int32, device=dev))
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        return logp.gather(2, best[:, 1:, None])[..., 0].sum(dim=1)
+
+
+def phase_decode_fused(card, checked_k4):
+    """Phase 17: phase 4's decode with every step's self-attention through
+    K4 (``decode_attention_impl="fused"``), beside the same decode with the
+    plain attention over the masked buffer (``"onehot"``), on one set of
+    weights. Returns the K4 launches of the counted run."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from imagetranslate_tpu_torch.models.seq2seq import Seq2Seq
+    from imagetranslate_tpu_torch.ops import decode_attention as da
+    from imagetranslate_tpu_torch.ops import topk_project as tkp
+
+    device = torch.device("cuda")
+    B, S, K, L = MT_DECODE
+    cfg = bert_base(32000)
+    plain = build_model(cfg, device)
+    fused = Seq2Seq(dataclasses.replace(cfg, decode_attention_impl="fused"),
+                    device=device)
+    fused.load_state_dict(plain.state_dict())
+    fused.eval()
+    models = {"fused": fused, "onehot": plain}
+    for m in models.values():
+        run_decode(m, B, S, K, device)                # warm-up
+    da.LAUNCHES = tkp.LAUNCHES = 0
+    with recording_decode_attention() as seen:
+        best_f, lengths, steps, _ = run_decode(fused, B, S, K, device)
+    launches = da.LAUNCHES
+    require_decode_attention("MT decode", seen, checked_k4, launches,
+                             cfg.dec_layers * steps)
+    if tkp.LAUNCHES != steps:
+        raise AssertionError(f"project_topk launched {tkp.LAUNCHES} times in "
+                             f"{steps} decode steps")
+    da.LAUNCHES = 0
+    best_o = run_decode(plain, B, S, K, device)[0]
+    if da.LAUNCHES != 0:
+        raise AssertionError('"onehot" launched K4')
+    # bf16 decodes may part at a near-tie: compare what they found by its
+    # score under one model, and report the share of equal tokens.
+    src = torch.as_tensor(np.random.RandomState(SEED).randint(
+        5, cfg.vocab_size, (B, S))).to(device)
+    score_f = sequence_scores(plain, src, best_f)
+    score_o = sequence_scores(plain, src, best_o)
+    rel = ((score_f - score_o).abs() / score_o.abs()).max().item()
+    same = (best_f == best_o).float().mean().item()
+    if rel > DECODE_SCORE_RTOL:
+        raise AssertionError(f"fused and onehot decodes differ in score by "
+                             f"{rel:.3g} (limit {DECODE_SCORE_RTOL})")
+    secs = {"fused": [], "onehot": []}
+    tokens = int(lengths.sum())
+    for arm in ("fused", "onehot", "onehot", "fused"):
+        secs[arm].append(run_decode(models[arm], B, S, K, device)[3])
+    tps = {arm: tokens / (sum(v) / 2) for arm, v in secs.items()}
+    log(f"[decode K4] BERT-base bf16 B={B} S={S} beam={K} L={L}: {steps} "
+        f"steps, {launches} K4 launches ({cfg.dec_layers} a step) at "
+        f"{len(seen)} shapes, all held by phase 16; {same:.4f} of the tokens "
+        f"equal the onehot decode's, sequence scores within {rel:.2e} "
+        f"(limit {DECODE_SCORE_RTOL:.0e}); encode + beam search in the order "
+        f"fused, onehot, onehot, fused: fused {secs['fused']} s = "
+        f"{tps['fused']:.1f} tok/s, onehot {secs['onehot']} s = "
+        f"{tps['onehot']:.1f} tok/s ({card})")
+    del plain, fused
+    torch.cuda.empty_cache()
+    return launches
+
+
+class CaptionVocab(FullVocab):
+    """``FullVocab`` with the ``decode`` that ``caption_batches`` calls (a
+    token is written as its id) and a separator outside the model's
+    vocabulary, so every row decodes to its limit and the launches of a
+    batch are known exactly."""
+
+    def sep_token_id(self) -> int:
+        return -1
+
+    def decode(self, ids) -> str:
+        return " ".join(str(int(i)) for i in ids)
+
+
+def caption_config(vocab_size: int):
+    """BERT-base text stack with the ResNet-18 grid encoder at 224 pixels
+    (49 grid slots) and the object stream, K4 in every decode step."""
+    import dataclasses
+
+    return dataclasses.replace(bert_base(vocab_size), resnet_depth=1,
+                               img_size=224, use_obj=True,
+                               decode_attention_impl="fused")
+
+
+def phase_caption(card, profile: bool, checked_k4):
+    """Phase 18: the captioning path at full width. Returns the (K4, K2)
+    launches of its counted runs."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from imagetranslate_tpu_torch.cli import caption as cli
+    from imagetranslate_tpu_torch.decoding.beam import (
+        beam_search,
+        beam_search_dual,
+    )
+    from imagetranslate_tpu_torch.models.captioning import ImageSeq2Seq
+    from imagetranslate_tpu_torch.ops import decode_attention as da
+    from imagetranslate_tpu_torch.ops import topk_project as tkp
+    from imagetranslate_tpu_torch.text.processor import TextProcessor
+    from imagetranslate_tpu_torch.train.checkpoint import save_checkpoint
+    from imagetranslate_tpu_torch.train.weights import CAPTION
+
+    device = torch.device("cuda")
+    cfg = caption_config(32000)
+    B, K, L = CAPTION_B, CAPTION_K, CAPTION_L
+    t0 = time.perf_counter()
+    variables = CAPTION.random_params(cfg, SEED)
+    model = ImageSeq2Seq(cfg, device=device)
+    model.load_state_dict(CAPTION.state_dict_from_flax(variables, cfg))
+    model.eval()
+    rng = np.random.RandomState(SEED)
+    images_np = rng.randint(0, 256, (B, cfg.img_size, cfg.img_size, 3)
+                            ).astype(np.uint8)
+    images = torch.as_tensor(images_np).to(device)
+    first = torch.full((B,), 6, dtype=torch.int32, device=device)
+    langs = torch.ones((B,), dtype=torch.int32, device=device)
+    text = torch.as_tensor(rng.randint(5, cfg.vocab_size, (B, 32))).to(device)
+    text_mask = torch.ones((B, 32), dtype=torch.bool, device=device)
+    feats = torch.as_tensor(rng.standard_normal((B, 16, 1031)).astype(
+        np.float32)).to(device)
+    labels_np = rng.randint(1, 91, (B, 16))
+    labels_np[:, 10:] = 0                     # padded detections
+    labels = torch.as_tensor(labels_np).to(device)
+    log(f"[caption] ImageSeq2Seq BERT-base + ResNet-18 at 224 + object "
+        f"stream, bf16, {sum(p.numel() for p in model.parameters()) / 1e6:.1f}"
+        f" M parameters from numpy seed {SEED}, built in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # The grid on a small input against an fp32 model of the same weights.
+    f32 = ImageSeq2Seq(dataclasses.replace(cfg, dtype="float32"),
+                       device=device)
+    f32.load_state_dict(CAPTION.state_dict_from_flax(variables, cfg))
+    f32.eval()
+    with torch.no_grad():
+        grid_ref = f32.encode_images(images[:4])
+        grid_small = model.encode_images(images[:4])
+    diff = (grid_small.float() - grid_ref).abs().max().item()
+    scale = grid_ref.abs().max().item()
+    if not torch.isfinite(grid_small).all() or diff > CAPTION_GRID_TOL * scale:
+        raise AssertionError(f"bf16 grid differs from the fp32 one by "
+                             f"{diff:.3g} (limit {CAPTION_GRID_TOL * scale:.3g})")
+    log(f"[caption] encode_images on 4 images: bf16 grid within {diff:.3g} of "
+        f"the fp32 model's ({diff / scale:.2e} of the largest value, limit "
+        f"{CAPTION_GRID_TOL:.2e})")
+    del f32, grid_ref
+    torch.cuda.empty_cache()
+
+    common = dict(beam_width=K, max_len=L, len_penalty_ratio=0.8,
+                  pad_id=cfg.pad_id, eos_id=-1)   # EOS outside the vocabulary
+
+    def single():
+        grid = model.encode_images(images)
+        mask = torch.ones(grid.shape[:2], dtype=torch.bool, device=device)
+        return grid, beam_search(model, grid, mask, first, langs, **common)
+
+    def dual():
+        grid = model.encode_images(images)
+        enc = model.encode(text, text_mask, torch.zeros_like(langs))
+        return grid, beam_search_dual(model, enc, text_mask, grid, first,
+                                      langs, **common)
+
+    def obj_dual():
+        grid = model.encode_images(images)
+        mask = torch.ones(grid.shape[:2], dtype=torch.bool, device=device)
+        states, keep = model.encode_objects(feats, labels)
+        return grid, beam_search_dual(
+            model, grid, mask, states, first, langs, grid_mask=keep,
+            init_method=ImageSeq2Seq.init_obj_dual_cache,
+            step_method=ImageSeq2Seq.decode_step_obj_dual, **common)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            grid, (best, lengths) = fn()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        if grid.shape != (B, 49, cfg.hidden_size) or not (
+                torch.isfinite(grid).all()):
+            raise AssertionError(f"grid {tuple(grid.shape)}, finite "
+                                 f"{torch.isfinite(grid).all().item()}")
+        if best.shape != (B, L) or not (best[:, 0] == 6).all() or not (
+                (best >= 0) & (best < cfg.vocab_size)).all():
+            raise AssertionError(f"caption decode gave {tuple(best.shape)}")
+        if not (lengths == L).all():
+            raise AssertionError(f"lengths {lengths.unique().tolist()}, want "
+                                 f"every row at its limit {L}")
+        return seconds, torch.cuda.max_memory_allocated() / 2 ** 30
+
+    k4_total = k2_total = 0
+    steps = L - 1
+    for name, fn, streams in (("beam_search over the grid", single, 1),
+                              ("beam_search_dual text + image", dual, 2),
+                              ("beam_search_dual grid + objects", obj_dual,
+                               2)):
+        timed(fn)                                      # warm-up
+        da.LAUNCHES = tkp.LAUNCHES = 0
+        with recording_decode_attention() as seen:
+            seconds, peak = timed(fn)
+        k4, k2 = da.LAUNCHES, tkp.LAUNCHES
+        require_decode_attention(name, seen, checked_k4, k4,
+                                 streams * cfg.dec_layers * steps)
+        if k2 != steps:
+            raise AssertionError(f"{name}: {k2} K2 launches in {steps} steps")
+        k4_total, k2_total = k4_total + k4, k2_total + k2
+        log(f"[caption] {name}: B={B} beam={K} L={L}, {steps} steps, K4 "
+            f"launches {k4} ({streams * cfg.dec_layers} a step), K2 launches "
+            f"{k2}")
+        log(f"[caption] {name}: {B / seconds:.1f} images/s "
+            f"({B * (L - 1) / seconds:.1f} tok/s; encode + decode "
+            f"{seconds:.3f} s), peak memory {peak:.2f} GiB ({card})")
+    if profile:
+        def run():
+            return timed(single)[0], f"{steps} steps, B={B}"
+        _profile(run, "caption", card)
+
+        def run_dual():
+            return timed(obj_dual)[0], f"{steps} steps, B={B}, grid + objects"
+        _profile(run_dual, "caption obj dual", card)
+
+    # caption_batches over a caller's batcher: the dicts ImageFolderBatcher
+    # yields, built from arrays; the second carries detections.
+    tp = CaptionVocab()
+
+    def batch(n_real, with_objects):
+        rows = -(-n_real // 8) * 8
+        out = {"paths": [f"image{i:04d}.jpg" for i in range(n_real)],
+               "images": images_np[:rows],
+               "first_tokens": np.full((rows,), 6, np.int32),
+               "tgt_langs": np.ones((rows,), np.int32)}
+        if with_objects:
+            out["box_features"] = feats[:rows].cpu().numpy()
+            out["object_labels"] = labels_np[:rows]
+        return out
+
+    batches = [batch(B, False), batch(CAPTION_TAIL, False),
+               batch(CAPTION_TAIL, True)]
+
+    class Lines:
+        def __init__(self):
+            self.lines = []
+
+        def write(self, text):
+            self.lines.append(text)
+
+    def run_batches():
+        writer = Lines()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n = cli.caption_batches(model, tp, batches, writer, beam_width=K,
+                                max_len=L)
+        torch.cuda.synchronize()
+        return n, writer.lines, time.perf_counter() - t0
+
+    run_batches()                                     # warm-up
+    da.LAUNCHES = tkp.LAUNCHES = 0
+    with recording_decode_attention() as seen:
+        n, lines, seconds = run_batches()
+    k4, k2 = da.LAUNCHES, tkp.LAUNCHES
+    want_n = B + 2 * CAPTION_TAIL
+    if n != want_n or len(lines) != want_n or not all(
+            ln.startswith("image") and ln.endswith("\n")
+            and len(ln.split("\t")[1].split()) == steps for ln in lines):
+        raise AssertionError(f"caption_batches wrote {len(lines)} lines for "
+                             f"{want_n} images, or a caption short of "
+                             f"{steps} tokens")
+    # Every batch decodes to its limit: one K2 launch a step, a K4 launch a
+    # step, decoder layer and stream; two batches have one stream, the one
+    # with detections two.
+    want_k2 = 3 * steps
+    want_k4 = cfg.dec_layers * steps * (1 + 1 + 2)
+    if not seen or seen - checked_k4 or k2 != want_k2 or k4 != want_k4:
+        raise AssertionError(
+            f"caption_batches: {k4} K4 and {k2} K2 launches, want {want_k4} "
+            f"and {want_k2}; unchecked shapes "
+            f"{sorted(seen - checked_k4)[:8]}")
+    k4_total, k2_total = k4_total + k4, k2_total + k2
+    log(f"[caption] caption_batches over 3 batches from arrays ({B} images, "
+        f"a tail of {CAPTION_TAIL} in 8 rows, the tail again with "
+        f"detections): {n} lines, K4 launches {k4}, K2 launches {k2}, "
+        f"{n / seconds:.1f} images/s, e.g. {lines[0]!r} ({card})")
+    del model
+    torch.cuda.empty_cache()
+
+    # The CLI over a folder of JPEGs, where Pillow can write and read them.
+    try:
+        from PIL import Image
+    except ImportError:
+        log("[caption cli] Pillow is not installed on this machine: "
+            "cli.caption.main over a folder of JPEGs was not run (no JPEG "
+            "decoder; the array-driven caption_batches above is the same "
+            "loop)")
+        return k4_total, k2_total
+    with tempfile.TemporaryDirectory() as workdir:
+        t0 = time.perf_counter()
+        corpus = os.path.join(workdir, "corpus.txt")
+        with open(corpus, "w") as f:
+            f.write("\n".join(" ".join(WORDS[j] for j in rng.randint(
+                0, len(WORDS), rng.randint(2, 9))) for _ in range(400)))
+        tok = os.path.join(workdir, "tok")
+        TextProcessor().train_tokenizer([corpus], 300, tok,
+                                        {"<en>": 0, "<fa>": 1})
+        ccfg = dataclasses.replace(
+            caption_config(TextProcessor(tok).vocab_size()), use_obj=False)
+        ckpt = os.path.join(workdir, "model")
+        save_checkpoint(ckpt, ccfg, CAPTION.random_params(ccfg, SEED))
+        folder = os.path.join(workdir, "images")
+        os.makedirs(folder)
+        for i in range(CAPTION_JPEGS):
+            # Smooth pictures of several sizes (noise does not compress).
+            w, h = 240 + 16 * i, 400 - 8 * i
+            yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+            arr = np.stack([127 + 120 * np.sin(xx / (9 + c + i) + yy / (
+                13 + 2 * c)) for c in range(3)], axis=-1).astype(np.uint8)
+            Image.fromarray(arr).save(os.path.join(folder, f"{i:03d}.jpg"))
+        out = os.path.join(workdir, "captions.tsv")
+        da.LAUNCHES = tkp.LAUNCHES = 0
+        with recording_decode_attention() as seen:
+            cli.main(["--tok", tok, "--model", ckpt, "--input", folder,
+                      "--output", out, "--target", "fa", "--max_len",
+                      str(CAPTION_L), "--device", "cuda"])
+        with open(out) as f:
+            rows = [ln.split("\t") for ln in f.read().splitlines()]
+        k4, k2 = da.LAUNCHES, tkp.LAUNCHES
+        if len(rows) != CAPTION_JPEGS or not all(
+                len(r) == 2 and r[0].endswith(".jpg") for r in rows):
+            raise AssertionError(f"cli.caption wrote {len(rows)} lines for "
+                                 f"{CAPTION_JPEGS} files")
+        if not seen or seen - checked_k4 or k2 == 0 or k4 != 3 * k2:
+            raise AssertionError(
+                f"cli.caption: {k4} K4 and {k2} K2 launches, unchecked "
+                f"shapes {sorted(seen - checked_k4)[:8]}")
+        log(f"[caption cli] {CAPTION_JPEGS} JPEGs -> cli.caption.main (vocab "
+            f"{ccfg.vocab_size}, width 768, 6+3 layers, ResNet-18 at 224): "
+            f"{len(rows)} lines, K4 launches {k4}, K2 launches {k2}, in "
+            f"{time.perf_counter() - t0:.1f} s, e.g. {rows[0]!r}")
+    return k4_total + k4, k2_total + k2
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "imagetranslate_tpu_torch")):
         print("chip_smoke.py must run from a checkout of the repository "
@@ -2294,6 +2885,13 @@ def main() -> int:
         attn_fwd, attn_bwd, checked = phase_kernel_attention(cli_k1)
         xent_fwd, xent_bwd, checked_xent = phase_kernel_xent(cli_k5)
         flash, checked_flash = phase_kernel_flash([long_cli_shape()])
+        dec_attn, checked_k4 = phase_kernel_decode_attention(
+            decode_path_shapes())
+        dec_attn_launches = phase_decode_fused(card, checked_k4)
+        torch.cuda.empty_cache()
+        caption_k4, caption_k2 = phase_caption(card, profile, checked_k4)
+        dec_attn_launches += caption_k4
+        torch.cuda.empty_cache()
         fwd_launches, bwd_launches = phase_train(card, profile, checked,
                                                  checked_xent)
         torch.cuda.empty_cache()
@@ -2313,7 +2911,7 @@ def main() -> int:
         {"name": "project_topk", "route": "cuda",
          "source": "imagetranslate_tpu_torch/csrc/topk_project.cu",
          "replaces": "imagetranslate_tpu/ops/topk_project.py:206",
-         "launches": launches, **topk},
+         "launches": launches + caption_k2, **topk},
         {"name": "fused_dropout_attention_fwd", "route": "cuda",
          "source": attn_src,
          "replaces": "imagetranslate_tpu/ops/train_attention.py:242",
@@ -2334,6 +2932,10 @@ def main() -> int:
          "source": "imagetranslate_tpu_torch/csrc/flash_attention.cu",
          "replaces": "imagetranslate_tpu/ops/flash_attention.py:97",
          "launches": flash_launches, **flash},
+        {"name": "decode_attention", "route": "cuda",
+         "source": "imagetranslate_tpu_torch/csrc/decode_attention.cu",
+         "replaces": "imagetranslate_tpu/ops/decode_attention.py:188",
+         "launches": dec_attn_launches, **dec_attn},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

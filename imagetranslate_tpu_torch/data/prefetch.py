@@ -1,4 +1,5 @@
-"""Background staging of host batches (port of ``PrefetchIterator`` in
+"""Background staging of host batches (port of ``PrefetchIterator``,
+``ImageDecodePool`` and ``default_image_pool`` in
 imagetranslate_tpu/data/prefetch.py).
 
 A worker thread pulls items from the source and runs ``transform`` on each
@@ -6,13 +7,19 @@ A worker thread pulls items from the source and runs ``transform`` on each
 overlaps the decode of batch N. ``depth`` bounds the finished items waiting
 in the queue. An exception in the worker is raised to the consumer at its
 next ``__next__``. ``close()`` (or the context manager) stops the worker.
+
+``ImageDecodePool`` decodes a batch's image files on a thread pool, in order
+(Pillow releases the GIL while it decodes and resizes).
 """
 
 from __future__ import annotations
 
+import os
 import queue
 import threading
-from typing import Callable, Iterable, Iterator, Optional
+from typing import Callable, Iterable, Iterator, Optional, Sequence
+
+import numpy as np
 
 _SENTINEL = object()
 
@@ -80,3 +87,46 @@ class PrefetchIterator:
     def __exit__(self, *exc):
         self.close()
         return False
+
+
+class ImageDecodePool:
+    """Thread pool over ``data.images.load_image``; a batch comes back in the
+    order of its paths. One instance per process is plenty (see
+    ``default_image_pool``)."""
+
+    def __init__(self, workers: Optional[int] = None):
+        from concurrent.futures import ThreadPoolExecutor
+
+        if workers is None:
+            workers = min(16, max(2, (os.cpu_count() or 4) - 1))
+        self.workers = workers
+        self._pool = ThreadPoolExecutor(max_workers=workers,
+                                        thread_name_prefix="imgdec")
+
+    def decode(self, paths: Sequence[str], root: str = "", size: int = 224,
+               resize_min: Optional[int] = None,
+               raw: bool = False) -> np.ndarray:
+        """Decode and resize ``paths`` in parallel -> [N, size, size, 3]:
+        normalised float32, or uint8 with ``raw=True``."""
+        from imagetranslate_tpu_torch.data.images import load_image
+
+        full = [os.path.join(root, p) if root else p for p in paths]
+        futs = [self._pool.submit(load_image, p, size, resize_min, raw)
+                for p in full]
+        return np.stack([f.result() for f in futs])
+
+    def shutdown(self):
+        self._pool.shutdown(wait=False)
+
+
+_default_pool: Optional[ImageDecodePool] = None
+_default_pool_lock = threading.Lock()
+
+
+def default_image_pool() -> ImageDecodePool:
+    global _default_pool
+    if _default_pool is None:
+        with _default_pool_lock:
+            if _default_pool is None:
+                _default_pool = ImageDecodePool()
+    return _default_pool

@@ -1,6 +1,6 @@
 """KV-cached batched beam search (port of imagetranslate_tpu/decoding/beam.py:
-``beam_search`` with the gather cache, greedy K=1, ``max_len_for`` and
-``trim_outputs``).
+``beam_search`` and ``beam_search_dual`` with the gather cache, greedy K=1,
+``max_len_for`` and ``trim_outputs``).
 
 Each step decodes ONE token per beam against a [B*K, L, H, D] self-attention
 cache and reorders the cache rows by an index gather after the beam
@@ -30,7 +30,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from imagetranslate_tpu_torch.models.seq2seq import Seq2Seq, first_lang
+from imagetranslate_tpu_torch.models.seq2seq import first_lang
 from imagetranslate_tpu_torch.models.transformer import pad_bias
 from imagetranslate_tpu_torch.ops.topk_project import stable_topk
 
@@ -43,48 +43,28 @@ def max_len_for(src_len: int, max_len_a: float, max_len_b: int,
     return min(int(max_len_a * src_len + max_len_b), max_positions)
 
 
-@torch.no_grad()
-def beam_search(
-    model: Seq2Seq,
-    enc_states: torch.Tensor,     # [B, S, E]
-    src_mask: torch.Tensor,       # [B, S] keep-mask for cross-attention
-    first_tokens: torch.Tensor,   # [B] initial (target-language) token
-    tgt_langs: torch.Tensor,      # [B] target language index
-    src_sizes: Optional[torch.Tensor] = None,       # [B] true source lengths
-    proposals: Optional[torch.Tensor] = None,       # [B, P] --dict candidates
-    proposal_mask: Optional[torch.Tensor] = None,   # [B, P]
-    *,
-    beam_width: int = 4,
-    max_len: int = 128,
-    max_len_a: float = 1.3,
-    max_len_b: int = 5,
-    len_penalty_ratio: float = 0.8,
-    pad_id: int = 0,
-    eos_id: int = 4,
-    ref_ties: bool = True,
-):
-    """Returns (best [B, L] int64: the top beam per row, starting with the
-    first token, padded after EOS; lengths [B] int64: index of the first EOS,
-    or the row's limit)."""
-    B = enc_states.shape[0]
-    K, L = beam_width, max_len
-    dev = enc_states.device
-    lang_idx = first_lang(tgt_langs)
-
+def _max_lens(src_sizes, B: int, L: int, max_len_a: float, max_len_b: int,
+              dev) -> torch.Tensor:
+    """Per-row decode limits floor(a * src_size + b), capped at L, in fp32 as
+    the JAX decoder computes them; L for every row without ``src_sizes``."""
     if src_sizes is None:
-        max_lens = torch.full((B,), L, dtype=torch.int32, device=dev)
-    else:
-        per_row = torch.floor(max_len_a * src_sizes.to(torch.float32)
-                              + max_len_b).to(torch.int32)
-        max_lens = torch.clamp(per_row, max=L)
+        return torch.full((B,), L, dtype=torch.int32, device=dev)
+    per_row = torch.floor(max_len_a * src_sizes.to(torch.float32)
+                          + max_len_b).to(torch.int32)
+    return torch.clamp(per_row, max=L)
 
-    def rep(x):
-        return None if x is None else x.repeat_interleave(K, dim=0)
 
-    cross_bias = pad_bias(rep(src_mask))
-    langs_k, prop_k, pmask_k = rep(tgt_langs), rep(proposals), rep(
-        proposal_mask)
-    cache = model.init_cache(rep(enc_states), B * K, L, lang_idx)
+def _beam_loop(step, caches, first_tokens, max_lens, *, beam_width: int,
+               max_len: int, len_penalty_ratio: float, pad_id: int,
+               eos_id: int, ref_ties: bool):
+    """The decode loop and its selection, shared by ``beam_search`` and
+    ``beam_search_dual``. ``step(prev [B*K, 1], index)`` decodes one token
+    per beam and returns the project_topk triple; ``caches`` are the
+    self-attention caches (lists of layer dicts) whose rows follow the
+    selected beams, all reordered together."""
+    B = first_tokens.shape[0]
+    K, L = beam_width, max_len
+    dev = first_tokens.device
 
     tokens = torch.full((B, K, L), pad_id, dtype=torch.long, device=dev)
     tokens[:, :, 0] = first_tokens[:, None]
@@ -100,9 +80,7 @@ def beam_search(
     i = 1
     while i < L and not bool(finished.all()):
         prev = tokens[:, :, i - 1].reshape(B * K, 1)
-        top_val, top_word, lse = model.decode_step(
-            prev, cache, i - 1, cross_bias, langs_k, lang_idx,
-            proposals=prop_k, proposal_mask=pmask_k, topk=K)
+        top_val, top_word, lse = step(prev, i - 1)
         top_logp = (top_val - lse[:, None]).reshape(B, K, K)
         top_word = top_word.reshape(B, K, K).to(torch.long)
 
@@ -135,9 +113,10 @@ def beam_search(
         scores = top_scores
         if K > 1:
             rows = (row_base + beam_idx).reshape(-1)
-            for layer in cache:
-                layer["k"] = layer["k"].index_select(0, rows)
-                layer["v"] = layer["v"].index_select(0, rows)
+            for cache in caches:
+                for layer in cache:
+                    layer["k"] = layer["k"].index_select(0, rows)
+                    layer["v"] = layer["v"].index_select(0, rows)
         i += 1
 
     best = tokens[:, 0, :]
@@ -146,6 +125,119 @@ def beam_search(
     lengths = torch.where(is_eos.any(dim=1), first_eos,
                           max_lens.to(torch.long))
     return best, lengths
+
+
+@torch.no_grad()
+def beam_search(
+    model,                        # Seq2Seq or ImageSeq2Seq
+    enc_states: torch.Tensor,     # [B, S, E] text states or an image grid
+    src_mask: torch.Tensor,       # [B, S] keep-mask for cross-attention
+    first_tokens: torch.Tensor,   # [B] initial (target-language) token
+    tgt_langs: torch.Tensor,      # [B] target language index
+    src_sizes: Optional[torch.Tensor] = None,       # [B] true source lengths
+    proposals: Optional[torch.Tensor] = None,       # [B, P] --dict candidates
+    proposal_mask: Optional[torch.Tensor] = None,   # [B, P]
+    *,
+    beam_width: int = 4,
+    max_len: int = 128,
+    max_len_a: float = 1.3,
+    max_len_b: int = 5,
+    len_penalty_ratio: float = 0.8,
+    pad_id: int = 0,
+    eos_id: int = 4,
+    ref_ties: bool = True,
+):
+    """Returns (best [B, L] int64: the top beam per row, starting with the
+    first token, padded after EOS; lengths [B] int64: index of the first EOS,
+    or the row's limit)."""
+    B = enc_states.shape[0]
+    K, L = beam_width, max_len
+    lang_idx = first_lang(tgt_langs)
+    max_lens = _max_lens(src_sizes, B, L, max_len_a, max_len_b,
+                         enc_states.device)
+
+    def rep(x):
+        return None if x is None else x.repeat_interleave(K, dim=0)
+
+    cross_bias = pad_bias(rep(src_mask))
+    langs_k, prop_k, pmask_k = rep(tgt_langs), rep(proposals), rep(
+        proposal_mask)
+    cache = model.init_cache(rep(enc_states), B * K, L, lang_idx)
+
+    def step(prev, index):
+        return model.decode_step(prev, cache, index, cross_bias, langs_k,
+                                 lang_idx, proposals=prop_k,
+                                 proposal_mask=pmask_k, topk=K)
+
+    return _beam_loop(step, [cache], first_tokens, max_lens, beam_width=K,
+                      max_len=L, len_penalty_ratio=len_penalty_ratio,
+                      pad_id=pad_id, eos_id=eos_id, ref_ties=ref_ties)
+
+
+@torch.no_grad()
+def beam_search_dual(
+    model,                        # ImageSeq2Seq
+    enc_text: torch.Tensor,       # [B, S, E] text-encoder states
+    text_mask: torch.Tensor,      # [B, S]
+    grid: torch.Tensor,           # [B, G, E] image grid
+    first_tokens: torch.Tensor,
+    tgt_langs: torch.Tensor,
+    src_sizes: Optional[torch.Tensor] = None,
+    *,
+    beam_width: int = 4,
+    max_len: int = 128,
+    max_len_a: float = 1.3,
+    max_len_b: int = 5,
+    len_penalty_ratio: float = 0.8,
+    pad_id: int = 0,
+    eos_id: int = 4,
+    grid_mask: Optional[torch.Tensor] = None,
+    init_method=None,
+    step_method=None,
+    ref_ties: bool = True,
+):
+    """Gated dual-stream beam search: every step decodes against the text
+    encoding AND the image grid, each stream with its own KV cache, and
+    blends the two decoder outputs with the learned gate. Same selection as
+    ``beam_search``; both caches follow the selected beams.
+
+    The two streams are generic: ``init_method``/``step_method`` (unbound
+    methods of the model's class; default ``init_dual_cache`` /
+    ``decode_step_dual``) swap in another pair, e.g.
+    ``ImageSeq2Seq.init_obj_dual_cache`` / ``decode_step_obj_dual`` for the
+    grid + object decode, with ``enc_text`` = the image grid, ``grid`` = the
+    object states and ``grid_mask`` = the valid-detection mask."""
+    B = enc_text.shape[0]
+    K, L = beam_width, max_len
+    lang_idx = first_lang(tgt_langs)
+    if init_method is None:
+        init_method = type(model).init_dual_cache
+    if step_method is None:
+        step_method = type(model).decode_step_dual
+    max_lens = _max_lens(src_sizes, B, L, max_len_a, max_len_b,
+                         enc_text.device)
+
+    def rep(x):
+        return x.repeat_interleave(K, dim=0)
+
+    grid_k = rep(grid)
+    cb_text = pad_bias(rep(text_mask))
+    if grid_mask is None:
+        cb_img = pad_bias(torch.ones(grid_k.shape[:2], dtype=torch.bool,
+                                     device=grid.device))
+    else:
+        cb_img = pad_bias(rep(grid_mask))
+    langs_k = rep(tgt_langs)
+    cache = init_method(model, rep(enc_text), grid_k, B * K, L, lang_idx)
+
+    def step(prev, index):
+        return step_method(model, prev, cache, index, cb_text, cb_img,
+                           langs_k, lang_idx, topk=K)
+
+    return _beam_loop(step, list(cache.values()), first_tokens, max_lens,
+                      beam_width=K, max_len=L,
+                      len_penalty_ratio=len_penalty_ratio, pad_id=pad_id,
+                      eos_id=eos_id, ref_ties=ref_ties)
 
 
 def trim_outputs(best, lengths, remove_first_token: bool = False):

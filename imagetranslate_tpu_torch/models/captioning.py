@@ -1,0 +1,229 @@
+"""Image captioning model, the serving surface (port of
+imagetranslate_tpu/models/captioning.py::ImageSeq2Seq: every parameter of the
+flax tree; ``encode``/``encode_text``, ``encode_images``, ``encode_objects``;
+``init_cache``/``decode_step``, ``init_dual_cache``/``decode_step_dual`` and
+``init_obj_dual_cache``/``decode_step_obj_dual``).
+
+One module holds the text ``core`` (Seq2Seq), the ResNet grid encoder, the two
+pooling heads of the contrastive objective, the learned sigmoid gates and,
+under ``cfg.use_obj``, the object stream: one more decoder per decoder head
+with its own input embeddings, a label embedding over the 91 COCO classes and
+a bias-free projection of the detections' features. The decode surface is
+``Seq2Seq``'s, so ``decoding.beam.beam_search`` takes either model; the
+encoder states may be text states or the image grid.
+
+The decoder head is a host int (``lang_idx``), so the per-language decoders
+of ``lang_dec`` are plain indexing, as in ``models/seq2seq.py``. The caches
+are updated in place: a decode step returns its logits (or the project_topk
+triple) only. The training forwards (``caption_forward*``,
+``multimodal_mass_forward``, ``contrastive_loss``), ``decode_step_beams`` and
+the windowed caches are not ported.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from imagetranslate_tpu_torch.data.images import normalize_uint8
+from imagetranslate_tpu_torch.models.config import Seq2SeqConfig
+from imagetranslate_tpu_torch.models.resnet import ResNetGrid
+from imagetranslate_tpu_torch.models.seq2seq import (
+    AttentionPool,
+    Seq2Seq,
+    expand_langs,
+    first_lang,
+)
+from imagetranslate_tpu_torch.models.transformer import (
+    Cache,
+    Decoder,
+    Embedding,
+    Embeddings,
+    _param_dtype,
+    dropout_stream,
+)
+
+NUM_OBJECT_LABELS = 91      # COCO classes of the detector, 0 = padding
+OBJECT_FEAT_DIM = 1031      # 1024 pooled box features + 7 geometry features
+
+DualCache = Dict[str, Cache]
+
+
+def _gate(cfg: Seq2SeqConfig, device) -> nn.Parameter:
+    return nn.Parameter(torch.full((1, cfg.hidden_size), 0.1,
+                                   dtype=torch.float32, device=device))
+
+
+class ImageSeq2Seq(nn.Module):
+    """``param_dtype`` as in ``Seq2Seq``: None stores the compute dtype (for
+    serving), ``torch.float32`` holds fp32 masters. ``object_feat_dim`` is
+    the width of a detection's features (flax infers it from the first
+    input)."""
+
+    def __init__(self, cfg: Seq2SeqConfig, device=None, param_dtype=None,
+                 object_feat_dim: int = OBJECT_FEAT_DIM):
+        super().__init__()
+        self.cfg = cfg
+        self.core = Seq2Seq(cfg, device, param_dtype)
+        self.image_model = ResNetGrid(
+            cfg.hidden_size, depth=cfg.resnet_depth, dropout=cfg.dropout,
+            img_size=cfg.img_size, dtype=cfg.compute_dtype, device=device,
+            param_dtype=param_dtype)
+        self.multimodal_attention_gate = _gate(cfg, device)
+        self.image_attention = AttentionPool(cfg, device, param_dtype)
+        self.encoder_attention = AttentionPool(cfg, device, param_dtype)
+        if cfg.use_obj:
+            if cfg.lang_dec:
+                n = cfg.num_languages
+                self.obj_decoder = nn.ModuleList(
+                    [Decoder(cfg, device, param_dtype) for _ in range(n)])
+                self.obj_embeddings = nn.ModuleList(
+                    [Embeddings(cfg, device, param_dtype) for _ in range(n)])
+            else:
+                self.obj_decoder = Decoder(cfg, device, param_dtype)
+                self.obj_embeddings = Embeddings(cfg, device, param_dtype)
+            self.multistream_attention_gate = _gate(cfg, device)
+            self.object_embedding = Embedding(
+                NUM_OBJECT_LABELS, cfg.hidden_size, cfg.compute_dtype,
+                device=device, dtype=_param_dtype(cfg, param_dtype))
+            self.object_feat_fc = nn.Linear(
+                object_feat_dim, cfg.hidden_size, bias=False, device=device,
+                dtype=_param_dtype(cfg, param_dtype))
+
+    def _obj_decoder(self, lang_idx: int) -> Decoder:
+        return (self.obj_decoder[lang_idx] if self.cfg.lang_dec
+                else self.obj_decoder)
+
+    def _obj_embed(self, lang_idx: int) -> Embeddings:
+        return (self.obj_embeddings[lang_idx] if self.cfg.lang_dec
+                else self.obj_embeddings)
+
+    # ---------------- encoders ----------------
+
+    def encode(self, src_ids, src_mask, src_langs,
+               deterministic: bool = True, rng=None):
+        """Same name as ``Seq2Seq.encode``, so the decode loops take either
+        model."""
+        return self.core.encode(src_ids, src_mask, src_langs, deterministic,
+                                rng=rng)
+
+    encode_text = encode
+
+    def encode_images(self, images, train: bool = False,
+                      deterministic: bool = True, rng=None):
+        """images [B, S, S, 3] -> grid [B, (S/32)^2, E]. uint8 input is
+        normalised on the device (``/255``, ImageNet mean and std: the
+        arithmetic ``data.images.load_image`` does on the host for float
+        input), so the host ships one byte a pixel. With
+        ``cfg.freeze_image`` the grid carries no gradient."""
+        if images.dtype == torch.uint8:
+            images = normalize_uint8(images)
+        drop = dropout_stream(deterministic, rng, images.device)
+        grid = self.image_model(images, train=train, drop=drop)
+        return grid.detach() if self.cfg.freeze_image else grid
+
+    def encode_objects(self, box_features, object_labels):
+        """Precomputed detections -> (object-stream states [B, O, E], keep
+        [B, O]): [box features | 7 geometry] through a bias-free Linear,
+        plus the label's embedding, ReLU; rows of label 0 are padding and
+        come out zero."""
+        x = box_features.to(self.cfg.compute_dtype)
+        feats = F.linear(x, self.object_feat_fc.weight.to(x.dtype))
+        out = torch.relu(feats + self.object_embedding(object_labels))
+        keep = object_labels != 0
+        return torch.where(keep[..., None], out, 0.0), keep
+
+    # ---------------- teacher-forced text forward ----------------
+
+    def forward(self, *args, **kw):
+        """The text model's forward (multi-task training)."""
+        return self.core(*args, **kw)
+
+    # ---------------- decoding ----------------
+
+    def init_cache(self, enc_states, batch: int, max_len: int,
+                   lang_idx: int = 0) -> Cache:
+        return self.core.init_cache(enc_states, batch, max_len, lang_idx)
+
+    def decode_step(self, prev_token, cache: Cache, index: int, cross_bias,
+                    tgt_langs, lang_idx: Optional[int] = None,
+                    proposals=None, proposal_mask=None,
+                    topk: Optional[int] = None):
+        return self.core.decode_step(prev_token, cache, index, cross_bias,
+                                     tgt_langs, lang_idx=lang_idx,
+                                     proposals=proposals,
+                                     proposal_mask=proposal_mask, topk=topk)
+
+    def _embed_step(self, emb: Embeddings, prev_token, index: int, tgt_langs):
+        B = prev_token.shape[0]
+        positions = torch.full((B, 1), index, dtype=torch.long,
+                               device=prev_token.device)
+        return emb(prev_token, positions, expand_langs(tgt_langs, 1))
+
+    def _blend(self, gate_param, h_a, h_b, lang_idx: int,
+               topk: Optional[int]):
+        """sigmoid(gate) * h_a + (1 - sigmoid(gate)) * h_b, then the vocab
+        projection (or its top-k)."""
+        gate = torch.sigmoid(gate_param + 1e-7)
+        blended = gate.to(h_a.dtype) * h_a + (1.0 - gate).to(h_b.dtype) * h_b
+        if topk is not None:
+            return self.core.project_topk(blended, topk, lang_idx)
+        return self.core.project(blended, lang_idx)[:, 0, :]
+
+    # Gated dual-stream decoding: the decoder runs against the text encoding
+    # AND the image grid with separate KV caches (the streams share the token
+    # embeddings and part from the first cross-attention on); the two hidden
+    # states are blended by sigmoid(multimodal gate) and projected once.
+
+    def init_dual_cache(self, enc_text, grid, batch: int, max_len: int,
+                        lang_idx: int = 0) -> DualCache:
+        return {
+            "text": self.core.init_cache(enc_text, batch, max_len, lang_idx),
+            "img": self.core.init_cache(grid, batch, max_len, lang_idx),
+        }
+
+    def decode_step_dual(self, prev_token, cache: DualCache, index: int,
+                         cross_bias_text, cross_bias_img, tgt_langs,
+                         lang_idx: Optional[int] = None,
+                         topk: Optional[int] = None):
+        if lang_idx is None:
+            lang_idx = first_lang(tgt_langs)
+        x = self._embed_step(self.core.embeddings, prev_token, index,
+                             tgt_langs)
+        dec = self.core._decoder(lang_idx)
+        h_text = dec.step(x, cache["text"], index, cross_bias_text)
+        h_img = dec.step(x, cache["img"], index, cross_bias_img)
+        return self._blend(self.multimodal_attention_gate, h_text, h_img,
+                           lang_idx, topk)
+
+    # Object-stream decoding: the grid decoder and the object decoder, each
+    # with its own KV cache (and the object decoder with its own input
+    # embeddings), blended by sigmoid(multistream gate) every step.
+
+    def init_obj_dual_cache(self, grid, obj_states, batch: int, max_len: int,
+                            lang_idx: int = 0) -> DualCache:
+        return {
+            "img": self.core.init_cache(grid, batch, max_len, lang_idx),
+            "obj": self._obj_decoder(lang_idx).init_cache(obj_states, batch,
+                                                          max_len),
+        }
+
+    def decode_step_obj_dual(self, prev_token, cache: DualCache, index: int,
+                             cross_bias_img, cross_bias_obj, tgt_langs,
+                             lang_idx: Optional[int] = None,
+                             topk: Optional[int] = None):
+        if lang_idx is None:
+            lang_idx = first_lang(tgt_langs)
+        x = self._embed_step(self.core.embeddings, prev_token, index,
+                             tgt_langs)
+        x_obj = self._embed_step(self._obj_embed(lang_idx), prev_token,
+                                 index, tgt_langs)
+        h_img = self.core._decoder(lang_idx).step(x, cache["img"], index,
+                                                  cross_bias_img)
+        h_obj = self._obj_decoder(lang_idx).step(x_obj, cache["obj"], index,
+                                                 cross_bias_obj)
+        return self._blend(self.multistream_attention_gate, h_img, h_obj,
+                           lang_idx, topk)

@@ -5,11 +5,19 @@ Same fields, defaults and JSON as the JAX ``Seq2SeqConfig``, so a
 ``fused_attn_dropout`` routes training attention through the fused dropout
 kernel (``ops/train_attention.py``), ``use_pallas_xent`` routes the train
 steps' loss through the fused cross-entropy kernels (``ops/xent.py``; the key
-keeps the name both packages read), and ``use_pallas_attention`` refuses
-S >= 1024 until the flash kernel is ported. The other knobs that select TPU kernels
-or XLA lowerings (``decode_attention_impl``, ``dense_decode_cross``,
-``fused_project_topk``, ``remat*``) are read and kept but have no effect
-here: the port has one path per operation, and recomputation is not ported.
+keeps the name both packages read), ``use_pallas_attention`` routes a
+deterministic attention over S >= 1024 keys through the flash attention kernel
+(``ops/flash_attention.py``) when its gate passes, and
+``decode_attention_impl="fused"`` routes the self-attention of every decode
+step through the beam decode attention kernel (``ops/decode_attention.py``:
+bf16 compute and cache on the card, where a head width or a live length the
+kernel does not take raises; an fp32 model or an fp32/fp8 cache on the card
+takes the plain attention; the op's plain version on the CPU);
+``"onehot"`` (the default) and ``"dense"`` take the plain attention over the
+masked buffer. The other knobs that select TPU kernels or XLA lowerings
+(``dense_decode_cross``, ``fused_project_topk``, ``remat*``) are read and kept
+but have no effect here: the port has one path per operation, and
+recomputation is not ported.
 """
 
 from __future__ import annotations

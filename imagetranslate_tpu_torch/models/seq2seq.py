@@ -1,6 +1,6 @@
 """The multilingual encoder-decoder (port of
-imagetranslate_tpu/models/seq2seq.py: ProposalAttention and Seq2Seq's encode,
-forward, project, project_topk, init_cache and decode_step).
+imagetranslate_tpu/models/seq2seq.py: ProposalAttention, AttentionPool and
+Seq2Seq's encode, forward, project, project_topk, init_cache and decode_step).
 
 One language per batch: the decoder head is chosen by the language of the
 FIRST target row, as in the JAX model (seq2seq.py:315). Here that index is a
@@ -20,6 +20,7 @@ from imagetranslate_tpu_torch.models.transformer import (
     Decoder,
     Encoder,
     OutputLayer,
+    _linear,
     causal_pad_bias,
     dropout_stream,
     layer_norm,
@@ -68,6 +69,23 @@ class ProposalAttention(nn.Module):
         sig = torch.sigmoid(self.gate + 1e-8).to(decoder_output.dtype)
         mixed = sig * decoder_output + (1.0 - sig) * context
         return layer_norm(self.LayerNorm, mixed)
+
+
+class AttentionPool(nn.Module):
+    """Masked attention pooling to one vector per sequence: the sentence or
+    image embedding of the contrastive objective."""
+
+    def __init__(self, cfg: Seq2SeqConfig, device=None, param_dtype=None):
+        super().__init__()
+        self.w = _linear(cfg, cfg.hidden_size, 1, device, param_dtype)
+
+    def forward(self, states, keep_mask=None):
+        """states [B, F, E]; keep_mask [B, F] or None. Returns [B, E]."""
+        scores = self.w(states)[..., 0].to(torch.float32)
+        if keep_mask is not None:
+            scores = scores.masked_fill(~keep_mask, NEG_INF)
+        probs = torch.softmax(scores, dim=1).to(states.dtype)
+        return torch.einsum("bf,bfd->bd", probs, states)
 
 
 class Seq2Seq(nn.Module):

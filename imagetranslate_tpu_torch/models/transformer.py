@@ -38,6 +38,10 @@ from imagetranslate_tpu_torch.ops.attention import (
     dot_product_attention,
     make_attention_bias,
 )
+from imagetranslate_tpu_torch.ops.decode_attention import (
+    decode_attention,
+    kernel_dtypes,
+)
 
 # Per decoder layer: self-attention K/V buffers "k", "v" [B, L, H, D] in the
 # cache dtype, and the once-projected encoder K/V "ek", "ev" [B, S, H, D].
@@ -171,15 +175,19 @@ class Attention(nn.Module):
 
     def forward(self, x, kv, bias, cache: Optional[Dict] = None,
                 index: Optional[int] = None, precomputed_kv=None,
-                drop: Optional[DropoutRng] = None):
+                drop: Optional[DropoutRng] = None, fused: bool = False):
         """x [B, T, E] queries; kv [B, S, E] keys/values (self-attention:
         kv = x). With ``cache`` (a layer's dict) the new K/V are written in
-        place at position ``index`` of cache["k"]/["v"] and attention reads
-        the whole buffer; with ``precomputed_kv`` = (k, v) the projections
-        are skipped (cross-attention in decode). ``drop`` turns on the
+        place at position ``index`` of cache["k"]/["v"]; attention then reads
+        the whole buffer under ``bias``, or, with ``fused`` (one query token,
+        see ``Decoder.fused_decode_step``), positions ``0 .. index`` through
+        ``ops/decode_attention.py`` in the cache's own dtype, ``bias`` unread.
+        With ``precomputed_kv`` = (k, v) the projections are skipped
+        (cross-attention in decode). ``drop`` turns on the
         attention-probability and output dropout."""
         cfg = self.cfg
         q = self._heads(self.self["query"](x))
+        ctx = None
         if precomputed_kv is not None:
             k, v = precomputed_kv
         else:
@@ -188,14 +196,23 @@ class Attention(nn.Module):
                 T = k.shape[1]
                 cache["k"][:, index:index + T] = k.to(cache["k"].dtype)
                 cache["v"][:, index:index + T] = v.to(cache["v"].dtype)
-                k = cache["k"].to(cfg.compute_dtype)
-                v = cache["v"].to(cfg.compute_dtype)
-        ctx = dot_product_attention(
-            q, k, v, bias, dropout_rate=cfg.attention_dropout,
-            deterministic=drop is None,
-            seed=None if drop is None else drop.next_seed(),
-            use_pallas=cfg.use_pallas_attention,
-            use_fused_dropout=cfg.fused_attn_dropout)
+                if fused:
+                    if T != 1:
+                        raise ValueError("the fused decode step takes one "
+                                         f"query token a row, got {T}")
+                    ctx = decode_attention(
+                        q[:, 0], cache["k"][:, :index + 1],
+                        cache["v"][:, :index + 1])[:, None]
+                else:
+                    k = cache["k"].to(cfg.compute_dtype)
+                    v = cache["v"].to(cfg.compute_dtype)
+        if ctx is None:
+            ctx = dot_product_attention(
+                q, k, v, bias, dropout_rate=cfg.attention_dropout,
+                deterministic=drop is None,
+                seed=None if drop is None else drop.next_seed(),
+                use_pallas=cfg.use_pallas_attention,
+                use_fused_dropout=cfg.fused_attn_dropout)
         out = self.output["dense"](ctx.reshape(*ctx.shape[:2], -1))
         if drop is not None:
             out = drop.dropout(out, cfg.dropout)
@@ -241,9 +258,13 @@ class DecoderLayer(EncoderLayer):
         x = self.crossattention(x, enc, cross_bias, drop=drop)
         return self.ffn(x, drop)
 
-    def step(self, x, cache: Dict, index: int, cross_bias, self_bias):
-        """One-token decode; writes this token's K/V into ``cache``."""
-        x = self.attention(x, x, self_bias, cache=cache, index=index)
+    def step(self, x, cache: Dict, index: int, cross_bias, self_bias,
+             fused: bool = False):
+        """One-token decode; writes this token's K/V into ``cache``. With
+        ``fused`` the self-attention reads positions ``0 .. index`` through
+        ``ops/decode_attention.py`` and ``self_bias`` is unread."""
+        x = self.attention(x, x, self_bias, cache=cache, index=index,
+                           fused=fused)
         x = self.crossattention(x, None, cross_bias,
                                 precomputed_kv=(cache["ek"], cache["ev"]))
         return self.ffn(x)
@@ -335,14 +356,33 @@ class Decoder(nn.Module):
             })
         return cache
 
+    def fused_decode_step(self, x, cache: Cache) -> bool:
+        """Does this step's self-attention go through
+        ``ops/decode_attention.py``? With ``decode_attention_impl="fused"``:
+        always for a CPU tensor (the op's plain version), and on the card by
+        the dtypes alone (bf16 compute and cache): a head width or a live
+        length the kernel does not take then raises in the op, it does not
+        take the plain attention. An fp32 model or an fp32/fp8 cache on the
+        card takes the plain attention, as do ``"onehot"`` and ``"dense"``
+        (in the JAX package two lowerings of the same math)."""
+        cfg = self.cfg
+        if cfg.decode_attention_impl != "fused" or x.shape[1] != 1:
+            return False
+        return x.device.type == "cpu" or kernel_dtypes(
+            cfg.compute_dtype, cache[0]["k"].dtype)
+
     def step(self, x, cache: Cache, index: int, cross_bias):
         """One decode step on embedded tokens x [B, 1, E]; updates the
         cache's self-attention buffers in place."""
-        L = cache[0]["k"].shape[1]
-        keep = torch.arange(L, device=x.device) <= index
-        self_bias = make_attention_bias(keep)[None, None, None, :]
+        fused = self.fused_decode_step(x, cache)
+        if fused:
+            self_bias = None     # positions 0 .. index, read by the fused op
+        else:
+            L = cache[0]["k"].shape[1]
+            keep = torch.arange(L, device=x.device) <= index
+            self_bias = make_attention_bias(keep)[None, None, None, :]
         for layer, c in zip(self.decoder.layer, cache):
-            x = layer.step(x, c, index, cross_bias, self_bias)
+            x = layer.step(x, c, index, cross_bias, self_bias, fused)
         return x
 
 

@@ -4,7 +4,8 @@ package loads and decodes in the other:
 
     config.json        — Seq2SeqConfig (JSON)
     params.msgpack     — the flax parameter tree, as flax's msgpack_serialize
-                         writes it (fp32 masters from a trainer)
+                         writes it (fp32 masters from a trainer; a captioning
+                         checkpoint holds {"params", "batch_stats"})
     opt_state.msgpack  — the optax optimizer state tree (optional)
     meta.json          — {"step": int, "best_metric": float}
 
@@ -242,12 +243,19 @@ def load_config(out_dir: str) -> Seq2SeqConfig:
         return Seq2SeqConfig.from_json(f.read())
 
 
+def load_variables(out_dir: str) -> dict:
+    """The whole tree of ``params.msgpack``, leaves as CPU tensors: for a
+    captioning checkpoint ``{"params": {...}, "batch_stats": {...}}``
+    (``train/weights.CAPTION`` maps it onto ``ImageSeq2Seq.state_dict()``)."""
+    with open(os.path.join(out_dir, "params.msgpack"), "rb") as f:
+        return msgpack_loads(f.read())
+
+
 def load_params(out_dir: str) -> dict:
     """The flax-layout parameter tree of ``params.msgpack``, leaves as CPU
     tensors. A text ``Seq2Seq`` also loads from a multimodal checkpoint: its
     weights are that tree's ``core`` subtree."""
-    with open(os.path.join(out_dir, "params.msgpack"), "rb") as f:
-        tree = msgpack_loads(f.read())
+    tree = load_variables(out_dir)
     p = tree.get("params", tree)
     if "core" in p and "embeddings" not in p:
         return {"params": p["core"]}

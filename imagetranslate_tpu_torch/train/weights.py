@@ -19,10 +19,15 @@ a map numbered by chain position, ``ScaleByAdamState`` as count/mu/nu,
 ``optax.MultiSteps`` around it when gradients accumulate); the moments and the
 accumulated gradients are parameter-shaped trees and go through the same
 layout maps as the parameters.
+
+One ``Bridge`` per model: ``SEQ2SEQ``, ``LM``, ``LONGDOC`` and ``CAPTION`` (the
+captioning model's variables are ``{"params", "batch_stats"}``: the ResNet's
+running statistics cross as ``state_dict`` buffers).
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import Callable, Dict, Mapping, NamedTuple
 
@@ -63,16 +68,29 @@ def _ffn(sd, prefix: str, p: Mapping):
     sd[f"{prefix}.output.LayerNorm.bias"] = _t(p["ln"]["bias"])
 
 
-def _encoder_sd(sd, p: Mapping, cfg: Seq2SeqConfig):
-    """The ``embeddings`` and ``encoder`` sub-trees (those of ``Seq2Seq`` and
-    of ``LM``) -> the ``encoder.*`` keys."""
-    E = cfg.hidden_size
-    emb, ep = "encoder.embeddings", p["embeddings"]
+def _embeddings_sd(sd, emb: str, ep: Mapping):
+    """An ``Embeddings`` sub-tree -> the keys under ``emb``."""
     sd[f"{emb}.word_embeddings.weight"] = _t(ep["word"]["embedding"])
     sd[f"{emb}.position_embeddings.weight"] = _t(ep["position"]["embedding"])
     sd[f"{emb}.token_type_embeddings.weight"] = _t(ep["lang"]["embedding"])
     sd[f"{emb}.LayerNorm.weight"] = _t(ep["ln"]["scale"])
     sd[f"{emb}.LayerNorm.bias"] = _t(ep["ln"]["bias"])
+
+
+def _decoder_sd(sd, dec: str, p: Mapping, cfg: Seq2SeqConfig):
+    """A ``Decoder`` sub-tree (``layers_i``) -> the keys under ``dec``."""
+    for i in range(cfg.dec_layers):
+        lp, pre = p[f"layers_{i}"], f"{dec}.decoder.layer.{i}"
+        _attn(sd, f"{pre}.attention", lp["self_attn"], cfg.hidden_size)
+        _attn(sd, f"{pre}.crossattention", lp["cross_attn"], cfg.hidden_size)
+        _ffn(sd, pre, lp["ffn"])
+
+
+def _encoder_sd(sd, p: Mapping, cfg: Seq2SeqConfig):
+    """The ``embeddings`` and ``encoder`` sub-trees (those of ``Seq2Seq`` and
+    of ``LM``) -> the ``encoder.*`` keys."""
+    E = cfg.hidden_size
+    _embeddings_sd(sd, "encoder.embeddings", p["embeddings"])
 
     for i in range(cfg.enc_layers):
         lp, pre = p["encoder"][f"layers_{i}"], f"encoder.encoder.layer.{i}"
@@ -89,7 +107,6 @@ def state_dict_from_flax(params: Mapping,
     """The JAX ``Seq2Seq`` params (``{"params": {...}}`` or the inner dict;
     leaves numpy arrays or tensors) -> the port's ``state_dict``."""
     p = params.get("params", params)
-    E = cfg.hidden_size
     sd: Dict[str, torch.Tensor] = {}
     _encoder_sd(sd, p, cfg)
 
@@ -97,12 +114,7 @@ def state_dict_from_flax(params: Mapping,
     for d in range(n_dec):
         dec = f"decoder.{d}" if cfg.lang_dec else "decoder"
         out = f"output_layer.{d}.layer" if cfg.lang_dec else "output_layer.layer"
-        for i in range(cfg.dec_layers):
-            lp = p[f"decoders_{d}"][f"layers_{i}"]
-            pre = f"{dec}.decoder.layer.{i}"
-            _attn(sd, f"{pre}.attention", lp["self_attn"], E)
-            _attn(sd, f"{pre}.crossattention", lp["cross_attn"], E)
-            _ffn(sd, pre, lp["ffn"])
+        _decoder_sd(sd, dec, p[f"decoders_{d}"], cfg)
         if cfg.tie_embed:
             sd[f"{out}.bias"] = _t(p[f"out_bias_{d}"])
         else:
@@ -143,16 +155,31 @@ def _ln_tree(sd, prefix: str) -> dict:
     return {"scale": sd[f"{prefix}.weight"], "bias": sd[f"{prefix}.bias"]}
 
 
+def _embeddings_tree(sd, emb: str) -> dict:
+    return {
+        "word": {"embedding": sd[f"{emb}.word_embeddings.weight"]},
+        "position": {"embedding": sd[f"{emb}.position_embeddings.weight"]},
+        "lang": {"embedding": sd[f"{emb}.token_type_embeddings.weight"]},
+        "ln": _ln_tree(sd, f"{emb}.LayerNorm")}
+
+
+def _decoder_tree(sd, dec: str, cfg: Seq2SeqConfig) -> dict:
+    H, D = cfg.num_heads, cfg.head_dim
+    tree = {}
+    for i in range(cfg.dec_layers):
+        pre = f"{dec}.decoder.layer.{i}"
+        tree[f"layers_{i}"] = {
+            "self_attn": _attn_tree(sd, f"{pre}.attention", H, D),
+            "cross_attn": _attn_tree(sd, f"{pre}.crossattention", H, D),
+            "ffn": _ffn_tree(sd, pre)}
+    return tree
+
+
 def _encoder_tree(sd, cfg: Seq2SeqConfig) -> dict:
     """The ``encoder.*`` keys -> the ``embeddings`` and ``encoder``
     sub-trees."""
     H, D = cfg.num_heads, cfg.head_dim
-    emb = "encoder.embeddings"
-    p = {"embeddings": {
-        "word": {"embedding": sd[f"{emb}.word_embeddings.weight"]},
-        "position": {"embedding": sd[f"{emb}.position_embeddings.weight"]},
-        "lang": {"embedding": sd[f"{emb}.token_type_embeddings.weight"]},
-        "ln": _ln_tree(sd, f"{emb}.LayerNorm")}}
+    p = {"embeddings": _embeddings_tree(sd, "encoder.embeddings")}
     p["encoder"] = {}
     for i in range(cfg.enc_layers):
         pre = f"encoder.encoder.layer.{i}"
@@ -174,19 +201,12 @@ def flax_from_state_dict(sd: Mapping[str, torch.Tensor],
     ``{"params": {...}}`` (contiguous CPU tensors), the inverse of
     ``state_dict_from_flax``; ``checkpoint.save_params`` writes it."""
     sd = {k: v.detach().cpu() for k, v in sd.items()}
-    H, D = cfg.num_heads, cfg.head_dim
     p = _encoder_tree(sd, cfg)
     n_dec = cfg.num_languages if cfg.lang_dec else 1
     for d in range(n_dec):
         dec = f"decoder.{d}" if cfg.lang_dec else "decoder"
         out = f"output_layer.{d}.layer" if cfg.lang_dec else "output_layer.layer"
-        p[f"decoders_{d}"] = {}
-        for i in range(cfg.dec_layers):
-            pre = f"{dec}.decoder.layer.{i}"
-            p[f"decoders_{d}"][f"layers_{i}"] = {
-                "self_attn": _attn_tree(sd, f"{pre}.attention", H, D),
-                "cross_attn": _attn_tree(sd, f"{pre}.crossattention", H, D),
-                "ffn": _ffn_tree(sd, pre)}
+        p[f"decoders_{d}"] = _decoder_tree(sd, dec, cfg)
         if cfg.tie_embed:
             p[f"out_bias_{d}"] = sd[f"{out}.bias"]
         else:
@@ -377,6 +397,228 @@ def random_longdoc_params(cfg: Seq2SeqConfig, seed: int = 0) -> dict:
     return {"params": p}
 
 
+# ---------------- the captioning model ----------------
+
+_BN = (("scale", "weight"), ("bias", "bias"))
+_BN_STATS = (("mean", "running_mean"), ("var", "running_var"))
+
+
+def _resnet_blocks(cfg: Seq2SeqConfig):
+    """(flax block name, state_dict prefix inside the ResNet) per block."""
+    from imagetranslate_tpu_torch.models.resnet import DEPTHS
+
+    for s, blocks in enumerate(DEPTHS[cfg.resnet_depth][1]):
+        for j in range(blocks):
+            yield f"layer{s + 1}_{j}", f"layer{s + 1}.{j}"
+
+
+# A block's flax members and their torchvision names.
+_BLOCK_CONVS = (("conv1", "conv1"), ("conv2", "conv2"), ("conv3", "conv3"),
+                ("downsample_conv", "downsample.0"))
+_BLOCK_BNS = (("bn1", "bn1"), ("bn2", "bn2"), ("bn3", "bn3"),
+              ("downsample_bn", "downsample.1"))
+
+
+def _resnet_sd(sd, pre: str, p: Mapping, stats, cfg: Seq2SeqConfig):
+    """The ``ResNetGrid`` sub-trees -> torchvision's keys under ``pre``:
+    flax convolution kernels are HWIO, torch's OIHW; the BatchNorm running
+    statistics come from ``stats`` (the ``batch_stats`` collection; None
+    leaves them out, as for a parameter-shaped optimizer moment)."""
+    def bn(key, bp, bs):
+        for theirs, ours in _BN:
+            sd[f"{key}.{ours}"] = _t(bp[theirs])
+        if bs is not None:
+            for theirs, ours in _BN_STATS:
+                sd[f"{key}.{ours}"] = _t(bs[theirs])
+
+    def conv(w):
+        return _t(w).permute(3, 2, 0, 1)
+
+    sd[f"{pre}.conv1.weight"] = conv(p["conv1"]["kernel"])
+    bn(f"{pre}.bn1", p["bn1"], None if stats is None else stats["bn1"])
+    for name, key in _resnet_blocks(cfg):
+        bp, bs = p[name], None if stats is None else stats[name]
+        for theirs, ours in _BLOCK_CONVS:
+            if theirs in bp:
+                sd[f"{pre}.{key}.{ours}.weight"] = conv(bp[theirs]["kernel"])
+        for theirs, ours in _BLOCK_BNS:
+            if theirs in bp:
+                bn(f"{pre}.{key}.{ours}", bp[theirs],
+                   None if bs is None else bs[theirs])
+    sd[f"{pre}.fc.weight"] = _t(p["fc"]["kernel"]).T
+    sd[f"{pre}.location_embedding"] = _t(p["location_embedding"])
+
+
+def _resnet_trees(sd, pre: str, cfg: Seq2SeqConfig):
+    """The inverse of ``_resnet_sd``: (params, batch_stats)."""
+    def bn(key):
+        return ({theirs: sd[f"{key}.{ours}"] for theirs, ours in _BN},
+                {theirs: sd[f"{key}.{ours}"] for theirs, ours in _BN_STATS})
+
+    def conv(key):
+        return {"kernel": sd[f"{key}.weight"].permute(2, 3, 1, 0)}
+
+    p, stats = {"conv1": conv(f"{pre}.conv1")}, {}
+    p["bn1"], stats["bn1"] = bn(f"{pre}.bn1")
+    for name, key in _resnet_blocks(cfg):
+        p[name], stats[name] = {}, {}
+        for theirs, ours in _BLOCK_CONVS:
+            if f"{pre}.{key}.{ours}.weight" in sd:
+                p[name][theirs] = conv(f"{pre}.{key}.{ours}")
+        for theirs, ours in _BLOCK_BNS:
+            if f"{pre}.{key}.{ours}.weight" in sd:
+                p[name][theirs], stats[name][theirs] = bn(
+                    f"{pre}.{key}.{ours}")
+    p["fc"] = {"kernel": sd[f"{pre}.fc.weight"].T}
+    p["location_embedding"] = sd[f"{pre}.location_embedding"]
+    return p, stats
+
+
+_POOLS = ("image_attention", "encoder_attention")
+
+
+def _obj_names(cfg: Seq2SeqConfig):
+    """(flax suffix, state_dict suffix) of the object decoders and their
+    embeddings: bare names for one decoder, numbered under ``lang_dec``."""
+    if not cfg.lang_dec:
+        return [("", "")]
+    return [(f"_{d}", f".{d}") for d in range(cfg.num_languages)]
+
+
+def caption_state_dict_from_flax(variables: Mapping, cfg: Seq2SeqConfig
+                                 ) -> Dict[str, torch.Tensor]:
+    """The JAX ``ImageSeq2Seq`` variables (``{"params", "batch_stats"}``) ->
+    the port's ``ImageSeq2Seq.state_dict()``: the text model under ``core.``,
+    the ResNet under torchvision's names, the running statistics as buffers.
+    Without ``batch_stats`` (a parameter-shaped tree) the buffers are left
+    out."""
+    p = variables.get("params", variables)
+    stats = variables.get("batch_stats")
+    sd: Dict[str, torch.Tensor] = {
+        f"core.{k}": v for k, v in
+        state_dict_from_flax(p["core"], cfg).items()}
+    _resnet_sd(sd, "image_model", p["image_model"],
+               None if stats is None else stats["image_model"], cfg)
+    sd["multimodal_attention_gate"] = _t(p["multimodal_attention_gate"])
+    for name in _POOLS:
+        sd[f"{name}.w.weight"] = _t(p[name]["w"]["kernel"]).T
+        sd[f"{name}.w.bias"] = _t(p[name]["w"]["bias"])
+    if cfg.use_obj:
+        for theirs, ours in _obj_names(cfg):
+            _decoder_sd(sd, f"obj_decoder{ours}", p[f"obj_decoder{theirs}"],
+                        cfg)
+            _embeddings_sd(sd, f"obj_embeddings{ours}",
+                           p[f"obj_embeddings{theirs}"])
+        sd["multistream_attention_gate"] = _t(
+            p["multistream_attention_gate"])
+        sd["object_embedding.weight"] = _t(p["object_embedding"]["embedding"])
+        sd["object_feat_fc.weight"] = _t(p["object_feat_fc"]["kernel"]).T
+    return _contiguous_sd(sd)
+
+
+def flax_from_caption_state_dict(sd: Mapping[str, torch.Tensor],
+                                 cfg: Seq2SeqConfig) -> dict:
+    """The inverse of ``caption_state_dict_from_flax``: the variables
+    ``{"params": {...}, "batch_stats": {...}}`` that the JAX package's
+    caption checkpoints hold."""
+    sd = {k: v.detach().cpu() for k, v in sd.items()}
+    core = {k[len("core."):]: v for k, v in sd.items()
+            if k.startswith("core.")}
+    p = {"core": flax_from_state_dict(core, cfg)["params"]}
+    p["image_model"], stats = _resnet_trees(sd, "image_model", cfg)
+    p["multimodal_attention_gate"] = sd["multimodal_attention_gate"]
+    for name in _POOLS:
+        p[name] = {"w": {"kernel": sd[f"{name}.w.weight"].T,
+                         "bias": sd[f"{name}.w.bias"]}}
+    if cfg.use_obj:
+        for theirs, ours in _obj_names(cfg):
+            p[f"obj_decoder{theirs}"] = _decoder_tree(
+                sd, f"obj_decoder{ours}", cfg)
+            p[f"obj_embeddings{theirs}"] = _embeddings_tree(
+                sd, f"obj_embeddings{ours}")
+        p["multistream_attention_gate"] = sd["multistream_attention_gate"]
+        p["object_embedding"] = {"embedding": sd["object_embedding.weight"]}
+        p["object_feat_fc"] = {"kernel": sd["object_feat_fc.weight"].T}
+    return {"params": _contiguous_tree(p),
+            "batch_stats": _contiguous_tree({"image_model": stats})}
+
+
+def random_caption_params(cfg: Seq2SeqConfig, seed: int = 0,
+                          object_feat_dim: int = 1031) -> dict:
+    """Random flax-layout ``ImageSeq2Seq`` variables from
+    ``numpy.random.RandomState(seed)``: the text model as ``random_params``
+    draws it, the JAX model's initializers for the rest
+    (variance-scaling-normal convolution and ``fc`` kernels, unit BatchNorm
+    scales, normal(0.02) location table, 0.1 gates), and running statistics
+    that are not the trivial (0, 1): means from normal(0, 0.1), variances
+    from uniform(0.5, 1.5). fp32 numpy leaves."""
+    from imagetranslate_tpu_torch.models.resnet import DEPTHS
+
+    rng = np.random.RandomState(seed + 1)
+    E = cfg.hidden_size
+    f32 = np.float32
+
+    def normal(std, *shape):
+        return (rng.standard_normal(shape) * std).astype(f32)
+
+    def conv(k, cin, cout, groups=1):
+        fan_in = k * k * cin // groups
+        return {"kernel": normal(fan_in ** -0.5, k, k, cin // groups, cout)}
+
+    def bn(c):
+        return ({"scale": np.ones((c,), f32), "bias": np.zeros((c,), f32)},
+                {"mean": normal(0.1, c),
+                 "var": rng.uniform(0.5, 1.5, (c,)).astype(f32)})
+
+    kind, stage_sizes, groups, wpg = DEPTHS[cfg.resnet_depth]
+    expansion = 1 if kind == "basic" else 4
+    im, st = {"conv1": conv(7, 3, 64)}, {}
+    im["bn1"], st["bn1"] = bn(64)
+    cin = 64
+    for s, blocks in enumerate(stage_sizes):
+        for j in range(blocks):
+            filters, cout = 64 * 2 ** s, 64 * 2 ** s * expansion
+            stride = 2 if s > 0 and j == 0 else 1
+            if kind == "basic":
+                members = [("1", conv(3, cin, filters), filters),
+                           ("2", conv(3, filters, filters), filters)]
+            else:
+                width = int(filters * (wpg / 64.0)) * groups
+                members = [("1", conv(1, cin, width), width),
+                           ("2", conv(3, width, width, groups), width),
+                           ("3", conv(1, width, cout), cout)]
+            bp, bs = {}, {}
+            for n, kernel, c in members:
+                bp[f"conv{n}"] = kernel
+                bp[f"bn{n}"], bs[f"bn{n}"] = bn(c)
+            if stride != 1 or cin != cout:
+                bp["downsample_conv"] = conv(1, cin, cout)
+                bp["downsample_bn"], bs["downsample_bn"] = bn(cout)
+            im[f"layer{s + 1}_{j}"], st[f"layer{s + 1}_{j}"] = bp, bs
+            cin = cout
+    im["fc"] = {"kernel": normal(cin ** -0.5, cin, E)}
+    im["location_embedding"] = normal(0.02, (cfg.img_size // 32) ** 2, E)
+
+    core = random_params(cfg, seed)["params"]
+    p = {"core": core, "image_model": im,
+         "multimodal_attention_gate": np.full((1, E), 0.1, f32)}
+    std = cfg.initializer_range
+    for name in _POOLS:
+        p[name] = {"w": {"kernel": normal(std, E, 1),
+                         "bias": np.zeros((1,), f32)}}
+    if cfg.use_obj:
+        # One more decoder stack and embedding table per decoder head, drawn
+        # as the text model's are.
+        extra = random_params(cfg, seed + 2)["params"]
+        for d, (theirs, _) in enumerate(_obj_names(cfg)):
+            p[f"obj_decoder{theirs}"] = extra[f"decoders_{d}"]
+            p[f"obj_embeddings{theirs}"] = copy.deepcopy(extra["embeddings"])
+        p["multistream_attention_gate"] = np.full((1, E), 0.1, f32)
+        p["object_embedding"] = {"embedding": normal(std, 91, E)}
+        p["object_feat_fc"] = {"kernel": normal(std, object_feat_dim, E)}
+    return {"params": p, "batch_stats": {"image_model": st}}
+
+
 class Bridge(NamedTuple):
     """How one model's weights cross between the flax tree and the port's
     ``state_dict``, and how they are drawn at random."""
@@ -391,6 +633,8 @@ LM = Bridge(lm_state_dict_from_flax, flax_from_lm_state_dict,
             random_lm_params)
 LONGDOC = Bridge(longdoc_state_dict_from_flax, flax_from_longdoc_state_dict,
                  random_longdoc_params)
+CAPTION = Bridge(caption_state_dict_from_flax, flax_from_caption_state_dict,
+                 random_caption_params)
 
 
 def _count(n: int) -> torch.Tensor:

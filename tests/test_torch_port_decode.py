@@ -6,7 +6,12 @@ Greedy and beam-4, ``ref_ties`` True and False, per-row source sizes, against
 JAX ``mode="gather"`` (the semantics the port keeps) and the default windowed
 mode, and with ``lang_dec`` and lexical proposals. The KV cache stays at its
 default bf16 (the JAX gather path permutes it exactly; decoding/beam.py:105).
+With ``decode_attention_impl="fused"`` every step's self-attention goes
+through ``ops/decode_attention.py`` (on the CPU its plain version) and the
+tokens stay those of the JAX decoder and of the port's ``"onehot"`` path.
 """
+
+import dataclasses
 
 import jax
 import numpy as np
@@ -136,3 +141,40 @@ def test_max_len_and_trim_match_jax(base):
     for first in (True, False):
         assert trim_outputs(best, lengths, first) == jax_trim_outputs(
             best.numpy(), lengths.numpy(), first)
+
+
+@pytest.fixture(scope="module")
+def fused(base):
+    """``base``'s weights in a model whose decode steps take the fused op."""
+    cfg = dataclasses.replace(base.model.cfg, decode_attention_impl="fused")
+    model = Seq2Seq(cfg)
+    model.load_state_dict(base.model.state_dict())
+    return model.eval()
+
+
+@pytest.mark.parametrize("beam_width", [1, 4])
+def test_fused_decode_attention_matches_jax_and_onehot(base, fused,
+                                                       beam_width,
+                                                       monkeypatch):
+    from imagetranslate_tpu_torch.models import transformer
+
+    calls = []
+    op = transformer.decode_attention
+
+    def counted(q, k, v):
+        calls.append(k.shape[1])
+        return op(q, k, v)
+
+    kw = dict(beam_width=beam_width, max_len=14)
+    onehot = base.run_port(**kw)
+    monkeypatch.setattr(transformer, "decode_attention", counted)
+    assert base.run_port(**kw)[0].equal(onehot[0]) and not calls
+    monkeypatch.setattr(base, "model", fused)
+    got = base.run_port(**kw)
+    # One call per decoder layer and step, over positions 0..index only.
+    layers = fused.cfg.dec_layers
+    assert calls and len(calls) % layers == 0
+    assert calls == [i + 1 for i in range(len(calls) // layers)
+                     for _ in range(layers)]
+    _assert_same(got, base.run_jax(mode="gather", **kw))
+    assert got[0].equal(onehot[0]) and got[1].equal(onehot[1])

@@ -192,7 +192,12 @@ def test_port_runs_without_jax(workdir):
                     "sys.modules['imagetranslate_tpu'] = None; "
                     "import imagetranslate_tpu_torch.cli.translate; "
                     "import imagetranslate_tpu_torch.cli.train_mt; "
-                    "import imagetranslate_tpu_torch.train.trainer_mt"],
+                    "import imagetranslate_tpu_torch.train.trainer_mt; "
+                    "import imagetranslate_tpu_torch.cli.caption; "
+                    "import imagetranslate_tpu_torch.models.captioning; "
+                    "import imagetranslate_tpu_torch.models.resnet; "
+                    "import imagetranslate_tpu_torch.data.images; "
+                    "import imagetranslate_tpu_torch.ops.decode_attention"],
                    check=True, cwd=REPO, env=env, timeout=120)
     from imagetranslate_tpu_torch.cli.translate import main as port_main
 
