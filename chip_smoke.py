@@ -28,24 +28,30 @@ Phases, each fatal on failure:
   4. decode  — BERT-base (V=32000, 768, 12 heads, 3072, 6+3 layers, bf16,
                random weights from a numpy seed) encode + beam_search at
                B=64, S=64, beam 4, L=88; LAUNCHES must equal the decode steps.
+               Then the same model in fp32 at B=8, S=16: K2's plain version
+               on the card, no K2 launch.
   5. cli     — a tokenizer trained on a generated corpus, a full-width
                checkpoint at its vocab, and cli.translate.main on 50 lines.
   6. kernel  — the fused dropout attention kernels (forward and backward) vs
      (K1)      their plain versions, element by element under the shared
                Philox mask: forward and dq, dk, dv, dbias at rate 0 and 0.1,
                both bias layouts, at the training shape (B=256, T=S=64, H=12,
-               D=64), the packed shape (B=32, T=S=256), T != S, and ragged
-               shapes at the gate's edges, the decoder's shapes of phase
-               7 (T=S=63; T=63, S=64) and the shapes of the MASS and
+               D=64), the packed shape (B=32, T=S=256), the MLM step's
+               (B=16, T=S=512), T != S, and ragged shapes at the gate's edges
+               (S = 257, 511, 512 at D = 16, 64, 128), the decoder's shapes of
+               phase 7 (T=S=63; T=63, S=64) and the shapes of the MASS and
                back-translation steps of phases 10 and 11 (the MASS decoder's
                T=S=32 and T=32, S=64; the translation buffer's odd width 81
                as the encoder's T=S); bf16 outputs within 2^-6 of the
                plain result's largest magnitude (a few bf16 ulps), fp32 dbias
-               within 1e-4 of it. Mask statistics straight from the kernel
-               (keep rate within 4 sigma, same seed -> same output, another
-               seed -> another mask). Times of kernel, plain version and
+               within 1e-4 of it. S = 513 and fp32 inputs raise before a
+               launch; two launches on the same inputs give the same bits.
+               Mask statistics straight from the kernel (keep rate within 4
+               sigma, same seed -> same output, another seed -> another
+               mask). Times of kernel, plain version and
                F.scaled_dot_product_attention (a yardstick, never on the
-               path) at the training shape; kernel times at the packed shape.
+               path), forward and backward, taken in turns, at the training
+               and the MLM shape; kernel times at the packed shape.
   7. train   — MTTrainer at BERT-base width (fp32 masters, bf16 compute,
                dropout 0.1) on numpy batches of B=256, S=T=64 over the full
                vocabulary: 3 warm-up steps, 9 timed; the loss is finite and
@@ -117,7 +123,13 @@ Phases, each fatal on failure:
                generated block files: train_epoch of 10 steps at B=16, T=512
                (the masked-budget projection) with a validation and both
                checkpoint slots, then 8 timed steps; the loss falls, every
-               parameter changes, no K1/K3/K5 launch. Then a 2048-position LM
+               parameter changes, K1 launches = 6 + 6 per step (one forward
+               and one backward per encoder layer), each at a shape phase 6
+               held, no K3 or K5 launch. Then a paired reading of the MLM
+               step with fused_attn_dropout off and on: two trainers from one
+               seed, blocks of 4 steps in the order off, on, on, off (three
+               times), ms/step median and spread and positions/s of each
+               arm, K1 launches counted per block. Then a 2048-position LM
                of the same width: validate_and_save on two dev batches of
                B=8, T=2048: 6 K3 launches per batch, dev loss within 5e-4
                relative of the same evaluation with use_pallas_attention off.
@@ -477,6 +489,22 @@ def phase_decode(card):
     log(f"[decode] BERT-base bf16 B={B} S={S} beam={K} L=88: {steps} steps, "
         f"{launches} kernel launches, {tokens} tokens in {seconds:.3f} s = "
         f"{tokens / seconds:.1f} tok/s (encode + beam search; {card})")
+
+    # An fp32 model decodes on the card through K2's plain version (the
+    # kernel takes bf16 only): no K2 launch.
+    import dataclasses
+
+    fp32 = build_model(dataclasses.replace(bert_base(32000), dtype="float32"),
+                       device)
+    tkp.LAUNCHES = 0
+    _, f_lengths, f_steps, f_seconds = run_decode(fp32, 8, 16, K, device)
+    if tkp.LAUNCHES != 0 or f_steps == 0:
+        raise AssertionError(f"the fp32 decode launched K2 {tkp.LAUNCHES} "
+                             f"times in {f_steps} steps")
+    log(f"[decode] BERT-base fp32 B=8 S=16 beam={K}: {f_steps} steps through "
+        f"the plain projection + top-k, 0 K2 launches, "
+        f"{int(f_lengths.sum())} tokens in {f_seconds:.3f} s")
+    del fp32
     return launches, model
 
 
@@ -614,6 +642,7 @@ def phase_cli():
 ATTN_TOL = 2.0 ** -6   # bf16 outputs: a few bf16 ulps of the largest value
 DBIAS_TOL = 1e-4       # fp32 dbias: sums of ~2^-17-accurate terms
 RATE = 0.1
+MLM_SHAPE = (16, 512, 512, 12, 64)  # (B, T, S, H, D) of the MLM step
 
 
 def phase_kernel_attention(extra_shapes=()):
@@ -680,18 +709,23 @@ def phase_kernel_attention(extra_shapes=()):
         (256, 64, 64, 12, 64),    # the training shape: encoder layers
         (256, 63, 63, 12, 64),    # decoder self-attention over tgt[:, :-1]
         (256, 63, 64, 12, 64),    # decoder cross-attention
-        (32, 256, 256, 12, 64),   # packed rows; four query tiles
+        (32, 256, 256, 12, 64),   # packed rows; four query and key tiles
         (16, 48, 80, 12, 64),     # cross-attention, T != S
         (3, 100, 33, 2, 32),      # ragged T and S
-        (2, 7, 255, 2, 64),       # the shared-memory edge at D = 64
+        (2, 7, 255, 2, 64),       # a ragged fourth key tile
         (2, 130, 16, 1, 128),     # D = 128, three query tiles
-        (1, 9, 352, 2, 16),       # D = 16: the longest S the gate takes
+        (1, 9, 352, 2, 16),       # D = 16, six key tiles
         (2, 1, 1, 1, 16),         # one query, one key
         (256, 32, 32, 12, 64),    # MASS decoder self-attention over the span
         (256, 32, 64, 12, 64),    # MASS decoder cross-attention
         (128, 81, 81, 12, 64),    # BT encoder over the translation buffer
         (128, 63, 81, 12, 64),    # BT decoder cross-attention
         (128, 63, 63, 12, 64),    # BT decoder self-attention
+        MLM_SHAPE,                # the MLM step's encoder layers
+        (2, 8, 257, 2, 64),       # one key past four tiles
+        (2, 7, 511, 2, 64),       # S odd, one key short of the cap
+        (1, 9, 512, 2, 16),       # D = 16 at the cap
+        (2, 130, 512, 1, 128),    # D = 128 at the cap, three query tiles
     ]
     shapes += [shape for shape in extra_shapes if shape not in shapes]
     for shape in shapes:
@@ -699,10 +733,12 @@ def phase_kernel_attention(extra_shapes=()):
             for rate in (0.0, RATE):
                 case(*shape, rows, rate)
 
-    # Outside the gate the wrapper raises before any launch.
-    q, k, v, bias, _ = inputs(2, 8, 257, 2, 64, 0)
+    # Outside the gate (S = 513, fp32 inputs) the wrapper raises before any
+    # launch.
+    q, k, v, bias, _ = inputs(2, 8, 513, 2, 64, 0)
     launches = ta.FWD_LAUNCHES
-    for args in ((q, k, v, bias), (q.float(), k.float(), v.float(), bias)):
+    q2, k2, v2, bias2, _ = inputs(2, 8, 64, 2, 64, 0)
+    for args in ((q, k, v, bias), (q2.float(), k2.float(), v2.float(), bias2)):
         try:
             ta.fused_dropout_attention(*args, RATE, 1)
         except (ValueError, TypeError):
@@ -711,8 +747,26 @@ def phase_kernel_attention(extra_shapes=()):
     if ta.FWD_LAUNCHES != launches:
         raise AssertionError("a refused call counted as a launch")
 
-    # The Python gate repeats the kernels' tile arithmetic: hold it against
-    # the library's own answer over the (S, D) plane and at the grid's edge.
+    # Bit-reproducible: two launches on the same inputs give the same bits,
+    # dbias included, at the MLM shape in both bias layouts.
+    for rows in (0, 1):
+        q, k, v, bias, g = inputs(*MLM_SHAPE, rows)
+        runs = []
+        for _ in range(2):
+            out, stats = ta._launch_fwd(q, k, v, bias, RATE, 9)
+            runs.append((out, *ta._launch_bwd(q, k, v, bias, g, stats, RATE,
+                                              9, True)))
+        torch.cuda.synchronize()
+        for name, a, b in zip(("out", "dq", "dk", "dv", "dbias"), *runs):
+            if not torch.equal(a, b):
+                raise AssertionError(f"{name} differs between two launches "
+                                     f"on the same inputs (bias rows "
+                                     f"{bias.shape[2]})")
+    log("[kernel K1] out, dq, dk, dv and dbias bit-equal across two launches "
+        "at the MLM shape, both bias layouts")
+
+    # The Python gate repeats the kernels' shape limits: hold it against the
+    # library's own answer over the (S, D) plane and at the grid's edge.
     from imagetranslate_tpu_torch.ops import _build
 
     lib = _build.load()
@@ -724,16 +778,11 @@ def phase_kernel_attention(extra_shapes=()):
                                  device="meta")
                 kg = torch.empty((Bg, S, Hg, D), dtype=torch.bfloat16,
                                  device="meta")
-                want = bool(lib.itt_fused_attn_supported(Bg, 3, S, Hg, D, 1))
+                want = bool(lib.itt_fused_attn_supported(Bg, 3, S, Hg, D))
                 if ta.fused_attention_supported(qg, kg, None) != want:
                     raise AssertionError(
                         f"the Python gate and the library disagree at B={Bg} "
                         f"S={S} H={Hg} D={D}: library says {want}")
-                if want and not lib.itt_fused_attn_supported(Bg, 3, S, Hg, D,
-                                                             0):
-                    raise AssertionError(
-                        f"the forward refuses B={Bg} S={S} H={Hg} D={D}, "
-                        "which the backward takes")
                 swept += 1
     log(f"[kernel K1] the Python gate equals the library's at {swept} shapes")
 
@@ -768,72 +817,78 @@ def phase_kernel_attention(extra_shapes=()):
         f"{count} draws (4 sigma = {4 * sigma:.2e}), same seed same mask, "
         f"equal to the plain version's, two seeds differ at {differ:.4f}")
 
-    # Times at the training shape, cold L2, plain-kernel-kernel-plain.
-    B, T, S, H, D = 256, 64, 64, 12, 64
-    q, k, v, bias, g = inputs(B, T, S, H, D, 0)
-    runs = {"plain": [], "kernel": [], "plain_bwd": [], "kernel_bwd": []}
-    for name in ("plain", "kernel", "kernel", "plain"):
-        if name == "kernel":
-            runs["kernel"].append(_time_ms(
-                lambda: ta._launch_fwd(q, k, v, bias, RATE, 3)))
-            runs["kernel_bwd"].append(_time_ms(
-                lambda: ta._launch_bwd(q, k, v, bias, g, RATE, 3, False)))
-        else:
-            runs["plain"].append(_time_ms(
-                lambda: ta.fused_dropout_attention_reference(
-                    q, k, v, bias, RATE, 3), iters=10))
-            runs["plain_bwd"].append(_time_ms(
+    def timed(B, T, S, H, D, rows, plain_iters):
+        """Kernel, plain version and F.scaled_dot_product_attention (the
+        library yardstick, never on the port's path), forward and backward,
+        cold L2, taken in turns: plain, kernel, SDPA, SDPA, kernel, plain."""
+        q, k, v, bias, g = inputs(B, T, S, H, D, rows)
+        _, stats = ta._launch_fwd(q, k, v, bias, RATE, 3)
+        qh, kh, vh = (t.transpose(1, 2).detach().requires_grad_(True)
+                      for t in (q, k, v))
+        gh = g.transpose(1, 2)
+        mask = bias.to(torch.bfloat16)
+        held = {}
+
+        def sdpa():
+            held["out"] = F.scaled_dot_product_attention(
+                qh, kh, vh, attn_mask=mask, dropout_p=RATE)
+
+        fns = {
+            "kernel": (lambda: ta._launch_fwd(q, k, v, bias, RATE, 3),
+                       lambda: ta._launch_bwd(q, k, v, bias, g, stats, RATE,
+                                              3, False), None, 50),
+            "plain": (lambda: ta.fused_dropout_attention_reference(
+                q, k, v, bias, RATE, 3),
                 lambda: ta.fused_dropout_attention_backward_reference(
-                    q, k, v, bias, g, RATE, 3), iters=10))
-    # The library yardstick: one fused PyTorch call, never on the port's path.
-    qh, kh, vh = (t.transpose(1, 2).detach().requires_grad_(True)
-                  for t in (q, k, v))
-    gh = g.transpose(1, 2)
-    mask = bias.to(torch.bfloat16)
-    held = {}
+                    q, k, v, bias, g, RATE, 3), None, plain_iters),
+            "sdpa": (sdpa, lambda: torch.autograd.grad(held["out"],
+                                                       (qh, kh, vh), gh),
+                     sdpa, 50),
+        }
+        runs = {name: ([], []) for name in fns}
+        for name in ("plain", "kernel", "sdpa", "sdpa", "kernel", "plain"):
+            fwd_fn, bwd_fn, setup, iters = fns[name]
+            runs[name][0].append(_time_ms(fwd_fn, iters=iters))
+            runs[name][1].append(_time_ms(bwd_fn, iters=iters, setup=setup))
+        elems = B * H * D
+        nbias = bias.numel() * 4
+        # The forward reads q, k, v and the bias and writes out and the row
+        # statistics; the backward reads q, k, v, g, the bias and the
+        # statistics and writes dq, dk, dv (dbias is not asked for).
+        bounds = (bound(2 * elems * (2 * T + 2 * S) + nbias + 8 * B * H * T,
+                        4.0 * B * H * T * S * D),
+                  bound(2 * elems * (3 * T + 4 * S) + nbias + 8 * B * H * T,
+                        10.0 * B * H * T * S * D))
+        mean = {name: (sum(f) / 2, sum(b) / 2) for name, (f, b) in
+                runs.items()}
+        for i, what in enumerate(("forward", "backward")):
+            log(f"[kernel K1] B={B} T={T} S={S} H={H} D={D} bias rows="
+                f"{bias.shape[2]} rate={RATE}, {what}: kernel "
+                f"{runs['kernel'][i]} ms, plain {runs['plain'][i]} ms, SDPA "
+                f"{runs['sdpa'][i]} ms, bound {bounds[i][0]:.4f} ms "
+                f"({bounds[i][1]}); kernel / SDPA "
+                f"{mean['kernel'][i] / mean['sdpa'][i]:.3f}")
+        return mean, bounds
 
-    def sdpa():
-        held["out"] = F.scaled_dot_product_attention(
-            qh, kh, vh, attn_mask=mask, dropout_p=RATE)
-
-    lib_fwd = _time_ms(sdpa)
-    lib_bwd = _time_ms(
-        lambda: torch.autograd.grad(held["out"], (qh, kh, vh), gh),
-        setup=sdpa)
-    elems = B * H * D
-    fwd_bound = bound(2 * elems * (2 * T + 2 * S) + bias.numel() * 4,
-                      4.0 * B * H * T * S * D)
-    # The backward reads q, k, v, g and writes dq, dk, dv (no out: the
-    # softmax's row term is recomputed from dp and p); dbias is not asked for.
-    bwd_bound = bound(2 * elems * (3 * T + 4 * S) + bias.numel() * 4,
-                      10.0 * B * H * T * S * D)
-    log(f"[kernel K1] B={B} T={T} S={S} H={H} D={D} rate={RATE}: forward "
-        f"kernel {runs['kernel']} ms, plain {runs['plain']} ms, SDPA "
-        f"{lib_fwd:.4f} ms, bound {fwd_bound[0]:.4f} ms; backward kernel "
-        f"{runs['kernel_bwd']} ms, plain {runs['plain_bwd']} ms, SDPA "
-        f"{lib_bwd:.4f} ms, bound {bwd_bound[0]:.4f} ms")
+    mean, bounds = timed(256, 64, 64, 12, 64, 0, 10)   # the training shape
+    timed(*MLM_SHAPE, 0, 5)
 
     # The packed shape (four query tiles, a per-query bias), kernels only.
-    pq, pk, pv, pbias, pg = inputs(32, 256, 256, H, D, 1)
+    pq, pk, pv, pbias, pg = inputs(32, 256, 256, 12, 64, 1)
+    _, pstats = ta._launch_fwd(pq, pk, pv, pbias, RATE, 3)
     packed = [_time_ms(lambda: ta._launch_fwd(pq, pk, pv, pbias, RATE, 3)),
-              _time_ms(lambda: ta._launch_bwd(pq, pk, pv, pbias, pg, RATE, 3,
-                                              False))]
-    packed_bounds = [
-        bound(2 * 32 * H * D * 4 * 256 + pbias.numel() * 4,
-              4.0 * 32 * H * 256 * 256 * D)[0],
-        bound(2 * 32 * H * D * 7 * 256 + pbias.numel() * 4,
-              10.0 * 32 * H * 256 * 256 * D)[0]]
-    log(f"[kernel K1] B=32 T=S=256 H={H} D={D} bias rows=256 rate={RATE}: "
-        f"forward kernel {packed[0]:.4f} ms (bound {packed_bounds[0]:.4f}), "
-        f"backward kernel {packed[1]:.4f} ms (bound {packed_bounds[1]:.4f})")
+              _time_ms(lambda: ta._launch_bwd(pq, pk, pv, pbias, pg, pstats,
+                                              RATE, 3, False))]
+    log(f"[kernel K1] B=32 T=S=256 H=12 D=64 bias rows=256 rate={RATE}: "
+        f"forward kernel {packed[0]:.4f} ms, backward kernel "
+        f"{packed[1]:.4f} ms")
 
-    def entry(key, err, bnd, lib):
-        return {"max_abs_err": err, "ms": sum(runs[key]) / 2,
-                "plain_ms": sum(runs["plain" + key[6:]]) / 2,
-                "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": lib}
+    def entry(i, err):
+        return {"max_abs_err": err, "ms": mean["kernel"][i],
+                "plain_ms": mean["plain"][i], "bound_ms": bounds[i][0],
+                "bound_by": bounds[i][1], "library_ms": mean["sdpa"][i]}
 
-    return (entry("kernel", worst["fwd"], fwd_bound, lib_fwd),
-            entry("kernel_bwd", worst["bwd"], bwd_bound, lib_bwd), checked)
+    return entry(0, worst["fwd"]), entry(1, worst["bwd"]), checked
 
 
 XENT_ROWS_TOL = 1e-4          # loss rows, relative (+ 1e-6 absolute)
@@ -2070,10 +2125,13 @@ def _lm_epoch(trainer, workdir, name, B, T, n_steps, n_timed, card):
     return losses
 
 
-def phase_lm(card, profile: bool, checked_flash):
-    """Phase 14: the MLM trainer at the CLI's default width, dev evaluation
-    at 2048 positions through K3, and the long-document trainer at preset 3.
-    Returns the K3 launches of the dev evaluation."""
+def phase_lm(card, profile: bool, checked_flash, checked_k1):
+    """Phase 14: the MLM trainer at the CLI's default width (K1 in every
+    encoder layer) and the paired reading of its step with the fused dropout
+    attention off and on, dev evaluation at 2048 positions through K3, and
+    the long-document trainer at preset 3. ``checked_k1``: the shapes phase 6
+    held against the plain version. Returns the K3 launches of the dev
+    evaluation and the K1 forward and backward launches of the MLM run."""
     import argparse
     import dataclasses
 
@@ -2098,8 +2156,9 @@ def phase_lm(card, profile: bool, checked_flash):
     with tempfile.TemporaryDirectory() as workdir:
         # B * T = 8192: the masked-budget projection.
         B, T = 16, 512
-        counters = (fa, "LAUNCHES"), (ta, "FWD_LAUNCHES"), (xent,
-                                                           "FWD_LAUNCHES")
+        counters = ((fa, "LAUNCHES"), (ta, "FWD_LAUNCHES"),
+                    (ta, "BWD_LAUNCHES"), (xent, "FWD_LAUNCHES"),
+                    (xent, "BWD_LAUNCHES"))
         for mod, name in counters:
             setattr(mod, name, 0)
         trainer = LMTrainer(cfg, vocab, lr=5e-4, warmup=8, seed=SEED,
@@ -2108,32 +2167,82 @@ def phase_lm(card, profile: bool, checked_flash):
         if masters != {torch.float32}:
             raise AssertionError(f"master parameters are {masters}")
         torch.cuda.reset_peak_memory_stats()
-        losses = _lm_epoch(trainer, workdir, "lm", B, T, 10, 8, card)
+        n_epoch, n_timed = 10, 8
+        with Recorder() as rec:
+            losses = _lm_epoch(trainer, workdir, "lm", B, T, n_epoch, n_timed,
+                               card)
+        counts = [getattr(mod, name) for mod, name in counters]
         if not sum(losses[-3:]) / 3 < sum(losses[:3]) / 3 - 0.05:
             raise AssertionError(f"the MLM loss did not fall: {losses}")
-        if any(getattr(mod, name) for mod, name in counters):
-            raise AssertionError("an MLM step at T=512 launched K1, K3 or K5")
+        want = cfg.enc_layers * (n_epoch + n_timed)
+        if counts != [0, want, want, 0, 0]:
+            raise AssertionError(
+                f"MLM steps at T=512: K3, K1 forward, K1 backward, K5 "
+                f"forward, K5 backward launches {counts}, want "
+                f"[0, {want}, {want}, 0, 0]")
+        rec.require_checked("lm", checked_k1, set(), want_k5=False)
+        k1_fwd, k1_bwd = counts[1], counts[2]
         log(f"[lm] BERT-base LM (768/12/3072, 6 layers, 512 positions, "
             f"V=32000, fp32 masters / bf16 compute, dropout {RATE}), budget "
             f"projection; peak memory "
-            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; no K1, "
-            f"K3 or K5 launch (plain dropout attention at S=512, plain NLL)")
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; "
+            f"{k1_fwd} + {k1_bwd} K1 launches in {n_epoch + n_timed} steps "
+            f"({cfg.enc_layers} + {cfg.enc_layers} a step), no K3 or K5")
+        staged = [lm_batch_to_device(b, device)
+                  for b in itertools.islice(DocBlockDataset(os.path.join(
+                      workdir, "lm_train")).batches(B, pad_id=0), 4)]
+
+        def steps(tr, n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(n):
+                tr.state, m = tr.step_fn(tr.state, staged[i % len(staged)],
+                                         tr.rng)
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0, m
+
         if profile:
-            staged = [lm_batch_to_device(b, device)
-                      for b in itertools.islice(DocBlockDataset(os.path.join(
-                          workdir, "lm_train")).batches(B, pad_id=0), 3)]
-
-            def three():
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                for b in staged:
-                    trainer.state, _ = trainer.step_fn(trainer.state, b,
-                                                       trainer.rng)
-                torch.cuda.synchronize()
-                return time.perf_counter() - t0, "3 MLM steps"
-
-            _profile(three, "lm train", card)
+            _profile(lambda: (steps(trainer, 3)[0], "3 MLM steps"),
+                     "lm train", card)
         del trainer
+        torch.cuda.empty_cache()
+
+        # The paired reading: the MLM step with the fused dropout attention
+        # off and on, two fresh trainers from one seed on the same batches,
+        # blocks of steps in the order off, on, on, off (three times).
+        arms = {on: LMTrainer(dataclasses.replace(cfg, fused_attn_dropout=on),
+                              vocab, lr=5e-4, warmup=8, seed=SEED,
+                              device=device) for on in (False, True)}
+        for on in (False, True):
+            steps(arms[on], 2)                           # warm-up
+        block, ms = 4, {False: [], True: []}
+        for on in (False, True, True, False) * 3:
+            ta.FWD_LAUNCHES = ta.BWD_LAUNCHES = 0
+            seconds, m = steps(arms[on], block)
+            got = (ta.FWD_LAUNCHES, ta.BWD_LAUNCHES)
+            if got != ((cfg.enc_layers * block,) * 2 if on else (0, 0)):
+                raise AssertionError(f"a block of {block} MLM steps with the "
+                                     f"fused attention {on} launched K1 "
+                                     f"{got}")
+            loss = (m["sum_loss"] / m["ntokens"]).item()
+            if not loss == loss:
+                raise AssertionError(f"MLM loss {loss} with K1 {on}")
+            ms[on].append(1e3 * seconds / block)
+        stats = {}
+        for on in (False, True):
+            xs = sorted(ms[on])
+            med = (xs[len(xs) // 2 - 1] + xs[len(xs) // 2]) / 2
+            stats[on] = (med, xs[0], xs[-1])
+        log(f"[lm] paired MLM step, B={B} T={T}, blocks of {block} steps in "
+            f"the order off, on, on, off (x3): plain dropout attention "
+            f"{ms[False]} ms/step (median {stats[False][0]:.2f}, spread "
+            f"{stats[False][1]:.2f}..{stats[False][2]:.2f}; "
+            f"{1e3 * B * T / stats[False][0]:.1f} positions/s), K1 "
+            f"{ms[True]} ms/step (median {stats[True][0]:.2f}, spread "
+            f"{stats[True][1]:.2f}..{stats[True][2]:.2f}; "
+            f"{1e3 * B * T / stats[True][0]:.1f} positions/s); median "
+            f"ratio {stats[True][0] / stats[False][0]:.3f} ({card})")
+        del arms
         torch.cuda.empty_cache()
 
         # Dev evaluation of a 2048-position LM of the same width: K3.
@@ -2194,7 +2303,7 @@ def phase_lm(card, profile: bool, checked_flash):
             f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
         del trainer
         torch.cuda.empty_cache()
-    return dev_launches
+    return dev_launches, k1_fwd, k1_bwd
 
 
 def phase_lm_cli(workdir, corpus):
@@ -2902,7 +3011,11 @@ def main() -> int:
         phase_umt_cli(umt_dir, corpus, checked, checked_xent)
         torch.cuda.empty_cache()
         flash_launches = phase_long_source(card, profile, checked_flash)
-        flash_launches += phase_lm(card, profile, checked_flash)
+        lm_k3, lm_fwd, lm_bwd = phase_lm(card, profile, checked_flash,
+                                         checked)
+        flash_launches += lm_k3
+        fwd_launches += lm_fwd
+        bwd_launches += lm_bwd
         phase_lm_cli(umt_dir, corpus)
     attn_src = "imagetranslate_tpu_torch/csrc/train_attention.cu"
     xent_src = "imagetranslate_tpu_torch/csrc/xent.cu"

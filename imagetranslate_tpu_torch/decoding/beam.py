@@ -37,6 +37,17 @@ from imagetranslate_tpu_torch.ops.topk_project import stable_topk
 NEG = -1e9
 
 
+def reorder_caches(caches, rows: torch.Tensor):
+    """Reorder every layer's cache rows by ``rows`` [B*K] in place of the
+    dicts' tensors: an index gather, exact in every dtype. (The JAX
+    ``_gather_beams`` permutes through a bf16 one-hot product, which rounds
+    an fp32 cache to bf16 at every step; the port keeps the cache exact.)"""
+    for cache in caches:
+        for layer in cache:
+            layer["k"] = layer["k"].index_select(0, rows)
+            layer["v"] = layer["v"].index_select(0, rows)
+
+
 def max_len_for(src_len: int, max_len_a: float, max_len_b: int,
                 max_positions: int) -> int:
     """Decode buffer length for a source length (static sizing)."""
@@ -112,11 +123,7 @@ def _beam_loop(step, caches, first_tokens, max_lens, *, beam_width: int,
         finished = torch.gather(frozen, 1, beam_idx) | (word == eos_id)
         scores = top_scores
         if K > 1:
-            rows = (row_base + beam_idx).reshape(-1)
-            for cache in caches:
-                for layer in cache:
-                    layer["k"] = layer["k"].index_select(0, rows)
-                    layer["v"] = layer["v"].index_select(0, rows)
+            reorder_caches(caches, (row_base + beam_idx).reshape(-1))
         i += 1
 
     best = tokens[:, 0, :]

@@ -164,9 +164,14 @@ class Seq2Seq(nn.Module):
     def project_topk(self, hidden, k: int, lang_idx: int = 0):
         """Vocab projection + exact top-k + logsumexp for the decode loop,
         through the projection kernel (ops/topk_project.py) for every head.
-        Returns (val [M, k] fp32, idx [M, k] int32, lse [M] fp32)."""
+        fp32 weights and beams wider than the kernel's 16 take its plain
+        version on the card too, as the JAX model takes XLA's top_k where
+        the kernel's gate says no; any other call the kernel cannot take
+        raises. Returns (val [M, k] fp32, idx [M, k] int32, lse [M] fp32)."""
         h = hidden[:, 0, :] if hidden.ndim == 3 else hidden
         w, b = self._head(lang_idx)
+        if w.dtype == torch.float32 or k > tkp.MAX_K:
+            return tkp.project_topk_reference(h, w, b, k)
         return tkp.project_topk(h.contiguous(), w, b, k)
 
     # ---------------- teacher-forced forward ----------------

@@ -111,17 +111,18 @@ def load() -> ctypes.CDLL:
         f, u = ctypes.c_float, ctypes.c_uint
         lib.itt_project_topk_bf16.argtypes = [p] * 9 + [i] * 5 + [p]
         lib.itt_project_topk_bf16.restype = ctypes.c_int
-        # q k v bias out | B T S H D bias_rows | scale keep_prob | threshold
-        # seed_lo seed_hi | stream
+        # q k v bias out stats | B T S H D bias_rows | scale keep_prob |
+        # threshold seed_lo seed_hi | stream
         lib.itt_fused_attn_fwd_bf16.argtypes = (
-            [p] * 5 + [i] * 6 + [f] * 2 + [u] * 3 + [p])
+            [p] * 6 + [i] * 6 + [f] * 2 + [u] * 3 + [p])
         lib.itt_fused_attn_fwd_bf16.restype = ctypes.c_int
-        # q k v bias g dq dk dv dkv_acc db_part dbias | then as the forward
+        # q k v bias g stats delta dq dk dv db_part dbias | then as the
+        # forward
         lib.itt_fused_attn_bwd_bf16.argtypes = (
-            [p] * 11 + [i] * 6 + [f] * 2 + [u] * 3 + [p])
+            [p] * 12 + [i] * 6 + [f] * 2 + [u] * 3 + [p])
         lib.itt_fused_attn_bwd_bf16.restype = ctypes.c_int
-        # B T S H D backward
-        lib.itt_fused_attn_supported.argtypes = [i] * 6
+        # B T S H D
+        lib.itt_fused_attn_supported.argtypes = [i] * 5
         lib.itt_fused_attn_supported.restype = ctypes.c_int
         # x targets loss logz | N V is_bf16 | 1-eps eps/V | stream
         lib.itt_xent_fwd.argtypes = (

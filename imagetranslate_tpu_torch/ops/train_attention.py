@@ -4,10 +4,12 @@ imagetranslate_tpu/ops/train_attention.py::fused_dropout_attention).
 ``softmax(q k^T * scale + bias)`` in fp32, a Bernoulli keep-mask drawn from a
 seed, kept probs divided by ``1 - rate``, cast to v's dtype, times v. On a
 CUDA tensor ``fused_dropout_attention`` launches the hand-written kernels of
-``csrc/train_attention.cu`` (a forward and a backward that recomputes the
-probs and regenerates the mask, so only the inputs are saved between them).
-On a CPU tensor it runs ``fused_dropout_attention_reference``, the plain
-PyTorch version of the same function.
+``csrc/train_attention.cu``: a flash-style forward that also writes each
+row's logsumexp as (max, log sum), and a backward (a dq kernel, then a dk/dv
+kernel) that recomputes the probs from them and regenerates the mask, so the
+inputs and those row statistics are all that is saved between them. On a CPU
+tensor it runs ``fused_dropout_attention_reference``, the plain PyTorch
+version of the same function.
 
 The mask is a pure function of ``(seed, b, h, t, s)``: Philox-4x32-10 keyed on
 the 64-bit seed with the counter ``(s // 4, t, h, b)``, output ``s % 4``; a
@@ -20,7 +22,12 @@ masks differ bit for bit and are equally distributed.)
 Numerics contract (that of the JAX kernel): fp32 scores and softmax, the
 scale of ``ops.attention.attention_scale``, probs cast to v's dtype before
 the product with v, fp32 contractions in the backward, fp32 dbias in the
-bias's shape.
+bias's shape. The plain version follows it exactly. The kernels round the
+un-normalised probs to bf16 and divide by the row sum and by ``1 - rate``
+last (as the flash attention kernel does), and feed ds and the dropped probs
+to the backward's products in bf16; delta = rowsum(p dp) and dbias stay
+fp32. ``chip_smoke.py`` holds them to the plain version within 2^-6 of the
+largest output (1e-4 for dbias).
 """
 
 from __future__ import annotations
@@ -40,11 +47,11 @@ _M0, _M1 = 0xD2511F53, 0xCD9E8D57
 _W0, _W1 = 0x9E3779B9, 0xBB67AE85
 _MASK32 = 0xFFFFFFFF
 
-# The kernels' tile constants (csrc/train_attention.cu), repeated here so
-# that the shape gate answers without a build; chip_smoke.py holds the gate
-# against the library's own itt_fused_attn_supported on the card.
-_TQ, _PADK, _PATCH_BYTES, _SMEM_LIMIT = 64, 8, 8 * 256 * 4, 232448
+# The kernels' shape limits (csrc/train_attention.cu), repeated here so that
+# the shape gate answers without a build; chip_smoke.py holds the gate against
+# the library's own itt_fused_attn_supported on the card.
 _MAX_S = 512
+_HEAD_DIMS = (16, 32, 64, 128)
 
 
 def _keep_threshold(rate: float) -> int:
@@ -141,21 +148,13 @@ def fused_dropout_attention_backward_reference(q, k, v, bias, g, rate: float,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), dbias
 
 
-def _smem_bytes(S: int, D: int) -> int:
-    """The backward kernel's shared memory at its unpadded score stride (the
-    larger of the two kernels')."""
-    sp = -(-S // 16) * 16
-    return (2 * _TQ * sp * 4 + 2 * (_TQ + sp) * (D + _PADK) * 2
-            + _PATCH_BYTES)
-
-
 def fused_attention_supported(q: torch.Tensor, k: torch.Tensor,
                               bias: Optional[torch.Tensor]) -> bool:
     """The shape gate of the CUDA kernels: bf16 q/k, bias None or fp32
-    [B, 1, 1|T, S], D a multiple of 16, S <= 512, B <= 65535, and the
-    backward's shared memory (score and dp rows of a 64-query tile, whole K
-    and V) within the 227 KB a block may use: S <= 256 at D = 64. T is free
-    (ragged tiles are masked). What fails the gate takes the plain path."""
+    [B, 1, 1|T, S], D in {16, 32, 64, 128}, 1 <= S <= 512 (the JAX gate's
+    cap), any T, B and H <= 65535. Keys stream through the kernels in tiles,
+    so shared memory sets no limit of its own. What fails the gate takes the
+    plain path."""
     B, T, H, D = q.shape
     S = k.shape[1]
     if q.dtype != torch.bfloat16 or k.dtype != torch.bfloat16:
@@ -165,9 +164,8 @@ def fused_attention_supported(q: torch.Tensor, k: torch.Tensor,
             return False
         if bias.shape[2] not in (1, T) or bias.shape[3] != S:
             return False
-    if D < 16 or D % 16 != 0 or S > _MAX_S or B > 65535 or H > 65535:
-        return False
-    return _smem_bytes(S, D) <= _SMEM_LIMIT
+    return (D in _HEAD_DIMS and 1 <= S <= _MAX_S and T >= 1
+            and 1 <= B <= 65535 and 1 <= H <= 65535)
 
 
 def _check_cuda_args(q, k, v, bias, extra=()):
@@ -205,34 +203,41 @@ def _scalars(q, rate: float, seed: int):
 
 
 def _launch_fwd(q, k, v, bias, rate, seed):
+    """Returns the output and the row statistics [B, H, T, 2] fp32 (the max
+    and the log of the sum of each row's exp(x - max)) the backward needs."""
     global FWD_LAUNCHES
     _check_cuda_args(q, k, v, bias)
     lib = _build.load()
     B, T, H, D = q.shape
     out = torch.empty_like(q)
+    stats = torch.empty((B, H, T, 2), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         err = lib.itt_fused_attn_fwd_bf16(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-            out.data_ptr(), B, T, k.shape[1], H, D, int(bias.shape[2] != 1),
-            *_scalars(q, rate, seed),
+            out.data_ptr(), stats.data_ptr(), B, T, k.shape[1], H, D,
+            int(bias.shape[2] != 1), *_scalars(q, rate, seed),
             torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError("fused attention forward launch failed: "
                            + lib.itt_error_string(err).decode())
     FWD_LAUNCHES += 1
-    return out
+    return out, stats
 
 
-def _launch_bwd(q, k, v, bias, g, rate, seed, want_dbias: bool):
+def _launch_bwd(q, k, v, bias, g, stats, rate, seed, want_dbias: bool):
     global BWD_LAUNCHES
     _check_cuda_args(q, k, v, bias, extra=(("g", g),))
-    lib = _build.load()
     B, T, H, D = q.shape
     S = k.shape[1]
+    if (stats.shape != (B, H, T, 2) or stats.dtype != torch.float32
+            or not stats.is_contiguous() or stats.device != q.device):
+        raise ValueError(f"stats must be the forward's contiguous fp32 "
+                         f"[{B}, {H}, {T}, 2], got {tuple(stats.shape)} "
+                         f"{stats.dtype}")
+    lib = _build.load()
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    # dk and dv of several query tiles accumulate in fp32 before the cast.
-    acc = (torch.empty((2, B, S, H, D), dtype=torch.float32, device=q.device)
-           if T > _TQ else None)
+    # delta = rowsum(p dp) per row: written by the dq kernel, read by dk/dv.
+    delta = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
     part = dbias = None
     if want_dbias:
         part = torch.empty((B, H, bias.shape[2], S), dtype=torch.float32,
@@ -241,8 +246,8 @@ def _launch_bwd(q, k, v, bias, g, rate, seed, want_dbias: bool):
     with torch.cuda.device(q.device):
         err = lib.itt_fused_attn_bwd_bf16(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-            g.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            None if acc is None else acc.data_ptr(),
+            g.data_ptr(), stats.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(),
             None if part is None else part.data_ptr(),
             None if dbias is None else dbias.data_ptr(),
             B, T, S, H, D, int(bias.shape[2] != 1), *_scalars(q, rate, seed),
@@ -257,14 +262,15 @@ def _launch_bwd(q, k, v, bias, g, rate, seed, want_dbias: bool):
 class _FusedDropoutAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, bias, rate, seed):
-        ctx.save_for_backward(q, k, v, bias)
+        out, stats = _launch_fwd(q, k, v, bias, rate, seed)
+        ctx.save_for_backward(q, k, v, bias, stats)
         ctx.rate, ctx.seed = rate, seed
-        return _launch_fwd(q, k, v, bias, rate, seed)
+        return out
 
     @staticmethod
     def backward(ctx, g):
-        q, k, v, bias = ctx.saved_tensors
-        dq, dk, dv, dbias = _launch_bwd(q, k, v, bias, g.contiguous(),
+        q, k, v, bias, stats = ctx.saved_tensors
+        dq, dk, dv, dbias = _launch_bwd(q, k, v, bias, g.contiguous(), stats,
                                         ctx.rate, ctx.seed,
                                         ctx.needs_input_grad[3])
         return dq, dk, dv, dbias, None, None

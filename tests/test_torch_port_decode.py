@@ -14,6 +14,7 @@ tokens stay those of the JAX decoder and of the port's ``"onehot"`` path.
 import dataclasses
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -23,9 +24,11 @@ from imagetranslate_tpu.decoding.beam import max_len_for as jax_max_len_for
 from imagetranslate_tpu.decoding.beam import trim_outputs as jax_trim_outputs
 from imagetranslate_tpu.models.config import tiny_config as jax_tiny_config
 from imagetranslate_tpu.models.seq2seq import Seq2Seq as JaxSeq2Seq
+from imagetranslate_tpu.decoding.beam import _gather_beams as jax_gather_beams
 from imagetranslate_tpu_torch.decoding.beam import (
     beam_search,
     max_len_for,
+    reorder_caches,
     trim_outputs,
 )
 from imagetranslate_tpu_torch.models.config import tiny_config
@@ -178,3 +181,31 @@ def test_fused_decode_attention_matches_jax_and_onehot(base, fused,
                      for _ in range(layers)]
     _assert_same(got, base.run_jax(mode="gather", **kw))
     assert got[0].equal(onehot[0]) and got[1].equal(onehot[1])
+
+
+def test_fp32_cache_reorder_is_exact_where_jax_rounds():
+    """The beam reorder of an fp32 KV cache. JAX's ``_gather_beams`` permutes
+    through a bf16 one-hot product, so it returns the permuted cache rounded
+    to bf16: off the exact rows by up to 2^-8 relative, at every step of a
+    decode (a defect of the reference, left as it is). The port's index
+    gather returns the rows exactly."""
+    rng = np.random.RandomState(0)
+    B, K, L, H, D = 2, 3, 4, 2, 8
+    cache = (rng.randn(B * K, L, H, D) * 3).astype(np.float32)
+    beam_idx = np.array([[2, 0, 0], [1, 2, 1]], np.int32)
+    rows = (np.arange(B)[:, None] * K + beam_idx).reshape(-1)
+    exact = cache[rows]
+    got_jax = np.asarray(jax_gather_beams(
+        {"k": jnp.asarray(cache)}, jnp.asarray(beam_idx), B, K)["k"])
+    assert got_jax.dtype == np.float32
+    rounded = np.asarray(jnp.asarray(exact).astype(jnp.bfloat16)
+                         .astype(jnp.float32))
+    np.testing.assert_array_equal(got_jax, rounded)
+    rel = np.abs(got_jax - exact) / np.abs(exact)
+    assert 2.0 ** -12 < rel.max() <= 2.0 ** -8
+    layer = {"k": torch.tensor(cache), "v": torch.tensor(-cache)}
+    caches = [[layer]]
+    reorder_caches(caches, torch.tensor(rows))
+    assert caches[0][0]["k"].dtype == torch.float32
+    np.testing.assert_array_equal(caches[0][0]["k"].numpy(), exact)
+    np.testing.assert_array_equal(caches[0][0]["v"].numpy(), -exact)

@@ -157,6 +157,49 @@ def test_project_topk_refuses_other_devices():
         tkp.project_topk(h, torch.zeros((16, 8), device="meta"), None, 2)
 
 
+@pytest.mark.parametrize("dtype,k,want", [("bfloat16", 4, "kernel"),
+                                          ("bfloat16", 16, "kernel"),
+                                          ("float32", 4, "plain"),
+                                          ("bfloat16", 17, "plain")],
+                         ids=["bf16_k4", "bf16_k16", "fp32", "bf16_k17"])
+def test_seq2seq_routes_project_topk_by_dtype_and_k(monkeypatch, dtype, k,
+                                                    want):
+    """Off the CPU (the ``meta`` device, routed as the card is) a bf16 head
+    with k <= 16 reaches the kernel's wrapper; fp32 weights and beams wider
+    than 16 take the plain version, as the JAX model takes XLA's top_k where
+    the kernel's gate says no."""
+    from imagetranslate_tpu_torch.models.config import tiny_config
+    from imagetranslate_tpu_torch.models.seq2seq import Seq2Seq
+
+    calls = []
+
+    def record(name):
+        def fn(h, w, b, k_):
+            calls.append((name, tuple(h.shape), w.dtype, k_))
+            m = h.shape[0]
+            return (torch.empty(m, k_, device=h.device),
+                    torch.empty(m, k_, dtype=torch.int32, device=h.device),
+                    torch.empty(m, device=h.device))
+        return fn
+
+    monkeypatch.setattr(tkp, "project_topk", record("kernel"))
+    monkeypatch.setattr(tkp, "project_topk_reference", record("plain"))
+    model = Seq2Seq(tiny_config(dtype=dtype), device="meta")
+    hidden = torch.empty(6, 1, 32, dtype=model.cfg.compute_dtype,
+                         device="meta")
+    val, idx, lse = model.project_topk(hidden, k)
+    assert val.shape == (6, k) and lse.shape == (6,)
+    assert calls == [(want, (6, 32), model.cfg.compute_dtype, k)]
+
+
+def test_kernel_wrapper_still_refuses_a_bf16_call_it_cannot_take():
+    h = torch.zeros((4, 16), dtype=torch.bfloat16, device="meta")
+    w = torch.zeros((64, 16), dtype=torch.bfloat16, device="meta")
+    b = torch.zeros((64,), device="meta")
+    with pytest.raises(ValueError, match="1 <= k <= 16"):
+        tkp._check_cuda_args(h, w, b, 17)
+
+
 @pytest.mark.cuda
 def test_cuda_kernel_matches_plain():
     """The CUDA kernel vs its plain version on the card, at the serving

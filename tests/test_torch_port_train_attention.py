@@ -9,9 +9,12 @@ layouts, inputs from a numpy seed. At rate > 0 the masks of the two packages
 differ bit for bit by design, so the contract is the distribution: keep
 rate, unbiased mean over seeds, the same mask per seed, and autograd through
 the plain version equal to the hand-derived backward formulas under the same
-mask (atol 1e-5). The Philox generator is held bit-exactly to the published
-known-answer vectors. The CUDA kernels themselves are compared with the
-plain version in the ``cuda``-marked test, which skips without a card.
+mask (atol 1e-5). At T = S = 512, the range the kernels newly admit, the
+plain version equals the Pallas kernel at rate 0 too. A bf16 LM in training
+at T = 512 routes its attention to the fused op (on the ``meta`` device,
+routed as the card is). The Philox generator is held bit-exactly to the
+published known-answer vectors. The CUDA kernels themselves are compared with
+the plain version in the ``cuda``-marked test, which skips without a card.
 """
 
 import jax
@@ -27,6 +30,10 @@ from imagetranslate_tpu.ops.train_attention import (
 from imagetranslate_tpu.ops.train_attention import (
     fused_dropout_attention as jax_fused,
 )
+from imagetranslate_tpu_torch.models import transformer as tr
+from imagetranslate_tpu_torch.models.config import tiny_config
+from imagetranslate_tpu_torch.models.lm import LM
+from imagetranslate_tpu_torch.ops import attention as attention_mod
 from imagetranslate_tpu_torch.ops import train_attention as ta
 from imagetranslate_tpu_torch.ops.attention import dot_product_attention
 
@@ -214,8 +221,14 @@ def test_dispatch_order_and_gate():
     assert ok((32, 256, 12, 64), (32, 256, 12, 64), (32, 1, 256, 256))
     assert ok((2, 7, 3, 16), (2, 33, 3, 16))                # ragged, no bias
     assert not ok((2, 8, 3, 64), (2, 8, 3, 64), dtype=torch.float32)
-    assert not ok((2, 8, 3, 64), (2, 272, 3, 64))           # shared memory
-    assert not ok((2, 8, 3, 8), (2, 8, 3, 8))               # D % 16
+    # Shared memory: keys stream through the kernels in tiles, so S runs to
+    # the JAX gate's cap of 512 in both bias layouts (the MLM step's 512).
+    for n in (272, 512):
+        assert ok((2, 8, 3, 64), (2, n, 3, 64), (2, 1, 1, n))
+        assert ok((2, 8, 3, 64), (2, n, 3, 64), (2, 1, 8, n))
+    assert not ok((2, 8, 3, 64), (2, 513, 3, 64))           # past the cap
+    assert not ok((2, 8, 3, 8), (2, 8, 3, 8))               # D
+    assert not ok((2, 8, 3, 48), (2, 8, 3, 48))             # D
     assert not ok((2, 8, 3, 64), (2, 8, 3, 64), (2, 3, 1, 8))   # head axis
     assert not ok((2, 8, 3, 64), (2, 8, 3, 64), (2, 1, 4, 8))   # rows != T
 
@@ -230,14 +243,90 @@ def test_refuses_other_devices_and_rates():
         ta.fused_dropout_attention(c, c, c, torch.zeros(1, 1, 1, 4), 1.0, 0)
 
 
+def test_rate0_long_keys_match_jax():
+    """The range the redesigned kernels newly admit: at T = S = 512 the
+    plain forward and its gradients equal the JAX kernel's in Pallas
+    interpret mode (one jitted program for the output and the vjp), inputs
+    from a numpy seed, a padding bias with masked keys; forward atol/rtol
+    1e-5, gradients 2e-4, as at S = 24."""
+    rng = np.random.RandomState(4)
+    b, n, h, d = 1, 512, 1, 16
+    q, k, v, g = (rng.randn(b, n, h, d).astype(np.float32) for _ in range(4))
+    bias = rng.randn(b, 1, 1, n).astype(np.float32)
+    bias[..., -37:] = -10000.0
+
+    @jax.jit
+    def kernel(q, k, v, bias, g):
+        out, pull = jax.vjp(lambda *a: jax_fused(*a, 0.0, jnp.int32(7)),
+                            q, k, v, bias)
+        return out, pull(g)
+
+    want_out, want = kernel(*map(jnp.asarray, (q, k, v, bias, g)))
+    out, got = _torch_grads(
+        lambda *a: ta.fused_dropout_attention(*a, 0.0, 7), (q, k, v, bias), g)
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(want_out),
+                               1e-5, 1e-5)
+    assert float(np.abs(np.asarray(want[3])).max()) > 0
+    for name, a, b_ in zip("q k v bias".split(), got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b_), 2e-4, 2e-4,
+                                   err_msg=name)
+
+
+class _MetaDropout(tr.DropoutRng):
+    """A dropout stream without generators (the meta device has none):
+    attention seeds count up, elementwise dropout is the identity."""
+
+    def __init__(self):
+        self.seeds = iter(range(1, 1 << 20))
+
+    def next_seed(self) -> int:
+        return next(self.seeds)
+
+    def dropout(self, x, rate):
+        return x
+
+
+@pytest.mark.parametrize("dtype,want", [("bfloat16", "fused"),
+                                        ("float32", "plain")])
+def test_lm_training_at_512_routes_to_the_kernels(monkeypatch, dtype, want):
+    """The MLM step's attention off the CPU (the meta device, routed as the
+    card is): a bf16 LM in training at T = 512 with dropout on reaches
+    fused_dropout_attention in every layer, with the [B, 1, 1, S] padding
+    bias; an fp32 LM, outside the kernels' gate, takes the plain attention."""
+    calls = []
+
+    def record(name):
+        def fn(q, k, v, bias, *rest):
+            calls.append((name, tuple(q.shape), tuple(k.shape),
+                          tuple(bias.shape)))
+            return torch.empty_like(v)
+        return fn
+
+    monkeypatch.setattr(ta, "fused_dropout_attention", record("fused"))
+    monkeypatch.setattr(attention_mod, "plain_attention", record("plain"))
+    cfg = tiny_config(hidden_size=128, num_heads=2, max_position_embeddings=512,
+                      enc_layers=2, dropout=0.1, attention_dropout=0.1,
+                      dtype=dtype)
+    model = LM(cfg, device="meta")
+    B, T = 2, 512
+    texts = torch.zeros((B, T), dtype=torch.long, device="meta")
+    mask = torch.ones((B, T), dtype=torch.bool, device="meta")
+    langs = torch.zeros((B,), dtype=torch.long, device="meta")
+    hidden = model.encode(texts, mask, langs, deterministic=False,
+                          rng=_MetaDropout())
+    assert hidden.shape == (B, T, cfg.hidden_size)
+    assert calls == [(want, (B, T, 2, 64), (B, T, 2, 64), (B, 1, 1, T))] * 2
+
+
 @pytest.mark.cuda
 def test_cuda_kernels_match_plain():
     """The CUDA forward and backward kernels against the plain version on the
     card, element by element under the shared Philox mask: the train step's
     three shapes (encoder, decoder self- and cross-attention), packed,
-    cross-attention (T != S) and ragged shapes, both bias layouts, rate 0 and
-    0.1. Tolerance: 2^-6 of the plain result's largest magnitude (a few bf16
-    ulps) for the bf16 outputs, 1e-4 of it for the fp32 dbias."""
+    cross-attention (T != S), ragged shapes and the MLM step's (T = S = 512),
+    both bias layouts, rate 0 and 0.1. Tolerance: 2^-6 of the plain result's
+    largest magnitude (a few bf16 ulps) for the bf16 outputs, 1e-4 of it for
+    the fp32 dbias."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA CUDA card: the kernels have no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -245,7 +334,8 @@ def test_cuda_kernels_match_plain():
     fwd, bwd = ta.FWD_LAUNCHES, ta.BWD_LAUNCHES
     cases = [(256, 64, 64, 12, 64), (256, 63, 63, 12, 64),
              (256, 63, 64, 12, 64), (32, 256, 256, 12, 64),
-             (8, 40, 72, 3, 64), (3, 100, 33, 2, 32), (2, 130, 16, 1, 128)]
+             (8, 40, 72, 3, 64), (3, 100, 33, 2, 32), (2, 130, 16, 1, 128),
+             (16, 512, 512, 12, 64), (2, 7, 511, 2, 64)]
     n = 0
     for b, t, s, h, d in cases:
         for rows in (1, t):
