@@ -99,15 +99,22 @@ Phases, each fatal on failure:
                padded, the bias a view of a wider buffer) and without one:
                B=8, T=S=2048, H=12, D=64; S = 1024, 1032, 1536, 4096, 5000;
                T=64 and T=8 against S=2048; a ragged T=2000; D=32 and D=128;
-               the shape phase 13's CLI batches have; bf16 outputs within
-               2^-7 of the plain result's largest magnitude and 2^-6 of the
-               fp64 one's. Outside the gate (fp32 on the card, a per-query
-               bias, T < 8) the dispatch takes the plain attention and the
-               wrapper raises, as it does on strides or dtypes the kernel
-               cannot read; the gradient behind the kernel equals the plain
-               attention's. Times at B=8, T=S=2048 of the kernel, its plain
-               version, the plain attention and
-               F.scaled_dot_product_attention (a yardstick, never on the path).
+               shapes ragged around the 128-query and 128-key tiles
+               ((2, 1000, 1031, 4, 64), (2, 129, 1087, 3, 128),
+               (1, 8, 1025, 2, 32), (3, 1153, 2049, 2, 64)); the shape phase
+               13's CLI batches have; bf16 outputs within 2^-7 of the plain
+               result's largest magnitude and 2^-6 of the fp64 one's. Outside
+               the gate (fp32 on the card, a per-query bias, T < 8) the
+               dispatch takes the plain attention and the wrapper raises, as
+               it does on strides or dtypes the kernel cannot read; the
+               gradient behind the kernel equals the plain attention's; two
+               launches at B=8, T=S=2048 are bit-equal. Times at B=8,
+               T=S=2048, H=12, D=64, in turns: the kernel with the bias and
+               without, F.scaled_dot_product_attention with the mask and
+               without (a yardstick, never on the path), its plain version
+               and the plain attention; TFLOP/s, the share of the bound and
+               the time of the exponentials alone on the SFUs; the kernel at
+               D=32 (H=24) and D=128 (H=6).
  13. long    — BERT-base with 2048 positions, bf16: encode + beam_search
      source    (beam 4, L=2048) on B=8 sources of 2048 tokens: K3 launches = 6
                (one per encoder layer, none in the decode), K2 launches = the
@@ -1155,6 +1162,11 @@ def phase_kernel_flash(extra_shapes=()):
         (2, 2000, 2048, 4, 64),      # a ragged last query tile
         (2, 1100, 1100, 4, 32),      # D = 32
         (2, 1100, 1100, 4, 128),     # D = 128
+        # ragged around the 128-query and 128-key tiles
+        (2, 1000, 1031, 4, 64),
+        (2, 129, 1087, 3, 128),
+        (1, 8, 1025, 2, 32),
+        (3, 1153, 2049, 2, 64),
     ]
     for shape in shapes:
         for has_bias in (True, False):
@@ -1211,40 +1223,74 @@ def phase_kernel_flash(extra_shapes=()):
         "and the wrapper raises; the gradient behind the kernel is the plain "
         "attention's")
 
-    # Times at the long-source shape, cold L2, plain-kernel-kernel-plain.
+    # Two launches on the same inputs give the same bits (no atomics, a
+    # fixed order of keys).
     B, T, S, H, D = 8, 2048, 2048, 12, 64
     q, k, v, bias = inputs(B, T, S, H, D, True)
-    runs = {"plain": [], "kernel": [], "attention": []}
-    for name in ("plain", "kernel", "kernel", "plain"):
-        if name == "kernel":
-            runs["kernel"].append(_time_ms(
-                lambda: fa._launch(q, k, v, bias), iters=20))
-        else:
-            runs["plain"].append(_time_ms(
-                lambda: fa.flash_attention_reference(q, k, v, bias), iters=3))
-            # What the dispatch runs with use_pallas_attention off.
-            runs["attention"].append(_time_ms(
-                lambda: dot_product_attention(q, k, v, bias), iters=5))
-    nobias_ms = _time_ms(lambda: fa._launch(q, k, v, None), iters=20)
-    # The library yardstick: one fused PyTorch call, never on the port's path.
+    if not torch.equal(fa._launch(q, k, v, bias), fa._launch(q, k, v, bias)):
+        raise AssertionError("two K3 launches on the same inputs differ")
+    log(f"[kernel K3] two launches at {(B, T, S, H, D)} are bit-equal")
+
+    # Times at the long-source shape, cold L2, in turns (each arm once in
+    # this order, then once in the reverse order): the kernel with the bias
+    # and without, SDPA with the mask and without (the library yardstick,
+    # never on the port's path), the plain version (tile by tile) and the
+    # plain attention the dispatch otherwise runs.
     qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
     mask = bias.to(torch.bfloat16).contiguous()
-    lib_ms = _time_ms(lambda: F.scaled_dot_product_attention(
-        qh, kh, vh, attn_mask=mask), iters=20)
-    lib_nomask_ms = _time_ms(lambda: F.scaled_dot_product_attention(
-        qh, kh, vh), iters=20)
-    bnd = bound(2 * B * H * D * (2 * T + 2 * S) + B * S * 4,
-                4.0 * B * H * T * S * D)
-    ms = sum(runs["kernel"]) / 2
-    log(f"[kernel K3] B={B} T={T} S={S} H={H} D={D} bf16, padding bias: "
-        f"kernel {runs['kernel']} ms ({4e-9 * B * H * T * S * D / ms:.1f} "
-        f"TFLOP/s), without a bias {nobias_ms:.4f} ms; plain version (tile "
-        f"by tile) {runs['plain']} ms; plain attention (fp32 scores stored) "
-        f"{runs['attention']} ms; SDPA with the mask {lib_ms:.4f} ms, "
-        f"without {lib_nomask_ms:.4f} ms; bound {bnd[0]:.4f} ms by {bnd[1]}")
-    entry = {"max_abs_err": worst, "ms": ms,
-             "plain_ms": sum(runs["plain"]) / 2, "bound_ms": bnd[0],
-             "bound_by": bnd[1], "library_ms": lib_ms}
+    arms = {
+        "kernel": (lambda: fa._launch(q, k, v, bias), 20),
+        "kernel_nobias": (lambda: fa._launch(q, k, v, None), 20),
+        "sdpa_mask": (lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, attn_mask=mask), 20),
+        "sdpa": (lambda: F.scaled_dot_product_attention(qh, kh, vh), 20),
+        "plain": (lambda: fa.flash_attention_reference(q, k, v, bias), 3),
+        "attention": (lambda: dot_product_attention(q, k, v, bias), 5),
+    }
+    runs = {name: [] for name in arms}
+    for order in (list(arms), list(reversed(arms))):
+        for name in order:
+            fn, iters = arms[name]
+            runs[name].append(_time_ms(fn, iters=iters))
+    ms = {name: sum(t) / len(t) for name, t in runs.items()}
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    clock_hz = float(smi.stdout.split()[0]) * 1e6
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def report(label, B, T, S, H, D, kernel_ms):
+        """TFLOP/s, the share of the bound, and beside the bound the time of
+        the B H T S exponentials on the SFUs (16 a clock an SM, at the
+        card's maximum SM clock): information, not part of the bound."""
+        flops = 4.0 * B * H * T * S * D
+        bnd = bound(2 * B * H * D * (2 * T + 2 * S) + B * S * 4, flops)
+        exp_ms = 1e3 * B * H * T * S / (sms * 16 * clock_hz)
+        log(f"[kernel K3] {label} B={B} T={T} S={S} H={H} D={D}: "
+            f"{kernel_ms:.4f} ms, {flops / kernel_ms / 1e9:.1f} TFLOP/s, "
+            f"{bnd[0] / kernel_ms:.3f} of the bound {bnd[0]:.4f} ms by "
+            f"{bnd[1]}; exponentials alone {exp_ms:.4f} ms ({sms} SMs x 16 "
+            f"a clock at {clock_hz / 1e6:.0f} MHz)")
+        return bnd
+
+    log(f"[kernel K3] B={B} T={T} S={S} H={H} D={D} bf16, in turns: "
+        + "; ".join(f"{name} {runs[name]} ms" for name in arms))
+    bnd = report("padding bias", B, T, S, H, D, ms["kernel"])
+    report("no bias", B, T, S, H, D, ms["kernel_nobias"])
+    log(f"[kernel K3] kernel / SDPA with the mask "
+        f"{ms['kernel'] / ms['sdpa_mask']:.3f}, without a bias / SDPA "
+        f"without a mask {ms['kernel_nobias'] / ms['sdpa']:.3f}")
+    entry = {"max_abs_err": worst, "ms": ms["kernel"],
+             "plain_ms": ms["plain"], "bound_ms": bnd[0],
+             "bound_by": bnd[1], "library_ms": ms["sdpa_mask"]}
+    del q, k, v, bias, qh, kh, vh, mask
+    # The other head widths at the same B, T, S and H D = 768.
+    for D in (32, 128):
+        H = 768 // D
+        q, k, v, bias = inputs(B, T, S, H, D, True)
+        report("padding bias", B, T, S, H, D,
+               _time_ms(lambda: fa._launch(q, k, v, bias), iters=20))
     del q, k, v
     torch.cuda.empty_cache()
     return entry, checked

@@ -3,97 +3,223 @@
 // Replaces the Pallas TPU kernel of imagetranslate_tpu/ops/flash_attention.py
 // (`_kernel` :47 behind `flash_attention` :97): softmax(Q K^T * scale + bias) V
 // without dropout, with the online softmax over tiles of keys, so that the
-// [T, S] scores never reach device memory. Arithmetic as the TPU kernel's: q
-// is scaled in fp32 and rounded to bf16; scores accumulate in fp32 and take
-// the fp32 bias; a running row maximum m (from -1e30) and denominator l; the
-// fp32 accumulator is rescaled by exp(m_prev - m_cur); p = exp(s - m_cur) is
-// rounded to bf16 un-normalised before the product with V; the division by l
-// comes last. The bias is additive (-10000 at padded keys, never -inf), so a
-// fully padded row gives finite, near-uniform weights.
+// [T, S] scores never reach shared or device memory. Arithmetic as the TPU
+// kernel's: q is scaled in fp32 and rounded to bf16; scores accumulate in fp32
+// and take the fp32 bias; a running row maximum m (from -1e30) and denominator
+// l; the fp32 accumulator is rescaled by exp(m_prev - m_cur); p = exp(s -
+// m_cur) is rounded to bf16 un-normalised before the product with V; the
+// division by l comes last. The bias is additive (-10000 at padded keys, never
+// -inf), so a fully padded row gives finite, near-uniform weights.
 //
-// What bounds it: operations. At B=8, T=S=2048, H=12, D=64 the two products
-// are 4 B H T S D = 103 GFLOP (0.104 ms at 989 TFLOP/s) over 101 MB of q, k,
-// v and out (0.030 ms at 3.35 TB/s); the plain version moves 1.6 GB of fp32
-// scores besides. So scores, probabilities and the output accumulator stay in
-// registers from the first product to the second, and the [B, T, H, D] layout
-// is read directly (no transposed copies). One block per (128-query tile,
-// head, batch row); eight warps, each owning 16 query rows, so the row
-// statistics never leave a quad of lanes; keys and values stream through
-// shared memory 64 at a time, the next tile's cp.async copies in flight while
-// this tile is multiplied (two stages, one barrier a tile). Both products are
-// mma.sync m16n8k16 (bf16 in, fp32 accumulate) fed by ldmatrix: the score
-// accumulators of two neighbouring 8-key tiles are, element for element, the
-// A operand of the second product's 16-key step, so p is rounded to bf16 in
-// place. A ragged last key tile and a ragged last query tile are masked here.
-// wgmma, TMA and warp specialisation are later work.
+// What bounds it: operations, twice over. At B=8, T=S=2048, H=12, D=64 the two
+// products are 4 B H T S D = 103 GFLOP (0.104 ms at 989 TFLOP/s) over 101 MB of
+// q, k, v and out (0.030 ms at 3.35 TB/s), and the B H T S = 403 M
+// exponentials take about as long on the SFUs (16 a clock an SM). So the
+// exponentials of one tile have to run while the tensor cores work on another.
+// On the card the softmax side is the longer one (bias, max, exp, sum and the
+// bf16 rounding of one tile take longer than its two products; PERF.md).
+//
+// Design. One block per (64 NC query rows, head, batch row), NC + 1
+// warpgroups:
+//   - a producer warp (warpgroup 0, registers lowered by setmaxnreg) loads the
+//     query tile once and streams K and V tiles of TK = 128 keys through a ring
+//     of STAGES slots by TMA, with full and empty mbarriers. The 4-D tensor
+//     maps run over (D, H, T or S, B) of the [B, T, H, D] tensors as they lie,
+//     so a ragged last tile is zero-filled by the hardware and never crosses
+//     into the next batch row. Rows are 128 B (D = 64, 128: 128 B swizzle, D =
+//     128 in two boxes along D) or 64 B (D = 32: 64 B swizzle). The bias slice
+//     of a tile comes by 4-byte cp.async (its row stride need not be a
+//     multiple of 16 bytes, which a tensor map needs) and completes on the
+//     same full barrier;
+//   - NC consumer warpgroups (3, or 2 at D = 128) own 64 query rows each
+//     (wgmma's M). Each scales its query rows in shared memory once (every D
+//     takes this one path; at D = 64 the scale 2^-3 would be exact in bf16
+//     anyway, but for q below 2^-123), then runs both products on wgmma:
+//     S = Q K^T (m64n128k16, Q and K K-major from shared memory) and O += P V
+//     (m64nDk16, P from registers, V read MN-major through the transpose bit).
+//   - Overlap: a warpgroup starts S of tile j and P V of tile j - 1 together
+//     and waits for them; its softmax of tile j then waits for its turn
+//     (named barriers 1 .. NC, round the warpgroups), so the softmaxes run one
+//     after another, each with the SFUs to itself, and under each run the
+//     other warpgroups' products.
+// No atomics and a fixed order of keys: two launches give the same bits.
 //
 // Plain C interface, loaded with ctypes (imagetranslate_tpu_torch/ops/_build.py).
+// cuTensorMapEncodeTiled comes through cudaGetDriverEntryPoint, so the build
+// needs no -lcuda.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <math.h>
 #include <stdint.h>
 
 namespace {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int TQ = 128;           // query rows a block
-constexpr int TK = 64;            // keys a tile
-constexpr int WARPS = TQ / 16;    // a warp owns 16 query rows
-constexpr int THREADS = WARPS * 32;
-constexpr int PAD = 8;            // bf16 row padding: ldmatrix without bank conflicts
-constexpr int STAGES = 2;         // K/V tiles in shared memory
+constexpr int TK = 128;  // keys a tile (ops/flash_attention.py: BLOCK_K)
 
+// Shared memory of a block, from a 1024-byte aligned base: Q | K ring | V ring
+// | bias ring | mbarriers (Q's, then full and empty a slot).
 template <int D>
-constexpr size_t smem_bytes() {
-  return (size_t)(TQ + 2 * STAGES * TK) * (D + PAD) * sizeof(bf16)  // Q; K, V stages
-         + (size_t)STAGES * TK * sizeof(float);                     // bias of a tile
+struct Cfg {
+  // Consumer warpgroups of 64 query rows each: three where their registers
+  // allow (the softmax is the longer part of a tile, so more warps hide its
+  // latencies), two at D = 128 (o takes 64 registers a thread).
+  static constexpr int NC = D == 128 ? 2 : 3;
+  static constexpr int TQ = 64 * NC;            // query rows a block
+  static constexpr int THREADS = 128 * (NC + 1);  // and the producer warpgroup
+  // setmaxnreg: producer * 128 + consumer * 128 NC <= 65536.
+  static constexpr int PRODUCER_REGS = NC == 3 ? 24 : 40;
+  static constexpr int CONSUMER_REGS = NC == 3 ? 160 : 232;
+  static constexpr int DC = D < 64 ? D : 64;   // columns of a TMA box: one swizzle span
+  static constexpr int RB = DC * 2;            // bytes of a box row
+  static constexpr int CHUNKS = D / DC;        // boxes along D
+  static constexpr int STAGES = 3;  // D = 128: 226.5 KB in all
+  static constexpr uint32_t Q_BYTES = TQ * D * 2;
+  static constexpr uint32_t KV_BYTES = TK * D * 2;
+  static constexpr uint64_t LAYOUT = RB == 128 ? 1 : 2;  // wgmma descriptor: 128 B / 64 B swizzle
+  static constexpr uint32_t ATOM = 8 * RB;               // eight rows of the swizzle pattern
+  static constexpr uint32_t OFF_K = Q_BYTES;
+  static constexpr uint32_t OFF_V = OFF_K + STAGES * KV_BYTES;
+  static constexpr uint32_t OFF_BIAS = OFF_V + STAGES * KV_BYTES;
+  static constexpr uint32_t OFF_BAR = OFF_BIAS + STAGES * TK * 4;
+  static constexpr uint32_t SMEM = OFF_BAR + (1 + 2 * STAGES) * 8 + 1024;  // + alignment
+};
+
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N) : "memory");
 }
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N) : "memory");
+}
+
+// 2^x on the SFU, subnormal results flushed to zero.
+__device__ __forceinline__ float ex2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
 }
 
-// 16 bytes global -> shared without passing through registers; zero-filled
-// when `valid` is false (`src` must still be an address inside the tensor).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  const int n = valid ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
-               "r"(n));
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
 }
 
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
 }
 
-// Four 8x8 bf16 matrices; lane l gives the address of row l % 8 of matrix
-// l / 8 and receives elements (l / 4, 2 (l % 4) .. + 1) of each.
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
+// Arrive and announce `bytes` of TMA traffic that completes the phase.
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
 }
 
-// The same, each matrix transposed: elements (2 (l % 4) .. + 1, l / 4).
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
+// Wait until the phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
 }
 
-// c[16, 8] += a[16, 16] . b[16, 8]. Lane l = 4 g + t holds a: rows g, g + 8 x
-// columns 2t, 2t + 1 (+ 8); b: rows 2t, 2t + 1 (+ 8) x column g; c: rows g
-// (c0, c1), g + 8 (c2, c3) x columns 2t, 2t + 1.
-__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
+// A (c0, c1, c2, c3) box of a 4-D tensor map into shared memory; completes
+// its bytes on `bar`.
+__device__ __forceinline__ void tma_load4(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                          int c0, int c1, int c2, int c3) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
-      "{%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// 4 bytes global -> shared, zero-filled when `valid` is false (`src` must
+// still be an address inside the tensor).
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+// One arrival on `bar` once this thread's cp.async copies so far have landed.
+__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// A wgmma shared-memory matrix descriptor: start address, leading and stride
+// byte offsets, swizzle mode (1: 128 B, 2: 64 B).
+__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
+                                              uint64_t layout) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (layout << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// Wait until at most N committed groups of this warpgroup are in flight.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Pin registers that a wgmma reads or writes asynchronously at this point of
+// the program, so that the compiler moves no access to them across it.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(r[i][e])::"memory");
+}
+
+// max and sum of N values (a power of two) as trees (v is overwritten).
+template <int N>
+__device__ __forceinline__ float tree_max(float (&v)[N]) {
+#pragma unroll
+  for (int j = 0; j < N / 2; ++j) v[j] = fmaxf(v[j], v[j + N / 2]);
+  if constexpr (N == 2) return v[0];
+  else return tree_max<N / 2>(*reinterpret_cast<float(*)[N / 2]>(&v));
+}
+
+template <int N>
+__device__ __forceinline__ float tree_sum(float (&v)[N]) {
+#pragma unroll
+  for (int j = 0; j < N / 2; ++j) v[j] += v[j + N / 2];
+  if constexpr (N == 2) return v[0];
+  else return tree_sum<N / 2>(*reinterpret_cast<float(*)[N / 2]>(&v));
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -101,228 +227,416 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// Keys [row0, row0 + TK) of the (b, h) slice of a [B, S, H, D] tensor into
-// shared memory by cp.async, rows past S zero-filled (a product with a zero
-// row adds nothing; garbage could be NaN).
-template <int D>
-__device__ __forceinline__ void load_kv_tile(const bf16* __restrict__ src, bf16* dst, int row0,
-                                             int S, int H, int b, int h) {
-  constexpr int VECS = D / 8, LD = D + PAD;
-  for (int i = threadIdx.x; i < TK * VECS; i += THREADS) {
-    const int r = i / VECS, c = (i - r * VECS) * 8;
-    const int row = row0 + r;
-    const bool valid = row < S;
-    const size_t at = (((size_t)b * S + (valid ? row : S - 1)) * H + h) * D + c;
-    cp_async16(dst + r * LD + c, src + at, valid);
-  }
+// The accumulator operands of a wgmma: d[0 .. n).
+#define ACC4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
+#define ACC16(i) ACC4(i), ACC4(i + 4), ACC4(i + 8), ACC4(i + 12)
+#define ACC32(i) ACC16(i), ACC16(i + 16)
+#define ACC64(i) ACC32(i), ACC32(i + 32)
+#define OUT4(i) "=f"(d[i]), "=f"(d[i + 1]), "=f"(d[i + 2]), "=f"(d[i + 3])
+#define OUT16(i) OUT4(i), OUT4(i + 4), OUT4(i + 8), OUT4(i + 12)
+#define OUT64(i) OUT16(i), OUT16(i + 16), OUT16(i + 32), OUT16(i + 48)
+
+// d[64, N] += A[64, 16] . B[16, N] (wgmma_ss_n128_first: d = A . B): wgmma_ss
+// with A and B K-major in shared memory; wgmma_rs with A in registers (per warp the
+// m16n8k16 A fragment of its 16 rows) and B MN-major in shared memory. Lane l
+// = 4 g + t of warp w holds d[4 j + e] = element (16 w + g + 8 (e / 2),
+// 8 j + 2 t + e % 2).
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : ACC64(0)
+      : "l"(da), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_ss_n128_first(float (&d)[64], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : OUT64(0)
+      : "l"(da), "l"(db), "r"(0));
+}
+
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : ACC16(0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : ACC32(0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : ACC64(0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
 template <int D>
-__global__ void __launch_bounds__(THREADS)
-flash_attn_fwd(const bf16* __restrict__ q, const bf16* __restrict__ k,
-               const bf16* __restrict__ v, const float* __restrict__ bias,
+__device__ __forceinline__ void wgmma_rs(float (&d)[D / 2], const uint32_t (&a)[4], uint64_t db) {
+  if constexpr (D == 32) wgmma_rs_n32(d, a, db);
+  else if constexpr (D == 64) wgmma_rs_n64(d, a, db);
+  else wgmma_rs_n128(d, a, db);
+}
+
+template <int D>
+__global__ void __launch_bounds__(Cfg<D>::THREADS, 1)
+flash_attn_fwd(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+               const __grid_constant__ CUtensorMap vmap, const float* __restrict__ bias,
                bf16* __restrict__ out, int T, int S, int H, long long bias_stride,
                float scale) {
-  constexpr int LD = D + PAD, KD = D / 16, ND = D / 8, NS = TK / 8;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* Ks = Qs + TQ * LD;                  // STAGES tiles
-  bf16* Vs = Ks + STAGES * TK * LD;         // STAGES tiles
-  float* Bs = reinterpret_cast<float*>(Vs + STAGES * TK * LD);
-
+  using C = Cfg<D>;
+  constexpr int NC = C::NC, TQ = C::TQ;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  const uint32_t base = smem_u32(smem);
+  const uint32_t bar_q = base + C::OFF_BAR;
   const int t0 = blockIdx.x * TQ, h = blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
+  const int n_tiles = (S + TK - 1) / TK;
+  const bool has_bias = bias != nullptr;
+  auto bar_full = [&](int st) { return bar_q + 8 + 8 * st; };
+  auto bar_empty = [&](int st) { return bar_q + 8 + 8 * (C::STAGES + st); };
 
-  auto load_bias = [&](int stage, int s0) {
-    if (threadIdx.x < TK) {
-      const int s = s0 + threadIdx.x;
-      Bs[stage * TK + threadIdx.x] =
-          (bias != nullptr && s < S) ? bias[(size_t)b * bias_stride + s] : 0.0f;
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int st = 0; st < C::STAGES; ++st) {
+      // The producer's expect_tx, and with a bias one cp.async arrival a lane.
+      mbar_init(bar_full(st), has_bias ? 33 : 1);
+      mbar_init(bar_empty(st), 4 * NC);  // every consumer warp
     }
-  };
-
-  // The first K/V tile is on its way while the query tile is scaled in fp32,
-  // rounded to bf16 and stored (rows past T as zeros).
-  load_kv_tile<D>(k, Ks, 0, S, H, b, h);
-  load_kv_tile<D>(v, Vs, 0, S, H, b, h);
-  cp_async_commit();
-  load_bias(0, 0);
-  for (int i = threadIdx.x; i < TQ * (D / 8); i += THREADS) {
-    const int r = i / (D / 8), c = (i - r * (D / 8)) * 8;
-    const int row = t0 + r;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row < T) {
-      val = *reinterpret_cast<const uint4*>(q + (((size_t)b * T + row) * H + h) * D + c);
-      bf16* e = reinterpret_cast<bf16*>(&val);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) e[j] = __float2bfloat16(__bfloat162float(e[j]) * scale);
-    }
-    *reinterpret_cast<uint4*>(Qs + r * LD + c) = val;
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
-  // A warp whose 16 rows all lie past T only helps with the loads.
-  const bool active = t0 + warp * 16 < T;
-  uint32_t qf[KD][4];
-  if (active) {
-#pragma unroll
-    for (int kk = 0; kk < KD; ++kk)
-      ldmatrix_x4(qf[kk], Qs + (warp * 16 + (lane & 15)) * LD + kk * 16 + (lane >> 4) * 8);
+  if (threadIdx.x < 128) {
+    // Producer. One warp loads; the other three have nothing to do.
+    setmaxnreg_dec<C::PRODUCER_REGS>();
+    if (threadIdx.x >= 32) return;
+    const int lane = threadIdx.x;
+    if (lane == 0) {
+      mbar_expect_tx(bar_q, C::Q_BYTES);
+      for (int ch = 0; ch < C::CHUNKS; ++ch)
+        tma_load4(base + ch * TQ * C::RB, &qmap, bar_q, ch * C::DC, h, t0, b);
+    }
+    const float* brow = has_bias ? bias + (size_t)b * bias_stride : nullptr;
+    for (int i = 0; i < n_tiles; ++i) {
+      const int st = i % C::STAGES;
+      mbar_wait(bar_empty(st), ((i / C::STAGES) & 1) ^ 1);
+      if (has_bias) {
+        const uint32_t dst = base + C::OFF_BIAS + st * TK * 4;
+        for (int e = lane; e < TK; e += 32) {
+          const int s = i * TK + e;
+          cp_async4(dst + 4 * e, brow + (s < S ? s : 0), s < S);
+        }
+        cp_async_arrive(bar_full(st));
+      }
+      if (lane == 0) {
+        mbar_expect_tx(bar_full(st), 2 * C::KV_BYTES);
+        for (int ch = 0; ch < C::CHUNKS; ++ch) {
+          const uint32_t off = st * C::KV_BYTES + ch * TK * C::RB;
+          tma_load4(base + C::OFF_K + off, &kmap, bar_full(st), ch * C::DC, h, i * TK, b);
+          tma_load4(base + C::OFF_V + off, &vmap, bar_full(st), ch * C::DC, h, i * TK, b);
+        }
+      }
+      __syncwarp();
+    }
+    return;
   }
 
-  float o[ND][4];
-#pragma unroll
-  for (int dn = 0; dn < ND; ++dn)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[dn][e] = 0.0f;
-  // Rows g and g + 8 of the warp's 16: their running maximum and denominator,
-  // the same in the four lanes of a quad.
-  float m_run[2] = {-1e30f, -1e30f}, l_run[2] = {0.0f, 0.0f};
+  // Consumers: warpgroup c owns query rows 64 c .. 64 c + 63 of the tile.
+  setmaxnreg_inc<C::CONSUMER_REGS>();
+  const int c = threadIdx.x / 128 - 1;
+  const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
 
-  const int n_tiles = (S + TK - 1) / TK;
-  for (int it = 0; it < n_tiles; ++it) {
-    const int stage = it & 1, s0 = it * TK;
-    // Tile `it` has landed, and every warp is done with tile `it - 1`, whose
-    // stage the next tile's copies now overwrite.
-    cp_async_wait_all();
-    __syncthreads();
-    if (it + 1 < n_tiles) {
-      load_kv_tile<D>(k, Ks + (stage ^ 1) * TK * LD, s0 + TK, S, H, b, h);
-      load_kv_tile<D>(v, Vs + (stage ^ 1) * TK * LD, s0 + TK, S, H, b, h);
-      cp_async_commit();
-      load_bias(stage ^ 1, s0 + TK);
+  // Scale this warpgroup's query rows in fp32 and round them to bf16 in place
+  // (elementwise, so the swizzle does not matter), then hand them to the
+  // async proxy that wgmma reads through. Zero-filled rows past T stay zero.
+  mbar_wait(bar_q, 0);
+#pragma unroll
+  for (int ch = 0; ch < C::CHUNKS; ++ch) {
+    uint4* rows = reinterpret_cast<uint4*>(smem + ch * TQ * C::RB + c * 64 * C::RB);
+    for (int i = tid; i < 64 * C::RB / 16; i += 128) {
+      uint4 val = rows[i];
+      bf16* e = reinterpret_cast<bf16*>(&val);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) e[j] = __float2bfloat16(__bfloat162float(e[j]) * scale);
+      rows[i] = val;
     }
-    if (!active) continue;
-    const bf16* Kt = Ks + stage * TK * LD;
-    const bf16* Vt = Vs + stage * TK * LD;
-    const float* Bt = Bs + stage * TK;
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  bar_sync(1 + NC + c, 128);
+  // Turns at the softmax, round the warpgroups: barrier 1 + c is warpgroup
+  // c's.
+  const int my_turn = 1 + c, next_turn = 1 + (c + 1) % NC;
+  if (c == NC - 1) bar_arrive(1, 256);  // warpgroup 0 goes first
 
-    // scores[16, 64] = q_scaled . K^T, fp32 accumulation; two 8-key tiles a load.
-    float s[NS][4];
+  const uint32_t q_addr = base + c * 64 * C::RB;
+  float o[D / 2], s[TK / 2];
+  uint32_t p[TK / 16][4];
+  constexpr float kLog2e = 1.4426950408889634f;
+  float m_run[2] = {-1e30f, -1e30f}, ml_run[2] = {-1e30f * kLog2e, -1e30f * kLog2e};
+  float l_part[2] = {0.0f, 0.0f}, corr[2];
 #pragma unroll
-    for (int j = 0; j < NS; ++j)
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.0f;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = 0.0f;
+  for (int i = 0; i < TK / 16; ++i) p[i][0] = p[i][1] = p[i][2] = p[i][3] = 0u;
+
+  // Descriptors of the tiles' first rows; a step adds its byte offset / 16
+  // to the address field (which stays under 2^14: shared memory < 256 KB).
+  const uint64_t q_desc = gmma_desc(q_addr, 16, C::ATOM, C::LAYOUT);
+  const uint64_t k_desc = gmma_desc(base + C::OFF_K, 16, C::ATOM, C::LAYOUT);
+  const uint64_t v_desc = gmma_desc(base + C::OFF_V, TK * C::RB, C::ATOM, C::LAYOUT);
+  // s = q_scaled . K^T of the tile in slot st.
+  auto start_s = [&](int st) {
+    const uint32_t k_off = st * (C::KV_BYTES / 16);
+    fence_regs(p);  // p of the last tile is read, s free to overwrite
+    wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < KD; ++kk) {
-#pragma unroll
-      for (int j = 0; j < NS; j += 2) {
-        uint32_t kf[4];
-        ldmatrix_x4(kf, Kt + (j * 8 + (lane >> 4) * 8 + (lane & 7)) * LD + kk * 16 +
-                            ((lane >> 3) & 1) * 8);
-        mma16816(s[j], qf[kk], kf[0], kf[1]);
-        mma16816(s[j + 1], qf[kk], kf[2], kf[3]);
-      }
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int ch = kk / (C::DC / 16), col = (kk % (C::DC / 16)) * 32;
+      const uint64_t dq = q_desc + (ch * TQ * C::RB + col) / 16;
+      const uint64_t dk = k_desc + k_off + (ch * TK * C::RB + col) / 16;
+      if (kk == 0) wgmma_ss_n128_first(s, dq, dk);
+      else wgmma_ss_n128(s, dq, dk);
     }
-
-    // Online softmax of rows g and g + 8. Only the last tile can hold keys
-    // past S: they take no part (a score of -1e30 gives p = 0 below, since
-    // the tile's first key is real and bounds the maximum from below).
-    if (bias != nullptr) {
+    wgmma_commit();
+  };
+  // o += p . V of the tile in slot st; V is [keys, D], MN-major (D
+  // contiguous), 16 keys a step; along D the boxes lie TK * RB apart.
+  auto start_pv = [&](int st) {
+    const uint32_t v_off = st * (C::KV_BYTES / 16);
+    fence_regs(o);
+    fence_regs(p);
+    wgmma_fence();
 #pragma unroll
-      for (int j = 0; j < NS; ++j) {
-        const float2 bv = *reinterpret_cast<const float2*>(Bt + j * 8 + 2 * t);
-        s[j][0] += bv.x; s[j][1] += bv.y;
-        s[j][2] += bv.x; s[j][3] += bv.y;
+    for (int kk = 0; kk < TK / 16; ++kk)
+      wgmma_rs<D>(o, p[kk], v_desc + v_off + kk * C::RB);
+    wgmma_commit();
+  };
+  // Online softmax of rows g and g + 8 of this warp over the tile's scores;
+  // keys past S take no part (a score of -1e30 gives p = 0, since the tile's
+  // first key is real and bounds the maximum from below). s becomes p, fp32.
+  auto softmax = [&](int st, int s0) {
+    if (has_bias) {
+      const float* bs = reinterpret_cast<const float*>(smem + C::OFF_BIAS + st * TK * 4);
+#pragma unroll
+      for (int j = 0; j < TK / 8; ++j) {
+        const float2 bv = *reinterpret_cast<const float2*>(bs + 8 * j + 2 * t);
+        s[4 * j] += bv.x; s[4 * j + 1] += bv.y;
+        s[4 * j + 2] += bv.x; s[4 * j + 3] += bv.y;
       }
     }
     if (s0 + TK > S) {
 #pragma unroll
-      for (int j = 0; j < NS; ++j)
+      for (int j = 0; j < TK / 8; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e)
-          if (s0 + j * 8 + 2 * t + (e & 1) >= S) s[j][e] = -1e30f;
+          if (s0 + 8 * j + 2 * t + (e & 1) >= S) s[4 * j + e] = -1e30f;
     }
-    float mx[2] = {-1e30f, -1e30f};
-#pragma unroll
-    for (int j = 0; j < NS; ++j) {
-      mx[0] = fmaxf(mx[0], fmaxf(s[j][0], s[j][1]));
-      mx[1] = fmaxf(mx[1], fmaxf(s[j][2], s[j][3]));
-    }
-    float corr[2], sum[2] = {0.0f, 0.0f};
+    // Row maxima and sums as trees: a running fold would be a chain of 32
+    // dependent instructions a row.
+    float sum[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float m_cur = fmaxf(m_run[r], mx[r]);
-      corr[r] = __expf(m_run[r] - m_cur);
-      m_run[r] = m_cur;
-    }
-    // __expf is exp2 of a product, two instructions where expf is twenty:
-    // its ~2^-21 relative error vanishes in p's rounding to bf16.
+      float v[TK / 8];
 #pragma unroll
-    for (int j = 0; j < NS; ++j) {
+      for (int j = 0; j < TK / 8; ++j) v[j] = fmaxf(s[4 * j + 2 * r], s[4 * j + 2 * r + 1]);
+      float mx = fmaxf(m_run[r], tree_max(v));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      // p = 2^(s log2(e) - m log2(e)): one FFMA and one MUFU.EX2 an element
+      // (ex2.approx, relative error ~2^-22, vanishes in p's rounding to
+      // bf16). corr takes the same rounded m log2(e), so the rounding of
+      // that product cancels between tiles.
+      const float ml = mx * kLog2e;
+      corr[r] = ex2_ftz(ml_run[r] - ml);
+      m_run[r] = mx;
+      ml_run[r] = ml;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[j][e] = __expf(s[j][e] - m_run[e >> 1]);
-        sum[e >> 1] += s[j][e];
+      for (int j = 0; j < TK / 8; ++j) {
+        s[4 * j + 2 * r] = ex2_ftz(fmaf(s[4 * j + 2 * r], kLog2e, -ml));
+        s[4 * j + 2 * r + 1] = ex2_ftz(fmaf(s[4 * j + 2 * r + 1], kLog2e, -ml));
+        v[j] = s[4 * j + 2 * r] + s[4 * j + 2 * r + 1];
       }
+      sum[r] = tree_sum(v);
     }
+    // The lane's share of l; the quad's four shares are summed at the end.
+    l_part[0] = l_part[0] * corr[0] + sum[0];
+    l_part[1] = l_part[1] * corr[1] + sum[1];
+  };
+  // p rounded to bf16, where it lies: score blocks 2 kk and 2 kk + 1 are the A
+  // fragment of the 16-key step kk.
+  auto to_bf16 = [&]() {
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
-      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
-      l_run[r] = l_run[r] * corr[r] + sum[r];
-    }
+    for (int kk = 0; kk < TK / 16; ++kk)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) p[kk][e] = pack_bf16(s[8 * kk + 2 * e], s[8 * kk + 2 * e + 1]);
+  };
+  auto rescale = [&]() {
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] *= corr[(i >> 1) & 1];
+  };
 
-    // acc = acc * corr + p . V, p rounded to bf16 where it lies.
-#pragma unroll
-    for (int dn = 0; dn < ND; ++dn) {
-      o[dn][0] *= corr[0]; o[dn][1] *= corr[0];
-      o[dn][2] *= corr[1]; o[dn][3] *= corr[1];
-    }
-#pragma unroll
-    for (int kk = 0; kk < TK / 16; ++kk) {
-      uint32_t pf[4];
-      pf[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      pf[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      pf[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pf[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-      for (int dn = 0; dn < ND; dn += 2) {
-        uint32_t vf[4];
-        ldmatrix_x4_trans(vf, Vt + (kk * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) * LD + dn * 8 +
-                                  (lane >> 4) * 8);
-        mma16816(o[dn], pf, vf[0], vf[1]);
-        mma16816(o[dn + 1], pf, vf[2], vf[3]);
-      }
-    }
+  // Tile j: s of tile j and p . V of tile j - 1 are started together; the
+  // softmax of tile j waits for this warpgroup's turn, so that the
+  // warpgroups' softmaxes run one after another, each with the SFUs to
+  // itself, while the others' products run on the tensor cores. Tile 0 has
+  // no p . V before it (no branch between the starts: ptxas would wait for s
+  // at one).
+  mbar_wait(bar_full(0), 0);
+  start_s(0);
+  wgmma_wait<0>();
+  fence_regs(s);
+  bar_sync(my_turn, 256);
+  softmax(0, 0);
+  fence_regs(s);
+  // Every bar_sync meets one arrival: the last warpgroup's first one came
+  // before the loop, so its last turn passes none on.
+  if (c != NC - 1 || n_tiles > 1) bar_arrive(next_turn, 256);
+  to_bf16();
+  for (int j = 1; j < n_tiles; ++j) {
+    const int st = j % C::STAGES, prev = (j - 1) % C::STAGES;
+    mbar_wait(bar_full(st), (j / C::STAGES) & 1);
+    start_s(st);
+    rescale();
+    start_pv(prev);
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(o);
+    if (lane == 0) mbar_arrive(bar_empty(prev));
+    bar_sync(my_turn, 256);
+    softmax(st, j * TK);
+    fence_regs(s);
+    if (c != NC - 1 || j < n_tiles - 1) bar_arrive(next_turn, 256);
+    to_bf16();
   }
+  rescale();
+  start_pv((n_tiles - 1) % C::STAGES);
+  wgmma_wait<0>();
+  fence_regs(o);
 
-  // out = acc / l, two neighbouring columns a store.
-  if (!active) return;
+  // out = o / l, two neighbouring columns a store; rows past T are not written.
+  float l[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int row = t0 + warp * 16 + g + 8 * r;
+    l[r] = l_part[r] + __shfl_xor_sync(0xffffffffu, l_part[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = t0 + c * 64 + warp * 16 + g + 8 * r;
     if (row >= T) continue;
     bf16* dst = out + (((size_t)b * T + row) * H + h) * D + 2 * t;
 #pragma unroll
-    for (int dn = 0; dn < ND; ++dn)
-      *reinterpret_cast<uint32_t*>(dst + dn * 8) =
-          pack_bf16(o[dn][2 * r] / l_run[r], o[dn][2 * r + 1] / l_run[r]);
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<uint32_t*>(dst + 8 * j) =
+          pack_bf16(o[4 * j + 2 * r] / l[r], o[4 * j + 2 * r + 1] / l[r]);
   }
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// The driver's cuTensorMapEncodeTiled, through the runtime (no -lcuda).
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
+                                                       cudaEnableDefault, &found);
+#else
+    cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) return nullptr;
+    fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+// A map over the [B, rows, H, D] bf16 tensor at `ptr` as dims (D, H, rows, B),
+// boxes of (DC, 1, 128, 1) with the swizzle wgmma reads; out of bounds reads
+// zeros.
+template <int D>
+int make_map(CUtensorMap* map, const void* ptr, int B, int rows, int H, int box_rows) {
+  using C = Cfg<D>;
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)rows, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)H * D * 2,
+                                 (cuuint64_t)rows * H * D * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)C::DC, 1, (cuuint32_t)box_rows, 1};
+  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box,
+      elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      C::RB == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
 template <int D>
 int launch(const void* q, const void* k, const void* v, const void* bias, void* out, int B,
            int T, int S, int H, long long bias_stride, float scale, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_attn_fwd<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((T + TQ - 1) / TQ, H, B);
-  flash_attn_fwd<D><<<grid, THREADS, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const float*>(bias), static_cast<bf16*>(out), T, S, H, bias_stride, scale);
+  using C = Cfg<D>;
+  CUtensorMap qmap, kmap, vmap;
+  int err = make_map<D>(&qmap, q, B, T, H, C::TQ);
+  if (err == 0) err = make_map<D>(&kmap, k, B, S, H, TK);
+  if (err == 0) err = make_map<D>(&vmap, v, B, S, H, TK);
+  if (err != 0) return err;
+  cudaError_t e = cudaFuncSetAttribute(flash_attn_fwd<D>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid((T + C::TQ - 1) / C::TQ, H, B);
+  flash_attn_fwd<D><<<grid, C::THREADS, C::SMEM, stream>>>(
+      qmap, kmap, vmap, static_cast<const float*>(bias), static_cast<bf16*>(out), T, S, H,
+      bias_stride, scale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// q, out [B, T, H, D]; k, v [B, S, H, D], bf16, contiguous; bias null or fp32
-// with bias[b * bias_stride + s] the bias of key s in batch row b. D is 32, 64
-// or 128; heads and batch rows are the grid's y and z (at most 65535 each).
+// q, out [B, T, H, D]; k, v [B, S, H, D], bf16, contiguous, 16-byte aligned;
+// bias null or fp32 with bias[b * bias_stride + s] the bias of key s in batch
+// row b (4-byte aligned). D is 32, 64 or 128; heads and batch rows are the
+// grid's y and z (at most 65535 each).
 extern "C" int itt_flash_attn_fwd_bf16(const void* q, const void* k, const void* v,
                                        const void* bias, void* out, int B, int T, int S,
                                        int H, int D, long long bias_stride, float scale,

@@ -12,9 +12,11 @@ Numerics contract (that of the JAX kernel): q is scaled in fp32 and rounded to
 k's dtype; scores accumulate in fp32 and take the fp32 bias; the running
 maximum starts at -1e30; ``p = exp(s - m)`` is cast to v's dtype
 un-normalised before the product with v; the fp32 accumulator is divided by
-the denominator last and cast to q's dtype. (The kernel takes exp as the
-card's fast exp2 of a product; its ~2^-21 relative error vanishes in p's
-rounding to bf16.) The plain attention of
+the denominator last and cast to q's dtype. (The kernel takes exp(s - m) as
+the card's fast 2^(s log2(e) - m log2(e)), one FFMA and one ex2.approx; its
+~2^-22 relative error vanishes in p's rounding to bf16, and the rounding of
+m log2(e) is the same in p and in the rescale factor, so it cancels.) The
+plain attention of
 ``ops/attention.py`` normalises first and casts then, so the two agree to the
 rounding of the working dtype, not to the bit.
 
@@ -37,7 +39,7 @@ from imagetranslate_tpu_torch.ops.attention import (
 # Kernel launches, counted where the kernel is launched and nowhere else.
 LAUNCHES = 0
 
-BLOCK_K = 64               # keys a tile (csrc/flash_attention.cu: TK)
+BLOCK_K = 128              # keys a tile (csrc/flash_attention.cu: TK)
 KERNEL_HEAD_DIMS = (32, 64, 128)
 
 

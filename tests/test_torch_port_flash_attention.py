@@ -1,12 +1,12 @@
 """The port's flash attention against the JAX package's, on the CPU.
 
 ``flash_attention_reference`` (the CUDA kernel's arithmetic in plain tensor
-ops, 64 keys a tile) against JAX ``flash_attention`` run in Pallas interpret
-mode, as tests/test_flash_attention.py runs it: fp32 inputs within
-atol/rtol 1e-5 (the same function, fp32 sums in another order); bf16 inputs
-within 2^-6 of the largest output (the JAX kernel takes S <= 2048 as one tile
-while the port streams 64 keys at a time, so the un-normalised p is rounded
-to bf16 against another running maximum: a few bf16 ulps). The gate, the
+ops, ``BLOCK_K`` = 128 keys a tile) against JAX ``flash_attention`` run in
+Pallas interpret mode, as tests/test_flash_attention.py runs it: fp32 inputs
+within atol/rtol 1e-5 (the same function, fp32 sums in another order); bf16
+inputs within 2^-6 of the largest output (the JAX kernel takes S <= 2048 as
+one tile while the port streams 128 keys at a time, so the un-normalised p is
+rounded to bf16 against another running maximum: a few bf16 ulps). The gate, the
 dispatch through ``dot_product_attention(use_pallas=True)`` at S = 1024, and
 the gradients behind it against JAX's ``custom_vjp`` (2e-4, the tolerance of
 tests/test_flash_attention.py). The CUDA kernel is held against its plain
@@ -76,10 +76,12 @@ def _both(q, k, v, bias, dtype=None):
 @pytest.mark.parametrize("case", [
     dict(B=2, T=32, S=32, H=2, D=16, pad_from=(32, 20)),     # padding bias
     dict(B=2, T=32, S=32, H=2, D=16),                        # no bias
-    dict(B=1, T=64, S=256, H=2, D=16, pad_from=(200,)),      # four K/V tiles
+    dict(B=1, T=64, S=256, H=2, D=16, pad_from=(200,)),      # two K/V tiles
     dict(B=2, T=16, S=128, H=1, D=16, pad_from=(128, 100)),  # T != S
     dict(B=2, T=8, S=128, H=2, D=8, pad_from=(90, 0)),       # a padded row
-], ids=["bias", "nobias", "tiles", "t_ne_s", "all_padded"])
+    # S crosses the 128-key tile raggedly, T the 128-query tile.
+    dict(B=1, T=136, S=200, H=2, D=32, pad_from=(170,)),
+], ids=["bias", "nobias", "tiles", "t_ne_s", "all_padded", "ragged_tile"])
 def test_reference_matches_jax_kernel(case):
     want, got = _both(*_inputs(seed=3, **case))
     assert np.isfinite(got).all()
@@ -88,6 +90,14 @@ def test_reference_matches_jax_kernel(case):
 
 def test_reference_matches_jax_kernel_bf16():
     q, k, v, bias = _inputs(2, 32, 256, 2, 16, seed=4, pad_from=(256, 130))
+    want, got = _both(q, k, v, bias, dtype="bf16")
+    assert np.abs(got - want).max() <= 2.0 ** -6 * np.abs(want).max()
+
+
+def test_reference_matches_jax_kernel_bf16_ragged_tile():
+    """S = 200 crosses the 128-key tile raggedly, T = 136 the 128-query
+    tile; the tolerance of the bf16 case above."""
+    q, k, v, bias = _inputs(1, 136, 200, 2, 32, seed=9, pad_from=(170,))
     want, got = _both(q, k, v, bias, dtype="bf16")
     assert np.abs(got - want).max() <= 2.0 ** -6 * np.abs(want).max()
 
@@ -198,14 +208,17 @@ def test_cuda_kernel_matches_plain():
     """On a card: the kernel against its plain version at ragged shapes, with
     and without a bias, D in {32, 64, 128}, within 2^-7 of the largest output
     (two bf16 ulps: the same arithmetic, another exp and another summation
-    order); fp32 on the card takes the plain attention by the gate."""
+    order); two launches bit-equal; fp32 on the card takes the plain
+    attention by the gate."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA CUDA card (sm_90): the CUDA kernel "
                     "has no interpret mode")
     before = fa.LAUNCHES
     cases = 0
     for B, T, S, H, D in ((2, 64, 1024, 2, 64), (1, 100, 1100, 3, 32),
-                          (2, 8, 1500, 1, 128), (1, 77, 70, 2, 64)):
+                          (2, 8, 1500, 1, 128), (1, 77, 70, 2, 64),
+                          # ragged around the 128-query and 128-key tiles
+                          (2, 129, 1087, 3, 128), (1, 8, 1025, 2, 32)):
         for has_bias in (True, False):
             q, k, v, bias = _inputs(B, T, S, H, D, seed=cases,
                                     pad_from=(S // 2,) * B if has_bias
@@ -219,6 +232,10 @@ def test_cuda_kernel_matches_plain():
             assert err <= 2.0 ** -7 * want.float().abs().max().item()
             cases += 1
     assert fa.LAUNCHES - before == cases
+    # No atomics and a fixed key order: two launches give the same bits.
+    assert torch.equal(fa.flash_attention(q, k, v, bias),
+                       fa.flash_attention(q, k, v, bias))
+    cases += 2
     q32, k32, v32 = q.float(), k.float(), v.float()
     assert not fa.flash_supported(q32, k32, None)
     assert torch.equal(
