@@ -19,12 +19,20 @@ Phases, each fatal on failure:
   1. device  — card name and power limit, sm_90, TF32 off.
   2. build   — nvcc build of imagetranslate_tpu_torch/csrc/*.cu.
   3. kernel  — project_topk kernel vs its plain version: random cases at
-               V=32000 and at ragged vocab sizes (84, 30522, 32003: a last
-               chunk with fewer than k columns) with values and lse within
-               1e-4 and indices equal wherever the next candidate is more
-               than that away; exact tie cases across the kernel's 128-column
-               chunks and in a ragged last chunk; both times at M=256,
-               E=768, V=32000, k=4.
+               V=32000 for every decode path's M (256, 128, 32, 768), ragged
+               M (100, 1000) and M=1, each at k = 1, 4, 16, and at ragged
+               vocab sizes (84, 30522, 32003: a last tile and range with
+               fewer columns than k), values and lse within 1e-4 and
+               indices equal wherever the next candidate is more than that
+               away; exact tie cases at every boundary of the kernel's
+               work (a thread's columns, the quad that shares a row, two
+               vocab tiles of a block, two ranges, one tie in each of 125
+               ranges, a ragged last range, all-equal rows); two launches
+               bit-equal at M=256 and M=768; kernel and library chain
+               (F.linear bf16 + torch.topk + torch.logsumexp, a yardstick)
+               in turns at (M, k) = (256, 4), (768, 4), (128, 1), (32, 4)
+               with each bound, the plain version at M=256, and the
+               kernel's two launches apart by torch.profiler.
   4. decode  — BERT-base (V=32000, 768, 12 heads, 3072, 6+3 layers, bf16,
                random weights from a numpy seed) encode + beam_search at
                B=64, S=64, beam 4, L=88; LAUNCHES must equal the decode steps.
@@ -288,8 +296,16 @@ def _time_ms(fn, iters: int = 50, setup=None) -> float:
     return total / iters
 
 
+def topk_bound(M: int, k: int, E: int = 768, V: int = 32000):
+    """K2's bound at one shape: h, W and the bias read once, the outputs
+    written once, 2 M E V operations on the bf16 tensor cores."""
+    return bound(M * E * 2 + V * E * 2 + V * 4 + M * (8 * k + 4),
+                 2.0 * M * E * V)
+
+
 def phase_kernel():
     import torch
+    import torch.nn.functional as F
 
     from imagetranslate_tpu_torch.ops import topk_project as tkp
 
@@ -297,11 +313,15 @@ def phase_kernel():
     max_err = 0.0
     gen = torch.Generator(device="cuda").manual_seed(SEED)
 
-    def random_case(M, k, vocab):
+    def random_inputs(M, vocab):
         h = torch.randn(M, E, generator=gen, device="cuda").bfloat16()
         w = (torch.randn(vocab, E, generator=gen, device="cuda")
              * 0.05).bfloat16()
         b = torch.randn(vocab, generator=gen, device="cuda") * 0.1
+        return h, w, b
+
+    def random_case(M, k, vocab):
+        h, w, b = random_inputs(M, vocab)
         val, idx, lse = tkp.project_topk(h, w, b, k)
         torch.cuda.synchronize()
         rval, ridx, rlse = tkp.project_topk_reference(h, w, b, k + 1)
@@ -322,22 +342,30 @@ def phase_kernel():
                 f"kernel vs plain at M={M} k={k} V={vocab}: err {err:.3g}, "
                 f"err_at_idx {err_at:.3g}, {int(bad.sum())} index "
                 "mismatches")
-        log(f"[kernel] M={M} k={k} V={vocab}: max abs err {err:.3g} "
-            f"(at kernel idx {err_at:.3g}), indices ok")
+        log(f"[kernel] M={M} k={k} V={vocab} {tkp.work_plan(M, vocab, k)}: "
+            f"max abs err {err:.3g} (at kernel idx {err_at:.3g}), "
+            "indices ok")
         return max(err, err_at)
 
-    cases = [(M, k, V) for M in (256, 100, 1) for k in (1, 4, 16)]
-    # Ragged vocab sizes: the CLI phase's tokenizer vocab (one partial
-    # chunk), BERT's 30522 (58 columns in the last chunk) and 32003 (3,
+    # Every decode path's M (phase 4: 256; back-translation: 128; long
+    # source: 32; caption: 768), ragged row tiles (100, 1000) and M=1, each
+    # at the three list lengths the kernel is built for (k <= 4, 8, 16).
+    cases = [(M, k, V) for M in (256, 100, 1, 32, 128, 768, 1000)
+             for k in (1, 4, 16)]
+    # Ragged vocab sizes: the CLI phase's tokenizer vocab (less than one
+    # tile), BERT's 30522 and 32003 (a last tile, and range, of 3 columns:
     # fewer than k).
     cases += [(256, k, 84) for k in (1, 4, 16)]
     cases += [(256, 4, 30522), (100, 16, 30522), (256, 4, 32003),
-              (100, 16, 32003), (1, 16, 32003)]
+              (100, 16, 32003), (1, 16, 32003), (1, 4, 32003)]
     for M, k, vocab in cases:
         max_err = max(max_err, random_case(M, k, vocab))
 
-    # Exact ties: the lowest vocab index wins, within a 128-column chunk and
-    # across chunks (tests/test_topk_project.py:65-90, re-placed).
+    # Exact ties: the lowest vocab index wins at every boundary of the
+    # kernel's work (tests/test_topk_project.py:65-90, re-placed): within a
+    # thread's columns (a thread holds columns 2t, 2t + 1 mod 8), across the
+    # quad that shares a row, across two vocab tiles of one block, across
+    # two ranges and in a ragged last range.
     def ties(M, k, top, low=(), lv=2.0, value=3.0, vocab=V):
         b = torch.zeros(vocab, device="cuda")
         b[list(top)] = value
@@ -349,12 +377,14 @@ def phase_kernel():
         rval, ridx, rlse = tkp.project_topk_reference(h, w, b, k)
         torch.cuda.synchronize()
         if not (torch.equal(idx, ridx) and torch.equal(val, rval)
-                and (lse - rlse).abs().max().item() <= TOL):
+                and (lse - rlse).abs().max().item() <= TOL
+                and (idx == idx[:1]).all()):
             raise AssertionError(f"tie case {top} {low} k={k}: kernel "
                                  f"{idx[0].tolist()} plain "
                                  f"{ridx[0].tolist()}")
         return idx[0].tolist()
 
+    per_range = tuple(r * 256 + (37 * r) % 256 for r in range(125))
     cases = [
         (dict(M=100, k=4, top=(5, 700, 1300, 2000), low=(9, 1290)),
          [5, 700, 1300, 2000]),
@@ -366,10 +396,39 @@ def phase_kernel():
         (dict(M=256, k=16, top=tuple(range(127, V, 128))),
          list(range(127, 16 * 128, 128))),
         (dict(M=1, k=16, top=(), value=0.0), list(range(16))),
-        # A ragged last chunk (32000..32002) holding fewer columns than k.
+        (dict(M=768, k=4, top=(), value=0.0), [0, 1, 2, 3]),
+        # One thread's columns: the pair (2, 3) and the next j (10, 11).
+        (dict(M=64, k=3, top=(11, 10, 3, 2)), [2, 3, 10]),
+        (dict(M=64, k=2, top=(10, 3), low=(2,)), [3, 10]),
+        # Across the quad: columns 0, 2, 4, 6 belong to its four threads.
+        (dict(M=130, k=4, top=(6, 4, 2, 1, 0)), [0, 1, 2, 4]),
+        (dict(M=130, k=9, top=(14, 12, 10, 8, 6, 4, 2, 0, 7, 5)),
+         [0, 2, 4, 5, 6, 7, 8, 10, 12]),
+        # Across two vocab tiles of one block (M=256: ranges of 2 tiles of
+        # 256 columns; k > 4: tiles of 128).
+        (dict(M=256, k=3, top=(511, 257, 256, 255)), [255, 256, 257]),
+        (dict(M=256, k=12, top=tuple(range(120, 140))),
+         list(range(120, 132))),
+        # Across two ranges (M=256: columns 0..511 | 512..; M=768: ranges of
+        # 1536 columns).
+        (dict(M=256, k=4, top=(1024, 1023, 512, 511)),
+         [511, 512, 1023, 1024]),
+        (dict(M=768, k=4, top=(3072, 3071, 1536, 1535)),
+         [1535, 1536, 3071, 3072]),
+        # 125 tied values, one in each range of M=1 (k=16: 125 ranges of 256
+        # columns): the 16 lowest win.
+        (dict(M=1, k=16, top=per_range), sorted(per_range)[:16]),
+        (dict(M=1, k=4, top=per_range), sorted(per_range)[:4]),
+        # A ragged last tile and range (32000..32002) with fewer columns
+        # than k.
         (dict(M=100, k=5, top=(32002, 32000, 31999, 5), vocab=32003),
          [5, 31999, 32000, 32002, 0]),
-        # One partial chunk: the CLI phase's vocab.
+        (dict(M=1, k=4, top=(32002, 32001, 32000, 7), vocab=32003),
+         [7, 32000, 32001, 32002]),
+        (dict(M=1, k=16, top=(32002, 32000, 5), vocab=32003),
+         [5, 32000, 32002] + [i for i in range(14) if i != 5]),
+        (dict(M=1, k=16, top=(), value=0.0, vocab=32003), list(range(16))),
+        # Less than one tile: the CLI phase's vocab.
         (dict(M=3, k=16, top=(83, 80, 2), low=(81,), vocab=84),
          [2, 80, 83, 81, 0, 1, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12]),
     ]
@@ -379,24 +438,86 @@ def phase_kernel():
             raise AssertionError(f"tie case {kw}: got {got}, want {want}")
     log(f"[kernel] {len(cases)} exact tie cases ok")
 
-    M, k = 256, 4
-    h = torch.randn(M, E, generator=gen, device="cuda").bfloat16()
-    w = (torch.randn(V, E, generator=gen, device="cuda") * 0.05).bfloat16()
-    b = torch.randn(V, generator=gen, device="cuda") * 0.1
-    runs = {"plain": [], "kernel": []}
-    for name in ("plain", "kernel", "kernel", "plain"):
-        fn = (tkp.project_topk_reference if name == "plain"
-              else tkp.project_topk)
-        runs[name].append(_time_ms(lambda: fn(h, w, b, k)))
-    ms = sum(runs["kernel"]) / 2
-    plain_ms = sum(runs["plain"]) / 2
-    log(f"[kernel] M={M} E={E} V={V} k={k}: kernel {runs['kernel']} ms, "
-        f"plain (cuBLAS fp32 + logsumexp + stable sort) {runs['plain']} ms")
-    bound_ms, bound_by = bound(M * E * 2 + V * E * 2 + V * 4 + M * (8 * k + 4),
-                               2.0 * M * E * V)
-    # No single PyTorch call computes projection + top-k + logsumexp.
-    return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+    # Two launches on the same inputs give the same bits.
+    for M in (256, 768):
+        h, w, b = random_inputs(M, V)
+        one = tkp.project_topk(h, w, b, 4)
+        two = tkp.project_topk(h, w, b, 4)
+        if not all(torch.equal(x, y) for x, y in zip(one, two)):
+            raise AssertionError(f"two launches at M={M} differ")
+    log("[kernel] two launches bit-equal at M=256 and M=768")
+
+    # Times in turns: the kernel and the library chain a user would write
+    # instead (cuBLAS bf16 GEMM, fp32 logits, torch.topk, torch.logsumexp: a
+    # yardstick, never on the path; torch.topk's order among ties is
+    # unspecified, so it is timed only); the plain version at M=256.
+    def chain(h, w, b, k):
+        logits = F.linear(h, w).float() + b
+        return torch.topk(logits, k), torch.logsumexp(logits, -1)
+
+    shapes = []
+    for M, k in ((256, 4), (768, 4), (128, 1), (32, 4)):
+        h, w, b = random_inputs(M, V)
+        runs = {"kernel": [], "chain": [], "plain": []}
+        order = ["kernel", "chain", "chain", "kernel"]
+        if M == 256:
+            order = ["plain"] + order + ["plain"]
+        for name in order:
+            fn = {"kernel": tkp.project_topk, "chain": chain,
+                  "plain": tkp.project_topk_reference}[name]
+            runs[name].append(_time_ms(lambda: fn(h, w, b, k)))
+        bound_ms, bound_by = topk_bound(M, k, E, V)
+        row = {"M": M, "k": k, "ms": sum(runs["kernel"]) / 2,
+               "chain_ms": sum(runs["chain"]) / 2, "bound_ms": bound_ms,
+               "bound_by": bound_by}
+        if runs["plain"]:
+            row["plain_ms"] = sum(runs["plain"]) / 2
+        shapes.append(row)
+        log(f"[kernel] M={M} E={E} V={V} k={k}: kernel {runs['kernel']} "
+            f"ms, chain (F.linear bf16 + topk + logsumexp) {runs['chain']} "
+            f"ms, plain {runs['plain']} ms; bound {bound_ms:.4f} ms "
+            f"({bound_by}): kernel at {bound_ms / row['ms']:.3f} of it")
+    # The call's two launches apart, from torch.profiler: the pass over the
+    # vocab ranges and the merge of a row's ranges (device time a call, 10
+    # calls a shape with a cold L2, the launch gap between them excluded).
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    inputs = [random_inputs(row["M"], V) for row in shapes]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for row, (h, w, b) in zip(shapes, inputs):
+            for _ in range(10):
+                flush.zero_()
+                tkp.project_topk(h, w, b, row["k"])
+        torch.cuda.synchronize()
+    launches = sorted((e.time_range.start, e.name, e.time_range.elapsed_us())
+                      for e in prof.events()
+                      if e.device_type == DeviceType.CUDA
+                      and "project_topk_" in e.name)
+    if len(launches) != 20 * len(shapes):
+        log(f"[kernel] the profiler saw {len(launches)} of "
+            f"{20 * len(shapes)} launches: no split")
+    for n, row in enumerate(shapes):
+        mine = launches[20 * n:20 * n + 20]
+        if len(launches) != 20 * len(shapes):
+            row["split_ms"] = "not measured"
+            continue
+        row["split_ms"] = {
+            part: sum(us for _, name, us in mine
+                      if f"project_topk_{part}" in name) / 1e4
+            for part in ("ranges", "merge")}
+        log(f"[kernel] M={row['M']} k={row['k']}: pass over the ranges "
+            f"{row['split_ms']['ranges']:.4f} ms, merge "
+            f"{row['split_ms']['merge']:.4f} ms a call (torch.profiler)")
+    del flush, inputs
+    main = shapes[0]
+    # No single PyTorch call computes projection + top-k + logsumexp; the
+    # chain of three is reported beside it.
+    return {"max_abs_err": max_err, "ms": main["ms"],
+            "plain_ms": main.pop("plain_ms"), "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "library_ms": None,
+            "chain_ms": main["chain_ms"], "shapes": shapes}
 
 
 def bert_base(vocab_size: int):

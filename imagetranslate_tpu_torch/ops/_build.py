@@ -1,11 +1,12 @@
 """Build the port's CUDA kernels and load them with ctypes.
 
 ``nvcc`` compiles every ``imagetranslate_tpu_torch/csrc/*.cu`` (one process
-per source, all started together) and links the objects into one shared
-library with a plain C interface, for ``sm_90a`` (Hopper), at first use. The
-library lands in ``imagetranslate_tpu_torch/_build/<hash>/``, keyed on a hash
-of the sources and the flags, so a changed source rebuilds and an unchanged
-one loads at once. Nothing here runs when the module is imported.
+per source, all started together; they include the headers ``csrc/*.cuh``)
+and links the objects into one shared library with a plain C interface, for
+``sm_90a`` (Hopper), at first use. The library lands in
+``imagetranslate_tpu_torch/_build/<hash>/``, keyed on a hash of the sources,
+the headers and the flags, so a changed source or header rebuilds and an
+unchanged one loads at once. Nothing here runs when the module is imported.
 """
 
 from __future__ import annotations
@@ -60,9 +61,10 @@ def _sources():
 
 
 def library_path() -> str:
-    """Where the library for the current sources lives (built or not)."""
+    """Where the library for the current sources and headers lives (built or
+    not)."""
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in _sources():
+    for path in _sources() + sorted(glob.glob(os.path.join(CSRC, "*.cuh"))):
         digest.update(os.path.basename(path).encode())
         with open(path, "rb") as f:
             digest.update(f.read())
@@ -109,7 +111,9 @@ def load() -> ctypes.CDLL:
         lib = ctypes.CDLL(build())
         p, i = ctypes.c_void_p, ctypes.c_int
         f, u = ctypes.c_float, ctypes.c_uint
-        lib.itt_project_topk_bf16.argtypes = [p] * 9 + [i] * 5 + [p]
+        # h w bias part_val part_idx part_ms val idx lse | M E V k | cols per
+        # ranges | stream
+        lib.itt_project_topk_bf16.argtypes = [p] * 9 + [i] * 7 + [p]
         lib.itt_project_topk_bf16.restype = ctypes.c_int
         # q k v bias out stats | B T S H D bias_rows | scale keep_prob |
         # threshold seed_lo seed_hi | stream

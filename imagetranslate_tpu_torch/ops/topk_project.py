@@ -4,8 +4,9 @@ imagetranslate_tpu/ops/topk_project.py::project_topk).
 Every beam-decode step selects its candidates from ``logits = h @ W^T + b``:
 the top-k values and vocab indices per row and the row's logsumexp. On a
 CUDA tensor ``project_topk`` launches the hand-written kernel in
-``csrc/topk_project.cu`` (two passes; see the note there), which never writes
-the [M, V] logits to device memory. On a CPU tensor it runs
+``csrc/topk_project.cu`` (a TMA + wgmma pass over vocab ranges, then a merge
+of the ranges; see the note there), which never writes the [M, V] logits to
+device memory. On a CPU tensor it runs
 ``project_topk_reference``, the plain PyTorch version of the same function.
 
 Numerics contract (that of the JAX kernel): fp32 accumulation over E, the
@@ -15,7 +16,7 @@ bias added in fp32, and ties broken on the LOWEST vocab index, the
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -25,9 +26,41 @@ from imagetranslate_tpu_torch.ops import _build
 LAUNCHES = 0
 
 MAX_K = 16
-# Vocab columns per pass-1 block (BV in csrc/topk_project.cu, which refuses a
-# chunk count that does not match it): the scratch holds ceil(V / 128) chunks.
-CHUNK_COLS = 128
+ROW_TILE = 128   # rows a block of the kernel's first pass (BM)
+SMS = 132        # an H100's SMs: the plan fills them about once
+
+
+class WorkPlan(NamedTuple):
+    """How the kernel splits [M, V]: vocab tiles of ``cols`` columns, grouped
+    in ``ranges`` contiguous ranges of ``per`` tiles (the last may hold
+    fewer); range r covers columns [r per cols, min((r + 1) per cols, V)).
+    A block owns (row tile, range), so the scratch holds ``ranges`` partial
+    top-k lists and (max, sum exp) pairs per row."""
+    cols: int
+    per: int
+    ranges: int
+
+
+def work_plan(m: int, v: int, k: int) -> WorkPlan:
+    """The kernel's plan for M rows, V columns and top-k (``plan`` in
+    csrc/topk_project.cu, which refuses any other). Row tiles x ranges is
+    about one block per SM; each range holds at least one column < V."""
+    cols = 256 if k <= 4 else 128
+    tiles = -(-v // cols)
+    row_tiles = -(-m // ROW_TILE)
+    want = min(max(SMS // row_tiles, 1), tiles)
+    per = -(-tiles // want)
+    return WorkPlan(cols, per, -(-tiles // per))
+
+
+def scratch(m: int, k: int, plan: WorkPlan, device):
+    """The first pass's output, read by the merge: per row and range the
+    range's top-k values [M, R, k] and indices [M, R, k], and its (max,
+    sum exp) [M, R, 2]."""
+    r = plan.ranges
+    return (torch.empty((m, r, k), dtype=torch.float32, device=device),
+            torch.empty((m, r, k), dtype=torch.int32, device=device),
+            torch.empty((m, r, 2), dtype=torch.float32, device=device))
 
 
 def stable_topk(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -85,11 +118,9 @@ def _launch(h, w, b, k):
     global LAUNCHES
     lib = _build.load()
     m, v = h.shape[0], w.shape[0]
-    chunks = -(-v // CHUNK_COLS)
+    plan = work_plan(m, v, k)
     dev = h.device
-    part_val = torch.empty((m, chunks, k), dtype=torch.float32, device=dev)
-    part_idx = torch.empty((m, chunks, k), dtype=torch.int32, device=dev)
-    part_ms = torch.empty((m, chunks, 2), dtype=torch.float32, device=dev)
+    part_val, part_idx, part_ms = scratch(m, k, plan, dev)
     val = torch.empty((m, k), dtype=torch.float32, device=dev)
     idx = torch.empty((m, k), dtype=torch.int32, device=dev)
     lse = torch.empty((m,), dtype=torch.float32, device=dev)
@@ -98,8 +129,8 @@ def _launch(h, w, b, k):
         err = lib.itt_project_topk_bf16(
             h.data_ptr(), w.data_ptr(), b.data_ptr(), part_val.data_ptr(),
             part_idx.data_ptr(), part_ms.data_ptr(), val.data_ptr(),
-            idx.data_ptr(), lse.data_ptr(), m, h.shape[1], v, k, chunks,
-            stream)
+            idx.data_ptr(), lse.data_ptr(), m, h.shape[1], v, k, plan.cols,
+            plan.per, plan.ranges, stream)
     if err != 0:
         raise RuntimeError("project_topk kernel launch failed: "
                            + lib.itt_error_string(err).decode())

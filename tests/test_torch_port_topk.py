@@ -200,39 +200,123 @@ def test_kernel_wrapper_still_refuses_a_bf16_call_it_cannot_take():
         tkp._check_cuda_args(h, w, b, 17)
 
 
+@pytest.mark.parametrize("v", [84, 30522, 32000, 32003])
+@pytest.mark.parametrize("m", [1, 32, 128, 256, 768, 1000])
+def test_work_plan_covers_the_vocab_in_ascending_ranges(m, v):
+    """The kernel's plan (the C source refuses any other): ranges of whole
+    vocab tiles cover [0, V) in ascending order, each holds at least one
+    column below V, row tiles x ranges fill the SMs about once, the merge
+    can hold every range, and the scratch follows from the plan."""
+    for k in (1, 4, 5, 8, 16):
+        plan = tkp.work_plan(m, v, k)
+        tiles, row_tiles = -(-v // plan.cols), -(-m // tkp.ROW_TILE)
+        assert plan.cols == (256 if k <= 4 else 128)
+        bounds = [(r * plan.per * plan.cols,
+                   min((r + 1) * plan.per * plan.cols, v))
+                  for r in range(plan.ranges)]
+        assert bounds[0][0] == 0 and bounds[-1][1] == v
+        assert all(hi == lo for (_, hi), (lo, _) in zip(bounds, bounds[1:]))
+        assert all(lo < hi for lo, hi in bounds)
+        assert (plan.ranges - 1) * plan.per < tiles <= plan.ranges * plan.per
+        assert plan.ranges <= tkp.SMS
+        assert row_tiles * plan.ranges <= max(tkp.SMS, row_tiles)
+        val, idx, ms = tkp.scratch(m, k, plan, "cpu")
+        assert val.shape == idx.shape == (m, plan.ranges, k)
+        assert ms.shape == (m, plan.ranges, 2)
+        assert (val.dtype, idx.dtype, ms.dtype) == (torch.float32,
+                                                    torch.int32,
+                                                    torch.float32)
+    # The decode paths' shapes: one wave of blocks, a few tens of ranges.
+    if v == 32000:
+        want = {256: (256, 2, 63), 768: (256, 6, 21), 128: (256, 1, 125),
+                32: (256, 1, 125)}.get(m)
+        if want is not None:
+            assert tuple(tkp.work_plan(m, v, 4)) == want
+
+
+def test_library_path_follows_sources_and_headers(tmp_path, monkeypatch):
+    """The build is keyed on every source and header under csrc/: an edited
+    header must not load a library built before the edit."""
+    import shutil
+
+    from imagetranslate_tpu_torch.ops import _build
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC", str(csrc))
+    first = _build.library_path()
+    assert _build.library_path() == first
+    header = csrc / "hopper.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    second = _build.library_path()
+    assert second != first
+    source = csrc / "topk_project.cu"
+    source.write_text(source.read_text() + "\n// edited\n")
+    assert _build.library_path() not in (first, second)
+
+
 @pytest.mark.cuda
 def test_cuda_kernel_matches_plain():
-    """The CUDA kernel vs its plain version on the card, at the serving
-    shape, over ragged M, over ragged V (a last 128-column chunk with fewer
-    columns than k), and on ties across chunks and in a ragged last chunk."""
+    """The CUDA kernel vs its plain version on the card: at every decode
+    path's M (256, 768, 128, 32) and ragged M, at each list length (k = 1,
+    4, 16), over ragged V (a last tile and range with fewer columns than
+    k); exact ties inside a thread's columns, across the quad that shares
+    a row, across two vocab tiles of a block, across two ranges, one per
+    range, and in a ragged last range; two launches bit-equal."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA CUDA card: the kernel has no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
     E, V = 768, 32000
     launches = tkp.LAUNCHES
-    for m, k, v in ((256, 4, V), (100, 16, V), (1, 1, V), (100, 16, 32003),
-                    (256, 4, 84)):
+    calls = 0
+    cases = [(256, 4, V), (100, 16, V), (1, 1, V), (100, 16, 32003),
+             (256, 4, 84), (768, 4, V), (128, 1, V), (32, 4, V),
+             (1000, 16, V), (768, 16, 30522), (1, 4, 32003)]
+    for m, k, v in cases:
         h = torch.randn(m, E, generator=gen, device="cuda").bfloat16()
         w = (torch.randn(v, E, generator=gen, device="cuda") * 0.05).bfloat16()
         b = torch.randn(v, generator=gen, device="cuda") * 0.1
         val, idx, lse = tkp.project_topk(h, w, b, k)
+        calls += 1
         rval, ridx, rlse = tkp.project_topk_reference(h, w, b, k)
         torch.cuda.synchronize()
         logits = h.float() @ w.float().T + b
         assert (val - rval).abs().max().item() <= 1e-4
         assert (lse - rlse).abs().max().item() <= 1e-4
         assert (logits.gather(1, idx.long()) - val).abs().max().item() <= 1e-4
-    b = torch.zeros(V, device="cuda")
-    b[[127, 128, 255, 256, 31999]] = 3.0
-    _, idx, _ = tkp.project_topk(torch.ones(3, E, device="cuda").bfloat16(),
-                                 torch.zeros(V, E, device="cuda").bfloat16(),
-                                 b, 4)
-    assert idx.tolist() == [[127, 128, 255, 256]] * 3
-    b = torch.zeros(32003, device="cuda")
-    b[[32002, 32000, 31999, 5]] = 3.0
-    _, idx, _ = tkp.project_topk(torch.ones(3, E, device="cuda").bfloat16(),
-                                 torch.zeros(32003, E,
-                                             device="cuda").bfloat16(), b, 6)
-    assert idx.tolist() == [[5, 31999, 32000, 32002, 0, 1]] * 3
-    assert tkp.LAUNCHES == launches + 7
+        if m in (256, 768):
+            again = tkp.project_topk(h, w, b, k)
+            calls += 1
+            assert all(torch.equal(x, y) for x, y in zip((val, idx, lse),
+                                                         again))
+
+    def tied(m, k, top, v=V, low=()):
+        b = torch.zeros(v, device="cuda")
+        b[list(top)] = 3.0
+        if low:
+            b[list(low)] = 2.0
+        _, idx, _ = tkp.project_topk(
+            torch.ones(m, E, device="cuda").bfloat16(),
+            torch.zeros(v, E, device="cuda").bfloat16(), b, k)
+        return idx.tolist()
+
+    per_range = [r * 256 + (37 * r) % 256 for r in range(125)]
+    ties = [
+        ((3, 4, (127, 128, 255, 256, 31999)), [127, 128, 255, 256]),
+        ((3, 6, (32002, 32000, 31999, 5), 32003),
+         [5, 31999, 32000, 32002, 0, 1]),
+        ((64, 3, (11, 10, 3, 2)), [2, 3, 10]),              # one thread
+        ((130, 4, (6, 4, 2, 1, 0)), [0, 1, 2, 4]),          # the quad
+        ((256, 3, (511, 257, 256, 255)), [255, 256, 257]),  # two tiles
+        ((256, 4, (1024, 1023, 512, 511)), [511, 512, 1023, 1024]),
+        ((768, 4, (3072, 3071, 1536, 1535)), [1535, 1536, 3071, 3072]),
+        ((1, 16, per_range), per_range[:16]),               # one a range
+        ((1, 16, (32002, 32000, 5), 32003),                 # ragged range
+         [5, 32000, 32002] + [i for i in range(14) if i != 5]),
+        ((768, 4, ()), [0, 1, 2, 3]),                       # all equal
+    ]
+    for args, want in ties:
+        assert tied(*args) == [want] * args[0]
+        calls += 1
+    assert tkp.LAUNCHES == launches + calls
