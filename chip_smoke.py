@@ -163,11 +163,19 @@ Phases, each fatal on failure:
                positions, D = 8, 24, 32, 64, 128, odd row counts); with random
                rowsel/wanc row maps on the TPU kernel's own inputs (window
                only, an unaligned prefix of 44, the first and the last
-               window slot); bf16 outputs within 2^-7 of the plain result's
-               largest magnitude. What the kernel cannot take raises before
-               a launch. Times of kernel, plain version and
-               F.scaled_dot_product_attention (a yardstick, never on the
-               path) at R=256, n=88 and R=768, n=32, H=12, D=64.
+               window slot); shapes whose work plan splits a row over a
+               cluster of blocks, or keeps its scores in the fp32 scratch,
+               with and without row maps (R=32, n=2048 up to n=57344);
+               bf16 outputs within 2^-7 of the plain result's largest
+               magnitude; two launches bit-equal at R=256 and R=768. What
+               the kernel cannot take raises before a launch. Times of
+               kernel, plain version and F.scaled_dot_product_attention (a
+               yardstick, never on the path) at R=256, n=88 and R=768, n=32,
+               H=12, D=64; then kernel and SDPA at the live positions the
+               decodes sweep (R=256: n = 1, 8, 22, 44, 88; R=768: n = 1, 8,
+               16, 32), at R=32, n=2048, R=3, H=2, n=20000 and R=2,
+               n=40000, each also after a read flush of L2, and the sums
+               over one MT and one caption decode.
  17. decode  — phase 4's decode with decode_attention_impl="fused": K4
      K4        launches = 3 per step, each at a shape phase 16 held; beside it
                the same decode with "onehot" on the same weights, blocks in
@@ -266,13 +274,17 @@ def phase_build():
         f"{time.perf_counter() - t0:.1f} s")
 
 
-def _time_ms(fn, iters: int = 50, setup=None) -> float:
+def _time_ms(fn, iters: int = 50, setup=None, clean: bool = False) -> float:
     """Mean device time of fn with a cold L2 (a 64 MiB write between
     launches evicts the 49 MB weight, as the decoder layers do between two
-    decode steps). ``setup`` runs before each timed call, untimed. The card
-    is kept busy (~1 ms) while the host enqueues the events and fn, so that
-    the time between the events is the device's and holds no wait for the
-    host's enqueue (the Python wrapper takes longer than a short kernel)."""
+    decode steps). The write leaves ~50 MB of dirty lines in L2, which the
+    timed call pays to write back as it evicts them; ``clean`` flushes by
+    reading the 64 MiB instead, so that the call finds clean lines (as after
+    layers that mostly read weights). ``setup`` runs before each timed call,
+    untimed. The card is kept busy (~1 ms) while the host enqueues the events
+    and fn, so that the time between the events is the device's and holds no
+    wait for the host's enqueue (the Python wrapper takes longer than a short
+    kernel)."""
     import torch
 
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
@@ -284,7 +296,10 @@ def _time_ms(fn, iters: int = 50, setup=None) -> float:
     for _ in range(iters):
         if setup is not None:
             setup()
-        flush.zero_()
+        if clean:
+            flush.sum(dtype=torch.int32)
+        else:
+            flush.zero_()
         torch.cuda._sleep(2_000_000)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -2718,6 +2733,39 @@ def phase_kernel_decode_attention(path_shapes):
                            dtype=torch.int32)
     hold("rowsel only", *args, rowsel, None, j)
 
+    # Few or long rows, where the plan splits a row's positions across a
+    # cluster of blocks, and rows whose scores outgrow shared memory (an
+    # fp32 scratch): the gather form, then both row maps.
+    for R, H, D, n in [(32, 12, 64, 2048), (3, 2, 64, 20000),
+                       (2, 12, 64, 40000), (1, 3, 128, 57344)]:
+        err, scale = hold((R, H, D, n), rand(R, H, D), rand(R, n, H, D),
+                          rand(R, n, H, D), None, None, None, None, None)
+        log(f"[kernel K4] R={R} H={H} D={D} n={n}, no row maps"
+            f"{plan_note(R, H, D, n, 0)}: max abs err {err:.3g} "
+            f"({err / scale:.2e} of max)")
+    for B, K, W, H, D, t0, j in [(8, 4, 300, 12, 64, 1800, 250),
+                                 (1, 2, 12000, 12, 64, 30000, 9999)]:
+        R = B * K
+        rowsel = torch.randint(0, K, (B, K), generator=gen, device="cuda",
+                               dtype=torch.int32)
+        wanc = torch.randint(0, K, (B, K, W), generator=gen, device="cuda",
+                             dtype=torch.int32)
+        err, scale = hold((B, K, W, H, D, t0, j), rand(R, H, D),
+                          rand(R, t0, H, D), rand(R, t0, H, D),
+                          rand(R, W, H, D), rand(R, W, H, D), rowsel, wanc, j)
+        log(f"[kernel K4] B={B} K={K} W={W} H={H} D={D} t0={t0} j={j}, "
+            f"random rowsel/wanc{plan_note(R, H, D, t0, j + 1)}: max abs "
+            f"err {err:.3g} ({err / scale:.2e} of max)")
+    torch.cuda.empty_cache()
+
+    # Two launches on the same inputs give the same bits.
+    for R, n in ((256, 88), (768, 32)):
+        q, k, v = rand(R, 12, 64), rand(R, n, 12, 64), rand(R, n, 12, 64)
+        first = da.decode_attention(q, k, v)
+        if not torch.equal(first, da.decode_attention(q, k, v)):
+            raise AssertionError(f"K4 at R={R}, n={n}: two launches differ")
+    log("[kernel K4] two launches bit-equal at R=256, n=88 and R=768, n=32")
+
     # Outside the gate or the kernel's layout the wrapper raises before a
     # launch, and counts nothing.
     launches = da.LAUNCHES
@@ -2764,9 +2812,87 @@ def phase_kernel_decode_attention(path_shapes):
                          "plain_ms": sum(runs["plain"]) / 2,
                          "bound_ms": bnd[0], "bound_by": bnd[1],
                          "library_ms": lib_ms}
+    time_decode_attention()
     torch.cuda.empty_cache()
     # The kernels line carries this slice's shape, the caption decode's.
     return entries["caption decode"], checked
+
+
+def plan_note(R: int, H: int, D: int, t0: int, wlive: int) -> str:
+    """The kernel's work plan at a shape, for the log."""
+    from imagetranslate_tpu_torch.ops import decode_attention as da
+
+    return f" ({da.work_plan(R, H, D, t0, wlive)})"
+
+
+def k4_bound(R: int, H: int, D: int, n: int):
+    """K4's bound at one shape: each live K and V line read once, q read and
+    ctx written once, bf16; 4 operations a (position, channel)."""
+    return bound((2 * R * n * H * D + 2 * R * H * D) * 2, 4.0 * R * n * H * D)
+
+
+# Live positions phase 16 times K4 at, per decode: a decode of L positions
+# launches at 1 .. L-1 of them, three layers a step.
+K4_SWEEP = {"MT decode": (256, MT_DECODE[3], (1, 8, 22, 44, 88)),
+            "caption decode": (CAPTION_B * CAPTION_K, CAPTION_L,
+                               (1, 8, 16, 32))}
+# (R, H, n): few rows, long rows; the last keeps its scores in the scratch.
+K4_LONG = ((32, 12, 2048), (3, 2, 20000), (2, 12, 40000))
+
+
+def time_decode_attention():
+    """K4 where it runs: kernel and SDPA (a yardstick, never on the path),
+    cold L2 after a write (the other kernels' method) and after a read, at
+    the live positions the two decodes sweep, and at few or long rows; the
+    sums over one decode's launches (3 layers x each step's n), the kernel's
+    times interpolated linearly between the swept n."""
+    import torch
+    import torch.nn.functional as F
+
+    from imagetranslate_tpu_torch.ops import decode_attention as da
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 16)
+    H, D = 12, 64
+
+    def timed(R, H, n):
+        q = torch.randn(R, H, D, generator=gen, device="cuda").bfloat16()
+        k, v = (torch.randn(R, n, H, D, generator=gen,
+                            device="cuda").bfloat16() for _ in range(2))
+        sdpa = lambda: F.scaled_dot_product_attention(
+            q[:, :, None, :], k.transpose(1, 2), v.transpose(1, 2))
+        kernel = [_time_ms(lambda: da.decode_attention(q, k, v))
+                  for _ in range(2)]
+        lib = _time_ms(sdpa)
+        clean = _time_ms(lambda: da.decode_attention(q, k, v), clean=True)
+        lib_clean = _time_ms(sdpa, clean=True)
+        bnd = k4_bound(R, H, D, n)
+        ms = sum(kernel) / 2
+        log(f"[kernel K4] sweep R={R} H={H} D={D} n={n}: kernel {kernel} ms "
+            f"({bnd[0] / ms:.3f} of the bound {bnd[0]:.4f} ms by {bnd[1]}), "
+            f"SDPA {lib:.4f} ms; after a read flush: kernel {clean:.4f} ms "
+            f"({bnd[0] / clean:.3f} of the bound), SDPA {lib_clean:.4f} ms")
+        return ms, clean
+
+    for name, (R, L, ns) in K4_SWEEP.items():
+        times = [timed(R, H, n) for n in ns]
+        sums = [0.0, 0.0]
+        bound_sum = 0.0
+        for n in range(1, L):
+            i = max(i for i, m in enumerate(ns) if m <= n)
+            for arm in (0, 1):
+                t = times[i][arm]
+                if ns[i] != n and i + 1 < len(ns):
+                    f = (n - ns[i]) / (ns[i + 1] - ns[i])
+                    t += f * (times[i + 1][arm] - t)
+                sums[arm] += 3 * t
+            bound_sum += 3 * k4_bound(R, H, D, n)[0]
+        log(f"[kernel K4] one {name} (R={R}, n=1..{L - 1}, 3 layers: "
+            f"{3 * (L - 1)} launches): kernel {sums[0]:.3f} ms (after a read "
+            f"flush {sums[1]:.3f} ms; interpolated linearly between n in "
+            f"{list(ns)}), bound {bound_sum:.3f} ms, {bound_sum / sums[0]:.3f} "
+            "of it")
+    for R, h, n in K4_LONG:
+        timed(R, h, n)
 
 
 def sequence_scores(model, src, best):

@@ -140,10 +140,12 @@ def load() -> ctypes.CDLL:
         lib.itt_flash_attn_fwd_bf16.argtypes = (
             [p] * 5 + [i] * 5 + [ctypes.c_longlong, f, p])
         lib.itt_flash_attn_fwd_bf16.restype = ctypes.c_int
-        # q main_k main_v win_k win_v rowsel wanc out | R K H D t0 wlive W |
-        # main row stride, window row stride | scale | stream
+        # q main_k main_v win_k win_v rowsel wanc out scratch | R K H D t0
+        # wlive W | main row stride, window row stride | scale | clusters
+        # groups wph per spos depth scratch | stream
         lib.itt_decode_attn_bf16.argtypes = (
-            [p] * 8 + [i] * 7 + [ctypes.c_longlong] * 2 + [f, p])
+            [p] * 9 + [i] * 7 + [ctypes.c_longlong] * 2 + [f] + [i] * 7
+            + [p])
         lib.itt_decode_attn_bf16.restype = ctypes.c_int
         lib.itt_error_string.argtypes = [i]
         lib.itt_error_string.restype = ctypes.c_char_p

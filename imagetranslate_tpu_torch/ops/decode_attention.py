@@ -21,13 +21,14 @@ after every beam selection: ``decode_attention(q, k[:, :index + 1],
 v[:, :index + 1])``. Either part may be empty, not both. ``j`` is a host int.
 
 On a CUDA tensor ``decode_attention`` launches the hand-written kernel of
-``csrc/decode_attention.cu`` or raises; on a CPU tensor it runs
+``csrc/decode_attention.cu`` (one launch a call, split by ``work_plan``; see
+the note there) or raises; on a CPU tensor it runs
 ``decode_attention_reference``, the same arithmetic in plain tensor ops.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -38,9 +39,96 @@ from imagetranslate_tpu_torch.ops.attention import attention_scale
 LAUNCHES = 0
 
 MAX_HEAD_DIM = 128      # csrc/decode_attention.cu: MAX_D
-# The scores of a row live in shared memory, 4 bytes a position: what 227 KB
-# holds beside the kernel's static arrays, rounded down.
+# The gate's longest row. A row's scores live in shared memory while they
+# fit and in an fp32 scratch beyond, so this is not a limit of the kernel's:
+# it keeps the gate where it has been held on the card.
 MAX_LIVE = 57344
+
+# The kernel's work plan; the constants of csrc/decode_attention.cu.
+MAX_HEADS = 12          # heads a block owns at most: a warp each
+FEW_WARPS = 8           # fewer heads split a head's positions over warps
+SMS = 132               # an H100's SMs
+WAVE = 2 * SMS          # blocks a cluster split aims at
+STAGE_BYTES = 24576     # a ring stage's lines, at most (twice that when the
+                        # blocks fit the SMs once), in whole 16s, at least 16
+MAX_DEPTH = 4
+HALF_SMEM = 115712      # two blocks an SM: 228 KB, 1 KB each kept
+MIN_RANGE = 256         # positions a block of a cluster takes at least
+MAX_CLUSTER = 8
+SMEM_LIMIT = 232448     # 227 KB a block
+
+
+class WorkPlan(NamedTuple):
+    """How the kernel splits a call: a block owns row r, head group g (of
+    ``groups``, H / groups heads each) and cluster rank c (of ``clusters``);
+    rank c takes the live positions [c per, min((c + 1) per, n)), ``wph``
+    warps a head. Its ring holds ``depth`` stages of ``spos`` position lines
+    of the group's heads.
+    With ``scratch`` the scores live in an fp32 [R, H, n] scratch, else in
+    the block's ``smem`` bytes of shared memory beside the ring."""
+    clusters: int
+    groups: int
+    wph: int
+    per: int
+    spos: int
+    depth: int
+    scratch: bool
+    smem: int
+
+
+def work_plan(R: int, H: int, D: int, t0: int, wlive: int) -> WorkPlan:
+    """The kernel's plan for R rows of H heads of width D over t0 prefix
+    positions and wlive window slots (``plan`` in csrc/decode_attention.cu,
+    which refuses any other). A head group is the fewest heads' split with
+    at most ``MAX_HEADS`` heads; a row's positions go to 2, 4 or 8 blocks of
+    a cluster while the card holds fewer than two blocks a SM and each block
+    keeps ``MIN_RANGE`` positions; a stage holds at most ``STAGE_BYTES``
+    (twice that when the blocks fit the SMs once) in a multiple of 16
+    positions, at least 16."""
+    n = t0 + wlive
+    groups = next(g for g in range(1, H + 1)
+                  if H % g == 0 and H // g <= MAX_HEADS)
+    hg = H // groups
+    wph = FEW_WARPS // hg if hg < FEW_WARPS else 1
+    seg = hg * D * 2
+    clusters = 1
+    while (clusters < MAX_CLUSTER and R * groups * clusters < WAVE
+           and n >= 2 * clusters * MIN_RANGE):
+        clusters *= 2
+    per = -(-n // clusters)
+    # A stage holds a multiple of 16 positions (an mma's rows).
+    stage_bytes = STAGE_BYTES * (1 if R * groups * clusters > SMS else 2)
+    spos = max(16, min(stage_bytes // seg // 16 * 16, -(-per // 16) * 16))
+    # The ring: depth stages of spos lines, a q area of seg bytes and a pair
+    # of barriers each; up to MAX_DEPTH stages, fewer (at least 2) where
+    # there are more blocks than SMs and two would not fit one. The scores
+    # stay in shared memory if they fit beside a ring of 2 or more stages,
+    # else in the scratch.
+    warps = hg * wph
+    others = 4 * (2 * warps + 2 * hg) + (
+        4 * (warps + hg) * D if clusters > 1 or wph > 1 else 0)
+    scores = 4 * hg * per
+    # A block that walks rows keeps MAX_DEPTH stages (the next rows' land
+    # during this one's); one that owns a cluster's share of a row needs no
+    # more than its stages.
+    depth = min(MAX_DEPTH, 2 * -(-per // spos)) if clusters > 1 else MAX_DEPTH
+    stage = (spos + 1) * seg + 16
+    while depth > 2 and depth * stage + others > SMEM_LIMIT:
+        depth -= 1
+    # A shallower ring (down to 2) before the scratch, whose loads and stores
+    # cost more than the depth.
+    shallow = depth
+    while shallow > 2 and shallow * stage + others + scores > SMEM_LIMIT:
+        shallow -= 1
+    scratch = shallow * stage + others + scores > SMEM_LIMIT
+    if not scratch:
+        depth = shallow
+    kept = 0 if scratch else scores
+    while (R * groups * clusters > SMS and depth > 2
+           and depth * stage + others + kept > HALF_SMEM):
+        depth -= 1
+    return WorkPlan(clusters, groups, wph, per, spos, depth, scratch,
+                    depth * stage + others + kept)
 
 
 def kernel_dtypes(q_dtype: torch.dtype, cache_dtype: torch.dtype) -> bool:
@@ -202,7 +290,10 @@ def _launch(q, main_k, main_v, win_k, win_v, rowsel, wanc, t0, wlive, K):
                      t0 + wlive)
     lib = _build.load()
     R, H, D = q.shape
+    plan = work_plan(R, H, D, t0, wlive)
     out = torch.empty_like(q)
+    scratch = (torch.empty((R, H, t0 + wlive), dtype=torch.float32,
+                           device=q.device) if plan.scratch else None)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
@@ -210,10 +301,12 @@ def _launch(q, main_k, main_v, win_k, win_v, rowsel, wanc, t0, wlive, K):
     with torch.cuda.device(q.device):
         err = lib.itt_decode_attn_bf16(
             q.data_ptr(), ptr(main_k), ptr(main_v), ptr(win_k), ptr(win_v),
-            ptr(rowsel), ptr(wanc), out.data_ptr(), R, K, H, D, t0, wlive,
-            0 if win_k is None else win_k.shape[1],
+            ptr(rowsel), ptr(wanc), out.data_ptr(), ptr(scratch), R, K, H, D,
+            t0, wlive, 0 if win_k is None else win_k.shape[1],
             0 if main_k is None else main_k.stride(0),
             0 if win_k is None else win_k.stride(0), attention_scale(D),
+            plan.clusters, plan.groups, plan.wph, plan.per, plan.spos,
+            plan.depth, int(plan.scratch),
             torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError("decode attention launch failed: "

@@ -195,6 +195,167 @@ def test_gate_and_refusals():
                                                       dtype=torch.int32))
 
 
+# Shapes the plan must take: the decode paths' (R, H, D, n) at every n they
+# launch, few and long rows, the gate's edges, odd head counts and widths.
+PLAN_SHAPES = (
+    [(R, 12, 64, n, 0) for R in (256, 768, 32, 96) for n in range(1, 89)]
+    + [(32, 12, 64, 2048, 0), (3, 2, 64, 20000, 0), (2, 12, 64, 40000, 0),
+       (1, 3, 128, 57344, 0), (1, 12, 128, 57344, 0), (1, 64, 128, 57344, 0),
+       (1, 37, 8, 1, 0), (2, 1, 8, 3, 0), (9, 4, 128, 33, 0),
+       (6, 3, 24, 19, 0), (8, 33, 64, 500, 0), (1, 96, 128, 4096, 0),
+       (100000, 12, 64, 88, 0), (32, 12, 64, 1800, 251),
+       (2, 12, 64, 30000, 10000), (256, 12, 64, 0, 44), (5, 5, 32, 11, 7)])
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES[-23:] + [PLAN_SHAPES[87]],
+                         ids=lambda s: "-".join(map(str, s)))
+def test_work_plan_properties(shape):
+    """What the kernel relies on: each live position owned by exactly one
+    block of a cluster of 1, 2, 4 or 8; at most 12 heads a block and a
+    divisor of H, at most 12 warps; shared memory within 227 KB; every
+    copy's size and offset a multiple of 16 bytes; the ring as deep as the
+    limits allow; the scores in the scratch only when they do not fit
+    beside a ring of two stages."""
+    R, H, D, t0, wlive = shape
+    n = t0 + wlive
+    plan = da.work_plan(*shape)
+    assert plan.clusters in (1, 2, 4, 8)
+    ranges = [range(c * plan.per, min((c + 1) * plan.per, n))
+              for c in range(plan.clusters)]
+    assert all(len(r) > 0 for r in ranges)
+    assert [p for r in ranges for p in r] == list(range(n))
+    assert H % plan.groups == 0 and H // plan.groups <= da.MAX_HEADS
+    hg = H // plan.groups
+    seg = hg * D * 2                        # a line of the group's heads
+    assert seg % 16 == 0 and (H * D * 2) % 16 == 0
+    assert all(g * seg % 16 == 0 for g in range(plan.groups))
+    # Whole mma tiles of 16 positions; a ring of 2 .. MAX_DEPTH stages, each
+    # with a q area and a pair of barriers, as deep as the limits allow.
+    assert plan.spos % 16 == 0 and plan.spos < plan.per + 16
+    assert 2 <= plan.depth <= da.MAX_DEPTH
+    stage = (plan.spos + 1) * seg + 16
+    assert stage % 16 == 0
+    warps = hg * plan.wph
+    assert warps <= 12 and (hg >= 8 or warps == 8 // hg * hg)
+    others = 4 * (2 * warps + 2 * hg) + (
+        4 * (warps + hg) * D if plan.clusters > 1 or plan.wph > 1 else 0)
+    scores = 4 * hg * plan.per
+    assert plan.scratch == (2 * stage + others + scores > da.SMEM_LIMIT)
+    assert plan.smem == plan.depth * stage + others + (
+        0 if plan.scratch else scores)
+    assert plan.smem <= da.SMEM_LIMIT
+    deepest = da.MAX_DEPTH if plan.clusters == 1 else min(
+        da.MAX_DEPTH, 2 * -(-plan.per // plan.spos))
+    assert plan.depth <= max(2, deepest)
+    if plan.depth < deepest:
+        # One more stage would break a limit: the block's, or two a SM.
+        deeper = plan.smem + stage
+        assert deeper > da.SMEM_LIMIT or (
+            R * plan.groups * plan.clusters > da.SMS
+            and deeper > da.HALF_SMEM)
+    assert R * plan.groups * plan.clusters < 2 ** 31
+
+
+def test_work_plan_at_the_paths_and_at_few_long_rows():
+    """No split where the decodes run (R = 256, 768, 32, 96 at n <= 88), a
+    split where few rows are long, the scratch only past shared memory, and
+    every shape of PLAN_SHAPES planned within 227 KB."""
+    for shape in PLAN_SHAPES:
+        assert da.work_plan(*shape).smem <= da.SMEM_LIMIT
+    for R in (256, 768, 32, 96):
+        for n in range(1, 89):
+            plan = da.work_plan(R, 12, 64, n, 0)
+            assert plan.clusters == 1 and plan.groups == 1, (R, n)
+            assert not plan.scratch
+    assert da.work_plan(32, 12, 64, 2048, 0).clusters > 1
+    assert da.work_plan(3, 2, 64, 20000, 0).clusters == 8
+    assert not da.work_plan(3, 2, 64, 20000, 0).scratch
+    assert da.work_plan(2, 12, 64, 40000, 0).scratch
+    assert da.work_plan(1, 64, 128, 57344, 0).groups == 8
+
+
+def _gate_before(q_dtype, cache_dtype, head_dim, live):
+    """The gate as it stood when the kernel took one block per (row, head)."""
+    return (q_dtype == torch.bfloat16 and cache_dtype == torch.bfloat16
+            and head_dim % 8 == 0 and 8 <= head_dim <= 128
+            and 1 <= live <= 57344)
+
+
+def test_gate_is_no_narrower_than_before():
+    bf16 = torch.bfloat16
+    lives = [0, 1, 2, 31, 88, 513, 20000, 57343, 57344, 57345]
+    for dtypes in ((bf16, bf16), (torch.float32, bf16), (bf16, torch.float32)):
+        for D in range(0, 140):
+            for live in lives:
+                before = _gate_before(*dtypes, D, live)
+                assert da.kernel_supported(*dtypes, D, live) == before or (
+                    not before)
+                if before:
+                    # Any H, any R: the plan fits the block and the grid.
+                    for R, H in ((1, 1), (3, 12), (768, 12), (1, 100)):
+                        assert da.work_plan(R, H, D, live, 0).smem <= (
+                            da.SMEM_LIMIT)
+
+
+def _split_emulation(arrays, j, clusters):
+    """The kernel's split in fp32 numpy: each cluster block's range of live
+    positions gives its scores and its max; the blocks exchange the maxima,
+    then their sums of exp(s - M), sum those in rank order; each block
+    rounds p = e / sum to q's dtype (fp32 here), forms its partial ctx, and
+    the partials are summed in rank order."""
+    q, mk, mv, wk, wv, rowsel, wanc = arrays
+    R, H, D = q.shape
+    K = rowsel.shape[1]
+    t0 = 0 if mk is None else mk.shape[1]
+    out = np.zeros((R, H, D), np.float32)
+    scale = np.float32(1.0 / np.sqrt(D))
+    for r in range(R):
+        group = r // K * K
+        ks, vs = [], []
+        if t0:
+            row = group + rowsel.reshape(-1)[r]
+            ks.append(mk[row])
+            vs.append(mv[row])
+        rows = group + wanc.reshape(R, -1)[r, :j + 1]
+        ks.append(wk[rows, np.arange(j + 1)])
+        vs.append(wv[rows, np.arange(j + 1)])
+        k, v = np.concatenate(ks), np.concatenate(vs)        # [n, H, D]
+        n = k.shape[0]
+        per = -(-n // clusters)
+        parts = [slice(c * per, min((c + 1) * per, n))
+                 for c in range(clusters)]
+        assert (clusters - 1) * per < n
+        s = [np.einsum("hd,nhd->hn", q[r], k[p]).astype(np.float32) * scale
+             for p in parts]
+        m = np.max([x.max(axis=1) for x in s], axis=0)        # [H]
+        e = [np.exp(x - m[:, None]) for x in s]
+        total = np.zeros(H, np.float32)
+        for x in e:
+            total = total + x.sum(axis=1, dtype=np.float32)
+        ctx = np.zeros((H, D), np.float32)
+        for x, p in zip(e, parts):
+            ctx = ctx + np.einsum("hn,nhd->hd", x / total[:, None], v[p])
+        out[r] = ctx
+    return out
+
+
+# (B, K, W, H, D, t0, j) with at least 8 live positions a row, so that each
+# block of a cluster of 8 owns some, as the plan ensures.
+SPLIT_CASES = [(2, 4, 9, 2, 64, 44, 8), (4, 4, 5, 2, 64, 11, 3),
+               (3, 2, 12, 4, 32, 20, 11)]
+
+
+@pytest.mark.parametrize("clusters", [1, 2, 4, 8])
+@pytest.mark.parametrize("case", SPLIT_CASES,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_split_emulation_matches_reference_and_xla(case, clusters):
+    *shape, j = case
+    arrays = _inputs(*shape, seed=7 + clusters)
+    got = _split_emulation(arrays, j, clusters)
+    np.testing.assert_allclose(got, _port(arrays, j), atol=FP32_ATOL, rtol=0)
+    np.testing.assert_allclose(got, _xla(arrays, j), atol=FP32_ATOL, rtol=0)
+
+
 def _meta_decoder(monkeypatch, **kw):
     """A one-layer decoder on the ``meta`` device (not the CPU, so routed as
     the card is) with the op replaced by a recorder."""
