@@ -9,7 +9,9 @@ the long-sequence path (a 2048-token source through encode and beam search,
 the masked LM and the long-document LM through their trainers and CLIs) and
 the captioning path (ResNet grid -> beam search over the grid, the text +
 image and the grid + object dual decodes, the caption CLI's loop and the CLI
-itself), and checks that each path went through its kernels.
+itself) and caption training (CaptionTrainer's caption, object and MT-stream
+steps, its epoch loop and dev decode, then the binarize -> train -> caption
+CLIs), and checks that each path went through its kernels.
 
 Run from the root of a checkout, with one visible CUDA card:
 
@@ -20,7 +22,8 @@ Phases, each fatal on failure:
   2. build   — nvcc build of imagetranslate_tpu_torch/csrc/*.cu.
   3. kernel  — project_topk kernel vs its plain version: random cases at
                V=32000 for every decode path's M (256, 128, 32, 768), ragged
-               M (100, 1000) and M=1, each at k = 1, 4, 16, and at ragged
+               M (100, 1000) and M=1, each at k = 1, 4, 16, the caption
+               trainer's dev decode (M=80, k=5), and at ragged
                vocab sizes (84, 30522, 32003: a last tile and range with
                fewer columns than k), values and lse within 1e-4 and
                indices equal wherever the next candidate is more than that
@@ -50,7 +53,10 @@ Phases, each fatal on failure:
                phase 7 (T=S=63; T=63, S=64) and the shapes of the MASS and
                back-translation steps of phases 10 and 11 (the MASS decoder's
                T=S=32 and T=32, S=64; the translation buffer's odd width 81
-               as the encoder's T=S); bf16 outputs within 2^-6 of the
+               as the encoder's T=S) and of the caption steps of phase 19
+               (T=S=31, and T=31 over the S=49 grid slots and S=16
+               detections, at B=32 and B=8; the MT stream's B=128 at T=S=64,
+               T=S=63 and T=63, S=64); bf16 outputs within 2^-6 of the
                plain result's largest magnitude (a few bf16 ulps), fp32 dbias
                within 1e-4 of it. S = 513 and fp32 inputs raise before a
                launch; two launches on the same inputs give the same bits.
@@ -157,8 +163,9 @@ Phases, each fatal on failure:
 
  16. kernel  — the beam decode attention kernel (runs after phase 12) vs its
      (K4)      plain version: the gather form (no row maps, a slice of a
-               longer cache read in place) at every shape phases 17 and 18
-               launch (R = 256, 768, 32, 96 rows; 1 .. L-1 live positions)
+               longer cache read in place) at every shape phases 17, 18 and
+               19 launch (R = 256, 768, 32, 96, 80 rows; 1 .. L-1 live
+               positions)
                and at edge shapes (one position, 7, 88, 512 and 20000
                positions, D = 8, 24, 32, 64, 128, odd row counts); with random
                rowsel/wanc row maps on the TPU kernel's own inputs (window
@@ -194,6 +201,26 @@ Phases, each fatal on failure:
                detections); images/s and peak memory of each; then, where
                Pillow is installed, cli.caption.main over a folder of 20
                JPEGs written here.
+ 19. caption — CaptionTrainer at the CLI's defaults (768/12/3072, 6 + 6
+     train     layers, ResNet-18 at 224, V=32000, fp32 masters, bf16
+               compute, dropout 0.1, use_pallas_xent on) on numpy batches of
+               B=32 uint8 images and T=32 captions: 3 warm-up and 9 timed
+               caption steps (the loss falls, every BatchNorm statistic
+               moves, K1 = 12 + 12 a step at shapes phase 6 held, K5 = 0);
+               train_epoch over array batchers, the caption stream and the
+               MT stream (B=128, S=T=64: K1 = 18 + 18 a step) interleaved,
+               with the prefetch thread, the meter and a .latest save;
+               caption_images of 16 images at beam 5, L=32 (K2 = 1 and K4 =
+               6 a step, at (M, k) and (R, n) phases 3 and 16 held); the
+               object step with 16 detection slots (10 live, a row with
+               none) and the image tower frozen (K1 = 24 + 24 a step; the
+               ResNet's parameters bit-equal, its statistics moved) and its
+               grid + objects dev decode (K4 = 12 a step); a paired reading
+               of the caption step with fused_attn_dropout off and on on one
+               trainer (blocks off, on, on, off; launches not counted); then,
+               where Pillow is installed, JPEGs ->
+               cli.binarize_captions_from_list -> cli.train_captioning (3
+               steps) -> cli.caption.
 
 ``--profile`` adds a phase after 4 (one more decode) and one after 7 (three
 more train steps) under torch.profiler, printing the device time by operation
@@ -202,8 +229,8 @@ intervals over its wall time), then three more train steps with input shapes
 recorded, printing the dtype casts' (aten::copy_) device time by shape,
 three steps of the paired reading's fused-cross-entropy arm, five long
 encodes with K3 and five with the plain attention (phase 13), and three MLM
-steps (phase 14), and one caption decode over the grid and one over grid +
-objects (phase 18).
+steps (phase 14), one caption decode over the grid and one over grid +
+objects (phase 18), and one caption train step (phase 19).
 
 The second-to-last line is a JSON object describing each kernel, with its
 launches on its main path, its times, and its bound: the larger of the bytes
@@ -318,6 +345,17 @@ def topk_bound(M: int, k: int, E: int = 768, V: int = 32000):
                  2.0 * M * E * V)
 
 
+def k2_random_cases(V: int = 32000):
+    """(M, k, V) of phase 3's random cases at the full vocabulary: every
+    decode path's M (phase 4: 256; back-translation: 128; long source: 32;
+    caption: 768), ragged row tiles (100, 1000) and M=1, each at the three
+    list lengths the kernel is built for (k <= 4, 8, 16); and the caption
+    trainer's dev decode (phase 19: 16 images at beam 5)."""
+    n_img, beam, _ = CAPTION_EVAL
+    return ([(M, k, V) for M in (256, 100, 1, 32, 128, 768, 1000)
+             for k in (1, 4, 16)] + [(n_img * beam, beam, V)])
+
+
 def phase_kernel():
     import torch
     import torch.nn.functional as F
@@ -362,11 +400,7 @@ def phase_kernel():
             "indices ok")
         return max(err, err_at)
 
-    # Every decode path's M (phase 4: 256; back-translation: 128; long
-    # source: 32; caption: 768), ragged row tiles (100, 1000) and M=1, each
-    # at the three list lengths the kernel is built for (k <= 4, 8, 16).
-    cases = [(M, k, V) for M in (256, 100, 1, 32, 128, 768, 1000)
-             for k in (1, 4, 16)]
+    cases = k2_random_cases()
     # Ragged vocab sizes: the CLI phase's tokenizer vocab (less than one
     # tile), BERT's 30522 and 32003 (a last tile, and range, of 3 columns:
     # fewer than k).
@@ -870,7 +904,9 @@ def phase_kernel_attention(extra_shapes=()):
         (1, 9, 512, 2, 16),       # D = 16 at the cap
         (2, 130, 512, 1, 128),    # D = 128 at the cap, three query tiles
     ]
-    shapes += [shape for shape in extra_shapes if shape not in shapes]
+    for shape in extra_shapes:
+        if shape not in shapes:
+            shapes.append(shape)
     for shape in shapes:
         for rows in (0, 1):
             for rate in (0.0, RATE):
@@ -2603,12 +2639,14 @@ CAPTION_GRID_TOL = 2.0 ** -4       # bf16 ResNet grid vs the fp32 one
 
 
 def decode_path_shapes():
-    """The (R, H, D, live positions) that the decode paths of phases 17 and
-    18 give K4: a decode of L positions launches at 1 .. L-1 live ones."""
+    """The (R, H, D, live positions) that the decode paths of phases 17, 18
+    and 19 give K4: a decode of L positions launches at 1 .. L-1 live
+    ones."""
     rows = {MT_DECODE[0] * MT_DECODE[2]: MT_DECODE[3],
             CAPTION_B * CAPTION_K: CAPTION_L,
             -(-CAPTION_TAIL // 8) * 8 * CAPTION_K: CAPTION_L,
-            -(-CAPTION_JPEGS // 8) * 8 * CAPTION_K: CAPTION_L}
+            -(-CAPTION_JPEGS // 8) * 8 * CAPTION_K: CAPTION_L,
+            CAPTION_EVAL[0] * CAPTION_EVAL[1]: CAPTION_EVAL[2]}
     return [(R, 12, 64, n) for R, L in rows.items() for n in range(1, L)]
 
 
@@ -3259,6 +3297,476 @@ def phase_caption(card, profile: bool, checked_k4):
     return k4_total + k4, k2_total + k2
 
 
+# ---------------- phase 19: caption training ----------------
+
+CAPTION_TRAIN = (32, 32)           # images a batch (--max-image), caption T
+CAPTION_MT = (128, 64, 64)         # B, S, T of the MT stream's batches
+CAPTION_OBJECTS = (16, 10)         # detection slots, live ones
+CAPTION_EVAL = (16, 5, 32)         # dev images, beam (--beam), L
+CAPTION_CLI_ROWS = 8               # --max-image of the CLI run
+
+
+def caption_train_k1_shapes():
+    """(B, T, S, H, D) the caption, object and MT-stream steps of phase 19
+    give K1 (its CLI run included)."""
+    B, T = CAPTION_TRAIN
+    mb, ms, mt = CAPTION_MT
+    t = T - 1
+    return [(B, t, t, 12, 64), (B, t, 49, 12, 64),
+            (B, t, CAPTION_OBJECTS[0], 12, 64),
+            (mb, ms, ms, 12, 64), (mb, mt - 1, mt - 1, 12, 64),
+            (mb, mt - 1, ms, 12, 64),
+            (CAPTION_CLI_ROWS, t, t, 12, 64), (CAPTION_CLI_ROWS, t, 49, 12, 64)]
+
+
+def caption_train_config(vocab_size: int, **kw):
+    """The CLI's defaults: BERT-base text stack with 6 + 6 layers, ResNet-18
+    at 224 pixels, dropout 0.1, fp32 masters and bf16 compute; K1 in every
+    attention, K4 in the dev decode; ``use_pallas_xent`` on, which the
+    caption steps must ignore."""
+    import dataclasses
+
+    return dataclasses.replace(bert_base(vocab_size), **{
+        "dec_layers": 6, "dropout": RATE, "attention_dropout": RATE,
+        "resnet_depth": 1, "img_size": 224, "fused_attn_dropout": True,
+        "decode_attention_impl": "fused", "use_pallas_xent": True, **kw})
+
+
+class ArrayBatcher:
+    """A caption (or MT) batcher over batches made here: ``shuffled`` keeps
+    their order."""
+
+    def __init__(self, batches):
+        self.batches = batches
+
+    def __len__(self):
+        return len(self.batches)
+
+    def shuffled(self, seed):
+        return iter(self.batches)
+
+
+def caption_host_batches(cfg, n: int, seed=SEED):
+    """n caption batches of B uint8 images from the seed (their ``images``
+    return the arrays: no files, no Pillow) and captions over the whole
+    vocabulary (ids drawn with a skew, rows padded to random lengths)."""
+    import numpy as np
+
+    from imagetranslate_tpu_torch.data.images import CaptionBatch
+
+    class ArrayCaptionBatch(CaptionBatch):
+        def images(self, root_dir="", size=224, raw=False):
+            return self.arrays
+
+    B, T = CAPTION_TRAIN
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(n):
+        caps = (5 + (cfg.vocab_size - 5) * rng.rand(B, T) ** 3).astype(
+            np.int32)
+        caps[:, 0] = 6
+        lengths = rng.randint(T // 2, T + 1, B).astype(np.int32)
+        caps[np.arange(T)[None, :] >= lengths[:, None]] = cfg.pad_id
+        b = ArrayCaptionBatch([f"img{i:03d}.jpg" for i in range(B)], caps,
+                              caps != cfg.pad_id, np.zeros(B, np.int32),
+                              lengths, np.ones(B, bool))
+        b.arrays = rng.randint(0, 256, (B, cfg.img_size, cfg.img_size, 3)
+                               ).astype(np.uint8)
+        out.append(b)
+    return out
+
+
+def mt_host_batches(cfg, n: int, seed=SEED):
+    """n MTBatches of the MT stream's shape, full rows."""
+    import numpy as np
+
+    from imagetranslate_tpu_torch.data.loader import MTBatch
+
+    B, S, T = CAPTION_MT
+    rng = np.random.RandomState(seed + 1)
+
+    def ids(shape):
+        return (5 + (cfg.vocab_size - 5) * rng.rand(*shape) ** 3).astype(
+            np.int32)
+
+    ones = np.ones((B,), np.int32)
+    return [MTBatch(src, src != cfg.pad_id, dst, dst != cfg.pad_id,
+                    0 * ones, ones, S * ones, ones.astype(bool))
+            for src, dst in ((ids((B, S)), ids((B, T))) for _ in range(n))]
+
+
+def set_config(model, cfg):
+    """Hand every module of ``model`` that reads a config ``cfg`` (the
+    config is frozen; the modules share one reference)."""
+    for module in model.modules():
+        if hasattr(module, "cfg"):
+            module.cfg = cfg
+
+
+@contextlib.contextmanager
+def recording_topk():
+    """Records (M, k) of every K2 launch of a run, in the set it yields."""
+    from imagetranslate_tpu_torch.ops import topk_project as tkp
+
+    seen = set()
+    launch = tkp._launch
+
+    def wrapped(h, w, b, k):
+        seen.add((h.shape[0], k))
+        return launch(h, w, b, k)
+
+    tkp._launch = wrapped
+    try:
+        yield seen
+    finally:
+        tkp._launch = launch
+
+
+def phase_caption_train(card, profile: bool, checked_k1, checked_xent,
+                        checked_k4):
+    """Phase 19: caption training at the CLI's full width. Returns the K1
+    forward and backward, K2 and K4 launches of its counted runs."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from imagetranslate_tpu_torch.ops import decode_attention as da
+    from imagetranslate_tpu_torch.ops import topk_project as tkp
+    from imagetranslate_tpu_torch.ops import train_attention as ta
+    from imagetranslate_tpu_torch.ops import xent
+    from imagetranslate_tpu_torch.train.step import caption_batch_to_device
+    from imagetranslate_tpu_torch.train.trainer_caption import CaptionTrainer
+
+    device = torch.device("cuda")
+    B, T = CAPTION_TRAIN
+    V = 32000
+    cfg = caption_train_config(V)
+    warm, timed = 3, 9
+    t0 = time.perf_counter()
+    trainer = CaptionTrainer(cfg, CaptionVocab(), lr=5e-4, warmup=8,
+                             beam_width=CAPTION_EVAL[1], seed=SEED,
+                             device=device)
+    masters = {p.dtype for p in trainer.model.parameters()}
+    if masters != {torch.float32}:
+        raise AssertionError(f"master parameters are {masters}, want fp32")
+    host = caption_host_batches(cfg, 4)
+    batches = [caption_batch_to_device(b, b.arrays, device) for b in host]
+    log(f"[caption train] CaptionTrainer BERT-base 6+6 + ResNet-18 at 224, "
+        f"{sum(p.numel() for p in trainer.model.parameters()) / 1e6:.1f} M "
+        f"fp32 master parameters, bf16 compute, dropout {RATE}, built in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    def run(tr, step_fn, staged, n, into):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            tr.state, m = step_fn(tr.state, staged[len(into) % len(staged)],
+                                  tr.rng)
+            into.append(m)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    def losses(metrics):
+        out = [(m["sum_loss"] / m["ntokens"]).item() for m in metrics]
+        if not all(x == x and abs(x) != float("inf") for x in out):
+            raise AssertionError(f"loss not finite: {out}")
+        return out
+
+    def require_k1(what, n_steps, per_step):
+        fwd, bwd = ta.FWD_LAUNCHES, ta.BWD_LAUNCHES
+        if not (fwd == bwd == per_step * n_steps):
+            raise AssertionError(f"{what}: {fwd} forward and {bwd} backward "
+                                 f"K1 launches in {n_steps} steps, want "
+                                 f"{per_step} + {per_step} a step")
+        if xent.FWD_LAUNCHES or xent.BWD_LAUNCHES:
+            raise AssertionError(f"{what}: K5 launched ({xent.FWD_LAUNCHES} "
+                                 f"+ {xent.BWD_LAUNCHES}); the caption "
+                                 "steps' loss is smoothed_nll_loss")
+        return fwd, bwd
+
+    def reset():
+        ta.FWD_LAUNCHES = ta.BWD_LAUNCHES = 0
+        xent.FWD_LAUNCHES = xent.BWD_LAUNCHES = 0
+
+    # The caption step: 3 warm-up steps recording K1's shapes, 9 timed.
+    stats0 = {k: v.clone() for k, v in trainer.model.named_buffers()}
+    resnet0 = {k: v.clone() for k, v in trainer.model.named_parameters()
+               if k.startswith("image_model.")}
+    torch.cuda.reset_peak_memory_stats()
+    reset()
+    metrics = []
+    with Recorder() as rec:
+        run(trainer, trainer.cap_step, batches, warm, metrics)
+    rec.require_checked("caption train", checked_k1, checked_xent,
+                        want_k5=False)
+    seconds = run(trainer, trainer.cap_step, batches, timed, metrics)
+    per_cap = 2 * cfg.dec_layers
+    fwd, bwd = require_k1("caption step", warm + timed, per_cap)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    cap_losses = losses(metrics)
+    first, last = sum(cap_losses[:3]) / 3, sum(cap_losses[-3:]) / 3
+    if not last < first - 0.1:
+        raise AssertionError(f"caption loss did not fall: {cap_losses}")
+    moved = sum(not torch.equal(v, stats0[k])
+                for k, v in trainer.model.named_buffers())
+    changed = sum(not torch.equal(v, resnet0[k]) for k, v in
+                  trainer.model.named_parameters() if k in resnet0)
+    if moved != len(stats0) or changed < len(resnet0) - 2:
+        raise AssertionError(f"{moved}/{len(stats0)} BatchNorm statistics "
+                             f"moved, {changed}/{len(resnet0)} ResNet "
+                             "parameters changed")
+    log(f"[caption train] caption step B={B} T={T}: {timed} steps in "
+        f"{seconds:.3f} s = {1e3 * seconds / timed:.1f} ms/step, "
+        f"{B * timed / seconds:.1f} images/s; loss {first:.4f} -> "
+        f"{last:.4f}; K1 {fwd} + {bwd} ({per_cap} + {per_cap} a step), K5 "
+        f"0; {moved}/{len(stats0)} BatchNorm statistics moved; peak memory "
+        f"{peak:.2f} GiB ({card})")
+    if profile:
+        _profile(lambda: (run(trainer, trainer.cap_step, batches, 1, []),
+                          f"1 caption step, B={B}"), "caption train", card)
+
+    # A reading, not a claim: the same trainer's caption step with its
+    # attention on the fused kernels and on the plain path (the model's
+    # config switched between blocks), a warm-up step of the plain path,
+    # then blocks of 3 steps in the order off, on, on, off. Its launches
+    # are not counted.
+    arms = {fused: dataclasses.replace(cfg, fused_attn_dropout=fused)
+            for fused in (False, True)}
+    set_config(trainer.model, arms[False])
+    run(trainer, trainer.cap_step, batches, 1, [])
+    block, ms = 3, {False: [], True: []}
+    for fused in (False, True, True, False):
+        set_config(trainer.model, arms[fused])
+        ms[fused].append(1e3 * run(trainer, trainer.cap_step, batches, block,
+                                   []) / block)
+    set_config(trainer.model, cfg)
+    log(f"[caption train] paired on one trainer, same batches, blocks of "
+        f"{block} steps in the order off, on, on, off: fused_attn_dropout "
+        f"off {ms[False]} ms/step, on {ms[True]} ms/step ({card})")
+
+    # train_epoch: the caption stream and the MT stream interleaved, images
+    # from arrays through the prefetch thread, the meter, a .latest save.
+    n_ticks = 3
+    reset()
+    with Recorder() as rec, tempfile.TemporaryDirectory() as workdir:
+        t0 = time.perf_counter()
+        step = trainer.train_epoch(
+            0, os.path.join(workdir, "model"),
+            ArrayBatcher(caption_host_batches(cfg, n_ticks, SEED + 7)),
+            mt_batcher=ArrayBatcher(mt_host_batches(cfg, n_ticks + 1)),
+            eval_every=10 ** 9, save_every=10 ** 9, log_every=2)
+        epoch_s = time.perf_counter() - t0
+        saved = os.path.exists(os.path.join(workdir, "model.latest",
+                                            "opt_state.msgpack"))
+    rec.require_checked("caption train_epoch", checked_k1, checked_xent,
+                        want_k5=False)
+    per_mt = cfg.enc_layers + 2 * cfg.dec_layers
+    if step != 2 * n_ticks or not saved:
+        raise AssertionError(f"train_epoch took {step} steps (want "
+                             f"{2 * n_ticks}), .latest saved: {saved}")
+    if not (ta.FWD_LAUNCHES == ta.BWD_LAUNCHES
+            == n_ticks * (per_cap + per_mt)) or xent.FWD_LAUNCHES:
+        raise AssertionError(f"train_epoch: {ta.FWD_LAUNCHES} + "
+                             f"{ta.BWD_LAUNCHES} K1 launches in {n_ticks} "
+                             f"caption and {n_ticks} MT steps, "
+                             f"{xent.FWD_LAUNCHES} K5")
+    fwd, bwd = fwd + ta.FWD_LAUNCHES, bwd + ta.BWD_LAUNCHES
+    log(f"[caption train] train_epoch: {n_ticks} caption + {n_ticks} MT "
+        f"(B={CAPTION_MT[0]}, S=T={CAPTION_MT[1]}) steps, K1 "
+        f"{ta.FWD_LAUNCHES} + {ta.BWD_LAUNCHES} ({per_cap} a caption step, "
+        f"{per_mt} an MT step), .latest written, in {epoch_s:.1f} s")
+
+    # The dev decode: 16 images at beam 5 over the grid on the trained
+    # masters (cast to bf16 where used): K2 and K4 every step.
+    n_img, beam, L = CAPTION_EVAL
+    rng = np.random.RandomState(SEED + 3)
+    images = rng.randint(0, 256, (n_img, 224, 224, 3)).astype(np.uint8)
+    first_tok = np.full((n_img,), 6, np.int32)
+    langs = np.ones((n_img,), np.int32)
+    trainer.caption_images(images, first_tok, langs, L)     # warm-up
+    da.LAUNCHES = tkp.LAUNCHES = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with recording_decode_attention() as seen4, recording_topk() as seen2:
+        best, lengths = trainer.caption_images(images, first_tok, langs, L)
+        torch.cuda.synchronize()
+    dec_s = time.perf_counter() - t0
+    steps = L - 1
+    k2, k4 = tkp.LAUNCHES, da.LAUNCHES
+    require_decode_attention("caption dev decode", seen4, checked_k4, k4,
+                             cfg.dec_layers * steps)
+    k2_cases = {(M, k) for M, k, _ in k2_random_cases()}
+    if k2 != steps or seen2 - k2_cases:
+        raise AssertionError(f"dev decode: {k2} K2 launches in {steps} "
+                             f"steps; (M, k) not held by phase 3: "
+                             f"{sorted(seen2 - k2_cases)}")
+    if best.shape != (n_img, L) or not (lengths == L).all() or not (
+            (best >= 0) & (best < V)).all():
+        raise AssertionError(f"dev decode gave {tuple(best.shape)}, "
+                             f"lengths {lengths.unique().tolist()}")
+    log(f"[caption train] dev decode (caption_images) of {n_img} images at "
+        f"beam {beam}, L={L}: K2 {k2} launches at (M, k) {sorted(seen2)}, K4 "
+        f"{k4} ({cfg.dec_layers} a step), {n_img / dec_s:.1f} images/s "
+        f"({card})")
+    del trainer, batches
+    torch.cuda.empty_cache()
+
+    # The object step: 16 detection slots, 10 live, one row with none; the
+    # image tower frozen (--fimg).
+    ocfg = caption_train_config(V, use_obj=True, freeze_image=True)
+    otr = CaptionTrainer(ocfg, CaptionVocab(), lr=5e-4, warmup=8,
+                         beam_width=CAPTION_EVAL[1], seed=SEED, device=device)
+    n_obj, live = CAPTION_OBJECTS
+    orng = np.random.RandomState(SEED + 5)
+    labels = orng.randint(1, 91, (B, n_obj)).astype(np.int32)
+    labels[:, live:] = 0
+    labels[0] = 0
+    obatches = [caption_batch_to_device(
+        b, b.arrays, device,
+        (orng.standard_normal((B, n_obj, 1031)).astype(np.float32), labels))
+        for b in host]
+    stats0 = {k: v.clone() for k, v in otr.model.named_buffers()}
+    params0 = {k: v.clone() for k, v in otr.model.named_parameters()}
+    reset()
+    torch.cuda.reset_peak_memory_stats()
+    ometrics = []
+    with Recorder() as rec:
+        run(otr, otr.cap_obj_step, obatches, 2, ometrics)
+    rec.require_checked("caption object step", checked_k1, checked_xent,
+                        want_k5=False)
+    oseconds = run(otr, otr.cap_obj_step, obatches, 4, ometrics)
+    per_obj = 4 * ocfg.dec_layers
+    ofwd, obwd = require_k1("object step", 6, per_obj)
+    losses(ometrics)
+    frozen = [k for k in params0 if k.startswith("image_model.")]
+    if any(not torch.equal(params0[k], dict(otr.model.named_parameters())[k])
+           for k in frozen):
+        raise AssertionError("--fimg: a ResNet parameter changed")
+    if any(torch.equal(v, stats0[k]) for k, v in otr.model.named_buffers()):
+        raise AssertionError("--fimg: a BatchNorm statistic did not move")
+    trained = sum(not torch.equal(v, params0[k])
+                  for k, v in otr.model.named_parameters()
+                  if k.startswith(("obj_", "object_", "multistream")))
+    log(f"[caption train] object step B={B}, {n_obj} detection slots "
+        f"({live} live, one row with none), ResNet frozen: "
+        f"{1e3 * oseconds / 4:.1f} ms/step, K1 {ofwd} + {obwd} ({per_obj} + "
+        f"{per_obj} a step), K5 0; {len(frozen)} ResNet parameters "
+        f"bit-equal, its statistics moved, {trained} object-stream "
+        f"parameters trained; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB ({card})")
+    fwd, bwd = fwd + ofwd, bwd + obwd
+
+    # The dev decode of --obj: grid + objects, both streams through K4.
+    feats = orng.standard_normal((n_img, n_obj, 1031)).astype(np.float32)
+    olabels = labels[:n_img]
+    da.LAUNCHES = tkp.LAUNCHES = 0
+    with recording_decode_attention() as seen4, recording_topk() as seen2:
+        best, lengths = otr.caption_images(images, first_tok, langs, L,
+                                           box_features=feats,
+                                           object_labels=olabels)
+    require_decode_attention("caption dev decode, grid + objects", seen4,
+                             checked_k4, da.LAUNCHES,
+                             2 * ocfg.dec_layers * steps)
+    if tkp.LAUNCHES != steps or seen2 - k2_cases or not (lengths == L).all():
+        raise AssertionError(f"dev decode, grid + objects: {tkp.LAUNCHES} K2 "
+                             f"launches in {steps} steps at {sorted(seen2)}")
+    log(f"[caption train] dev decode of {n_img} images, grid + objects, beam "
+        f"{beam}: K2 {tkp.LAUNCHES}, K4 {da.LAUNCHES} "
+        f"({2 * ocfg.dec_layers} a step)")
+    k2, k4 = k2 + tkp.LAUNCHES, k4 + da.LAUNCHES
+    del otr, obatches
+    torch.cuda.empty_cache()
+
+    reset()
+    k1_cli = phase_caption_train_cli(checked_k1, checked_xent)
+    return fwd + k1_cli, bwd + k1_cli, k2, k4
+
+
+def phase_caption_train_cli(checked_k1, checked_xent) -> int:
+    """Where Pillow is installed: JPEGs -> cli.binarize_captions_from_list
+    -> cli.train_captioning (3 steps at the CLI's defaults) -> cli.caption on
+    the checkpoint it wrote. Returns its K1 forward launches."""
+    try:
+        from PIL import Image
+    except ImportError:
+        log("[caption train cli] Pillow is not installed on this machine: "
+            "cli.binarize_captions_from_list -> cli.train_captioning -> "
+            "cli.caption over JPEGs was not run (train_epoch above ran the "
+            "same loop on arrays)")
+        return 0
+    import numpy as np
+
+    from imagetranslate_tpu_torch.cli import binarize_captions_from_list
+    from imagetranslate_tpu_torch.cli import caption as caption_cli
+    from imagetranslate_tpu_torch.cli import train_captioning
+    from imagetranslate_tpu_torch.ops import train_attention as ta
+    from imagetranslate_tpu_torch.ops import xent
+    from imagetranslate_tpu_torch.text.processor import TextProcessor
+    from imagetranslate_tpu_torch.train.checkpoint import load_checkpoint
+
+    steps, n_img = 3, 12
+    rng = np.random.RandomState(SEED)
+    with tempfile.TemporaryDirectory() as workdir:
+        t0 = time.perf_counter()
+        folder = os.path.join(workdir, "images")
+        os.makedirs(folder)
+        lines = []
+        for i in range(n_img):
+            w, h = 260 + 12 * i, 300 - 6 * i
+            yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+            arr = np.stack([127 + 120 * np.sin(xx / (7 + c + i) + yy / (
+                11 + 2 * c)) for c in range(3)], axis=-1).astype(np.uint8)
+            path = os.path.join(folder, f"{i:03d}.jpg")
+            Image.fromarray(arr).save(path)
+            for _ in range(2):
+                lines.append(path + "\t" + " ".join(
+                    WORDS[j] for j in rng.randint(0, len(WORDS),
+                                                  rng.randint(3, 10))))
+        tsv = os.path.join(workdir, "captions.tsv")
+        with open(tsv, "w") as f:
+            f.write("\n".join(lines) + "\n")
+        tok = os.path.join(workdir, "tok")
+        TextProcessor().train_tokenizer([tsv], 300, tok,
+                                        {"<en>": 0, "<fa>": 1})
+        caps = os.path.join(workdir, "captions.bin")
+        binarize_captions_from_list.main(["--file", tsv, "--output", caps,
+                                          "--tok", tok, "--lang", "en"])
+        model = os.path.join(workdir, "model")
+        ta.FWD_LAUNCHES = ta.BWD_LAUNCHES = 0
+        with Recorder() as rec:
+            train_captioning.main([
+                "--tok", tok, "--model", model, "--train", caps,
+                "--step", str(steps), "--max-image", str(CAPTION_CLI_ROWS),
+                "--warmup", "2", "--device", "cuda"])
+        rec.require_checked("caption train cli", checked_k1, checked_xent,
+                            want_k5=False)
+        fwd, bwd = ta.FWD_LAUNCHES, ta.BWD_LAUNCHES
+        if not (fwd == bwd == 12 * steps) or xent.FWD_LAUNCHES:
+            raise AssertionError(f"cli.train_captioning: {fwd} + {bwd} K1 "
+                                 f"launches in {steps} steps (want 12 + 12 "
+                                 f"a step), {xent.FWD_LAUNCHES} K5")
+        latest = model + ".latest"
+        _, opt_tree, meta = load_checkpoint(latest, with_opt_state=True)
+        if meta["step"] != steps or opt_tree is None:
+            raise AssertionError(f"cli.train_captioning wrote meta {meta}")
+        out = os.path.join(workdir, "out.tsv")
+        caption_cli.main(["--tok", tok, "--model", latest, "--input", folder,
+                          "--output", out, "--target", "en", "--max_len",
+                          "16", "--device", "cuda"])
+        with open(out) as f:
+            rows = [ln.split("\t") for ln in f.read().splitlines()]
+        if len(rows) != n_img or not all(len(r) == 2 for r in rows):
+            raise AssertionError(f"cli.caption wrote {len(rows)} lines for "
+                                 f"{n_img} images")
+    log(f"[caption train cli] {n_img} JPEGs, {len(lines)} captions -> "
+        f"cli.binarize_captions_from_list -> cli.train_captioning (768, 6+6, "
+        f"ResNet-18 at 224): {steps} steps, K1 {fwd} + {bwd} -> cli.caption: "
+        f"{len(rows)} lines in {time.perf_counter() - t0:.1f} s, e.g. "
+        f"{rows[0]!r}")
+    return fwd
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "imagetranslate_tpu_torch")):
         print("chip_smoke.py must run from a checkout of the repository "
@@ -3272,44 +3780,65 @@ def main() -> int:
               file=sys.stderr)
         return 1
     profile = "--profile" in sys.argv[1:]
+    start = time.perf_counter()
+
+    def done(phases: str):
+        log(f"[time] phases {phases} done at "
+            f"{time.perf_counter() - start:.1f} s")
+
     card = phase_device()
     phase_build()
     topk = phase_kernel()
+    done("1-3")
     launches, model = phase_decode(card)
     if profile:
         phase_profile(model, card)
     del model
     torch.cuda.empty_cache()
     phase_cli()
+    done("4-5")
     with tempfile.TemporaryDirectory() as umt_dir:
         corpus = prepare_umt_corpus(umt_dir)
         cli_k1, cli_k5 = umt_cli_shapes(corpus[3].vocab_size())
-        attn_fwd, attn_bwd, checked = phase_kernel_attention(cli_k1)
+        attn_fwd, attn_bwd, checked = phase_kernel_attention(
+            cli_k1 + caption_train_k1_shapes())
+        done("6")
         xent_fwd, xent_bwd, checked_xent = phase_kernel_xent(cli_k5)
         flash, checked_flash = phase_kernel_flash([long_cli_shape()])
         dec_attn, checked_k4 = phase_kernel_decode_attention(
             decode_path_shapes())
+        done("9, 12, 16")
         dec_attn_launches = phase_decode_fused(card, checked_k4)
         torch.cuda.empty_cache()
         caption_k4, caption_k2 = phase_caption(card, profile, checked_k4)
         dec_attn_launches += caption_k4
         torch.cuda.empty_cache()
+        done("17-18")
+        ct_fwd, ct_bwd, ct_k2, ct_k4 = phase_caption_train(
+            card, profile, checked, checked_xent, checked_k4)
+        dec_attn_launches += ct_k4
+        caption_k2 += ct_k2
+        torch.cuda.empty_cache()
+        done("19")
         fwd_launches, bwd_launches = phase_train(card, profile, checked,
                                                  checked_xent)
         torch.cuda.empty_cache()
         phase_train_cli()
         torch.cuda.empty_cache()
+        done("7-8")
         xent_launches = phase_umt_train(card, checked, checked_xent)
         torch.cuda.empty_cache()
         phase_umt_cli(umt_dir, corpus, checked, checked_xent)
         torch.cuda.empty_cache()
+        done("10-11")
         flash_launches = phase_long_source(card, profile, checked_flash)
         lm_k3, lm_fwd, lm_bwd = phase_lm(card, profile, checked_flash,
                                          checked)
         flash_launches += lm_k3
-        fwd_launches += lm_fwd
-        bwd_launches += lm_bwd
+        fwd_launches += lm_fwd + ct_fwd
+        bwd_launches += lm_bwd + ct_bwd
         phase_lm_cli(umt_dir, corpus)
+        done("13-15")
     attn_src = "imagetranslate_tpu_torch/csrc/train_attention.cu"
     xent_src = "imagetranslate_tpu_torch/csrc/xent.cu"
     print(card)

@@ -1,6 +1,8 @@
-"""Image captioning model, the serving surface (port of
+"""Image captioning model (port of
 imagetranslate_tpu/models/captioning.py::ImageSeq2Seq: every parameter of the
-flax tree; ``encode``/``encode_text``, ``encode_images``, ``encode_objects``;
+flax tree; ``encode``/``encode_text``, ``encode_images`` (also in training
+mode), ``encode_objects``; the training forwards ``caption_forward`` and
+``caption_forward_with_objects`` and the MT passthrough ``forward``;
 ``init_cache``/``decode_step``, ``init_dual_cache``/``decode_step_dual`` and
 ``init_obj_dual_cache``/``decode_step_obj_dual``).
 
@@ -15,9 +17,11 @@ encoder states may be text states or the image grid.
 The decoder head is a host int (``lang_idx``), so the per-language decoders
 of ``lang_dec`` are plain indexing, as in ``models/seq2seq.py``. The caches
 are updated in place: a decode step returns its logits (or the project_topk
-triple) only. The training forwards (``caption_forward*``,
-``multimodal_mass_forward``, ``contrastive_loss``), ``decode_step_beams`` and
-the windowed caches are not ported.
+triple) only. Dropout in the training forwards sits where
+``models/transformer.py`` puts it, plus the ResNet grid's two sites, all
+drawn from one ``dropout_stream``. The multimodal forwards
+(``multimodal_mass_forward``, ``contrastive_loss``), ``decode_step_beams``
+and the windowed caches are not ported (ROADMAP module 9b).
 """
 
 from __future__ import annotations
@@ -43,7 +47,9 @@ from imagetranslate_tpu_torch.models.transformer import (
     Embedding,
     Embeddings,
     _param_dtype,
+    causal_pad_bias,
     dropout_stream,
+    pad_bias,
 )
 
 NUM_OBJECT_LABELS = 91      # COCO classes of the detector, 0 = padding
@@ -136,10 +142,78 @@ class ImageSeq2Seq(nn.Module):
         keep = object_labels != 0
         return torch.where(keep[..., None], out, 0.0), keep
 
-    # ---------------- teacher-forced text forward ----------------
+    # ---------------- training forwards ----------------
+
+    def _text_in(self, captions, caption_mask, langs, tgt_positions, drop):
+        """(decoder head, embedded captions[:, :-1], causal self bias)."""
+        B, T = captions.shape
+        lang_idx = first_lang(langs) if self.cfg.lang_dec else 0
+        if tgt_positions is None:
+            pos = torch.arange(T - 1, device=captions.device)[None, :].expand(
+                B, T - 1)
+        else:
+            pos = tgt_positions[:, :-1]
+        lang_ids = expand_langs(langs, T)[:, :-1]
+        x = self.core.embeddings(captions[:, :-1], pos, lang_ids, drop)
+        return lang_idx, pos, lang_ids, x, causal_pad_bias(
+            caption_mask[:, :-1])
+
+    def caption_forward(self, images, captions, caption_mask, langs,
+                        tgt_positions=None, train: bool = False,
+                        deterministic: bool = True, rng=None):
+        """Captions decoded against the image grid: fp32 logits
+        [B, T-1, V] for captions[:, 1:]. ``train`` normalises the ResNet
+        with the batch's statistics and moves its running ones;
+        ``deterministic=False`` turns dropout on, its seeds drawn from
+        ``rng`` (a host torch.Generator)."""
+        drop = dropout_stream(deterministic, rng, captions.device)
+        grid = self.encode_images(images, train, deterministic, rng=drop)
+        logits, _ = self._decode_over(grid, None, captions, caption_mask,
+                                      langs, tgt_positions, drop)
+        return logits
+
+    def _decode_over(self, enc_states, enc_mask, captions, caption_mask,
+                     langs, tgt_positions, drop):
+        """The text decoder over ``enc_states`` (every slot kept when
+        ``enc_mask`` is None): (logits, hidden)."""
+        lang_idx, _, _, x, self_bias = self._text_in(
+            captions, caption_mask, langs, tgt_positions, drop)
+        if enc_mask is None:
+            enc_mask = torch.ones(enc_states.shape[:2], dtype=torch.bool,
+                                  device=enc_states.device)
+        hidden = self.core._decoder(lang_idx)(
+            x, enc_states, self_bias, pad_bias(enc_mask), drop)
+        return self.core.project(hidden, lang_idx), hidden
+
+    def caption_forward_with_objects(self, images, box_features,
+                                     object_labels, captions, caption_mask,
+                                     langs, train: bool = False,
+                                     deterministic: bool = True, rng=None):
+        """Dual-stream captioning: the grid decoder and the object decoder
+        (over the detections, padding masked), blended by
+        sigmoid(multistream gate + 1e-7), projected once."""
+        drop = dropout_stream(deterministic, rng, captions.device)
+        grid = self.encode_images(images, train, deterministic, rng=drop)
+        obj_states, obj_keep = self.encode_objects(box_features,
+                                                   object_labels)
+        lang_idx, pos, lang_ids, x, self_bias = self._text_in(
+            captions, caption_mask, langs, None, drop)
+        grid_mask = torch.ones(grid.shape[:2], dtype=torch.bool,
+                               device=grid.device)
+        main_out = self.core._decoder(lang_idx)(
+            x, grid, self_bias, pad_bias(grid_mask), drop)
+        x_obj = self._obj_embed(lang_idx)(captions[:, :-1], pos, lang_ids,
+                                          drop)
+        obj_out = self._obj_decoder(lang_idx)(
+            x_obj, obj_states, self_bias, pad_bias(obj_keep), drop)
+        gate = torch.sigmoid(self.multistream_attention_gate + 1e-7).to(
+            main_out.dtype)
+        return self.core.project(gate * main_out + (1.0 - gate) * obj_out,
+                                 lang_idx)
 
     def forward(self, *args, **kw):
-        """The text model's forward (multi-task training)."""
+        """The text model's forward (the MT stream of multi-task
+        training)."""
         return self.core(*args, **kw)
 
     # ---------------- decoding ----------------

@@ -1,7 +1,10 @@
-"""The MT, MASS and MLM train steps (port of imagetranslate_tpu/train/step.py:
-TrainState, create_train_state, wrap_accum, make_mt_train_step for padded and
-packed batches, make_mass_train_step, make_mlm_train_step, make_mlm_eval_step,
-and the batch staging helpers).
+"""The MT, MASS, MLM and caption train steps (port of
+imagetranslate_tpu/train/step.py: TrainState, create_train_state, wrap_accum,
+make_mt_train_step for padded and packed batches, make_mass_train_step,
+make_mlm_train_step, make_mlm_eval_step, CaptionTrainState,
+create_caption_train_state, make_caption_train_step,
+make_caption_obj_train_step, make_caption_mt_train_step, and the batch staging
+helpers).
 
 The JAX step is a pure function of an immutable state. Here the parameters
 are the model's own ``nn.Parameter``s and the step updates them, and the
@@ -64,10 +67,12 @@ def _loss_impl(model) -> Callable:
     return smoothed_nll_loss
 
 
-def _update(state: TrainState, optimizer: Optimizer, sum_l, n):
-    """Backward of sum_l / n, the optimizer update in place, the metrics."""
+def _update(state, optimizer: Optimizer, sum_l, n, weight: float = 1.0):
+    """Backward of weight * sum_l / n, the optimizer update in place, the
+    metrics (the unweighted sum)."""
     params = list(state.params.values())
-    grads = torch.autograd.grad(sum_l / n, params, allow_unused=True)
+    grads = torch.autograd.grad(weight * sum_l / n, params,
+                                allow_unused=True)
     # A parameter the batch did not reach (another language's decoder)
     # gets a zero gradient, as jax.grad gives it.
     grads = [torch.zeros_like(p) if g is None else g
@@ -241,6 +246,95 @@ def make_mlm_eval_step(model, cfg, mask_prob: float = 0.15,
     return eval_fn
 
 
+@dataclasses.dataclass
+class CaptionTrainState:
+    """The captioner's training state: ``params`` are the model's
+    ``named_parameters()`` and ``batch_stats`` the ResNet's BatchNorm
+    running statistics (its buffers, moved in place by a step in training
+    mode)."""
+    params: Dict[str, torch.Tensor]
+    batch_stats: Dict[str, torch.Tensor]
+    opt_state: AnyOptState
+    step: int
+
+
+def create_caption_train_state(model, optimizer: Optimizer
+                               ) -> CaptionTrainState:
+    params = dict(model.named_parameters())
+    return CaptionTrainState(params=params,
+                             batch_stats=dict(model.named_buffers()),
+                             opt_state=optimizer.init(params), step=0)
+
+
+def _caption_update(state: CaptionTrainState, optimizer: Optimizer, logits,
+                    batch, label_smoothing: float):
+    """The caption steps' loss: ``smoothed_nll_loss`` itself, never the
+    fused kernels (the JAX steps call it directly, whatever
+    ``use_pallas_xent`` says)."""
+    mask = batch["caption_mask"][:, 1:] & batch["row_mask"][:, None]
+    sum_l, n = smoothed_nll_loss(logits, batch["captions"][:, 1:], mask,
+                                 epsilon=label_smoothing)
+    return _update(state, optimizer, sum_l, torch.clamp(n, min=1.0))
+
+
+def make_caption_train_step(model, optimizer: Optimizer,
+                            label_smoothing: float = 0.1) -> Callable:
+    """Captioning step: captions decoded against the image grid, the
+    label-smoothed loss on captions[:, 1:], the ResNet in training mode (its
+    running statistics move). Returns ``step_fn(state, batch, rng) ->
+    (state, metrics)``: ``batch`` as ``caption_batch_to_device`` stages it,
+    ``rng`` the host torch.Generator of the dropout seeds."""
+
+    def step_fn(state: CaptionTrainState, batch: Dict[str, torch.Tensor],
+                rng: torch.Generator):
+        logits = model.caption_forward(
+            batch["images"], batch["captions"], batch["caption_mask"],
+            batch["langs"], train=True, deterministic=False, rng=rng)
+        return _caption_update(state, optimizer, logits, batch,
+                               label_smoothing)
+
+    return step_fn
+
+
+def make_caption_obj_train_step(model, optimizer: Optimizer,
+                                label_smoothing: float = 0.1) -> Callable:
+    """Captioning with the object stream: the grid decoder and the object
+    decoder blended by the multistream gate. ``batch`` also carries
+    ``box_features`` [N, O, F] and ``object_labels`` [N, O] (0: padding)."""
+
+    def step_fn(state: CaptionTrainState, batch: Dict[str, torch.Tensor],
+                rng: torch.Generator):
+        logits = model.caption_forward_with_objects(
+            batch["images"], batch["box_features"], batch["object_labels"],
+            batch["captions"], batch["caption_mask"], batch["langs"],
+            train=True, deterministic=False, rng=rng)
+        return _caption_update(state, optimizer, logits, batch,
+                               label_smoothing)
+
+    return step_fn
+
+
+def make_caption_mt_train_step(model, optimizer: Optimizer,
+                               mtl_weight: float = 0.1,
+                               label_smoothing: float = 0.1) -> Callable:
+    """The captioner's MT stream: the MT loss through its text core, scaled
+    by ``mtl_weight`` (``--mtlw``); the ResNet and its statistics are not
+    touched. ``batch``: ``mt_batch_to_device``'s dict."""
+
+    def step_fn(state: CaptionTrainState, batch: Dict[str, torch.Tensor],
+                rng: torch.Generator):
+        logits = model(batch["src"], batch["src_mask"], batch["dst"],
+                       batch["dst_mask"], batch["src_langs"],
+                       batch["dst_langs"], deterministic=False, rng=rng)
+        mask = batch["dst_mask"][:, 1:] & batch["row_mask"][:, None]
+        sum_l, n = smoothed_nll_loss(logits, batch["dst"][:, 1:], mask,
+                                     epsilon=label_smoothing)
+        return _update(state, optimizer, sum_l, torch.clamp(n, min=1.0),
+                       mtl_weight)
+
+    return step_fn
+
+
 def _to(x, device) -> torch.Tensor:
     return torch.as_tensor(x).to(device, non_blocking=True)
 
@@ -287,3 +381,20 @@ def lm_batch_to_device(b: Dict, device) -> Dict[str, torch.Tensor]:
     on ``device`` for the MLM steps."""
     return {name: _to(b[name], device)
             for name in ("texts", "pad_mask", "langs", "row_mask")}
+
+
+def caption_batch_to_device(b, images, device, objects=None
+                            ) -> Dict[str, torch.Tensor]:
+    """A ``CaptionBatch`` (data/images.py) and its images [N, S, S, 3]
+    (uint8 or normalised float) -> dict of tensors on ``device`` for the
+    caption steps; ``objects``: (box_features, object_labels) for the object
+    step."""
+    out = {"images": _to(images, device),
+           "captions": _to(b.captions, device),
+           "caption_mask": _to(b.caption_mask, device),
+           "langs": _to(b.langs, device),
+           "row_mask": _to(b.row_mask, device)}
+    if objects is not None:
+        out["box_features"] = _to(objects[0], device)
+        out["object_labels"] = _to(objects[1], device)
+    return out

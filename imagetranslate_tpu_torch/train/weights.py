@@ -22,7 +22,9 @@ layout maps as the parameters.
 
 One ``Bridge`` per model: ``SEQ2SEQ``, ``LM``, ``LONGDOC`` and ``CAPTION`` (the
 captioning model's variables are ``{"params", "batch_stats"}``: the ResNet's
-running statistics cross as ``state_dict`` buffers).
+running statistics cross as ``state_dict`` buffers), and ``CAPTION_PARAMS``
+for the caption trainer's optimizer state, whose moments are trees of the
+``params`` collection alone.
 """
 
 from __future__ import annotations
@@ -450,10 +452,13 @@ def _resnet_sd(sd, pre: str, p: Mapping, stats, cfg: Seq2SeqConfig):
 
 
 def _resnet_trees(sd, pre: str, cfg: Seq2SeqConfig):
-    """The inverse of ``_resnet_sd``: (params, batch_stats)."""
+    """The inverse of ``_resnet_sd``: (params, batch_stats); the statistics
+    are empty maps where ``sd`` holds no buffers (a parameter-shaped
+    tree)."""
     def bn(key):
         return ({theirs: sd[f"{key}.{ours}"] for theirs, ours in _BN},
-                {theirs: sd[f"{key}.{ours}"] for theirs, ours in _BN_STATS})
+                {theirs: sd[f"{key}.{ours}"] for theirs, ours in _BN_STATS
+                 if f"{key}.{ours}" in sd})
 
     def conv(key):
         return {"kernel": sd[f"{key}.weight"].permute(2, 3, 1, 0)}
@@ -541,6 +546,14 @@ def flax_from_caption_state_dict(sd: Mapping[str, torch.Tensor],
         p["object_feat_fc"] = {"kernel": sd["object_feat_fc.weight"].T}
     return {"params": _contiguous_tree(p),
             "batch_stats": _contiguous_tree({"image_model": stats})}
+
+
+def flax_from_caption_params(sd: Mapping[str, torch.Tensor],
+                             cfg: Seq2SeqConfig) -> dict:
+    """A parameter-shaped captioner tree (the ``params`` collection alone,
+    as the JAX caption trainer's optimizer moments are laid out) from a
+    ``state_dict`` without buffers."""
+    return flax_from_caption_state_dict(sd, cfg)["params"]
 
 
 def random_caption_params(cfg: Seq2SeqConfig, seed: int = 0,
@@ -635,6 +648,11 @@ LONGDOC = Bridge(longdoc_state_dict_from_flax, flax_from_longdoc_state_dict,
                  random_longdoc_params)
 CAPTION = Bridge(caption_state_dict_from_flax, flax_from_caption_state_dict,
                  random_caption_params)
+# The caption trainer's optimizer state: its moments are trees of the
+# ``params`` collection alone (no ``batch_stats``, no ``{"params": ...}``
+# wrapper).
+CAPTION_PARAMS = Bridge(caption_state_dict_from_flax,
+                        flax_from_caption_params, random_caption_params)
 
 
 def _count(n: int) -> torch.Tensor:

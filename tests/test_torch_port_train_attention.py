@@ -324,9 +324,11 @@ def test_cuda_kernels_match_plain():
     card, element by element under the shared Philox mask: the train step's
     three shapes (encoder, decoder self- and cross-attention), packed,
     cross-attention (T != S), ragged shapes and the MLM step's (T = S = 512),
-    both bias layouts, rate 0 and 0.1. Tolerance: 2^-6 of the plain result's
-    largest magnitude (a few bf16 ulps) for the bf16 outputs, 1e-4 of it for
-    the fp32 dbias."""
+    both bias layouts, rate 0 and 0.1; then the caption step's
+    cross-attention over the 49-slot grid (a zero bias) and over 16
+    detections (a keep-mask with an all-padding row). Tolerance: 2^-6 of
+    the plain result's largest magnitude (a few bf16 ulps) for the bf16
+    outputs, 1e-4 of it for the fp32 dbias."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA CUDA card: the kernels have no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -364,4 +366,31 @@ def test_cuda_kernels_match_plain():
                     assert err <= tol * ref.float().abs().max(), (b, t, s, h,
                                                                   d, rows,
                                                                   rate)
+    # The caption step's shapes with the biases it builds: cross-attention
+    # over the 49-slot grid under a zero bias, and over 16 detections under
+    # the keep-mask's bias with a row whose detections are all padding (its
+    # softmax is uniform over -10000s, as in the plain version).
+    keep = torch.ones(32, 16, dtype=torch.bool, device="cuda")
+    keep[:, 10:] = False
+    keep[3] = False
+    for s, bias in ((49, torch.zeros(32, 1, 1, 49, device="cuda")),
+                    (16, (1.0 - keep.float())[:, None, None, :] * -10000.0)):
+        for rate in (0.0, 0.1):
+            q, g = (torch.randn(32, 31, 12, 64, generator=gen,
+                                device="cuda").bfloat16() for _ in range(2))
+            k, v = (torch.randn(32, s, 12, 64, generator=gen,
+                                device="cuda").bfloat16() for _ in range(2))
+            leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+            out = ta.fused_dropout_attention(*leaves, bias, rate, 7)
+            grads = torch.autograd.grad(out, leaves, g)
+            torch.cuda.synchronize()
+            n += 1
+            want = ta.fused_dropout_attention_reference(q, k, v, bias, rate,
+                                                        7)
+            hand = ta.fused_dropout_attention_backward_reference(
+                q, k, v, bias, g, rate, 7)[:3]
+            for got, ref in zip((out, *grads), (want, *hand)):
+                assert torch.isfinite(got).all(), (s, rate)
+                err = (got.float() - ref.float()).abs().max()
+                assert err <= 2 ** -6 * ref.float().abs().max(), (s, rate)
     assert ta.FWD_LAUNCHES == fwd + n and ta.BWD_LAUNCHES == bwd + n

@@ -197,7 +197,15 @@ def test_port_runs_without_jax(workdir):
                     "import imagetranslate_tpu_torch.models.captioning; "
                     "import imagetranslate_tpu_torch.models.resnet; "
                     "import imagetranslate_tpu_torch.data.images; "
-                    "import imagetranslate_tpu_torch.ops.decode_attention"],
+                    "import imagetranslate_tpu_torch.ops.decode_attention; "
+                    "import imagetranslate_tpu_torch.cli.train_captioning; "
+                    "import imagetranslate_tpu_torch.train.trainer_caption; "
+                    "import imagetranslate_tpu_torch.data.binarize_captions; "
+                    "import "
+                    "imagetranslate_tpu_torch.cli.binarize_captions_from_list; "
+                    "import imagetranslate_tpu_torch.cli.binarize_coco_data; "
+                    "import "
+                    "imagetranslate_tpu_torch.cli.binarize_image_caption_data"],
                    check=True, cwd=REPO, env=env, timeout=120)
     from imagetranslate_tpu_torch.cli.translate import main as port_main
 
