@@ -9,9 +9,12 @@ the long-sequence path (a 2048-token source through encode and beam search,
 the masked LM and the long-document LM through their trainers and CLIs) and
 the captioning path (ResNet grid -> beam search over the grid, the text +
 image and the grid + object dual decodes, the caption CLI's loop and the CLI
-itself) and caption training (CaptionTrainer's caption, object and MT-stream
-steps, its epoch loop and dev decode, then the binarize -> train -> caption
-CLIs), and checks that each path went through its kernels.
+itself) and caption training (CaptionTrainer's caption, object, MT-stream
+and multimodal steps, its epoch loop and dev decode, then the binarize ->
+train -> caption CLIs) and image MT training (ImageMTTrainer's multimodal
+MASS, contrastive, text MASS and MT steps, back-translation with images,
+then cli.train_mt --train -> cli.translate and mmid_sim), and checks that
+each path went through its kernels.
 
 Run from the root of a checkout, with one visible CUDA card:
 
@@ -56,7 +59,10 @@ Phases, each fatal on failure:
                as the encoder's T=S) and of the caption steps of phase 19
                (T=S=31, and T=31 over the S=49 grid slots and S=16
                detections, at B=32 and B=8; the MT stream's B=128 at T=S=64,
-               T=S=63 and T=63, S=64); bf16 outputs within 2^-6 of the
+               T=S=63 and T=63, S=64) and of the image MT steps of phase 20
+               (the multimodal MASS decoder's T=16 over S=16, 32 and 49 at
+               B=32 and B=8; T=S=32 for the captions and the negatives; the
+               text MASS steps' B=128 at T=S=32 and T=32, S=64); bf16 outputs within 2^-6 of the
                plain result's largest magnitude (a few bf16 ulps), fp32 dbias
                within 1e-4 of it. S = 513 and fp32 inputs raise before a
                launch; two launches on the same inputs give the same bits.
@@ -76,14 +82,18 @@ Phases, each fatal on failure:
                on the same batches, first losses equal to 1e-4, then blocks
                of steps in the order off, on, on, off; ms/step and peak
                memory of each arm.
-  8. train   — generated parallel corpus -> tokenizer -> data.binarize ->
-     cli       cli.train_mt.main at full width -> cli.translate.main on the
-               checkpoint it wrote -> load_checkpoint with the optimizer state.
+  8. train   — generated parallel corpus -> cli.train_tokenizer ->
+     cli       cli.create_mt_batches -> cli.train_mt.main at full width ->
+               cli.translate.main on the checkpoint it wrote ->
+               load_checkpoint with the optimizer state -> cli.score_pairs
+               (forced scores of 8 sources x 4 candidates, the shard window
+               --resume 1 --end 8).
 
   9. kernel  — the fused label-smoothed cross-entropy kernels (forward and
      (K5)      backward; runs between phases 6 and 7) vs their plain version:
                the MT step's shape (N=16128, V=32000), the MASS step's
-               (N=8192), the back-translation step's, ragged V (84, 30522,
+               (N=8192), phase 20's text MASS step's (N=4096), the
+               back-translation step's, ragged V (84, 30522,
                32003), N not a multiple of 8, N=1, fp32 and bf16 logits,
                eps 0 and 0.1, targets outside the vocabulary, an all-masked
                g, and two shapes past 2^31 bytes (one of them past 2^31
@@ -220,7 +230,29 @@ Phases, each fatal on failure:
                trainer (blocks off, on, on, off; launches not counted); then,
                where Pillow is installed, JPEGs ->
                cli.binarize_captions_from_list -> cli.train_captioning (3
-               steps) -> cli.caption.
+               steps) -> cli.caption. Before the CLIs, CaptionTrainer with
+               mm_mode "mixed": train_epoch over 4 caption batches, each
+               trained by multimodal MASS (K1 = 30 + 30) or the contrastive
+               step (12 + 12) as the host draws of its step say, K5 = 0.
+ 20. image   — ImageMTTrainer at cli.train_mt's defaults (768/12/3072, 6 + 6
+     MT        layers, ResNet-18 at 224, V=32000, fp32 masters, bf16
+               compute, dropout 0.1, use_pallas_xent on) on numpy batches:
+               ticks of an image step (B=32 images, T=32 captions; mode
+               "mixed", host steps chosen so that the timed ticks draw both
+               modes), a text MASS step (B=128, S=64) and an MT step
+               (B=128, S=T=64), 3 warm-up and 6 timed, each step timed
+               alone; K1 = 30 + 30 a multimodal MASS step, 12 + 12 a
+               contrastive one, 18 + 18 a text MASS or MT step, K5 = 1 + 1 a
+               text MASS step, at shapes phases 6 and 9 held; every
+               BatchNorm statistic moves, none in a text MASS step. Then the
+               fine-tune phase through train_epoch: two ticks of an image
+               step, a back-translation step (greedy decode through K2 at
+               (M, k) phase 3 held, then an MT step) and an MT step, K5 = 0.
+               Then, where Pillow is installed, JPEGs ->
+               cli.binarize_captions_from_list, phase 11's shards ->
+               cli.train_mt --train --mass_train --fstep --langs from a text
+               checkpoint grafted into the core -> cli.translate, and
+               mmid_sim over folders of JPEGs.
 
 ``--profile`` adds a phase after 4 (one more decode) and one after 7 (three
 more train steps) under torch.profiler, printing the device time by operation
@@ -230,7 +262,8 @@ recorded, printing the dtype casts' (aten::copy_) device time by shape,
 three steps of the paired reading's fused-cross-entropy arm, five long
 encodes with K3 and five with the plain attention (phase 13), and three MLM
 steps (phase 14), one caption decode over the grid and one over grid +
-objects (phase 18), and one caption train step (phase 19).
+objects (phase 18), one caption train step (phase 19) and one image MT
+tick (phase 20).
 
 The second-to-last line is a JSON object describing each kernel, with its
 launches on its main path, its times, and its bound: the larger of the bytes
@@ -1828,13 +1861,18 @@ def phase_umt_train(card, checked, checked_xent):
 
 
 def phase_train_cli():
-    """Phase 8: corpus -> tokenizer -> binarize -> cli.train_mt -> the
-    checkpoint it wrote through cli.translate and load_checkpoint."""
+    """Phase 8: corpus -> cli.train_tokenizer -> cli.create_mt_batches ->
+    cli.train_mt -> the checkpoint it wrote through cli.translate,
+    load_checkpoint and cli.score_pairs."""
+    import marshal
+
     import numpy as np
 
+    from imagetranslate_tpu_torch.cli import create_mt_batches, score_pairs
+    from imagetranslate_tpu_torch.cli import train_tokenizer
     from imagetranslate_tpu_torch.cli.train_mt import main as train_main
     from imagetranslate_tpu_torch.cli.translate import main as translate_main
-    from imagetranslate_tpu_torch.data.binarize import write_mt
+    from imagetranslate_tpu_torch.data.binarize import load_mt
     from imagetranslate_tpu_torch.ops import topk_project as tkp
     from imagetranslate_tpu_torch.ops import train_attention as ta
     from imagetranslate_tpu_torch.text.processor import TextProcessor
@@ -1849,16 +1887,22 @@ def phase_train_cli():
         src, dst = (os.path.join(workdir, n) for n in ("src.txt", "dst.txt"))
         with open(src, "w") as f:
             f.write("\n".join(lines) + "\n")
+        dst_lines = [" ".join(reversed(ln.split())) for ln in lines]
         with open(dst, "w") as f:                       # the reversed line
-            f.write("\n".join(" ".join(reversed(ln.split()))
-                              for ln in lines) + "\n")
+            f.write("\n".join(dst_lines) + "\n")
+        tagged = os.path.join(workdir, "tagged.txt")
+        with open(tagged, "w") as f:
+            f.write("\n".join(f"<en> {ln} </s>" for ln in lines) + "\n")
+            f.write("<fa> " + lines[0] + " </s>\n")
         tok = os.path.join(workdir, "tok")
-        TextProcessor().train_tokenizer([src], 300, tok,
-                                        {"<en>": 0, "<fa>": 1})
+        train_tokenizer.main(["--data", tagged, "--vocab_size", "300",
+                              "--model", tok])
         tp = TextProcessor(tok)
         mt = os.path.join(workdir, "train.mt")
-        n = write_mt(tp, mt, src, tp.token_id("<en>"), dst,
-                     tp.token_id("<fa>"))
+        create_mt_batches.main(["--tok", tok, "--src", src, "--src-lang",
+                                "en", "--dst", dst, "--dst-lang", "fa",
+                                "--output", mt])
+        n = len(load_mt(mt))
         model = os.path.join(workdir, "model")
         ta.FWD_LAUNCHES = ta.BWD_LAUNCHES = 0
         train_main(["--tok", tok, "--model", model, "--train_mt", mt,
@@ -1888,12 +1932,38 @@ def phase_train_cli():
         if len(hyps) != 40 or tkp.LAUNCHES == 0:
             raise AssertionError(f"translate wrote {len(hyps)} lines with "
                                  f"{tkp.LAUNCHES} kernel launches")
+        # Forced scores: each of 8 sources against 4 candidates (its
+        # reference among them), the shard window of items 2..7.
+        sens, cands = {}, {}
+        for i in range(8):
+            sens[i] = f"<en> {lines[i]} </s>"
+            cands[i] = [100 + 4 * i + j for j in range(4)]
+            for j, c in enumerate(cands[i]):
+                ref = dst_lines[i] if j == 0 else dst_lines[50 + 4 * i + j]
+                sens[c] = f"<fa> {ref} </s>"
+        pair_files = [os.path.join(workdir, n) for n in ("s.m", "c.m",
+                                                         "best.tsv")]
+        for path, obj in zip(pair_files, (sens, cands)):
+            with open(path, "wb") as f:
+                marshal.dump(obj, f)
+        score_pairs.main(["--tok", tok, "--model", latest, "--sens",
+                          pair_files[0], "--data", pair_files[1], "--output",
+                          pair_files[2], "--resume", "1", "--end", "8",
+                          "--device", "cuda"])
+        with open(pair_files[2]) as f:
+            best = [ln.split("\t") for ln in f.read().splitlines()]
+        if (len(best) != 6 or best[0][0] != sens[1]
+                or not all(-1e4 < float(r[2]) <= 0.0 for r in best)):
+            raise AssertionError(f"score_pairs wrote {best}")
         seconds = time.perf_counter() - t0
-    log(f"[train cli] {n} pairs, vocab {tp.vocab_size()}, width 768, 6+3 "
-        f"layers: {steps} steps with {fwd} + {bwd} K1 launches, checkpoint "
-        f"with optimizer state re-loaded (step {meta['step']}), translated "
-        f"40 lines with {tkp.LAUNCHES} project_topk launches in "
-        f"{seconds:.1f} s, e.g. {hyps[0]!r}")
+    log(f"[train cli] cli.train_tokenizer -> cli.create_mt_batches: {n} "
+        f"pairs, vocab {tp.vocab_size()}; width 768, 6+3 layers: {steps} "
+        f"steps with {fwd} + {bwd} K1 launches, checkpoint with optimizer "
+        f"state re-loaded (step {meta['step']}), translated 40 lines with "
+        f"{tkp.LAUNCHES} project_topk launches, cli.score_pairs wrote "
+        f"{len(best)} best pairs (items 2..7, mean log-probs "
+        f"{[round(float(r[2]), 3) for r in best]}) in {seconds:.1f} s, e.g. "
+        f"{hyps[0]!r}")
 
 UMT_CLI_BATCH = 8192   # --batch of phase 11: 128 rows of 32 tokens a batch
 
@@ -3678,6 +3748,46 @@ def phase_caption_train(card, profile: bool, checked_k1, checked_xent,
     del otr, obatches
     torch.cuda.empty_cache()
 
+    # The multimodal image streams (mm_mode "mixed"): train_epoch over four
+    # caption batches, each trained by multimodal MASS or the contrastive
+    # step as the host draws of its step say; the loss is
+    # smoothed_nll_loss, never K5.
+    from imagetranslate_tpu_torch.train.trainer_caption import (
+        image_batch_draws,
+    )
+
+    mtr = CaptionTrainer(cfg, CaptionVocab(), lr=5e-4, warmup=8,
+                         mm_mode="mixed", seed=SEED, device=device)
+    n_mm = 4
+    modes = [image_batch_draws("mixed", mtr.mask_prob, k + 1)[0]
+             for k in range(n_mm)]
+    E, D = cfg.enc_layers, cfg.dec_layers
+    want_mm = sum(E + 4 * D if m == "masked" else 2 * E for m in modes)
+    reset()
+    with Recorder() as rec, tempfile.TemporaryDirectory() as workdir:
+        t0 = time.perf_counter()
+        step = mtr.train_epoch(
+            0, os.path.join(workdir, "model"),
+            ArrayCaptionBatcher(caption_host_batches(cfg, n_mm, SEED + 9)),
+            eval_every=10 ** 9, save_every=10 ** 9, log_every=2)
+        torch.cuda.synchronize()
+        mm_s = time.perf_counter() - t0
+    rec.require_checked("caption train mm_mode", checked_k1, checked_xent,
+                        want_k5=False)
+    if (step != n_mm or ta.FWD_LAUNCHES != want_mm
+            or ta.BWD_LAUNCHES != want_mm or xent.FWD_LAUNCHES):
+        raise AssertionError(f"mm_mode mixed: {step} steps, K1 "
+                             f"{ta.FWD_LAUNCHES} + {ta.BWD_LAUNCHES} (want "
+                             f"{want_mm} for {modes}), K5 "
+                             f"{xent.FWD_LAUNCHES}")
+    log(f"[caption train] mm_mode mixed: train_epoch of {n_mm} caption "
+        f"batches as {modes} in {mm_s:.1f} s, K1 {ta.FWD_LAUNCHES} + "
+        f"{ta.BWD_LAUNCHES} ({E + 4 * D} a multimodal MASS step, {2 * E} a "
+        f"contrastive one), K5 0 ({card})")
+    fwd, bwd = fwd + ta.FWD_LAUNCHES, bwd + ta.BWD_LAUNCHES
+    del mtr
+    torch.cuda.empty_cache()
+
     reset()
     k1_cli = phase_caption_train_cli(checked_k1, checked_xent)
     return fwd + k1_cli, bwd + k1_cli, k2, k4
@@ -3766,6 +3876,428 @@ def phase_caption_train_cli(checked_k1, checked_xent) -> int:
         f"{rows[0]!r}")
     return fwd
 
+# ---------------- phase 20: image MT training ----------------
+
+IMAGE_MT_TEXT = (128, 64)      # B, S of the MASS, back-translation, MT batches
+IMAGE_MT_CLI_CAPTIONS = 24     # captions of the CLI run: its negatives' count
+
+
+def image_mt_shapes():
+    """(K1 (B, T, S, H, D) list, K5 (N, V) list) of phase 20's steps and its
+    CLI run (the CLI's MASS and back-translation shapes are phase 11's):
+    multimodal MASS over T=32 captions (its decoder over T/2 span slots,
+    against the caption's T and the 49 grid slots) at B=32 and at the CLI's
+    8 rows; the contrastive encoder over the captions and the negatives; the
+    text MASS, MT and back-translation steps at B=128, S=64."""
+    from imagetranslate_tpu_torch.decoding.beam import max_len_for
+
+    B, T = CAPTION_TRAIN
+    b, s = IMAGE_MT_TEXT
+    w, span = T // 2, s // 2
+    L = -(-max_len_for(s, 1.1, 5, 512) // 16) * 16
+    k1 = [(IMAGE_MT_CLI_CAPTIONS, T, T)]
+    for rows in (B, CAPTION_CLI_ROWS):
+        k1 += [(rows, T, T), (rows, w, w), (rows, w, T), (rows, w, 49)]
+    k1 += [(b, s, s), (b, span, span), (b, span, s), (b, s - 1, s - 1),
+           (b, s - 1, s), (b, L + 1, L + 1), (b, s - 1, L + 1)]
+    return [(*x, 12, 64) for x in k1], [(b * span, 32000)]
+
+
+class ArrayCaptionBatcher(ArrayBatcher):
+    """An ``ArrayBatcher`` of caption batches with ``CaptionBatcher``'s
+    negatives over their captions."""
+
+    pad_id = 0
+
+    def __init__(self, batches):
+        super().__init__(batches)
+        self.all_captions = [list(row[:n]) for b in batches
+                             for row, n in zip(b.captions, b.lengths)]
+
+    def sample_negatives(self, batch_size: int, seed: int):
+        from imagetranslate_tpu_torch.data.images import CaptionBatcher
+
+        return CaptionBatcher.sample_negatives(self, batch_size, seed)
+
+
+def image_mt_config(vocab_size: int):
+    """cli.train_mt's defaults with the image stream: BERT-base text stack
+    with 6 + 6 layers, ResNet-18 at 224, dropout 0.1, fp32 masters and bf16
+    compute, K1 in every attention; ``use_pallas_xent`` on (K5 in the text
+    MASS steps)."""
+    import dataclasses
+
+    return dataclasses.replace(bert_base(vocab_size), **{
+        "dec_layers": 6, "dropout": RATE, "attention_dropout": RATE,
+        "resnet_depth": 1, "img_size": 224, "fused_attn_dropout": True,
+        "use_pallas_xent": True})
+
+
+def phase_image_mt(card, profile: bool, checked_k1, checked_xent, corpus):
+    """Phase 20: ImageMTTrainer at cli.train_mt's full width. Returns its K1
+    forward, K1 backward, K5 forward, K5 backward and K2 launches."""
+    import torch
+
+    from imagetranslate_tpu_torch.ops import topk_project as tkp
+    from imagetranslate_tpu_torch.ops import train_attention as ta
+    from imagetranslate_tpu_torch.ops import xent
+    from imagetranslate_tpu_torch.train.step import (
+        mass_batch_to_device,
+        mt_batch_to_device,
+    )
+    from imagetranslate_tpu_torch.train.trainer_caption import (
+        image_batch_draws,
+    )
+    from imagetranslate_tpu_torch.train.trainer_image_mt import (
+        ImageMTTrainer,
+    )
+
+    device = torch.device("cuda")
+    B, T = CAPTION_TRAIN
+    b, s = IMAGE_MT_TEXT
+    V = 32000
+    cfg = image_mt_config(V)
+    E, D = cfg.enc_layers, cfg.dec_layers
+    per = {"masked": E + 4 * D, "contrastive": 2 * E, "mass": E + 2 * D,
+           "mt": E + 2 * D, "bt": E + 2 * D}
+    t0 = time.perf_counter()
+    vocab = FullVocab()
+    trainer = ImageMTTrainer(cfg, vocab, lr=5e-4, warmup=8, mm_mode="mixed",
+                             seed=SEED, bt_beam_width=1, max_len_a=1.1,
+                             max_len_b=5, device=device)
+    imgs = ArrayCaptionBatcher(caption_host_batches(cfg, 4, SEED + 11))
+    mass = mass_batches(cfg, 4, b, s, SEED + 12)
+    mts = mt_host_batches(cfg, 4, SEED + 13)
+    staged_imgs = [trainer._stage_img(x, "") for x in imgs.batches]
+    staged_mass = [mass_batch_to_device(x, device) for x in mass]
+    staged_mt = [mt_batch_to_device(x, device) for x in mts]
+    trainer._cur_img_batcher = imgs
+    log(f"[image mt] ImageMTTrainer BERT-base 6+6 + ResNet-18 at 224, "
+        f"{sum(p.numel() for p in trainer.model.parameters()) / 1e6:.1f} M "
+        f"fp32 master parameters, bf16 compute, dropout {RATE}, "
+        f"use_pallas_xent on, built in {time.perf_counter() - t0:.1f} s")
+
+    def mode(host_step):
+        """The image mode the trainer draws at this host step."""
+        return image_batch_draws("mixed", trainer.mask_prob,
+                                 host_step + 1)[0]
+
+    # The first host steps whose timed ticks draw both image modes.
+    warm, timed = 3, 6
+    n = warm + timed
+    start = next(h for h in range(warm + 1, 1000) if {
+        mode(h + i) for i in range(timed)} == {"masked", "contrastive"})
+    modes = [mode(h) for h in range(start - warm, start + timed)]
+
+    def reset():
+        ta.FWD_LAUNCHES = ta.BWD_LAUNCHES = 0
+        xent.FWD_LAUNCHES = xent.BWD_LAUNCHES = tkp.LAUNCHES = 0
+
+    def counts():
+        return (ta.FWD_LAUNCHES, ta.BWD_LAUNCHES, xent.FWD_LAUNCHES,
+                xent.BWD_LAUNCHES, tkp.LAUNCHES)
+
+    def finite(metrics):
+        out = [(m["sum_loss"] / m["ntokens"]).item() for m in metrics]
+        if not all(x == x and abs(x) != float("inf") for x in out):
+            raise AssertionError(f"image mt: loss not finite: {out}")
+        return out
+
+    # Ticks of img, mass, mt steps in mixed mode; each step timed alone.
+    ms = {"masked": [], "contrastive": [], "mass": [], "mt": []}
+    metrics = {k: [] for k in ms}
+    stats = {k: v.clone() for k, v in trainer.model.named_buffers()}
+    stats_mass_ok = True
+    reset()
+    torch.cuda.reset_peak_memory_stats()
+    with Recorder() as rec:
+        for i in range(n):
+            trainer._host_step = start - warm + i
+            for kind in ("img", "mass", "mt"):
+                before = ({k: v.clone() for k, v in
+                           trainer.model.named_buffers()}
+                          if kind == "mass" and i == 0 else None)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                if kind == "img":
+                    m = trainer._img_step(imgs.batches[i % 4], "", trainer.rng,
+                                          images=staged_imgs[i % 4])
+                    kind = modes[i]
+                elif kind == "mass":
+                    trainer.state, m = trainer.mass_step(
+                        trainer.state, staged_mass[i % 4], trainer.rng)
+                else:
+                    trainer.state, m = trainer.mt_step(
+                        trainer.state, staged_mt[i % 4], trainer.rng)
+                torch.cuda.synchronize()
+                if i >= warm:
+                    ms[kind].append(1e3 * (time.perf_counter() - t1))
+                metrics[kind].append(m)
+                if before is not None:
+                    stats_mass_ok = all(torch.equal(v, before[k]) for k, v in
+                                        trainer.model.named_buffers())
+    rec.require_checked("image mt", checked_k1, checked_xent)
+    n_img = {k: modes.count(k) for k in ("masked", "contrastive")}
+    want_k1 = (per["masked"] * n_img["masked"]
+               + per["contrastive"] * n_img["contrastive"]
+               + (per["mass"] + per["mt"]) * n)
+    want = (want_k1, want_k1, n, n, 0)
+    got = counts()
+    if got != want:
+        raise AssertionError(
+            f"image mt: (K1 fwd, K1 bwd, K5 fwd, K5 bwd, K2) launches {got} "
+            f"in {n} ticks ({n_img} image steps), want {want}")
+    if len(metrics["masked"]) != n_img["masked"] or not all(
+            n_img[k] >= 1 for k in n_img):
+        raise AssertionError(f"image mt: modes {modes}, steps "
+                             f"{ {k: len(v) for k, v in metrics.items()} }")
+    moved = sum(not torch.equal(v, stats[k])
+                for k, v in trainer.model.named_buffers())
+    if moved != len(stats) or not stats_mass_ok:
+        raise AssertionError(f"image mt: {moved}/{len(stats)} statistics "
+                             "moved by the image steps; a text MASS step "
+                             f"left them alone: {stats_mass_ok}")
+    losses = {k: finite(v) for k, v in metrics.items()}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    total = counts()
+    for kind, v in ms.items():
+        shape = (f"B={B} T={T}" if kind in ("masked", "contrastive")
+                 else f"B={b} S={s}" + (" T=64" if kind == "mt" else ""))
+        log(f"[image mt] {kind} step {shape}: {len(v)} timed steps, "
+            f"{sum(v) / max(len(v), 1):.1f} ms/step (each step synchronised "
+            f"alone: {[round(x, 1) for x in v]}), K1 {per[kind]} + "
+            f"{per[kind]} a step; losses {[round(x, 4) for x in losses[kind]]}"
+            f" ({card})")
+    log(f"[image mt] {n} ticks ({warm} warm-up), modes {modes}: K1 "
+        f"{total[0]} + {total[1]}, K5 {total[2]} + {total[3]} (the text MASS "
+        f"steps), K2 0; {moved}/{len(stats)} BatchNorm statistics moved, "
+        f"none by a text MASS step; peak memory {peak:.2f} GiB ({card})")
+    if profile:
+        def one_tick():
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            trainer._host_step = start
+            trainer._img_step(imgs.batches[0], "", trainer.rng,
+                              images=staged_imgs[0])
+            trainer.state, _ = trainer.mass_step(trainer.state,
+                                                 staged_mass[0], trainer.rng)
+            trainer.state, _ = trainer.mt_step(trainer.state, staged_mt[0],
+                                               trainer.rng)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t1,
+                    f"1 image MT tick ({modes[warm]}, text MASS, MT steps)")
+        _profile(one_tick, "image mt", card)
+
+    # The fine-tune phase through train_epoch: the mass stream
+    # back-translated (a greedy decode through K2, then an MT step) while
+    # image batches keep flowing, then the MT stream; two ticks.
+    n_ticks = 2
+    trainer.reset_for_finetune()
+    dirs = trainer.lang_directions(["aa", "bb"], vocab)
+    img_steps = []
+    for name in ("mm_mass_step", "contrastive_step"):
+        step_fn = getattr(trainer, name)
+
+        def counted(state, batch, rng, _f=step_fn, _n=name):
+            img_steps.append(_n)
+            return _f(state, batch, rng)
+        setattr(trainer, name, counted)
+    reset()
+    step0 = trainer.state.step
+    with Recorder() as rec, counting_decode_steps() as decode_steps, \
+            recording_topk() as seen2, tempfile.TemporaryDirectory() as workdir:
+        t1 = time.perf_counter()
+        step = trainer.train_epoch(
+            100, os.path.join(workdir, "model"),
+            mt_batcher=ArrayBatcher(mts[:n_ticks]),
+            mass_batcher=ArrayBatcher(mass_batches(cfg, n_ticks, b, s,
+                                                   SEED + 14)),
+            img_batcher=imgs, fine_tune=True, lang_directions=dirs,
+            eval_every=10 ** 9, save_every=10 ** 9, log_every=3)
+        torch.cuda.synchronize()
+        epoch_s = time.perf_counter() - t1
+        saved = os.path.exists(os.path.join(workdir, "model.latest",
+                                            "opt_state.msgpack"))
+    rec.require_checked("image mt fine-tune", checked_k1, checked_xent,
+                        want_k5=False)
+    want_modes = [mode(100 + 3 * t + 1) for t in range(n_ticks)]
+    k2_cases = {(M, k) for M, k, _ in k2_random_cases()}
+    got_modes = ["masked" if x == "mm_mass_step" else "contrastive"
+                 for x in img_steps]
+    ft = counts()
+    want_k1 = sum(per[m] for m in want_modes) + n_ticks * (per["bt"]
+                                                           + per["mt"])
+    want = (want_k1, want_k1, 0, 0, decode_steps[0])
+    if (step != 100 + 3 * n_ticks or trainer.state.step != step0 + 3 * n_ticks
+            or not saved or got_modes != want_modes or ft != want
+            or decode_steps[0] == 0 or seen2 - k2_cases):
+        raise AssertionError(
+            f"image mt fine-tune: step {step}, modes {got_modes} (want "
+            f"{want_modes}), launches {ft} with {decode_steps[0]} decode "
+            f"steps, want {want}; .latest saved: {saved}; K2 (M, k) "
+            f"{sorted(seen2)}, those phase 3 held: {sorted(k2_cases)}")
+    log(f"[image mt] fine-tune train_epoch: {n_ticks} ticks of an image "
+        f"step ({got_modes}), a back-translation step (B={b}, greedy decode "
+        f"of {decode_steps[0]} steps in all through K2 at (M, k) "
+        f"{sorted(seen2)}, then an MT step) and "
+        f"an MT step, in {epoch_s:.1f} s: K1 {ft[0]} + {ft[1]}, K5 0, K2 "
+        f"{ft[4]}; .latest written ({card})")
+    fwd, bwd = total[0] + ft[0], total[1] + ft[1]
+    k5 = (total[2], total[3])
+    k2 = ft[4]
+    del trainer, staged_imgs, staged_mass, staged_mt
+    torch.cuda.empty_cache()
+
+    cli = phase_image_mt_cli(corpus, checked_k1, checked_xent)
+    return (fwd + cli[0], bwd + cli[1], k5[0] + cli[2], k5[1] + cli[3],
+            k2 + cli[4])
+
+
+def phase_image_mt_cli(corpus, checked_k1, checked_xent):
+    """Where Pillow is installed: JPEGs and captions ->
+    cli.binarize_captions_from_list; phase 11's monolingual shards;
+    cli.train_mt --train --image --mass_train --fstep --langs from a text
+    checkpoint (grafted into the text core) -> cli.translate on its
+    checkpoint; then mmid_sim over folders of JPEGs. Returns its launches:
+    K1 forward, K1 backward, K5 forward, K5 backward, K2."""
+    try:
+        from PIL import Image
+    except ImportError:
+        log("[image mt cli] Pillow is not installed on this machine: "
+            "cli.train_mt --train -> cli.translate and mmid_sim over JPEGs "
+            "were not run (the phase above ran the same trainer on arrays)")
+        return 0, 0, 0, 0, 0
+    import numpy as np
+
+    from imagetranslate_tpu_torch.cli import binarize_captions_from_list
+    from imagetranslate_tpu_torch.cli.train_mt import main as train_main
+    from imagetranslate_tpu_torch.cli.translate import main as translate_main
+    from imagetranslate_tpu_torch.mmid import mmid_sim
+    from imagetranslate_tpu_torch.ops import topk_project as tkp
+    from imagetranslate_tpu_torch.ops import train_attention as ta
+    from imagetranslate_tpu_torch.ops import xent
+    from imagetranslate_tpu_torch.train.checkpoint import (
+        load_checkpoint,
+        load_variables,
+        save_params,
+    )
+    from imagetranslate_tpu_torch.train.trainer_caption import (
+        image_batch_draws,
+    )
+    from imagetranslate_tpu_torch.train.weights import random_params
+
+    tok, prefix, lines, tp = corpus
+    n_step, n_fstep = 2, 2
+    rng = np.random.RandomState(SEED + 4)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as workdir:
+        folder = os.path.join(workdir, "images")
+        os.makedirs(folder)
+        rows = []
+        for i in range(IMAGE_MT_CLI_CAPTIONS // 2):
+            w, h = 250 + 10 * i, 280 - 5 * i
+            yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+            arr = np.stack([127 + 120 * np.cos(xx / (6 + c + i) + yy / (
+                13 + c)) for c in range(3)], axis=-1).astype(np.uint8)
+            path = os.path.join(folder, f"{i:03d}.jpg")
+            Image.fromarray(arr).save(path)
+            for _ in range(2):
+                rows.append(path + "\t" + " ".join(
+                    WORDS[j] for j in rng.randint(0, len(WORDS),
+                                                  rng.randint(3, 10))))
+        tsv = os.path.join(workdir, "captions.tsv")
+        with open(tsv, "w") as f:
+            f.write("\n".join(rows) + "\n")
+        caps = os.path.join(workdir, "captions.bin")
+        binarize_captions_from_list.main(["--file", tsv, "--output", caps,
+                                          "--tok", tok, "--lang", "en"])
+        cfg = image_mt_config(tp.vocab_size())
+        init = os.path.join(workdir, "init")
+        text = random_params(cfg, SEED + 6)
+        save_params(init, cfg, text)
+        model = os.path.join(workdir, "model")
+        ta.FWD_LAUNCHES = ta.BWD_LAUNCHES = 0
+        xent.FWD_LAUNCHES = xent.BWD_LAUNCHES = tkp.LAUNCHES = 0
+        with Recorder() as rec, counting_decode_steps() as decode_steps:
+            train_main(["--tok", tok, "--model", model, "--pretrained", init,
+                        "--train", caps, "--image", "", "--max-image",
+                        str(CAPTION_CLI_ROWS), "--mass_train", prefix,
+                        "--batch", str(UMT_CLI_BATCH), "--step", str(n_step),
+                        "--fstep", str(n_fstep), "--langs", "en,fa",
+                        "--lr", "0.001", "--warmup", "10", "--device",
+                        "cuda"])
+        rec.require_checked("image mt cli", checked_k1, checked_xent)
+        got = (ta.FWD_LAUNCHES, ta.BWD_LAUNCHES, xent.FWD_LAUNCHES,
+               xent.BWD_LAUNCHES, tkp.LAUNCHES)
+        E, D = cfg.enc_layers, cfg.dec_layers
+        per = {"masked": E + 4 * D, "contrastive": 2 * E}
+        # Ticks of an image step (host step k + 1 draws with key k + 2) and
+        # a MASS step; in the fine-tune phase a back-translation step.
+        modes = [image_batch_draws("mixed", 0.5, k + 2)[0] for k in (0, 2)]
+        k1 = sum(per[m] for m in modes) + 2 * (E + 2 * D)
+        want = (k1, k1, 1, 1, decode_steps[0])
+        if got != want or decode_steps[0] == 0:
+            raise AssertionError(
+                f"image mt cli: (K1 fwd, K1 bwd, K5 fwd, K5 bwd, K2) "
+                f"launches {got}, want {want} (image steps {modes}, one "
+                "MASS and one back-translation step)")
+        latest = model + ".latest"
+        _, opt_tree, meta = load_checkpoint(latest, with_opt_state=True)
+        saved = load_variables(latest)
+        if (meta["step"] != n_step + n_fstep or opt_tree is None
+                or "image_model" not in saved["params"]
+                or "batch_stats" not in saved):
+            raise AssertionError(f"image mt cli checkpoint: meta {meta}, "
+                                 f"{sorted(saved)}")
+        inp, out = (os.path.join(workdir, n) for n in ("in.txt", "out.txt"))
+        with open(inp, "w") as f:
+            f.write("\n".join(lines[:20]) + "\n")
+        tkp.LAUNCHES = 0
+        translate_main(["--tok", tok, "--model", latest, "--input", inp,
+                        "--output", out, "--src", "en", "--target", "fa",
+                        "--device", "cuda"])
+        with open(out) as f:
+            hyps = f.read().splitlines()
+        if len(hyps) != 20 or tkp.LAUNCHES == 0:
+            raise AssertionError(f"translate wrote {len(hyps)} lines with "
+                                 f"{tkp.LAUNCHES} K2 launches")
+        cli_s = time.perf_counter() - t0
+        log(f"[image mt cli] {len(rows)} captions of "
+            f"{IMAGE_MT_CLI_CAPTIONS // 2} JPEGs + 2 x {len(lines)} "
+            f"monolingual lines -> cli.train_mt --train --mass_train "
+            f"--pretrained (a text checkpoint grafted into the core; 768, "
+            f"6+6, ResNet-18 at 224): image steps {modes}, 1 MASS and 1 "
+            f"back-translation step, K1 {got[0]} + {got[1]}, K5 {got[2]} + "
+            f"{got[3]}, K2 {got[4]} -> cli.translate: 20 lines with "
+            f"{tkp.LAUNCHES} K2 launches, in {cli_s:.1f} s, e.g. {hyps[0]!r}")
+
+        # mmid_sim: two foreign word folders against an English letter
+        # folder of two word folders.
+        t1 = time.perf_counter()
+        names = {"foreign": ("gato", "perro"), "en/c": ("cat", "dog")}
+        for root, words in names.items():
+            for k, word in enumerate(words):
+                d = os.path.join(workdir, "mmid", root, word)
+                os.makedirs(d)
+                for j in range(3):
+                    arr = rng.randint(0, 256, (180 + 20 * j, 240, 3)).astype(
+                        np.uint8)
+                    Image.fromarray(arr).save(os.path.join(d, f"{j}.jpg"))
+        sims = os.path.join(workdir, "sims.tsv")
+        mmid_sim.main(["--foreign", os.path.join(workdir, "mmid", "foreign"),
+                       "--en", os.path.join(workdir, "mmid", "en"),
+                       "--output", sims, "--device", "cuda"])
+        with open(sims) as f:
+            pairs = [ln.split("\t") for ln in f.read().splitlines()]
+        if len(pairs) != 4 or not all(-1.0 <= float(p[2]) <= 1.0
+                                      for p in pairs):
+            raise AssertionError(f"mmid_sim wrote {pairs}")
+        log(f"[image mt cli] mmid_sim over 2 foreign and 2 English folders "
+            f"of 3 JPEGs (ResNet-18 at 224, 512 wide): {len(pairs)} pairs, "
+            f"avg-max cosines {[round(float(p[2]), 4) for p in pairs]}, in "
+            f"{time.perf_counter() - t1:.1f} s")
+    return got
+
 
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "imagetranslate_tpu_torch")):
@@ -3800,10 +4332,11 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as umt_dir:
         corpus = prepare_umt_corpus(umt_dir)
         cli_k1, cli_k5 = umt_cli_shapes(corpus[3].vocab_size())
+        mt_k1, mt_k5 = image_mt_shapes()
         attn_fwd, attn_bwd, checked = phase_kernel_attention(
-            cli_k1 + caption_train_k1_shapes())
+            cli_k1 + caption_train_k1_shapes() + mt_k1)
         done("6")
-        xent_fwd, xent_bwd, checked_xent = phase_kernel_xent(cli_k5)
+        xent_fwd, xent_bwd, checked_xent = phase_kernel_xent(cli_k5 + mt_k5)
         flash, checked_flash = phase_kernel_flash([long_cli_shape()])
         dec_attn, checked_k4 = phase_kernel_decode_attention(
             decode_path_shapes())
@@ -3820,6 +4353,11 @@ def main() -> int:
         caption_k2 += ct_k2
         torch.cuda.empty_cache()
         done("19")
+        im_fwd, im_bwd, im_k5f, im_k5b, im_k2 = phase_image_mt(
+            card, profile, checked, checked_xent, corpus)
+        caption_k2 += im_k2
+        torch.cuda.empty_cache()
+        done("20")
         fwd_launches, bwd_launches = phase_train(card, profile, checked,
                                                  checked_xent)
         torch.cuda.empty_cache()
@@ -3827,6 +4365,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         done("7-8")
         xent_launches = phase_umt_train(card, checked, checked_xent)
+        xent_launches = (xent_launches[0] + im_k5f,
+                         xent_launches[1] + im_k5b)
         torch.cuda.empty_cache()
         phase_umt_cli(umt_dir, corpus, checked, checked_xent)
         torch.cuda.empty_cache()
@@ -3835,8 +4375,8 @@ def main() -> int:
         lm_k3, lm_fwd, lm_bwd = phase_lm(card, profile, checked_flash,
                                          checked)
         flash_launches += lm_k3
-        fwd_launches += lm_fwd + ct_fwd
-        bwd_launches += lm_bwd + ct_bwd
+        fwd_launches += lm_fwd + ct_fwd + im_fwd
+        bwd_launches += lm_bwd + ct_bwd + im_bwd
         phase_lm_cli(umt_dir, corpus)
         done("13-15")
     attn_src = "imagetranslate_tpu_torch/csrc/train_attention.cu"

@@ -8,12 +8,14 @@ the same flags and defaults, plus ``--device``.
 ``--lm`` starts the text core from an MT checkpoint; ``--train_mt`` adds the
 MT stream (its batch and capacity budgets halved); ``--obj --obj-feats
 detections.npz`` trains the object stream from precomputed detections.
+``--mmode masked|contrastive|mixed`` trains the multimodal image streams
+(multimodal MASS with a span rate drawn from U(``--mask``, 1), image-text
+InfoNCE, or a coin per batch) in place of plain captioning.
 ``--pretrained`` is parsed and not used, as in the JAX CLI. Checkpoints are
 the JAX package's captioning layout, so ``cli.caption`` of either package
 captions with what this one trained.
 
-``--mmode`` (the multimodal image streams: ROADMAP module 9b) and a
-non-empty ``--mesh`` (ROADMAP module 14) stop the run with a message.
+A non-empty ``--mesh`` (ROADMAP module 14) stops the run with a message.
 """
 
 from __future__ import annotations
@@ -66,7 +68,8 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument("--dtype", default="bfloat16")
     p.add_argument("--mmode", dest="mm_mode", default=None,
                    choices=[None, "mixed", "masked", "contrastive"],
-                   help="multimodal image-stream mode (not ported yet)")
+                   help="multimodal image-stream mode; default: plain "
+                        "captioning")
     p.add_argument("--mask", dest="mask_prob", type=float, default=0.5,
                    help="the multimodal MASS span rate (with --mmode)")
     p.add_argument("--obj", dest="use_obj", action="store_true",
@@ -82,9 +85,6 @@ def get_parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     options = get_parser().parse_args(argv)
-    if options.mm_mode is not None:
-        raise SystemExit(f"--mmode {options.mm_mode} is not ported yet (the "
-                         "multimodal image streams: ROADMAP module 9b)")
     if options.mesh_spec:
         raise SystemExit("--mesh is not ported yet (multi-device training: "
                          "ROADMAP module 14)")
@@ -143,7 +143,8 @@ def main(argv=None):
         cfg, tp, lr=options.learning_rate, warmup=options.warmup,
         clip=options.clip, accum=options.accum, beam_width=options.beam_width,
         len_penalty_ratio=options.len_penalty_ratio,
-        mtl_weight=options.mtl_weight, device=options.device, **kw)
+        mtl_weight=options.mtl_weight, mm_mode=options.mm_mode,
+        mask_prob=options.mask_prob, device=options.device, **kw)
 
     if options.lm_path is not None:
         trainer.graft_mt_model(load_params(options.lm_path))

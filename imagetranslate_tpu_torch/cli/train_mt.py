@@ -14,6 +14,14 @@ then ``--fstep`` steps of back-translation between the two ``--langs``:
 ``--lm LMDIR`` starts the embeddings, the encoder and (when it is untied) the
 output layer from a checkpoint of ``cli.train_lm``.
 
+Multimodal MT: ``--train CAPTIONS.bin --image IMGDIR`` adds an image-caption
+stream (``ImageMTTrainer``), trained by ``--mmode`` ("mixed", "masked":
+multimodal MASS, "contrastive": image-text InfoNCE), with ``--img-depth`` the
+ResNet; in the ``--fstep`` phase the image batches keep flowing beside
+back-translation. ``--pretrained`` then takes a multimodal checkpoint, or a
+text one whose weights become the text core. ``--lm`` with ``--train`` is
+refused (the JAX CLI ignores ``--lm`` there).
+
 Checkpoints are the JAX package's directory layout, so either package resumes
 from and translates with what the other trained. A flag whose path is not
 ported yet stops the run with a message that names the ROADMAP module.
@@ -22,18 +30,13 @@ ported yet stops the run with a message that names the ROADMAP module.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 
 # dest -> (flag, where the path is planned), for flags that are parsed (the
 # command lines stay interchangeable) but whose path is not ported: any value
 # but the flag's default stops the run.
 UNPORTED = {
-    "train_path": ("--train", "the image stream: ROADMAP module 9"),
-    "image_dir": ("--image", "the image stream: ROADMAP module 9"),
-    "img_capacity": ("--img_capacity", "the image stream: ROADMAP module 9"),
-    "max_image": ("--max-image", "the image stream: ROADMAP module 9"),
-    "resnet_depth": ("--img-depth", "the image encoder: ROADMAP module 9"),
-    "mm_mode": ("--mmode", "the image stream: ROADMAP module 9"),
     "moe_experts": ("--moe-experts", "MoE FFN: ROADMAP module 13"),
     "moe_top_k": ("--moe-top-k", "MoE FFN: ROADMAP module 13"),
     "mesh_spec": ("--mesh", "multi-device training: ROADMAP module 14"),
@@ -123,6 +126,13 @@ def get_parser() -> argparse.ArgumentParser:
 def main(argv=None):
     parser = get_parser()
     options = parser.parse_args(argv)
+    if options.train_path is not None and options.pp_microbatches:
+        raise SystemExit("--pp-microbatches supports the text MT/MASS "
+                         "trainer only (the image trainer's multimodal "
+                         "forward is not pipelined)")
+    if options.train_path is not None and options.lm_path is not None:
+        raise SystemExit("--lm with --train: the image trainer starts from "
+                         "--pretrained (the JAX CLI ignores --lm there)")
     for dest, (flag, where) in UNPORTED.items():
         if getattr(options, dest) != parser.get_default(dest):
             raise SystemExit(f"{flag} is not ported yet ({where})")
@@ -145,9 +155,17 @@ def main(argv=None):
         load_checkpoint,
         load_config,
         load_params,
+        load_variables,
+    )
+    from imagetranslate_tpu_torch.train.trainer_image_mt import (
+        ImageMTTrainer,
     )
     from imagetranslate_tpu_torch.train.trainer_mt import MTTrainer
-    from imagetranslate_tpu_torch.train.weights import opt_state_from_flax
+    from imagetranslate_tpu_torch.train.weights import (
+        CAPTION_PARAMS,
+        SEQ2SEQ,
+        opt_state_from_flax,
+    )
 
     tp = TextProcessor(options.tokenizer_path)
     if tp.pad_token_id() != 0:
@@ -157,6 +175,8 @@ def main(argv=None):
 
     if options.pretrained_path is not None:
         cfg = load_config(options.pretrained_path)
+        if options.train_path is not None:
+            cfg = dataclasses.replace(cfg, resnet_depth=options.resnet_depth)
     else:
         cfg = Seq2SeqConfig(
             vocab_size=tp.vocab_size(),
@@ -190,14 +210,19 @@ def main(argv=None):
                              f"has no language token for {missing} (it has "
                              f"{sorted(tp.languages)})")
 
-    trainer = MTTrainer(
-        cfg, tp, lr=options.learning_rate, warmup=options.warmup,
+    trainer_kwargs = dict(
+        lr=options.learning_rate, warmup=options.warmup,
         clip=options.clip, accum=options.accum, mask_prob=options.mask_prob,
         beam_width=options.beam_width, bt_beam_width=options.bt_beam_width,
         max_len_a=options.max_len_a, max_len_b=options.max_len_b,
         len_penalty_ratio=options.len_penalty_ratio,
         label_smoothing=0.0 if options.nll_loss else 0.1,
         device=options.device)
+    if options.train_path is not None:
+        trainer = ImageMTTrainer(cfg, tp, mm_mode=options.mm_mode,
+                                 **trainer_kwargs)
+    else:
+        trainer = MTTrainer(cfg, tp, **trainer_kwargs)
 
     if options.lm_path is not None:
         lm = load_params(options.lm_path)["params"]
@@ -215,10 +240,22 @@ def main(argv=None):
     if options.pretrained_path is not None:
         params, opt_tree, meta = load_checkpoint(
             options.pretrained_path, with_opt_state=options.continue_train)
-        trainer.set_reference_params(params)
+        bridge = SEQ2SEQ
+        if options.train_path is not None:
+            variables = load_variables(options.pretrained_path)
+            if "image_model" in variables.get("params", {}):
+                # A multimodal checkpoint: every weight and statistic.
+                params, bridge = variables, CAPTION_PARAMS
+            else:
+                # A text model (the MASS-then-multimodal recipe): its
+                # weights become the text core; the rest stays as drawn.
+                trainer.graft_mt_model(params)
+                params = opt_tree = None
+        if params is not None:
+            trainer.set_reference_params(params)
         if opt_tree is not None:
             trainer.state.opt_state = opt_state_from_flax(
-                opt_tree, trainer.optimizer, cfg, trainer.device)
+                opt_tree, trainer.optimizer, cfg, trainer.device, bridge)
         print(f"Restored pretrained model (step {meta.get('step', 0)})")
 
     pad = tp.pad_token_id()
@@ -263,6 +300,16 @@ def main(argv=None):
                 "an empty stream")
         print(f"MASS train batches: {len(mass_batcher)}")
 
+    img_batcher = None
+    if options.train_path is not None:
+        from imagetranslate_tpu_torch.data.images import CaptionBatcher
+
+        img_batcher = CaptionBatcher(options.train_path, tp,
+                                     max_capacity_mb=options.img_capacity,
+                                     max_img_per_batch=options.max_image,
+                                     bucket_step=options.bucket_step)
+        print(f"Image caption batches: {len(img_batcher)}")
+
     dev_batcher = None
     if options.mt_dev_path is not None:
         dev_batcher = batcher(
@@ -279,6 +326,7 @@ def main(argv=None):
         step = trainer.train_epoch(
             step, options.model_path, mt_batcher=mt_batcher,
             mass_batcher=mass_batcher, dev_batcher=dev_batcher,
+            img_batcher=img_batcher, image_root=options.image_dir,
             max_step=options.step, eval_every=options.eval_every,
             save_every=options.save_every, epoch_seed=epoch)
         if step == step_before:
@@ -306,6 +354,7 @@ def main(argv=None):
             step = trainer.train_epoch(
                 step, options.model_path, mt_batcher=mt_batcher,
                 mass_batcher=mass_batcher, dev_batcher=dev_batcher,
+                img_batcher=img_batcher, image_root=options.image_dir,
                 max_step=options.finetune_step + options.step,
                 fine_tune=True, lang_directions=lang_directions,
                 eval_every=options.eval_every, save_every=options.save_every,

@@ -1,8 +1,9 @@
 """Image captioning model (port of
 imagetranslate_tpu/models/captioning.py::ImageSeq2Seq: every parameter of the
 flax tree; ``encode``/``encode_text``, ``encode_images`` (also in training
-mode), ``encode_objects``; the training forwards ``caption_forward`` and
-``caption_forward_with_objects`` and the MT passthrough ``forward``;
+mode), ``encode_objects``; the training forwards ``caption_forward``,
+``caption_forward_with_objects`` and ``multimodal_mass_forward``, the
+``contrastive_loss`` and the MT passthrough ``forward``;
 ``init_cache``/``decode_step``, ``init_dual_cache``/``decode_step_dual`` and
 ``init_obj_dual_cache``/``decode_step_obj_dual``).
 
@@ -19,9 +20,8 @@ of ``lang_dec`` are plain indexing, as in ``models/seq2seq.py``. The caches
 are updated in place: a decode step returns its logits (or the project_topk
 triple) only. Dropout in the training forwards sits where
 ``models/transformer.py`` puts it, plus the ResNet grid's two sites, all
-drawn from one ``dropout_stream``. The multimodal forwards
-(``multimodal_mass_forward``, ``contrastive_loss``), ``decode_step_beams``
-and the windowed caches are not ported (ROADMAP module 9b).
+drawn from one ``dropout_stream``. ``decode_step_beams`` and the windowed
+caches are TPU scheduling devices and are not ported.
 """
 
 from __future__ import annotations
@@ -210,6 +210,71 @@ class ImageSeq2Seq(nn.Module):
             main_out.dtype)
         return self.core.project(gate * main_out + (1.0 - gate) * obj_out,
                                  lang_idx)
+
+    def multimodal_mass_forward(self, images, src_ids, src_mask, src_langs,
+                                dec_inputs, dec_mask, tgt_positions,
+                                train: bool = False,
+                                deterministic: bool = True, rng=None):
+        """MASS over captions with the image stream blended in: the span
+        (``dec_inputs``, at ``tgt_positions``) is decoded against the
+        corrupted caption's encoding and against the image grid, and the two
+        decoder outputs are blended by sigmoid(multimodal gate + 1e-7)
+        before the one vocab projection. fp32 logits [B, W-1, V]."""
+        drop = dropout_stream(deterministic, rng, src_ids.device)
+        enc_states = self.core.encode(src_ids, src_mask, src_langs,
+                                      deterministic, rng=drop)
+        grid = self.encode_images(images, train, deterministic, rng=drop)
+        lang_idx, _, _, x, self_bias = self._text_in(
+            dec_inputs, dec_mask, src_langs, tgt_positions, drop)
+        dec = self.core._decoder(lang_idx)
+        text_out = dec(x, enc_states, self_bias, pad_bias(src_mask), drop)
+        grid_mask = torch.ones(grid.shape[:2], dtype=torch.bool,
+                               device=grid.device)
+        img_out = dec(x, grid, self_bias, pad_bias(grid_mask), drop)
+        gate = torch.sigmoid(self.multimodal_attention_gate + 1e-7).to(
+            text_out.dtype)
+        return self.core.project(gate * text_out + (1.0 - gate) * img_out,
+                                 lang_idx)
+
+    def contrastive_loss(self, images, captions, caption_mask, langs,
+                         neg_samples, neg_mask, neg_langs,
+                         train: bool = False, deterministic: bool = True,
+                         row_mask=None, rng=None):
+        """InfoNCE between the attention-pooled image grid and the pooled
+        caption encodings, the text negatives as extra columns: a scalar,
+        the mean over the rows ``row_mask`` keeps (all rows when None).
+        Padding rows leave the anchors and the in-batch negative columns;
+        their columns take -1e9, not -inf, whose 0-weighted product would
+        be NaN."""
+        drop = dropout_stream(deterministic, rng, captions.device)
+        enc = self.core.encode(captions, caption_mask, langs, deterministic,
+                               rng=drop)
+        pos_vec = self.encoder_attention(enc, caption_mask)
+        neg_enc = self.core.encode(neg_samples, neg_mask, neg_langs,
+                                   deterministic, rng=drop)
+        neg_vec = self.encoder_attention(neg_enc, neg_mask)
+        text_vecs = torch.cat([pos_vec, neg_vec], dim=0)
+        grid = self.encode_images(images, train, deterministic, rng=drop)
+        img_vec = self.image_attention(grid, None)
+
+        def l2norm(v):
+            v = v.to(torch.float32)
+            return v / (torch.linalg.vector_norm(v, dim=-1, keepdim=True)
+                        + 1e-4)
+
+        cross = l2norm(img_vec) @ l2norm(text_vecs).T        # [B, B + N]
+        B = pos_vec.shape[0]
+        if row_mask is not None:
+            col_keep = torch.cat([row_mask, torch.ones(
+                neg_vec.shape[0], dtype=torch.bool, device=row_mask.device)])
+            cross = torch.where(col_keep[None, :], cross, -1e9)
+        denom = torch.log(torch.sum(torch.exp(cross), dim=-1) + 1e-4)
+        nom = torch.diagonal(cross[:, :B]) + 1e-4
+        if row_mask is None:
+            return torch.sum(denom - nom) / B
+        per = torch.where(row_mask, denom - nom, 0.0)
+        return torch.sum(per) / torch.clamp(
+            torch.sum(row_mask.to(torch.float32)), min=1.0)
 
     def forward(self, *args, **kw):
         """The text model's forward (the MT stream of multi-task

@@ -5,8 +5,10 @@ Per row of length L (the index of its first pad):
 
 - span length = L // 2 (``mask_prob`` only bounds where the span may start);
 - span start: 20% of rows at 1, 20% at last_idx = max(ceil(mask_prob * L),
-  2), 60% uniform in [2, last_idx] inclusive; then clamped so that the span
-  stays inside the row (start <= L - 1, end = min(start + L // 2, L));
+  2) (in float32), 60% uniform in [2, last_idx] inclusive; then clamped so
+  that the span stays inside the row (start <= L - 1,
+  end = min(start + L // 2, L), also when ``mask_prob`` > 0.5 puts
+  start + L // 2 past L);
 - span tokens corrupted 80/10/10: <mask> / a random non-special token /
   unchanged;
 - decoder input = [token before the span] + span, padded to ``span_width``
@@ -27,6 +29,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 
@@ -55,7 +58,15 @@ class MLMDraws(NamedTuple):
     rand_tok: torch.Tensor     # [B, S]
 
 
-def _last_idx(lengths: torch.Tensor, mask_prob: float) -> torch.Tensor:
+def _last_idx(lengths: torch.Tensor, mask_prob) -> torch.Tensor:
+    """max(ceil(L * mask_prob), 2), the product in float32 as the JAX step
+    takes it: ``mask_prob`` (a float or a 0-dim tensor) is rounded to
+    float32 first, so that a start at the boundary of a ceil is the
+    same."""
+    if isinstance(mask_prob, torch.Tensor):
+        mask_prob = mask_prob.to(torch.float32)
+    else:
+        mask_prob = float(np.float32(mask_prob))
     last = torch.ceil(lengths.to(torch.float32) * mask_prob).to(torch.int32)
     return torch.clamp(last, min=2)
 

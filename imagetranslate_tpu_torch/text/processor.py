@@ -176,6 +176,10 @@ class TextProcessor:
     def id2token(self, i: int) -> str:
         return self.tokenizer.id_to_tok.get(int(i))
 
+    def lang_id(self, tok: str) -> int:
+        """The language index of a ``<lang>`` token (0 when unknown)."""
+        return self.languages.get(tok, 0)
+
     def pad_token_id(self) -> int:
         return self.tokenizer.token_to_id("<pad>")
 

@@ -3,8 +3,9 @@ imagetranslate_tpu/train/step.py: TrainState, create_train_state, wrap_accum,
 make_mt_train_step for padded and packed batches, make_mass_train_step,
 make_mlm_train_step, make_mlm_eval_step, CaptionTrainState,
 create_caption_train_state, make_caption_train_step,
-make_caption_obj_train_step, make_caption_mt_train_step, and the batch staging
-helpers).
+make_caption_obj_train_step, make_caption_mt_train_step, the multimodal
+steps make_multimodal_mass_step, make_text_mass_step_mm and
+make_contrastive_step, and the batch staging helpers).
 
 The JAX step is a pure function of an immutable state. Here the parameters
 are the model's own ``nn.Parameter``s and the step updates them, and the
@@ -67,18 +68,23 @@ def _loss_impl(model) -> Callable:
     return smoothed_nll_loss
 
 
-def _update(state, optimizer: Optimizer, sum_l, n, weight: float = 1.0):
-    """Backward of weight * sum_l / n, the optimizer update in place, the
-    metrics (the unweighted sum)."""
+def _descend(state, optimizer: Optimizer, objective) -> None:
+    """Backward of the scalar ``objective``, the optimizer update in
+    place."""
     params = list(state.params.values())
-    grads = torch.autograd.grad(weight * sum_l / n, params,
-                                allow_unused=True)
+    grads = torch.autograd.grad(objective, params, allow_unused=True)
     # A parameter the batch did not reach (another language's decoder)
     # gets a zero gradient, as jax.grad gives it.
     grads = [torch.zeros_like(p) if g is None else g
              for p, g in zip(params, grads)]
     optimizer.update(grads, state.opt_state, state.params)
     state.step += 1
+
+
+def _update(state, optimizer: Optimizer, sum_l, n, weight: float = 1.0):
+    """Backward of weight * sum_l / n, the optimizer update in place, the
+    metrics (the unweighted sum)."""
+    _descend(state, optimizer, weight * sum_l / n)
     return state, {"sum_loss": sum_l.detach(), "ntokens": n}
 
 
@@ -267,31 +273,40 @@ def create_caption_train_state(model, optimizer: Optimizer
 
 
 def _caption_update(state: CaptionTrainState, optimizer: Optimizer, logits,
-                    batch, label_smoothing: float):
-    """The caption steps' loss: ``smoothed_nll_loss`` itself, never the
-    fused kernels (the JAX steps call it directly, whatever
+                    targets, mask, label_smoothing: float,
+                    weight: float = 1.0):
+    """The caption-family steps' loss: ``smoothed_nll_loss`` itself, never
+    the fused kernels (the JAX steps call it directly, whatever
     ``use_pallas_xent`` says)."""
-    mask = batch["caption_mask"][:, 1:] & batch["row_mask"][:, None]
-    sum_l, n = smoothed_nll_loss(logits, batch["captions"][:, 1:], mask,
+    sum_l, n = smoothed_nll_loss(logits, targets, mask,
                                  epsilon=label_smoothing)
-    return _update(state, optimizer, sum_l, torch.clamp(n, min=1.0))
+    return _update(state, optimizer, sum_l, torch.clamp(n, min=1.0), weight)
+
+
+def _caption_targets(batch):
+    """(captions[:, 1:], their loss mask)."""
+    return (batch["captions"][:, 1:],
+            batch["caption_mask"][:, 1:] & batch["row_mask"][:, None])
 
 
 def make_caption_train_step(model, optimizer: Optimizer,
-                            label_smoothing: float = 0.1) -> Callable:
+                            label_smoothing: float = 0.1,
+                            loss_weight: float = 1.0) -> Callable:
     """Captioning step: captions decoded against the image grid, the
-    label-smoothed loss on captions[:, 1:], the ResNet in training mode (its
-    running statistics move). Returns ``step_fn(state, batch, rng) ->
-    (state, metrics)``: ``batch`` as ``caption_batch_to_device`` stages it,
-    ``rng`` the host torch.Generator of the dropout seeds."""
+    label-smoothed loss on captions[:, 1:] (its gradient scaled by
+    ``loss_weight``), the ResNet in training mode (its running statistics
+    move). Returns ``step_fn(state, batch, rng) -> (state, metrics)``:
+    ``batch`` as ``caption_batch_to_device`` stages it, ``rng`` the host
+    torch.Generator of the dropout seeds."""
 
     def step_fn(state: CaptionTrainState, batch: Dict[str, torch.Tensor],
                 rng: torch.Generator):
         logits = model.caption_forward(
             batch["images"], batch["captions"], batch["caption_mask"],
             batch["langs"], train=True, deterministic=False, rng=rng)
-        return _caption_update(state, optimizer, logits, batch,
-                               label_smoothing)
+        return _caption_update(state, optimizer, logits,
+                               *_caption_targets(batch), label_smoothing,
+                               loss_weight)
 
     return step_fn
 
@@ -308,8 +323,8 @@ def make_caption_obj_train_step(model, optimizer: Optimizer,
             batch["images"], batch["box_features"], batch["object_labels"],
             batch["captions"], batch["caption_mask"], batch["langs"],
             train=True, deterministic=False, rng=rng)
-        return _caption_update(state, optimizer, logits, batch,
-                               label_smoothing)
+        return _caption_update(state, optimizer, logits,
+                               *_caption_targets(batch), label_smoothing)
 
     return step_fn
 
@@ -331,6 +346,80 @@ def make_caption_mt_train_step(model, optimizer: Optimizer,
                                      epsilon=label_smoothing)
         return _update(state, optimizer, sum_l, torch.clamp(n, min=1.0),
                        mtl_weight)
+
+    return step_fn
+
+
+def make_multimodal_mass_step(model, optimizer: Optimizer, cfg,
+                              n_specials: int = 5, mask_id: int = 3,
+                              label_smoothing: float = 0.1) -> Callable:
+    """MASS over an image batch: a span of each caption corrupted on the
+    device, then decoded against both the corrupted caption's encoding and
+    the image grid, blended by the multimodal gate; the ResNet in training
+    mode (its running statistics move).
+
+    Returns ``step_fn(state, batch, rng, draws=None) -> (state, metrics)``.
+    ``batch``: ``caption_batch_to_device``'s dict plus ``lengths`` [B] and
+    ``mask_prob`` (drawn per batch from U(mask_prob, 1) by the trainers, a
+    float, rounded to float32 where it is used). ``draws``: a ``MassDraws``
+    to use in place of drawing (the tests feed the JAX package's draws)."""
+
+    def step_fn(state: CaptionTrainState, batch: Dict[str, torch.Tensor],
+                rng: torch.Generator, draws: Optional[MassDraws] = None):
+        caps = batch["captions"]
+        drop = DropoutRng(rng, caps.device)
+        if draws is None:
+            draws = draw_mass(drop.dev, caps, batch["lengths"],
+                              batch["mask_prob"], n_specials=n_specials,
+                              vocab_size=cfg.vocab_size)
+        masked = mass_mask_core(
+            draws, caps, batch["lengths"], batch["mask_prob"],
+            mask_id=mask_id, pad_id=cfg.pad_id,
+            span_width=caps.shape[1] // 2 + 1)
+        dec_mask = masked.dec_inputs != cfg.pad_id
+        logits = model.multimodal_mass_forward(
+            batch["images"], masked.src, batch["caption_mask"],
+            batch["langs"], masked.dec_inputs, dec_mask, masked.positions,
+            train=True, deterministic=False, rng=drop)
+        mask = dec_mask[:, 1:] & batch["row_mask"][:, None]
+        return _caption_update(state, optimizer, logits,
+                               masked.dec_inputs[:, 1:], mask,
+                               label_smoothing)
+
+    return step_fn
+
+
+def make_text_mass_step_mm(model, optimizer: Optimizer, cfg,
+                           mask_prob: float = 0.5, n_specials: int = 5,
+                           mask_id: int = 3,
+                           label_smoothing: float = 0.1) -> Callable:
+    """Text MASS batches of the multimodal trainer: ``make_mass_train_step``
+    over the captioner's text core (its forward is the core's), the fused
+    cross-entropy under ``use_pallas_xent``; the span never reaches the
+    ResNet, so its statistics stay as they are."""
+    return make_mass_train_step(model, optimizer, cfg, mask_prob=mask_prob,
+                                n_specials=n_specials, mask_id=mask_id,
+                                label_smoothing=label_smoothing)
+
+
+def make_contrastive_step(model, optimizer: Optimizer) -> Callable:
+    """Image-text InfoNCE step (``ImageSeq2Seq.contrastive_loss``, the
+    ResNet in training mode). ``batch``: ``caption_batch_to_device``'s dict
+    plus the text negatives ``neg`` [N, Tn], ``neg_mask`` and ``neg_langs``
+    [N]. The metrics count rows: ``sum_loss`` = loss * B, ``ntokens`` = B
+    (all B rows, padding included)."""
+
+    def step_fn(state: CaptionTrainState, batch: Dict[str, torch.Tensor],
+                rng: torch.Generator):
+        loss = model.contrastive_loss(
+            batch["images"], batch["captions"], batch["caption_mask"],
+            batch["langs"], batch["neg"], batch["neg_mask"],
+            batch["neg_langs"], train=True, deterministic=False,
+            row_mask=batch.get("row_mask"), rng=rng)
+        _descend(state, optimizer, loss)
+        n = torch.tensor(float(batch["captions"].shape[0]),
+                         device=loss.device)
+        return state, {"sum_loss": loss.detach() * n, "ntokens": n}
 
     return step_fn
 

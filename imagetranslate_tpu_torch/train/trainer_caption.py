@@ -12,6 +12,11 @@ two-slot checkpoints).
   with an ``ObjectStore`` the grid + object decoders
   (``make_caption_obj_train_step``); the ResNet trains in batch-statistics
   mode and its running statistics move;
+- with ``mm_mode`` a caption batch trains a multimodal stream instead:
+  "masked" (multimodal MASS, its span rate drawn per batch from
+  U(``mask_prob``, 1)), "contrastive" (InfoNCE against sampled text
+  negatives) or "mixed" (a coin per batch); the host draws are keyed on the
+  step counter (``image_batch_draws``);
 - telemetry every ``log_every`` steps through ``AsyncStepMeter``, caption
   BLEU every ``eval_every``, a rolling ``.latest`` checkpoint every
   ``save_every`` and at epoch end, the best-BLEU checkpoint in the model
@@ -21,16 +26,16 @@ The model holds fp32 master parameters and computes in ``cfg.dtype``. The
 dev decode runs on the same model: each weight is cast to the compute dtype
 where it is used, so under a bf16 config the projection + top-k kernel and
 (with ``decode_attention_impl="fused"``) the decode attention kernel launch.
-One device: a mesh is refused (ROADMAP module 14), and so are the multimodal
-image streams, ``mm_mode`` (ROADMAP module 9b).
+One device: a mesh is refused (ROADMAP module 14).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
+import random
 from collections import defaultdict
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -62,6 +67,8 @@ from imagetranslate_tpu_torch.train.step import (
     make_caption_mt_train_step,
     make_caption_obj_train_step,
     make_caption_train_step,
+    make_contrastive_step,
+    make_multimodal_mass_step,
     mt_batch_to_device,
     wrap_accum,
 )
@@ -73,24 +80,86 @@ from imagetranslate_tpu_torch.train.weights import (
 )
 
 
-class CaptionTrainer:
+def image_batch_draws(mm_mode: str, mask_prob: float, key: int
+                      ) -> Tuple[str, Optional[float]]:
+    """The host draws of one multimodal image batch, from
+    ``random.Random(0x9E3779B9 ^ key)`` (``key``: the trainer's step
+    counter, so that every process of a run draws the same): the mode ("mixed"
+    flips a coin between "masked" and "contrastive") and, for "masked", the
+    span rate drawn from U(``mask_prob``, 1), rounded to float32 as the JAX
+    trainers send it."""
+    host_rnd = random.Random(0x9E3779B9 ^ key)
+    mode = mm_mode
+    if mode == "mixed":
+        mode = "masked" if host_rnd.random() <= 0.5 else "contrastive"
+    if mode != "masked":
+        return mode, None
+    return mode, float(np.float32(host_rnd.uniform(mask_prob, 1.0)))
+
+
+def add_negatives(batch: Dict[str, torch.Tensor], negs: np.ndarray,
+                  lang: int, pad_id: int, device) -> None:
+    """The contrastive step's text negatives, in the batch's language."""
+    batch["neg"] = torch.as_tensor(negs).to(device)
+    batch["neg_mask"] = batch["neg"] != pad_id
+    batch["neg_langs"] = torch.full((negs.shape[0],), lang,
+                                    dtype=torch.int32, device=device)
+
+
+class CaptionVariables:
+    """The weights of a trainer of an ``ImageSeq2Seq`` held as fp32 masters
+    in ``self.model``: flax-layout ``{"params", "batch_stats"}`` in and out,
+    an MT model grafted into the text core, checkpoints with the Adam
+    state."""
+
+    def set_reference_variables(self, variables, step: int = 0):
+        """Replace the weights and the BatchNorm statistics from a
+        flax-layout ``{"params", "batch_stats"}`` tree and reset the
+        optimizer state to match; ``step`` re-seats the LR schedule."""
+        self.model.load_state_dict(
+            CAPTION.state_dict_from_flax(variables, self.cfg), strict=True)
+        self.state = create_caption_train_state(self.model, self.optimizer)
+        if step:
+            set_schedule_step(self.state.opt_state, step)
+
+    def graft_mt_model(self, mt_params):
+        """Copy a pretrained ``Seq2Seq`` parameter tree (``{"params": ...}``
+        or the inner dict) into the text core, in place: the optimizer state
+        is kept."""
+        self.model.core.load_state_dict(
+            state_dict_from_flax(mt_params, self.cfg), strict=True)
+
+    def variables(self) -> dict:
+        """The fp32 masters and the running statistics as the flax-layout
+        ``{"params", "batch_stats"}``."""
+        return CAPTION.flax_from_state_dict(self.model.state_dict(),
+                                            self.cfg)
+
+    def _save(self, path: str, step: int):
+        save_checkpoint(
+            path, self.cfg, self.variables(),
+            opt_state=flax_from_opt_state(self.state.opt_state,
+                                          self.optimizer, self.cfg,
+                                          CAPTION_PARAMS),
+            step=step, best_metric=self.best_bleu)
+
+
+class CaptionTrainer(CaptionVariables):
     def __init__(self, cfg: Seq2SeqConfig, tp: TextProcessor,
                  variables=None, lr: float = 1e-4, warmup: int = 4000,
                  clip: float = 1.0, accum: int = 1, beam_width: int = 4,
                  len_penalty_ratio: float = 0.8, mtl_weight: float = 0.1,
                  label_smoothing: float = 0.1, mm_mode: Optional[str] = None,
-                 img_size: Optional[int] = None,
+                 mask_prob: float = 0.5, img_size: Optional[int] = None,
                  mesh=None, seed: int = 0,
                  object_feat_dim: int = OBJECT_FEAT_DIM, device="cuda"):
         """``variables``: flax-layout ``{"params", "batch_stats"}`` to start
-        from (None: random, from ``seed``). ``img_size`` overrides the
-        config's, and the config (so every checkpoint) records it.
-        ``device``: where the model trains; ``cuda`` fails without a card."""
-        if mm_mode is not None:
-            raise NotImplementedError(
-                f"mm_mode {mm_mode!r}: the multimodal image streams "
-                "(multimodal MASS, contrastive) are not ported yet (ROADMAP "
-                "module 9b)")
+        from (None: random, from ``seed``). ``mm_mode``: None (captioning),
+        "masked", "contrastive" or "mixed" (the multimodal image streams);
+        ``mask_prob`` is the floor of their span rate. ``img_size``
+        overrides the config's, and the config (so every checkpoint) records
+        it. ``device``: where the model trains; ``cuda`` fails without a
+        card."""
         if mesh is not None:
             raise NotImplementedError("a mesh: multi-device training is not "
                                       "ported yet (ROADMAP module 14)")
@@ -119,34 +188,18 @@ class CaptionTrainer:
         self.mt_step = make_caption_mt_train_step(
             self.model, self.optimizer, mtl_weight=mtl_weight,
             label_smoothing=label_smoothing)
+        self.mm_mode = mm_mode
+        self.mask_prob = mask_prob
+        if mm_mode is not None:
+            self.mm_mass_step = make_multimodal_mass_step(
+                self.model, self.optimizer, cfg,
+                n_specials=len(tp.special_tokens),
+                mask_id=tp.mask_token_id(), label_smoothing=label_smoothing)
+            self.contrastive_step = make_contrastive_step(self.model,
+                                                          self.optimizer)
         if variables is None:
             variables = CAPTION.random_params(cfg, seed, object_feat_dim)
         self.set_reference_variables(variables)
-
-    # ---------------- weights ----------------
-
-    def set_reference_variables(self, variables, step: int = 0):
-        """Replace the weights and the BatchNorm statistics from a
-        flax-layout ``{"params", "batch_stats"}`` tree and reset the
-        optimizer state to match; ``step`` re-seats the LR schedule."""
-        self.model.load_state_dict(
-            CAPTION.state_dict_from_flax(variables, self.cfg), strict=True)
-        self.state = create_caption_train_state(self.model, self.optimizer)
-        if step:
-            set_schedule_step(self.state.opt_state, step)
-
-    def graft_mt_model(self, mt_params):
-        """Copy a pretrained ``Seq2Seq`` parameter tree (``{"params": ...}``
-        or the inner dict) into the text core, in place: the optimizer state
-        is kept."""
-        self.model.core.load_state_dict(
-            state_dict_from_flax(mt_params, self.cfg), strict=True)
-
-    def variables(self) -> dict:
-        """The fp32 masters and the running statistics as the flax-layout
-        ``{"params", "batch_stats"}``."""
-        return CAPTION.flax_from_state_dict(self.model.state_dict(),
-                                            self.cfg)
 
     # ---------------- training ----------------
 
@@ -179,28 +232,48 @@ class CaptionTrainer:
                     return
                 yield from tick
 
+        # The object step runs when mm_mode routes to neither multimodal
+        # step ("mixed" picks between those two only).
+        stage_objs = (obj_store is not None and self.mm_mode not in
+                      ("masked", "contrastive", "mixed"))
+
         def stage(item):
             # Runs in the prefetch thread: image decode, the detections'
             # lookup and the copy to the device of batch N+1 overlap the
             # step on batch N.
             kind, b = item
             if kind == "mt":
-                return kind, mt_batch_to_device(b, self.device)
+                return kind, b, mt_batch_to_device(b, self.device)
             images = b.images(image_root, size=self.img_size, raw=True)
             objects = None
-            if obj_store is not None:
+            if stage_objs:
                 objects = obj_store.lookup(b.image_paths,
                                            b.captions.shape[0])
-            return kind, caption_batch_to_device(b, images, self.device,
-                                                 objects)
+            batch = caption_batch_to_device(b, images, self.device, objects)
+            if self.mm_mode is not None:
+                batch["lengths"] = torch.as_tensor(b.lengths).to(self.device)
+            return kind, b, batch
 
         meter = AsyncStepMeter(log_every=log_every)
         prefetcher = PrefetchIterator(interleaved(), stage, depth=3)
         try:
-            for kind, batch in prefetcher:
+            for kind, b, batch in prefetcher:
+                mode, mask_prob = (
+                    image_batch_draws(self.mm_mode, self.mask_prob, step + 1)
+                    if kind == "cap" else (None, None))
                 if kind == "mt":
                     self.state, m = self.mt_step(self.state, batch, self.rng)
-                elif obj_store is not None:
+                elif mode == "masked":
+                    batch["mask_prob"] = mask_prob
+                    self.state, m = self.mm_mass_step(self.state, batch,
+                                                      self.rng)
+                elif mode == "contrastive":
+                    add_negatives(batch, cap_batcher.sample_negatives(
+                        b.captions.shape[0], step + 1), int(b.langs[0]),
+                        self.tp.pad_token_id(), self.device)
+                    self.state, m = self.contrastive_step(self.state, batch,
+                                                          self.rng)
+                elif stage_objs:
                     self.state, m = self.cap_obj_step(self.state, batch,
                                                       self.rng)
                 else:
@@ -327,13 +400,3 @@ class CaptionTrainer:
                 w.write(transcript)
             self._save(saving_path, self.state.step)
         return bleu.score
-
-    # ---------------- persistence ----------------
-
-    def _save(self, path: str, step: int):
-        save_checkpoint(
-            path, self.cfg, self.variables(),
-            opt_state=flax_from_opt_state(self.state.opt_state,
-                                          self.optimizer, self.cfg,
-                                          CAPTION_PARAMS),
-            step=step, best_metric=self.best_bleu)

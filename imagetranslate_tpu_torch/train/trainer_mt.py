@@ -3,9 +3,11 @@ imagetranslate_tpu/train/trainer_mt.py: ``MTTrainer`` with the ``mass`` and
 ``mt`` streams, the back-translation fine-tune phase, dev BLEU and two-slot
 checkpoints).
 
-- each tick takes one batch from every stream in the order mass, mt (the
-  epoch ends at the shortest stream), batches shuffled per epoch and staged
-  onto the device by a prefetch thread while the previous step runs;
+- each tick takes one batch from every stream in the order img, mass, mt
+  (the epoch ends at the shortest stream), batches shuffled per epoch and
+  staged onto the device by a prefetch thread while the previous step runs;
+  the img stream (image-caption batches) trains through
+  ``ImageMTTrainer`` (train/trainer_image_mt.py);
 - in the fine-tune phase a batch of the mass stream is back-translated: a
   decode in the other language with frozen weights, then an MT step on
   translation -> original;
@@ -18,7 +20,7 @@ checkpoints).
 
 The model holds fp32 master parameters and computes in ``cfg.dtype``. One
 device: a mesh, pipeline microbatches and ZeRO are refused (ROADMAP module
-14). The image stream is not ported yet (ROADMAP module 9).
+14).
 """
 
 from __future__ import annotations
@@ -93,6 +95,7 @@ class MTTrainer:
         self.len_penalty_ratio = len_penalty_ratio
         self.best_bleu = -1.0
         self.reference: List[str] = []
+        self._host_step = 0
         self.optimizer = wrap_accum(
             build_optimizer(lr=lr, warmup_updates=warmup, clip_norm=clip),
             accum)
@@ -152,14 +155,17 @@ class MTTrainer:
         from imagetranslate_tpu_torch.data.prefetch import PrefetchIterator
         from imagetranslate_tpu_torch.utils.metrics import AsyncStepMeter
 
-        if img_batcher is not None:
-            raise NotImplementedError(
-                "the image stream is not ported yet (ROADMAP module 9)")
+        if img_batcher is not None and not hasattr(self, "_img_step"):
+            raise ValueError("the image stream trains an ImageSeq2Seq: use "
+                             "ImageMTTrainer (train/trainer_image_mt.py)")
         if fine_tune and mass_batcher is not None and not lang_directions:
             raise ValueError("fine_tune back-translates the mass stream and "
                              "needs lang_directions (see "
                              "MTTrainer.lang_directions)")
         streams = []
+        if img_batcher is not None:
+            self._cur_img_batcher = img_batcher
+            streams.append(("img", img_batcher.shuffled(epoch_seed)))
         if mass_batcher is not None:
             streams.append(("mass", mass_batcher.shuffled(epoch_seed)))
         if mt_batcher is not None:
@@ -189,6 +195,8 @@ class MTTrainer:
                 to_dev = (packed_mt_batch_to_device if hasattr(b, "src_seg")
                           else mt_batch_to_device)
                 return kind, b, to_dev(b, self.device)
+            if kind == "img":
+                return kind, b, self._stage_img(b, image_root)
             if not fine_tune:
                 return kind, b, mass_batch_to_device(b, self.device)
             return kind, b, None
@@ -197,8 +205,12 @@ class MTTrainer:
         prefetcher = PrefetchIterator(interleaved(), stage, depth=3)
         try:
             for kind, b, staged in prefetcher:
+                self._host_step = step + 1     # the image stream's draws
                 if kind == "mt":
                     self.state, m = self.mt_step(self.state, staged, self.rng)
+                elif kind == "img":
+                    m = self._img_step(b, image_root, self.rng,
+                                       images=staged)
                 elif not fine_tune:
                     self.state, m = self.mass_step(self.state, staged,
                                                    self.rng)
@@ -232,10 +244,6 @@ class MTTrainer:
             print(f"BLEU: {bleu:.2f}", flush=True)
         except Exception:
             traceback.print_exc()
-
-    def _img_step(self, b, image_root: str, rng, images=None):
-        raise NotImplementedError(
-            "the image stream is not ported yet (ROADMAP module 9)")
 
     def _bt_step(self, b, lang_directions: Dict[int, int], rng):
         """Back-translation of one MassBatch: decode each row into the other

@@ -405,11 +405,11 @@ _BN = (("scale", "weight"), ("bias", "bias"))
 _BN_STATS = (("mean", "running_mean"), ("var", "running_var"))
 
 
-def _resnet_blocks(cfg: Seq2SeqConfig):
+def _resnet_blocks(depth: int):
     """(flax block name, state_dict prefix inside the ResNet) per block."""
     from imagetranslate_tpu_torch.models.resnet import DEPTHS
 
-    for s, blocks in enumerate(DEPTHS[cfg.resnet_depth][1]):
+    for s, blocks in enumerate(DEPTHS[depth][1]):
         for j in range(blocks):
             yield f"layer{s + 1}_{j}", f"layer{s + 1}.{j}"
 
@@ -421,8 +421,9 @@ _BLOCK_BNS = (("bn1", "bn1"), ("bn2", "bn2"), ("bn3", "bn3"),
               ("downsample_bn", "downsample.1"))
 
 
-def _resnet_sd(sd, pre: str, p: Mapping, stats, cfg: Seq2SeqConfig):
-    """The ``ResNetGrid`` sub-trees -> torchvision's keys under ``pre``:
+def _resnet_sd(sd, pre: str, p: Mapping, stats, depth: int):
+    """The ``ResNetGrid`` sub-trees -> torchvision's keys under ``pre``
+    (with its dot, or empty):
     flax convolution kernels are HWIO, torch's OIHW; the BatchNorm running
     statistics come from ``stats`` (the ``batch_stats`` collection; None
     leaves them out, as for a parameter-shaped optimizer moment)."""
@@ -436,22 +437,22 @@ def _resnet_sd(sd, pre: str, p: Mapping, stats, cfg: Seq2SeqConfig):
     def conv(w):
         return _t(w).permute(3, 2, 0, 1)
 
-    sd[f"{pre}.conv1.weight"] = conv(p["conv1"]["kernel"])
-    bn(f"{pre}.bn1", p["bn1"], None if stats is None else stats["bn1"])
-    for name, key in _resnet_blocks(cfg):
+    sd[f"{pre}conv1.weight"] = conv(p["conv1"]["kernel"])
+    bn(f"{pre}bn1", p["bn1"], None if stats is None else stats["bn1"])
+    for name, key in _resnet_blocks(depth):
         bp, bs = p[name], None if stats is None else stats[name]
         for theirs, ours in _BLOCK_CONVS:
             if theirs in bp:
-                sd[f"{pre}.{key}.{ours}.weight"] = conv(bp[theirs]["kernel"])
+                sd[f"{pre}{key}.{ours}.weight"] = conv(bp[theirs]["kernel"])
         for theirs, ours in _BLOCK_BNS:
             if theirs in bp:
-                bn(f"{pre}.{key}.{ours}", bp[theirs],
+                bn(f"{pre}{key}.{ours}", bp[theirs],
                    None if bs is None else bs[theirs])
-    sd[f"{pre}.fc.weight"] = _t(p["fc"]["kernel"]).T
-    sd[f"{pre}.location_embedding"] = _t(p["location_embedding"])
+    sd[f"{pre}fc.weight"] = _t(p["fc"]["kernel"]).T
+    sd[f"{pre}location_embedding"] = _t(p["location_embedding"])
 
 
-def _resnet_trees(sd, pre: str, cfg: Seq2SeqConfig):
+def _resnet_trees(sd, pre: str, depth: int):
     """The inverse of ``_resnet_sd``: (params, batch_stats); the statistics
     are empty maps where ``sd`` holds no buffers (a parameter-shaped
     tree)."""
@@ -463,19 +464,19 @@ def _resnet_trees(sd, pre: str, cfg: Seq2SeqConfig):
     def conv(key):
         return {"kernel": sd[f"{key}.weight"].permute(2, 3, 1, 0)}
 
-    p, stats = {"conv1": conv(f"{pre}.conv1")}, {}
-    p["bn1"], stats["bn1"] = bn(f"{pre}.bn1")
-    for name, key in _resnet_blocks(cfg):
+    p, stats = {"conv1": conv(f"{pre}conv1")}, {}
+    p["bn1"], stats["bn1"] = bn(f"{pre}bn1")
+    for name, key in _resnet_blocks(depth):
         p[name], stats[name] = {}, {}
         for theirs, ours in _BLOCK_CONVS:
-            if f"{pre}.{key}.{ours}.weight" in sd:
-                p[name][theirs] = conv(f"{pre}.{key}.{ours}")
+            if f"{pre}{key}.{ours}.weight" in sd:
+                p[name][theirs] = conv(f"{pre}{key}.{ours}")
         for theirs, ours in _BLOCK_BNS:
-            if f"{pre}.{key}.{ours}.weight" in sd:
+            if f"{pre}{key}.{ours}.weight" in sd:
                 p[name][theirs], stats[name][theirs] = bn(
-                    f"{pre}.{key}.{ours}")
-    p["fc"] = {"kernel": sd[f"{pre}.fc.weight"].T}
-    p["location_embedding"] = sd[f"{pre}.location_embedding"]
+                    f"{pre}{key}.{ours}")
+    p["fc"] = {"kernel": sd[f"{pre}fc.weight"].T}
+    p["location_embedding"] = sd[f"{pre}location_embedding"]
     return p, stats
 
 
@@ -502,8 +503,9 @@ def caption_state_dict_from_flax(variables: Mapping, cfg: Seq2SeqConfig
     sd: Dict[str, torch.Tensor] = {
         f"core.{k}": v for k, v in
         state_dict_from_flax(p["core"], cfg).items()}
-    _resnet_sd(sd, "image_model", p["image_model"],
-               None if stats is None else stats["image_model"], cfg)
+    _resnet_sd(sd, "image_model.", p["image_model"],
+               None if stats is None else stats["image_model"],
+               cfg.resnet_depth)
     sd["multimodal_attention_gate"] = _t(p["multimodal_attention_gate"])
     for name in _POOLS:
         sd[f"{name}.w.weight"] = _t(p[name]["w"]["kernel"]).T
@@ -530,7 +532,8 @@ def flax_from_caption_state_dict(sd: Mapping[str, torch.Tensor],
     core = {k[len("core."):]: v for k, v in sd.items()
             if k.startswith("core.")}
     p = {"core": flax_from_state_dict(core, cfg)["params"]}
-    p["image_model"], stats = _resnet_trees(sd, "image_model", cfg)
+    p["image_model"], stats = _resnet_trees(sd, "image_model.",
+                                            cfg.resnet_depth)
     p["multimodal_attention_gate"] = sd["multimodal_attention_gate"]
     for name in _POOLS:
         p[name] = {"w": {"kernel": sd[f"{name}.w.weight"].T,
@@ -556,19 +559,15 @@ def flax_from_caption_params(sd: Mapping[str, torch.Tensor],
     return flax_from_caption_state_dict(sd, cfg)["params"]
 
 
-def random_caption_params(cfg: Seq2SeqConfig, seed: int = 0,
-                          object_feat_dim: int = 1031) -> dict:
-    """Random flax-layout ``ImageSeq2Seq`` variables from
-    ``numpy.random.RandomState(seed)``: the text model as ``random_params``
-    draws it, the JAX model's initializers for the rest
-    (variance-scaling-normal convolution and ``fc`` kernels, unit BatchNorm
-    scales, normal(0.02) location table, 0.1 gates), and running statistics
-    that are not the trivial (0, 1): means from normal(0, 0.1), variances
-    from uniform(0.5, 1.5). fp32 numpy leaves."""
+def _random_resnet(rng: np.random.RandomState, depth: int, embed_dim: int,
+                   img_size: int):
+    """Random flax-layout ``ResNetGrid`` (params, batch_stats) from ``rng``:
+    the JAX model's initializers (variance-scaling-normal convolution and
+    ``fc`` kernels, unit BatchNorm scales, normal(0.02) location table), and
+    running statistics that are not the trivial (0, 1): means from
+    normal(0, 0.1), variances from uniform(0.5, 1.5)."""
     from imagetranslate_tpu_torch.models.resnet import DEPTHS
 
-    rng = np.random.RandomState(seed + 1)
-    E = cfg.hidden_size
     f32 = np.float32
 
     def normal(std, *shape):
@@ -583,7 +582,7 @@ def random_caption_params(cfg: Seq2SeqConfig, seed: int = 0,
                 {"mean": normal(0.1, c),
                  "var": rng.uniform(0.5, 1.5, (c,)).astype(f32)})
 
-    kind, stage_sizes, groups, wpg = DEPTHS[cfg.resnet_depth]
+    kind, stage_sizes, groups, wpg = DEPTHS[depth]
     expansion = 1 if kind == "basic" else 4
     im, st = {"conv1": conv(7, 3, 64)}, {}
     im["bn1"], st["bn1"] = bn(64)
@@ -609,9 +608,39 @@ def random_caption_params(cfg: Seq2SeqConfig, seed: int = 0,
                 bp["downsample_bn"], bs["downsample_bn"] = bn(cout)
             im[f"layer{s + 1}_{j}"], st[f"layer{s + 1}_{j}"] = bp, bs
             cin = cout
-    im["fc"] = {"kernel": normal(cin ** -0.5, cin, E)}
-    im["location_embedding"] = normal(0.02, (cfg.img_size // 32) ** 2, E)
+    im["fc"] = {"kernel": normal(cin ** -0.5, cin, embed_dim)}
+    im["location_embedding"] = normal(0.02, (img_size // 32) ** 2, embed_dim)
+    return im, st
 
+
+def random_resnet_state_dict(depth: int, embed_dim: int, img_size: int = 224,
+                             seed: int = 0) -> Dict[str, torch.Tensor]:
+    """A random ``ResNetGrid.state_dict()`` drawn as
+    ``random_caption_params`` draws the captioner's ResNet."""
+    im, st = _random_resnet(np.random.RandomState(seed), depth, embed_dim,
+                            img_size)
+    sd: Dict[str, torch.Tensor] = {}
+    _resnet_sd(sd, "", im, st, depth)
+    return _contiguous_sd(sd)
+
+
+def random_caption_params(cfg: Seq2SeqConfig, seed: int = 0,
+                          object_feat_dim: int = 1031) -> dict:
+    """Random flax-layout ``ImageSeq2Seq`` variables from
+    ``numpy.random.RandomState(seed)``: the text model as ``random_params``
+    draws it, the JAX model's initializers for the rest
+    (variance-scaling-normal convolution and ``fc`` kernels, unit BatchNorm
+    scales, normal(0.02) location table, 0.1 gates), and running statistics
+    that are not the trivial (0, 1): means from normal(0, 0.1), variances
+    from uniform(0.5, 1.5). fp32 numpy leaves."""
+    rng = np.random.RandomState(seed + 1)
+    E = cfg.hidden_size
+    f32 = np.float32
+
+    def normal(std, *shape):
+        return (rng.standard_normal(shape) * std).astype(f32)
+
+    im, st = _random_resnet(rng, cfg.resnet_depth, E, cfg.img_size)
     core = random_params(cfg, seed)["params"]
     p = {"core": core, "image_model": im,
          "multimodal_attention_gate": np.full((1, E), 0.1, f32)}

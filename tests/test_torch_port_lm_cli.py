@@ -322,7 +322,7 @@ def test_clis_refuse_what_is_not_ported(work, tmp_path):
         create_batches.main(["--data", str(work / "dev.txt"), "--cache",
                              str(tmp_path / "c"), "--tok", str(work / "tok"),
                              "--packed"])
-    with pytest.raises(SystemExit, match="module 9"):
+    with pytest.raises(SystemExit, match="--lm with --train"):
         train_mt.main(["--tok", str(work / "tok"), "--model",
                        str(tmp_path / "m"), "--lm", str(work / "lm"),
                        "--train", "images", "--device", "cpu"])

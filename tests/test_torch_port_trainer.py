@@ -213,10 +213,11 @@ def test_trainer_refuses_what_is_not_ported(corpus, tmp_path):
         with pytest.raises(NotImplementedError, match="module 14"):
             MTTrainer(cfg, tp, device="cpu", **kw)
     trainer = _trainer(tp)
-    with pytest.raises(NotImplementedError, match="module 9"):
+    # The image stream trains an ImageSeq2Seq (ImageMTTrainer), not this
+    # trainer's text model.
+    with pytest.raises(ValueError, match="ImageMTTrainer"):
         trainer.train_epoch(0, str(tmp_path), img_batcher=[1])
-    with pytest.raises(NotImplementedError, match="module 9"):
-        trainer._img_step(None, "", None)
+    assert not hasattr(trainer, "_img_step")
     assert trainer.train_epoch(3, str(tmp_path)) == 3    # no stream
     assert trainer.train_epoch(3, str(tmp_path), fine_tune=True) == 3
 
@@ -312,15 +313,11 @@ def test_cli_resumes_with_optimizer_state(corpus, trained, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags,module", [
-    (["--train", "x"], "module 9"),
-    (["--image", "x"], "module 9"),
-    (["--lm", "x", "--train", "y"], "module 9"),   # --lm alone is ported
+    (["--lm", "x", "--train", "y"], "--lm with --train"),  # --lm alone runs
     (["--moe-experts", "4"], "module 13"), (["--mesh", "2x1"], "module 14"),
     (["--pp-microbatches", "2"], "module 14"), (["--zero"], "module 14"),
     (["--pack"], "module 15"), (["--profile", "x"], "module 15"),
-    (["--mmode", "masked"], "module 9"),
-    (["--img_capacity", "40"], "module 9"), (["--max-image", "8"], "module 9"),
-    (["--img-depth", "2"], "module 9"), (["--moe-top-k", "1"], "module 13"),
+    (["--moe-top-k", "1"], "module 13"),
 ])
 def test_cli_refuses_unported_flags(corpus, tmp_path, flags, module):
     from imagetranslate_tpu_torch.cli.train_mt import main
@@ -328,6 +325,21 @@ def test_cli_refuses_unported_flags(corpus, tmp_path, flags, module):
     with pytest.raises(SystemExit, match=module):
         main(_train_args(corpus[0], tmp_path / "m", "--step", "1", *flags))
     assert not (tmp_path / "m").exists()
+
+
+@pytest.mark.parametrize("flags", [
+    ["--image", "x"], ["--mmode", "masked"], ["--img_capacity", "40"],
+    ["--max-image", "8"], ["--img-depth", "2"],
+])
+def test_cli_accepts_the_image_flags(corpus, tmp_path, flags):
+    """The image-stream flags, once refused (ROADMAP module 9), are taken;
+    without ``--train`` there is no image stream and the text model trains
+    as before (tests/test_torch_port_image_mt.py drives ``--train``)."""
+    from imagetranslate_tpu_torch.cli.train_mt import main
+
+    model = tmp_path / "m"
+    main(_train_args(corpus[0], model, "--step", "1", *flags))
+    assert ckpt.load_checkpoint(str(model) + ".latest")[2]["step"] == 1
 
 
 @pytest.mark.parametrize("flags", [
