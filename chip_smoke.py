@@ -13,8 +13,11 @@ itself) and caption training (CaptionTrainer's caption, object, MT-stream
 and multimodal steps, its epoch loop and dev decode, then the binarize ->
 train -> caption CLIs) and image MT training (ImageMTTrainer's multimodal
 MASS, contrastive, text MASS and MT steps, back-translation with images,
-then cli.train_mt --train -> cli.translate and mmid_sim), and checks that
-each path went through its kernels.
+then cli.train_mt --train -> cli.translate and mmid_sim), the sentence
+similarity and caption -> image models (SenSim and Caption2Image steps,
+translate_img's three decode rounds, their four CLIs) and the MoE FFN (MT
+steps and the beam decode of an MoE model), and checks that each path went
+through its kernels.
 
 Run from the root of a checkout, with one visible CUDA card:
 
@@ -62,8 +65,11 @@ Phases, each fatal on failure:
                T=S=63 and T=63, S=64) and of the image MT steps of phase 20
                (the multimodal MASS decoder's T=16 over S=16, 32 and 49 at
                B=32 and B=8; T=S=32 for the captions and the negatives; the
-               text MASS steps' B=128 at T=S=32 and T=32, S=64); bf16 outputs within 2^-6 of the
-               plain result's largest magnitude (a few bf16 ulps), fp32 dbias
+               text MASS steps' B=128 at T=S=32 and T=32, S=64) and of
+               phase 21 (the SenSim pairs and pools at B=128, S=64, the
+               Caption2Image captions at B=32, T=32, and every batch shape
+               of its two training CLIs' batchers); bf16 outputs within
+               2^-6 of the plain result's largest magnitude (a few bf16 ulps), fp32 dbias
                within 1e-4 of it. S = 513 and fp32 inputs raise before a
                launch; two launches on the same inputs give the same bits.
                Mask statistics straight from the kernel (keep rate within 4
@@ -173,9 +179,9 @@ Phases, each fatal on failure:
 
  16. kernel  — the beam decode attention kernel (runs after phase 12) vs its
      (K4)      plain version: the gather form (no row maps, a slice of a
-               longer cache read in place) at every shape phases 17, 18 and
-               19 launch (R = 256, 768, 32, 96, 80 rows; 1 .. L-1 live
-               positions)
+               longer cache read in place) at every shape phases 17, 18,
+               19, 21 and 22 launch (R = 256, 768, 32, 96, 80 rows; 1 .. L-1
+               live positions)
                and at edge shapes (one position, 7, 88, 512 and 20000
                positions, D = 8, 24, 32, 64, 128, odd row counts); with random
                rowsel/wanc row maps on the TPU kernel's own inputs (window
@@ -253,6 +259,32 @@ Phases, each fatal on failure:
                cli.train_mt --train --mass_train --fstep --langs from a text
                checkpoint grafted into the core -> cli.translate, and
                mmid_sim over folders of JPEGs.
+ 21. module  — SenSim at cli.train_sensim's defaults (768/12/3072, 6 layers,
+     11        V=32000, fp32 masters, bf16 compute, dropout 0.1): B=128 pairs
+               at S=64 with negative pools of 128 rows, 3 warm-up and 6
+               timed steps, K1 = 24 + 24 a step (4 encodes); Caption2Image
+               at cli.train_txt2image's defaults against a frozen BERT-base
+               captioner with ResNet-18 at 224: B=32 captions of T=32, the
+               target grid (encode_images in inference mode) timed apart,
+               K1 = 6 + 6 a step; translate_img's three decode rounds
+               (Caption2Image -> grid -> beam search of a "fused"
+               captioner) at B=64, S=64, beam 4, L=88 with EOS outside the
+               vocabulary: K2 = 1 and K4 = 3 a step, sentences/s; then
+               cli.train_sensim (2 steps, pools from phase 11's shards, a
+               dev set) -> cli.get_sen_sim, and, where Pillow is
+               installed, cli.train_txt2image from a captioner checkpoint
+               -> cli.translate_img on 8 lines; every K1, K2 and K4 shape
+               held by phases 6, 3 and 16.
+ 22. moe     — MTTrainer at phase 7's shape (B=256, S=T=64, dropout 0.1,
+               use_pallas_xent on) with an MoE FFN of 8 experts, top-2
+               (capacity 1.25, groups of 256, aux weight 0.01), paired with
+               the dense step in blocks of 3 (dense, moe, moe, dense): K1 =
+               12 + 12 and K5 = 1 + 1 a step in both; one training-mode
+               forward's aux losses finite and positive, first-choice
+               fractions summing to 1, the share of choices past capacity;
+               then phase 4's beam decode (B=64, S=64, beam 4, L=88) on the
+               MoE model in bf16 with decode_attention_impl="fused": K2 = 1
+               and K4 = 3 a step, tok/s.
 
 ``--profile`` adds a phase after 4 (one more decode) and one after 7 (three
 more train steps) under torch.profiler, printing the device time by operation
@@ -2709,14 +2741,16 @@ CAPTION_GRID_TOL = 2.0 ** -4       # bf16 ResNet grid vs the fp32 one
 
 
 def decode_path_shapes():
-    """The (R, H, D, live positions) that the decode paths of phases 17, 18
-    and 19 give K4: a decode of L positions launches at 1 .. L-1 live
-    ones."""
+    """The (R, H, D, live positions) that the decode paths of phases 17,
+    18, 19, 21 and 22 give K4: a decode of L positions launches at
+    1 .. L-1 live ones."""
     rows = {MT_DECODE[0] * MT_DECODE[2]: MT_DECODE[3],
             CAPTION_B * CAPTION_K: CAPTION_L,
             -(-CAPTION_TAIL // 8) * 8 * CAPTION_K: CAPTION_L,
             -(-CAPTION_JPEGS // 8) * 8 * CAPTION_K: CAPTION_L,
             CAPTION_EVAL[0] * CAPTION_EVAL[1]: CAPTION_EVAL[2]}
+    for R, L in module11_decode_rows().items():
+        rows[R] = max(L, rows.get(R, 0))
     return [(R, 12, 64, n) for R, L in rows.items() for n in range(1, L)]
 
 
@@ -4299,6 +4333,564 @@ def phase_image_mt_cli(corpus, checked_k1, checked_xent):
     return got
 
 
+SENSIM_STEP = (128, 64, 128)       # pairs a batch, tokens a row, pool rows
+C2I_STEP = (32, 32)                # captions (--max-image), caption tokens
+TRANSLATE_IMG = (64, 64, 4)        # rows, source tokens, beam of phase 21
+M11_CLI = dict(batch=2000, max_image=8, lines=8)   # the CLIs' small runs
+M11_CLI_WIDTH = []                 # extra width flags of the training CLIs
+MOE = dict(moe_experts=8, moe_top_k=2)   # the JAX defaults for the rest
+MOE_STEP = (256, 64, 64)           # B, S, T: phase 7's shape
+
+
+def module11_decode_rows():
+    """{beam rows R: decode length L} of phase 21's decodes: its own at
+    B=64, and the CLI's one batch of 8 lines (each line fits the first
+    bucket, 32 tokens). translate_img sizes all three rounds of a batch by
+    its source width."""
+    from imagetranslate_tpu_torch.decoding.beam import max_len_for
+
+    B, S, K = TRANSLATE_IMG
+    return {B * K: max_len_for(S, 1.3, 5, 512),
+            M11_CLI["lines"] * K: max_len_for(32, 1.3, 5, 512)}
+
+
+def prepare_module11_corpus(workdir, corpus):
+    """Phase 21's CLI inputs from phase 11's corpus: parallel .mt files
+    (train and dev), JPEGs with a caption binary (where Pillow is
+    installed), the lines to translate, and a full-width captioner
+    checkpoint (decode_attention_impl="fused"). Returns a dict of paths,
+    with "caps" None without Pillow."""
+    import dataclasses
+
+    import numpy as np
+
+    from imagetranslate_tpu_torch.data.binarize import write_mt
+    from imagetranslate_tpu_torch.train.checkpoint import save_checkpoint
+    from imagetranslate_tpu_torch.train.weights import CAPTION
+
+    tok, _, lines, tp = corpus
+    d = os.path.join(workdir, "m11")
+    os.makedirs(d)
+    out = {"tok": tok, "neg": (corpus[1] + "en", corpus[1] + "fa")}
+    for name, rows in (("train", lines[:64]), ("dev", lines[64:80])):
+        for lang, text in (("en", rows),
+                           ("fa", [" ".join(reversed(r.split()))
+                                   for r in rows])):
+            with open(os.path.join(d, f"{name}.{lang}"), "w") as f:
+                f.write("\n".join(text) + "\n")
+        out[name] = os.path.join(d, f"{name}.mt")
+        write_mt(tp, out[name], os.path.join(d, f"{name}.en"),
+                 tp.token_id("<en>"), os.path.join(d, f"{name}.fa"),
+                 tp.token_id("<fa>"))
+    out["input"] = os.path.join(d, "input.en")
+    with open(out["input"], "w") as f:
+        f.write("\n".join(lines[80:80 + M11_CLI["lines"]]) + "\n")
+    cfg = dataclasses.replace(caption_config(tp.vocab_size()), use_obj=False)
+    out["captioner"] = os.path.join(d, "captioner")
+    save_checkpoint(out["captioner"], cfg, CAPTION.random_params(cfg, SEED))
+    out["caps"] = None
+    try:
+        from PIL import Image
+    except ImportError:
+        return out
+    from imagetranslate_tpu_torch.data.binarize_captions import (
+        write_from_list,
+    )
+
+    out["images"] = os.path.join(d, "images")
+    os.makedirs(out["images"])
+    rng = np.random.RandomState(SEED + 21)
+    for i in range(4):
+        Image.fromarray(rng.randint(0, 256, (240, 256 + 16 * i, 3)).astype(
+            np.uint8)).save(os.path.join(out["images"], f"{i}.jpg"))
+    with open(os.path.join(d, "caps.tsv"), "w") as f:
+        f.write("\n".join(f"{i % 4}.jpg\t{lines[100 + i]}"
+                          for i in range(16)) + "\n")
+    out["caps"] = os.path.join(d, "caps.bin")
+    write_from_list(tp, out["caps"], os.path.join(d, "caps.tsv"), lang="en")
+    return out
+
+
+def module11_shapes(m11):
+    """The (B, T, S, H, D) that phase 21's steps and CLI runs give K1: the
+    SenSim step's encodes of pairs and pools, the Caption2Image step's
+    encode, and every batch shape the two training CLIs' batchers build
+    from their flags (the port's own batch arithmetic)."""
+    from imagetranslate_tpu_torch.data.binarize import load_mass, load_mt
+    from imagetranslate_tpu_torch.data.images import CaptionBatcher
+    from imagetranslate_tpu_torch.data.loader import MassBatcher, MTBatcher
+    from imagetranslate_tpu_torch.text.processor import TextProcessor
+
+    B, S, P = SENSIM_STEP
+    widths = {(B, S), (P, S), C2I_STEP}
+    batch = M11_CLI["batch"]
+    for b in MTBatcher(load_mt(m11["train"]), pad_id=0,
+                       max_batch=batch // 2, capacity_mb=300):
+        widths |= {b.src.shape, b.dst.shape}
+    for prefix in m11["neg"]:
+        widths |= {b.src.shape for b in MassBatcher(
+            load_mass(prefix), pad_id=0, max_batch=batch * 5,
+            capacity_mb=3000, max_seq_len=175)}
+    if m11["caps"] is not None:
+        widths |= {b.captions.shape for b in CaptionBatcher(
+            m11["caps"], TextProcessor(m11["tok"]),
+            max_img_per_batch=M11_CLI["max_image"])}
+    return [(rows, t, t, 12, 64) for rows, t in sorted(widths)]
+
+
+def sensim_config(vocab_size: int):
+    """cli.train_sensim's defaults: 768/12/3072, 6 layers, dropout 0.1,
+    bf16 compute (the trainer holds fp32 masters); cli.train_txt2image's
+    are the same."""
+    from imagetranslate_tpu_torch.models.config import Seq2SeqConfig
+
+    return Seq2SeqConfig(vocab_size=vocab_size, num_languages=2,
+                         dropout=RATE, attention_dropout=RATE)
+
+
+def phase_module11(card, checked_k1, checked_xent, checked_k4, m11):
+    """Phase 21: SenSim and Caption2Image steps at their CLIs' defaults,
+    translate_img's three decode rounds at B=64, and the four CLIs. Returns
+    its (K1 fwd, K1 bwd, K2, K4) launches."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from imagetranslate_tpu_torch.cli import translate_img as ti
+    from imagetranslate_tpu_torch.data.loader import MassBatch, MTBatch
+    from imagetranslate_tpu_torch.models.caption2image import Caption2Image
+    from imagetranslate_tpu_torch.models.captioning import ImageSeq2Seq
+    from imagetranslate_tpu_torch.ops import decode_attention as da
+    from imagetranslate_tpu_torch.ops import topk_project as tkp
+    from imagetranslate_tpu_torch.ops import train_attention as ta
+    from imagetranslate_tpu_torch.train.trainer_sensim import SenSimTrainer
+    from imagetranslate_tpu_torch.train.trainer_txt2image import (
+        Caption2ImageTrainer,
+    )
+    from imagetranslate_tpu_torch.train.weights import (
+        CAPTION,
+        CAPTION2IMAGE,
+    )
+
+    device = torch.device("cuda")
+    V = 32000
+    cfg = sensim_config(V)
+    layers = cfg.enc_layers
+    rng = np.random.RandomState(SEED + 20)
+    total = [0, 0, 0, 0]
+
+    def ids(shape):
+        return (5 + (V - 5) * rng.rand(*shape) ** 3).astype(np.int32)
+
+    def finite(values, what):
+        if not all(x == x and abs(x) != float("inf") for x in values):
+            raise AssertionError(f"{what}: loss not finite: {values}")
+
+    def timed_steps(trainer, batches, warm, timed, what):
+        """warm + timed steps; returns (ms/step of the timed ones, losses,
+        K1 launches)."""
+        ta.FWD_LAUNCHES = ta.BWD_LAUNCHES = 0
+        metrics = []
+        with Recorder() as rec:
+            for i in range(warm):
+                trainer.state, m = trainer.step_fn(
+                    trainer.state, batches[i % len(batches)], trainer.rng)
+                metrics.append(m)
+        rec.require_checked(what, checked_k1, checked_xent, want_k5=False)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(timed):
+            trainer.state, m = trainer.step_fn(
+                trainer.state, batches[(warm + i) % len(batches)],
+                trainer.rng)
+            metrics.append(m)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0) / timed
+        losses = [(m["sum_loss"] / m["ntokens"]).item() for m in metrics]
+        finite(losses, what)
+        return ms, losses, (ta.FWD_LAUNCHES, ta.BWD_LAUNCHES)
+
+    # SenSim steps: B=128 pairs at S=64 with negative pools of 128 rows.
+    B, S, P = SENSIM_STEP
+    t0 = time.perf_counter()
+    sensim = SenSimTrainer(cfg, FullVocab(), lr=5e-4, warmup=8, seed=SEED,
+                           device=device)
+    ones = np.ones((B,), np.int32)
+    batches = []
+    for _ in range(3):
+        src = ids((B, S))
+        pair = MTBatch(src, src != 0, src.copy(), src != 0, 0 * ones, ones,
+                       S * ones, ones.astype(bool))
+        pools = [MassBatch(x, x != 0, np.full(P, lang, np.int32), x[:, 0],
+                           np.full(P, S, np.int32), np.ones(P, bool))
+                 for lang, x in ((0, ids((P, S))), (1, ids((P, S))))]
+        batches.append(sensim.stage(pair, *pools))
+    build_s = time.perf_counter() - t0
+    warm, timed = 3, 6
+    ms, losses, k1 = timed_steps(sensim, batches, warm, timed, "sensim")
+    per = 4 * layers
+    if k1 != (per * (warm + timed),) * 2:
+        raise AssertionError(f"sensim: K1 launches {k1}, want {per} + {per} "
+                             "a step")
+    total[0] += k1[0]
+    total[1] += k1[1]
+    log(f"[sensim] SenSimTrainer at cli.train_sensim's defaults "
+        f"({cfg.hidden_size}/{cfg.num_heads}/{cfg.intermediate_size}, "
+        f"{layers} layers, V={V}, fp32 masters, bf16 compute, dropout "
+        f"{cfg.dropout}; "
+        f"built in {build_s:.1f} s): B={B} pairs at S={S} with negative "
+        f"pools of {P}, {timed} timed steps at {ms:.1f} ms/step "
+        f"({B / ms * 1e3:.0f} pairs/s), K1 {per} + {per} a step (4 encodes); "
+        f"losses {[round(x, 4) for x in losses]} ({card})")
+    del sensim, batches
+    torch.cuda.empty_cache()
+
+    # Caption2Image steps: B=32 captions of T=32 against the grid of a
+    # frozen ResNet-18 captioner at 224, the target encode timed apart.
+    n, T = C2I_STEP
+    cap_cfg = dataclasses.replace(caption_config(V), use_obj=False)
+    captioner = ImageSeq2Seq(cap_cfg, device=device)
+    captioner.load_state_dict(CAPTION.state_dict_from_flax(
+        CAPTION.random_params(cap_cfg, SEED), cap_cfg))
+    c2i = Caption2ImageTrainer(cfg, FullVocab(), captioner, lr=5e-4,
+                               warmup=8, seed=SEED, device=device)
+    host = caption_host_batches(cap_cfg, 3, SEED + 22)
+    c2i._batch(host[0], "")                                     # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    batches = [c2i._batch(b, "") for b in host]
+    torch.cuda.synchronize()
+    encode_ms = 1e3 * (time.perf_counter() - t0) / len(host)
+    grid = batches[0]["target_grid"]
+    if grid.shape != (n, 49, cfg.hidden_size) or grid.requires_grad:
+        raise AssertionError(f"c2i target grid {tuple(grid.shape)}, "
+                             f"requires_grad {grid.requires_grad}")
+    ms, losses, k1 = timed_steps(c2i, batches, warm, timed, "caption2image")
+    if k1 != (layers * (warm + timed),) * 2:
+        raise AssertionError(f"caption2image: K1 launches {k1}, want "
+                             f"{layers} + {layers} a step")
+    total[0] += k1[0]
+    total[1] += k1[1]
+    log(f"[caption2image] Caption2ImageTrainer at cli.train_txt2image's "
+        f"defaults against a frozen BERT-base captioner with ResNet-18 at "
+        f"224 (bf16): B={n} captions of T={T}, target grid (staging and "
+        f"encode_images) {encode_ms:.1f} ms a batch, {timed} timed steps at "
+        f"{ms:.1f} ms/step, K1 {layers} + {layers} a step; losses "
+        f"{[round(x, 2) for x in losses]} ({card})")
+    del c2i, batches
+
+    # translate_img's three rounds at B=64, beam 4, through a "fused"
+    # captioner: every row runs to its limit (EOS outside the vocabulary).
+    B, S, K = TRANSLATE_IMG
+    c2i_model = Caption2Image(cfg, device=device)
+    c2i_model.load_state_dict(CAPTION2IMAGE.state_dict_from_flax(
+        CAPTION2IMAGE.random_params(cfg, SEED), cfg))
+    c2i_model.eval()
+    captioner.eval()
+    src = ids((B, S))
+    src[:, 0] = 5
+    ones = np.ones((B,), np.int32)
+    b = MTBatch(src, src != 0, np.full((B, 1), 6, np.int32),
+                np.ones((B, 1), bool), 0 * ones, ones, S * ones,
+                ones.astype(bool))
+    opts = ti.get_parser().parse_args(
+        ["--input", "-", "--src", "en", "--target", "fa", "--output", "-",
+         "--tok", "-", "--model", "-", "--caption-model", "-"])
+    ti.translate_rounds(c2i_model, captioner, b, opts, 0, -1)    # warm-up
+    da.LAUNCHES = tkp.LAUNCHES = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with recording_decode_attention() as seen4, recording_topk() as seen2:
+        rounds = ti.translate_rounds(c2i_model, captioner, b, opts, 0, -1)
+        torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    L = module11_decode_rows()[B * K]
+    steps = 3 * (L - 1)
+    k2_cases = {(M, k) for M, k, _ in k2_random_cases()}
+    require_decode_attention("translate_img", seen4, checked_k4, da.LAUNCHES,
+                             cap_cfg.dec_layers * steps)
+    if (tkp.LAUNCHES != steps or seen2 - k2_cases
+            or {len(row) for r in rounds for row in r} != {L}):
+        raise AssertionError(
+            f"translate_img: K2 {tkp.LAUNCHES} launches in {steps} steps at "
+            f"{sorted(seen2)}; output lengths "
+            f"{sorted({len(row) for r in rounds for row in r})}, want {L}")
+    total[2] += tkp.LAUNCHES
+    total[3] += da.LAUNCHES
+    log(f"[translate_img] Caption2Image -> grid -> beam search of a fused "
+        f"BERT-base captioner (bf16), B={B} S={S} beam {K}, three rounds of "
+        f"L={L}: {steps} steps, K2 {tkp.LAUNCHES} at (M, k) "
+        f"{sorted(seen2)}, K4 {da.LAUNCHES} ({cap_cfg.dec_layers} a step), "
+        f"{secs:.2f} s = {B / secs:.1f} sentences/s for the three rounds "
+        f"({card})")
+    del c2i_model, captioner
+    torch.cuda.empty_cache()
+
+    cli = phase_module11_cli(checked_k1, checked_xent, checked_k4, m11)
+    return tuple(a + b for a, b in zip(total, cli))
+
+
+def phase_module11_cli(checked_k1, checked_xent, checked_k4, m11):
+    """cli.train_sensim -> cli.get_sen_sim, and (where Pillow is installed)
+    cli.train_txt2image from a captioner checkpoint -> cli.translate_img
+    with that captioner ("fused") on 8 lines. Returns (K1 fwd, K1 bwd, K2,
+    K4) launches."""
+    import torch
+
+    from imagetranslate_tpu_torch.cli import (
+        get_sen_sim,
+        train_sensim,
+        train_txt2image,
+        translate_img,
+    )
+    from imagetranslate_tpu_torch.ops import decode_attention as da
+    from imagetranslate_tpu_torch.ops import topk_project as tkp
+    from imagetranslate_tpu_torch.ops import train_attention as ta
+    from imagetranslate_tpu_torch.train.checkpoint import (
+        load_checkpoint,
+        load_config,
+    )
+
+    d = os.path.dirname(m11["train"])
+    tok = ["--tok", m11["tok"]]
+    out = [0, 0, 0, 0]
+    t0 = time.perf_counter()
+    ta.FWD_LAUNCHES = ta.BWD_LAUNCHES = 0
+    model = os.path.join(d, "sensim")
+    with Recorder() as rec:
+        train_sensim.main(tok + [
+            "--model", model, "--train_mt", m11["train"], "--dev_mt",
+            m11["dev"], "--src-neg", m11["neg"][0], "--dst-neg",
+            m11["neg"][1], "--step", "2", "--batch", str(M11_CLI["batch"]),
+            "--warmup", "2", "--device", "cuda", *M11_CLI_WIDTH])
+    rec.require_checked("train_sensim cli", checked_k1, checked_xent,
+                        want_k5=False)
+    per = 4 * load_config(model + ".latest").enc_layers
+    if (ta.FWD_LAUNCHES, ta.BWD_LAUNCHES) != (2 * per, 2 * per):
+        raise AssertionError(f"train_sensim cli: K1 {ta.FWD_LAUNCHES} + "
+                             f"{ta.BWD_LAUNCHES}, want {2 * per} each")
+    out[0] += ta.FWD_LAUNCHES
+    out[1] += ta.BWD_LAUNCHES
+    if load_checkpoint(model + ".latest")[2]["step"] != 2:
+        raise AssertionError("train_sensim cli: .latest is not at step 2")
+    sims = os.path.join(d, "sims.tsv")
+    get_sen_sim.main(tok + ["--model", model, "--dev_mt", m11["dev"],
+                            "--output", sims, "--device", "cuda"])
+    with open(sims) as f:
+        rows = [ln.split("\t") for ln in f.read().splitlines()]
+    if len(rows) != 16 or not all(len(r) == 3 and -1.001 <= float(r[2])
+                                  <= 1.001 for r in rows):
+        raise AssertionError(f"get_sen_sim wrote {len(rows)} rows: "
+                             f"{rows[:2]}")
+    log(f"[module 11 cli] cli.train_sensim (2 steps, "
+        f"{load_config(model).hidden_size} wide, pools from the MASS shards, "
+        f"a dev set) -> cli.get_sen_sim: {len(rows)} pairs, "
+        f"e.g. {rows[0]}, K1 {out[0]} + {out[1]}, in "
+        f"{time.perf_counter() - t0:.1f} s")
+    if m11["caps"] is None:
+        log("[module 11 cli] Pillow is not installed on this machine: "
+            "cli.train_txt2image and cli.translate_img are not run")
+        return out
+    t0 = time.perf_counter()
+    c2i = os.path.join(d, "c2i")
+    ta.FWD_LAUNCHES = ta.BWD_LAUNCHES = 0
+    with Recorder() as rec:
+        train_txt2image.main(tok + [
+            "--model", c2i, "--pretrained", m11["captioner"], "--train",
+            m11["caps"], "--image", m11["images"], "--step", "2",
+            "--max-image", str(M11_CLI["max_image"]), "--warmup", "2",
+            "--device", "cuda", *M11_CLI_WIDTH])
+    rec.require_checked("train_txt2image cli", checked_k1, checked_xent,
+                        want_k5=False)
+    per = 2 * load_config(c2i + ".latest").enc_layers
+    if (ta.FWD_LAUNCHES, ta.BWD_LAUNCHES) != (per, per):
+        raise AssertionError(f"train_txt2image cli: K1 {ta.FWD_LAUNCHES} + "
+                             f"{ta.BWD_LAUNCHES}, want {per} each")
+    out[0] += ta.FWD_LAUNCHES
+    out[1] += ta.BWD_LAUNCHES
+    da.LAUNCHES = tkp.LAUNCHES = 0
+    result = os.path.join(d, "translated.txt")
+    with recording_decode_attention() as seen4, recording_topk() as seen2:
+        translate_img.main(tok + [
+            "--model", c2i + ".latest", "--caption-model", m11["captioner"],
+            "--input", m11["input"], "--output", result, "--src", "en",
+            "--target", "fa", "--verbose", "--device", "cuda"])
+    torch.cuda.synchronize()
+    with open(result) as f:
+        lines = f.read().splitlines()
+    k2_cases = {(M, k) for M, k, _ in k2_random_cases()}
+    require_decode_attention(
+        "translate_img cli", seen4, checked_k4, da.LAUNCHES,
+        load_config(m11["captioner"]).dec_layers * tkp.LAUNCHES)
+    if (len(lines) != M11_CLI["lines"] or tkp.LAUNCHES == 0
+            or seen2 - k2_cases
+            or not all(ln.count(" ||| ") == 3 for ln in lines)):
+        raise AssertionError(f"translate_img cli: {len(lines)} lines, K2 "
+                             f"{tkp.LAUNCHES} at {sorted(seen2)}")
+    out[2] += tkp.LAUNCHES
+    out[3] += da.LAUNCHES
+    log(f"[module 11 cli] cli.train_txt2image (2 steps from a BERT-base "
+        f"captioner checkpoint, 16 captions of 4 JPEGs) -> "
+        f"cli.translate_img (fused captioner, beam 4) on {len(lines)} lines:"
+        f" K1 {per} + {per}, K2 {tkp.LAUNCHES} at {sorted(seen2)}, K4 "
+        f"{da.LAUNCHES}, in {time.perf_counter() - t0:.1f} s, e.g. "
+        f"{lines[0][:120]!r}")
+    return out
+
+
+def phase_moe(card, checked_k1, checked_xent, checked_k4):
+    """Phase 22: MTTrainer steps with an MoE FFN (8 experts, top-2) at phase
+    7's shape with the fused cross-entropy, paired with the dense step, the
+    routing checked on one forward; then phase 4's beam decode on the MoE
+    model through K2 and K4. Returns (K1 fwd, K1 bwd, K5 fwd, K5 bwd, K2,
+    K4) launches."""
+    import dataclasses
+
+    import torch
+
+    from imagetranslate_tpu_torch.models import moe
+    from imagetranslate_tpu_torch.models.seq2seq import Seq2Seq
+    from imagetranslate_tpu_torch.ops import decode_attention as da
+    from imagetranslate_tpu_torch.ops import topk_project as tkp
+    from imagetranslate_tpu_torch.ops import train_attention as ta
+    from imagetranslate_tpu_torch.ops import xent
+    from imagetranslate_tpu_torch.train.trainer_mt import MTTrainer
+
+    device = torch.device("cuda")
+    dense_cfg = dataclasses.replace(bert_base(32000), dropout=RATE,
+                                    attention_dropout=RATE,
+                                    use_pallas_xent=True)
+    cfg = dataclasses.replace(dense_cfg, **MOE)
+    B, S, T = MOE_STEP
+    t0 = time.perf_counter()
+    arms = {name: (MTTrainer(c, FullVocab(), lr=5e-4, warmup=8, seed=SEED,
+                             device=device), [])
+            for name, c in (("dense", dense_cfg), ("moe", cfg))}
+    trainer = arms["moe"][0]
+    build_s = time.perf_counter() - t0
+    n_params = {k: sum(p.numel() for p in tr.model.parameters()) / 1e6
+                for k, (tr, _) in arms.items()}
+    batches = train_batches(cfg, 4, B, S, T, device)
+
+    def steps(n, tr, into):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(n):
+            tr.state, m = tr.mt_step(tr.state, batches[len(into) % 4], tr.rng)
+            into.append(m)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t1
+
+    ta.FWD_LAUNCHES = ta.BWD_LAUNCHES = 0
+    xent.FWD_LAUNCHES = xent.BWD_LAUNCHES = 0
+    with Recorder() as rec:
+        for name in arms:
+            steps(2, *arms[name])                       # warm-up
+    rec.require_checked("moe train", checked_k1, checked_xent)
+    block, ms = 3, {"dense": [], "moe": []}
+    for name in ("dense", "moe", "moe", "dense"):
+        ms[name].append(1e3 * steps(block, *arms[name]) / block)
+    n_steps = sum(len(v) for _, v in arms.values())
+    per = cfg.enc_layers + 2 * cfg.dec_layers
+    got = (ta.FWD_LAUNCHES, ta.BWD_LAUNCHES, xent.FWD_LAUNCHES,
+           xent.BWD_LAUNCHES)
+    if got != (per * n_steps, per * n_steps, n_steps, n_steps):
+        raise AssertionError(f"moe train: (K1 fwd, K1 bwd, K5 fwd, K5 bwd) "
+                             f"{got} in {n_steps} steps, want {per} + {per} "
+                             "and 1 + 1 a step")
+    losses = {k: [(m["sum_loss"] / m["ntokens"]).item() for m in v]
+              for k, (_, v) in arms.items()}
+    for k, v in losses.items():
+        if not all(x == x and abs(x) != float("inf") for x in v):
+            raise AssertionError(f"moe train: {k} loss not finite: {v}")
+    tokens = float(arms["moe"][1][-1]["ntokens"])
+    tps = {k: tokens / (sum(v) / len(v) / 1e3) for k, v in ms.items()}
+
+    # The routing of one training-mode forward: every bank's aux loss
+    # finite and positive, its first-choice fractions summing to 1, and the
+    # share of choices past their expert's capacity.
+    inputs = []
+    hooks = [b.register_forward_pre_hook(lambda mod, a: inputs.append(
+        (mod, a[0].detach()))) for b in trainer.model.modules()
+        if isinstance(b, moe.MoEFeedForward)]
+    batch = batches[0]
+    with torch.no_grad(), moe.collect_aux(trainer.model) as sink:
+        trainer.model(batch["src"], batch["src_mask"], batch["dst"],
+                      batch["dst_mask"], batch["src_langs"],
+                      batch["dst_langs"], deterministic=False,
+                      rng=trainer.rng)
+    for h in hooks:
+        h.remove()
+    aux = torch.stack(sink).float()
+    fractions, dropped = [], []
+    with torch.no_grad():
+        for bank, x in inputs:
+            tok = x.reshape(-1, x.shape[-1])
+            g = moe._group_size(tok.shape[0], cfg.moe_group_size)
+            _, _, _, slots, first = bank.route(
+                tok.reshape(-1, g, tok.shape[-1]))
+            fractions.append(first.mean(dim=(0, 1)))
+            C = moe._capacity(g, cfg)
+            dropped.append(sum(float((s >= C).float().mean()) for s in slots)
+                           / len(slots))
+    sums = torch.stack(fractions).sum(dim=1)
+    if (len(sink) != cfg.enc_layers + cfg.dec_layers
+            or not torch.isfinite(aux).all()
+            or not (aux > 0).all()
+            or (sums - 1).abs().max() > 1e-5):
+        raise AssertionError(f"moe routing: {len(sink)} aux values {aux}, "
+                             f"first-choice fractions sum to {sums}")
+    log(f"[moe] MTTrainer {cfg.hidden_size} wide, {cfg.enc_layers}+"
+        f"{cfg.dec_layers} layers, with an MoE FFN of "
+        f"{cfg.moe_experts} experts, top-{cfg.moe_top_k}, capacity "
+        f"{cfg.moe_capacity_factor}, groups of {cfg.moe_group_size}, aux "
+        f"weight {cfg.moe_aux_weight} ({n_params['moe']:.1f} M fp32 master "
+        f"parameters against {n_params['dense']:.1f} M dense; both built in "
+        f"{build_s:.1f} s), B={B} S=T={S}, use_pallas_xent on, blocks of {block} steps in "
+        f"the order dense, moe, moe, dense: moe "
+        f"{[round(x, 1) for x in ms['moe']]} ms/step = {tps['moe']:.0f} tok/s, dense "
+        f"{[round(x, 1) for x in ms['dense']]} ms/step = {tps['dense']:.0f} "
+        f"tok/s; K1 {got[0]} + {got[1]}, K5 {got[2]} + {got[3]} over both "
+        f"arms; aux losses of the {len(sink)} banks "
+        f"{[round(x, 4) for x in aux.tolist()]}, first-choice fractions "
+        f"sum to 1 within {float((sums - 1).abs().max()):.1e}, choices past "
+        f"capacity {[round(x, 4) for x in dropped]}; moe losses "
+        f"{[round(x, 3) for x in losses['moe']]} ({card})")
+    state = trainer.model.state_dict()
+    del arms, trainer, batches, inputs
+    torch.cuda.empty_cache()
+
+    # Phase 4's beam decode (B=64, S=64, beam 4, L=88) on the MoE model,
+    # bf16, the self-attention of every step through K4.
+    serve = Seq2Seq(dataclasses.replace(cfg, dropout=0.0,
+                                        attention_dropout=0.0,
+                                        decode_attention_impl="fused"),
+                    device=device)
+    serve.load_state_dict(state)
+    serve.eval()
+    Bd, Sd, K, L = MT_DECODE
+    run_decode(serve, Bd, Sd, K, device)                # warm-up
+    da.LAUNCHES = tkp.LAUNCHES = 0
+    with recording_decode_attention() as seen4:
+        _, lengths, dsteps, secs = run_decode(serve, Bd, Sd, K, device)
+    require_decode_attention("moe decode", seen4, checked_k4, da.LAUNCHES,
+                             cfg.dec_layers * dsteps)
+    if tkp.LAUNCHES != dsteps:
+        raise AssertionError(f"moe decode: K2 {tkp.LAUNCHES} launches in "
+                             f"{dsteps} steps")
+    dec_tokens = int(lengths.sum())
+    log(f"[moe] beam decode on the MoE model (bf16, fused): B={Bd} S={Sd} "
+        f"beam {K} L={L}, {dsteps} steps (each routes the B*K={Bd * K} step "
+        f"tokens as one group), K2 {tkp.LAUNCHES}, K4 {da.LAUNCHES}: "
+        f"{dec_tokens} tokens in {secs:.3f} s = {dec_tokens / secs:.1f} tok/s "
+        f"({card})")
+    out = (got[0], got[1], got[2], got[3], tkp.LAUNCHES, da.LAUNCHES)
+    del serve, state
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "imagetranslate_tpu_torch")):
         print("chip_smoke.py must run from a checkout of the repository "
@@ -4331,10 +4923,12 @@ def main() -> int:
     done("4-5")
     with tempfile.TemporaryDirectory() as umt_dir:
         corpus = prepare_umt_corpus(umt_dir)
+        m11 = prepare_module11_corpus(umt_dir, corpus)
         cli_k1, cli_k5 = umt_cli_shapes(corpus[3].vocab_size())
         mt_k1, mt_k5 = image_mt_shapes()
         attn_fwd, attn_bwd, checked = phase_kernel_attention(
-            cli_k1 + caption_train_k1_shapes() + mt_k1)
+            cli_k1 + caption_train_k1_shapes() + mt_k1
+            + module11_shapes(m11))
         done("6")
         xent_fwd, xent_bwd, checked_xent = phase_kernel_xent(cli_k5 + mt_k5)
         flash, checked_flash = phase_kernel_flash([long_cli_shape()])
@@ -4358,6 +4952,14 @@ def main() -> int:
         caption_k2 += im_k2
         torch.cuda.empty_cache()
         done("20")
+        m11_fwd, m11_bwd, m11_k2, m11_k4 = phase_module11(
+            card, checked, checked_xent, checked_k4, m11)
+        moe_fwd, moe_bwd, moe_k5f, moe_k5b, moe_k2, moe_k4 = phase_moe(
+            card, checked, checked_xent, checked_k4)
+        caption_k2 += m11_k2 + moe_k2
+        dec_attn_launches += m11_k4 + moe_k4
+        torch.cuda.empty_cache()
+        done("21-22")
         fwd_launches, bwd_launches = phase_train(card, profile, checked,
                                                  checked_xent)
         torch.cuda.empty_cache()
@@ -4365,8 +4967,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         done("7-8")
         xent_launches = phase_umt_train(card, checked, checked_xent)
-        xent_launches = (xent_launches[0] + im_k5f,
-                         xent_launches[1] + im_k5b)
+        xent_launches = (xent_launches[0] + im_k5f + moe_k5f,
+                         xent_launches[1] + im_k5b + moe_k5b)
         torch.cuda.empty_cache()
         phase_umt_cli(umt_dir, corpus, checked, checked_xent)
         torch.cuda.empty_cache()
@@ -4375,8 +4977,8 @@ def main() -> int:
         lm_k3, lm_fwd, lm_bwd = phase_lm(card, profile, checked_flash,
                                          checked)
         flash_launches += lm_k3
-        fwd_launches += lm_fwd + ct_fwd + im_fwd
-        bwd_launches += lm_bwd + ct_bwd + im_bwd
+        fwd_launches += lm_fwd + ct_fwd + im_fwd + m11_fwd + moe_fwd
+        bwd_launches += lm_bwd + ct_bwd + im_bwd + m11_bwd + moe_bwd
         phase_lm_cli(umt_dir, corpus)
         done("13-15")
     attn_src = "imagetranslate_tpu_torch/csrc/train_attention.cu"

@@ -6,7 +6,9 @@ counterpart, keeps its parameter layout (HF-2.9 ``state_dict`` keys) and its
 checkpoint and tokenizer formats, and is tested against it on the CPU. The
 port imports neither jax nor the JAX package.
 
-- ``models``    — config, transformer stacks and ``Seq2Seq`` as ``nn.Module``s.
+- ``models``    — config, transformer stacks (dense or MoE FFN), ``Seq2Seq``,
+                  the LMs, the captioner, ``SenSim`` and ``Caption2Image``
+                  as ``nn.Module``s.
 - ``ops``       — plain attention, the label-smoothed loss, and the
                   hand-written CUDA kernels with their plain PyTorch versions
                   (``ops/topk_project.py``, ``ops/train_attention.py``).
@@ -18,7 +20,8 @@ port imports neither jax nor the JAX package.
                   weight and optimizer-state bridge to the flax/optax trees
                   and the msgpack checkpoint.
 - ``utils``     — step meters.
-- ``cli``       — ``translate``, ``train_mt``.
+- ``cli``       — ``translate``, ``train_mt``, the caption, LM, SenSim and
+                  Caption2Image CLIs, ``translate_img`` and the host tools.
 """
 
 __version__ = "0.1.0"

@@ -56,27 +56,34 @@ def get_parser() -> argparse.ArgumentParser:
     return p
 
 
-def build_model(options):
+def load_captioner(path: str, device):
+    """A captioning checkpoint -> ``ImageSeq2Seq`` on ``device`` in
+    inference mode, its weights stored in the compute dtype."""
     from imagetranslate_tpu_torch.models.captioning import ImageSeq2Seq
-    from imagetranslate_tpu_torch.text.processor import TextProcessor
     from imagetranslate_tpu_torch.train.checkpoint import (
         load_config,
         load_variables,
     )
     from imagetranslate_tpu_torch.train.weights import CAPTION
 
-    tp = TextProcessor(options.tokenizer_path)
-    cfg = load_config(options.model_path)
-    variables = load_variables(options.model_path)
+    cfg = load_config(path)
+    variables = load_variables(path)
     kw = {}
     if cfg.use_obj:
         kw["object_feat_dim"] = variables["params"]["object_feat_fc"][
             "kernel"].shape[0]
-    model = ImageSeq2Seq(cfg, device=torch.device(options.device), **kw)
+    model = ImageSeq2Seq(cfg, device=torch.device(device), **kw)
     model.load_state_dict(CAPTION.state_dict_from_flax(variables, cfg),
                           strict=True)
-    model.eval()
-    return model, cfg, tp
+    return model.eval()
+
+
+def build_model(options):
+    from imagetranslate_tpu_torch.text.processor import TextProcessor
+
+    tp = TextProcessor(options.tokenizer_path)
+    model = load_captioner(options.model_path, options.device)
+    return model, model.cfg, tp
 
 
 def caption_batches(model, tp, batches, writer, *, beam_width: int = 4,

@@ -12,7 +12,9 @@ then ``--fstep`` steps of back-translation between the two ``--langs``:
         --mass_train PREFIX --step N --fstep M --langs aa,bb [--device cuda]
 
 ``--lm LMDIR`` starts the embeddings, the encoder and (when it is untied) the
-output layer from a checkpoint of ``cli.train_lm``.
+output layer from a checkpoint of ``cli.train_lm``. ``--moe-experts N
+--moe-top-k K`` puts a routed bank of N experts in every layer's FFN, its
+load-balance loss in every step.
 
 Multimodal MT: ``--train CAPTIONS.bin --image IMGDIR`` adds an image-caption
 stream (``ImageMTTrainer``), trained by ``--mmode`` ("mixed", "masked":
@@ -37,8 +39,6 @@ import os
 # command lines stay interchangeable) but whose path is not ported: any value
 # but the flag's default stops the run.
 UNPORTED = {
-    "moe_experts": ("--moe-experts", "MoE FFN: ROADMAP module 13"),
-    "moe_top_k": ("--moe-top-k", "MoE FFN: ROADMAP module 13"),
     "mesh_spec": ("--mesh", "multi-device training: ROADMAP module 14"),
     "pp_microbatches": ("--pp-microbatches",
                         "pipeline parallelism: ROADMAP module 14"),
@@ -74,8 +74,11 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument("--intermediate", dest="intermediate_layer_dim", type=int,
                    default=3072)
     p.add_argument("--capacity", dest="total_capacity", type=int, default=600)
-    p.add_argument("--moe-experts", dest="moe_experts", type=int, default=0)
-    p.add_argument("--moe-top-k", dest="moe_top_k", type=int, default=2)
+    p.add_argument("--moe-experts", dest="moe_experts", type=int, default=0,
+                   help="Mixture-of-Experts FFN with this many experts per "
+                        "layer (models/moe.py); 0 = dense")
+    p.add_argument("--moe-top-k", dest="moe_top_k", type=int, default=2,
+                   help="experts routed per token")
     p.add_argument("--beam", dest="beam_width", type=int, default=5)
     p.add_argument("--bt-beam", dest="bt_beam_width", type=int, default=1)
     p.add_argument("--max_len_a", type=float, default=1.3)
@@ -194,6 +197,7 @@ def main(argv=None):
             use_proposals=lex_dict is not None,
             resnet_depth=options.resnet_depth,
             dtype=options.dtype,
+            moe_experts=options.moe_experts,
             moe_top_k=options.moe_top_k,
         )
 

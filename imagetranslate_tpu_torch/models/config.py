@@ -14,7 +14,8 @@ bf16 compute and cache on the card, where a head width or a live length the
 kernel does not take raises; an fp32 model or an fp32/fp8 cache on the card
 takes the plain attention; the op's plain version on the CPU);
 ``"onehot"`` (the default) and ``"dense"`` take the plain attention over the
-masked buffer. The other knobs that select TPU kernels or XLA lowerings
+masked buffer. ``moe_experts > 0`` puts a routed expert bank in every
+encoder and decoder layer's FFN (``models/moe.py``; the ``moe_*`` fields). The other knobs that select TPU kernels or XLA lowerings
 (``dense_decode_cross``, ``fused_project_topk``, ``remat*``) are read and kept
 but have no effect here: the port has one path per operation, and
 recomputation is not ported.
@@ -87,10 +88,13 @@ class Seq2SeqConfig:
     use_pallas_xent: bool = False
 
     def __post_init__(self):
-        if self.moe_experts > 0:
-            raise NotImplementedError(
-                "MoE FFN (moe_experts > 0) is not ported yet: ROADMAP "
-                "module 13")
+        if self.moe_experts and not (1 <= self.moe_top_k <= self.moe_experts):
+            raise ValueError(
+                f"moe_top_k={self.moe_top_k} must be in [1, "
+                f"moe_experts={self.moe_experts}]")
+        if self.moe_experts and self.moe_group_size < 0:
+            # 0 is one global group (O(T^2) dispatch, for parity checks).
+            raise ValueError("moe_group_size must be >= 0")
 
     @property
     def head_dim(self) -> int:

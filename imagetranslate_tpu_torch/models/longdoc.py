@@ -119,6 +119,12 @@ class LongDocLM(nn.Module):
             raise NotImplementedError(
                 "seq_sharding: sequence parallelism over devices is not "
                 "ported yet (ROADMAP module 14)")
+        if cfg.moe_experts:
+            # The JAX LongDocLM's layers keep their dense FFN whatever the
+            # config says, and its MLM step then averages no aux losses.
+            raise ValueError("the long-document LM has a dense FFN in every "
+                             "layer (as in the JAX package): moe_experts "
+                             "must be 0")
         self.cfg, self.block = cfg, block
         E = cfg.hidden_size
         kw = dict(device=device, dtype=_param_dtype(cfg, param_dtype))

@@ -1,6 +1,7 @@
 """BERT-style encoder/decoder stacks (port of
 imagetranslate_tpu/models/transformer.py: Embeddings, Attention, FeedForward,
-the layers and stacks, OutputLayer, pad_bias, causal_pad_bias, segment_bias).
+make_ffn, the layers and stacks, OutputLayer, pad_bias, causal_pad_bias,
+segment_bias).
 
 Post-LayerNorm blocks, exact-gelu FFN, additive -10000 masks, the language
 id as a per-token token-type embedding and learned positions: the math of HF
@@ -34,6 +35,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from imagetranslate_tpu_torch.models.config import Seq2SeqConfig
+from imagetranslate_tpu_torch.models.moe import MoEFeedForward
 from imagetranslate_tpu_torch.ops.attention import (
     dot_product_attention,
     make_attention_bias,
@@ -221,13 +223,18 @@ class Attention(nn.Module):
 
 class EncoderLayer(nn.Module):
     """BertLayer: self-attention, then the dense-gelu-dense FFN with a
-    post-LN residual (BertIntermediate + BertOutput)."""
+    post-LN residual (BertIntermediate + BertOutput), or with
+    ``cfg.moe_experts > 0`` the routed expert bank ``moe``
+    (``models/moe.py``, the JAX ``make_ffn``) in the FFN's place."""
 
     def __init__(self, cfg: Seq2SeqConfig, device=None, param_dtype=None):
         super().__init__()
         self.cfg = cfg
         E, FF = cfg.hidden_size, cfg.intermediate_size
         self.attention = Attention(cfg, device, param_dtype)
+        if cfg.moe_experts:
+            self.moe = MoEFeedForward(cfg, device, param_dtype)
+            return
         self.intermediate = nn.ModuleDict({
             "dense": _linear(cfg, E, FF, device, param_dtype)})
         self.output = nn.ModuleDict({
@@ -235,6 +242,8 @@ class EncoderLayer(nn.Module):
             "LayerNorm": _layer_norm(cfg, device)})
 
     def ffn(self, x, drop: Optional[DropoutRng] = None):
+        if self.cfg.moe_experts:
+            return self.moe(x, drop)
         h = F.gelu(self.intermediate["dense"](x))   # exact (erf) gelu
         out = self.output["dense"](h)
         if drop is not None:

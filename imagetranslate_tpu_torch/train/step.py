@@ -1,7 +1,8 @@
-"""The MT, MASS, MLM and caption train steps (port of
+"""The MT, MASS, MLM, SenSim, Caption2Image and caption train steps (port of
 imagetranslate_tpu/train/step.py: TrainState, create_train_state, wrap_accum,
 make_mt_train_step for padded and packed batches, make_mass_train_step,
-make_mlm_train_step, make_mlm_eval_step, CaptionTrainState,
+make_mlm_train_step, make_mlm_eval_step, make_sensim_train_step,
+make_caption2image_train_step, CaptionTrainState,
 create_caption_train_state, make_caption_train_step,
 make_caption_obj_train_step, make_caption_mt_train_step, the multimodal
 steps make_multimodal_mass_step, make_text_mass_step_mm and
@@ -12,6 +13,11 @@ are the model's own ``nn.Parameter``s and the step updates them, and the
 optimizer state, IN PLACE (no second copy of the fp32 masters); it returns
 the same ``TrainState`` with ``step`` advanced. Metrics are device scalars
 (sum_loss, ntokens): nothing in a step waits for the device.
+
+A model with MoE FFNs (``cfg.moe_experts > 0``) adds ``cfg.moe_aux_weight``
+times the mean of its expert banks' load-balance losses to every training
+objective, as each JAX step does; a dense model's objective is what it was.
+Evaluation applies no such term.
 """
 
 from __future__ import annotations
@@ -21,6 +27,7 @@ from typing import Callable, Dict, Optional
 
 import torch
 
+from imagetranslate_tpu_torch.models.moe import collect_aux
 from imagetranslate_tpu_torch.models.transformer import DropoutRng
 from imagetranslate_tpu_torch.ops.losses import nll_loss, smoothed_nll_loss
 from imagetranslate_tpu_torch.ops.masking import (
@@ -68,6 +75,23 @@ def _loss_impl(model) -> Callable:
     return smoothed_nll_loss
 
 
+def _with_aux(model, fn, *args, **kw):
+    """(``fn(*args, **kw)``, the weighted load-balance term): for a model
+    with MoE FFNs ``cfg.moe_aux_weight`` times the mean of the losses its
+    expert banks reported during the call (one a bank a call, the mean over
+    the sown values of the JAX ``_apply_with_aux``); None for a dense model,
+    whose objective then gains nothing."""
+    if not model.cfg.moe_experts:
+        return fn(*args, **kw), None
+    with collect_aux(model) as sink:
+        out = fn(*args, **kw)
+    return out, model.cfg.moe_aux_weight * (sum(sink) / len(sink))
+
+
+def _plus(objective, aux):
+    return objective if aux is None else objective + aux
+
+
 def _descend(state, optimizer: Optimizer, objective) -> None:
     """Backward of the scalar ``objective``, the optimizer update in
     place."""
@@ -81,10 +105,11 @@ def _descend(state, optimizer: Optimizer, objective) -> None:
     state.step += 1
 
 
-def _update(state, optimizer: Optimizer, sum_l, n, weight: float = 1.0):
-    """Backward of weight * sum_l / n, the optimizer update in place, the
-    metrics (the unweighted sum)."""
-    _descend(state, optimizer, weight * sum_l / n)
+def _update(state, optimizer: Optimizer, sum_l, n, weight: float = 1.0,
+            aux=None):
+    """Backward of weight * sum_l / n (+ ``aux``, the weighted MoE term),
+    the optimizer update in place, the metrics (the unweighted sum)."""
+    _descend(state, optimizer, _plus(weight * sum_l / n, aux))
     return state, {"sum_loss": sum_l.detach(), "ntokens": n}
 
 
@@ -102,7 +127,8 @@ def make_mt_train_step(model, optimizer: Optimizer,
                 rng: torch.Generator):
         packed = "src_seg" in batch
         if packed:
-            logits = model(
+            logits, aux = _with_aux(
+                model, model,
                 batch["src"], batch["src_seg"] > 0, batch["dst"],
                 batch["dst_seg"] > 0, batch["src_langs"], batch["dst_langs"],
                 tgt_positions=batch["dst_pos"],
@@ -114,7 +140,8 @@ def make_mt_train_step(model, optimizer: Optimizer,
             # the same example: cross-boundary slots are excluded.
             mask = (seg[:, 1:] == seg[:, :-1]) & (seg[:, 1:] > 0)
         else:
-            logits = model(
+            logits, aux = _with_aux(
+                model, model,
                 batch["src"], batch["src_mask"], batch["dst"],
                 batch["dst_mask"], batch["src_langs"], batch["dst_langs"],
                 tgt_positions=batch.get("tgt_positions"),
@@ -124,7 +151,8 @@ def make_mt_train_step(model, optimizer: Optimizer,
             mask = batch["dst_mask"][:, 1:] & batch["row_mask"][:, None]
         sum_l, n = loss_fn_impl(logits, batch["dst"][:, 1:], mask,
                                 epsilon=label_smoothing)
-        return _update(state, optimizer, sum_l, torch.clamp(n, min=1.0))
+        return _update(state, optimizer, sum_l, torch.clamp(n, min=1.0),
+                       aux=aux)
 
     return step_fn
 
@@ -156,14 +184,15 @@ def make_mass_train_step(model, optimizer: Optimizer, cfg,
             draws, src, batch["lengths"], mask_prob, mask_id=mask_id,
             pad_id=cfg.pad_id, span_width=src.shape[1] // 2 + 1)
         dec_mask = masked.dec_inputs != cfg.pad_id
-        logits = model(masked.src, batch["src_mask"], masked.dec_inputs,
-                       dec_mask, batch["langs"], batch["langs"],
-                       tgt_positions=masked.positions, deterministic=False,
-                       rng=drop)
+        logits, aux = _with_aux(
+            model, model, masked.src, batch["src_mask"], masked.dec_inputs,
+            dec_mask, batch["langs"], batch["langs"],
+            tgt_positions=masked.positions, deterministic=False, rng=drop)
         mask = dec_mask[:, 1:] & batch["row_mask"][:, None]
         sum_l, n = loss_fn_impl(logits, masked.dec_inputs[:, 1:], mask,
                                 epsilon=label_smoothing)
-        return _update(state, optimizer, sum_l, torch.clamp(n, min=1.0))
+        return _update(state, optimizer, sum_l, torch.clamp(n, min=1.0),
+                       aux=aux)
 
     return step_fn
 
@@ -210,8 +239,9 @@ def make_mlm_train_step(model, optimizer: Optimizer, cfg,
         mask = masked.target_mask & batch["row_mask"][:, None]
         B, T = texts.shape
         if B * T >= MLM_BUDGET_MIN_TOKENS:
-            h = model.encode(masked.texts, batch["pad_mask"], batch["langs"],
-                             deterministic=False, rng=drop)
+            h, aux = _with_aux(model, model.encode, masked.texts,
+                               batch["pad_mask"], batch["langs"],
+                               deterministic=False, rng=drop)
             flat = mask.reshape(-1)
             # A stable descending sort of the 0/1 vector: the masked positions
             # first, each group in index order (what top_k gives in JAX;
@@ -221,10 +251,12 @@ def make_mlm_train_step(model, optimizer: Optimizer, cfg,
             logits = model.project_hidden(h.reshape(B * T, -1)[order])
             sum_l, n = nll_loss(logits, texts.reshape(-1)[order], flat[order])
         else:
-            logits = model(masked.texts, batch["pad_mask"], batch["langs"],
-                           deterministic=False, rng=drop)
+            logits, aux = _with_aux(model, model, masked.texts,
+                                    batch["pad_mask"], batch["langs"],
+                                    deterministic=False, rng=drop)
             sum_l, n = nll_loss(logits, texts, mask)
-        return _update(state, optimizer, sum_l, torch.clamp(n, min=1.0))
+        return _update(state, optimizer, sum_l, torch.clamp(n, min=1.0),
+                       aux=aux)
 
     return step_fn
 
@@ -252,6 +284,64 @@ def make_mlm_eval_step(model, cfg, mask_prob: float = 0.15,
     return eval_fn
 
 
+def make_sensim_train_step(model, optimizer: Optimizer) -> Callable:
+    """SenSim's InfoNCE step (``SenSim.forward``). ``batch``: the pair
+    (``src``, ``src_mask``, ``src_langs``, ``dst``, ``dst_mask``,
+    ``dst_langs``), ``row_mask``, and optionally the negative pools
+    (``src_neg``, ``src_neg_mask``, ``src_neg_langs``, ``src_neg_row_mask``
+    and the same four ``tgt_neg*``). The metrics count rows: ``sum_loss`` =
+    loss * n, ``ntokens`` = n, the real rows (all rows without a
+    ``row_mask``); the loss includes the weighted MoE term, as the JAX
+    step's metric does."""
+
+    def step_fn(state: TrainState, batch: Dict[str, torch.Tensor],
+                rng: torch.Generator):
+        loss, aux = _with_aux(
+            model, model, batch["src"], batch["src_mask"], batch["src_langs"],
+            batch["dst"], batch["dst_mask"], batch["dst_langs"],
+            batch.get("src_neg"), batch.get("src_neg_mask"),
+            batch.get("src_neg_langs"), batch.get("tgt_neg"),
+            batch.get("tgt_neg_mask"), batch.get("tgt_neg_langs"),
+            deterministic=False, rng=rng, row_mask=batch.get("row_mask"),
+            src_neg_row_mask=batch.get("src_neg_row_mask"),
+            tgt_neg_row_mask=batch.get("tgt_neg_row_mask"))
+        loss = _plus(loss, aux)
+        _descend(state, optimizer, loss)
+        if "row_mask" in batch:
+            n = batch["row_mask"].to(torch.float32).sum()
+        else:
+            n = torch.tensor(float(batch["src"].shape[0]),
+                             device=loss.device)
+        return state, {"sum_loss": loss.detach() * n, "ntokens": n}
+
+    return step_fn
+
+
+def make_caption2image_train_step(model, optimizer: Optimizer) -> Callable:
+    """Caption2Image's regression step: the squared error of the pseudo grid
+    against ``batch["target_grid"]`` [B, 49, E] (a frozen captioner's
+    ``encode_images``, detached, read in fp32), summed over the grid and
+    averaged over ``row_mask``, plus the weighted MoE term. ``batch``:
+    ``src``, ``src_mask``, ``src_langs``, ``target_grid``, ``row_mask``. The
+    metrics count rows, the loss with its MoE term (as the JAX step's)."""
+
+    def step_fn(state: TrainState, batch: Dict[str, torch.Tensor],
+                rng: torch.Generator):
+        grid, aux = _with_aux(model, model, batch["src"], batch["src_mask"],
+                              batch["src_langs"], deterministic=False,
+                              rng=rng)
+        target = batch["target_grid"].detach().to(torch.float32)
+        per_row = torch.sum((grid - target) ** 2, dim=(1, 2))
+        rm = batch["row_mask"].to(torch.float32)
+        loss = _plus(torch.sum(per_row * rm)
+                     / torch.clamp(torch.sum(rm), min=1.0), aux)
+        _descend(state, optimizer, loss)
+        n = rm.sum()
+        return state, {"sum_loss": loss.detach() * n, "ntokens": n}
+
+    return step_fn
+
+
 @dataclasses.dataclass
 class CaptionTrainState:
     """The captioner's training state: ``params`` are the model's
@@ -274,13 +364,14 @@ def create_caption_train_state(model, optimizer: Optimizer
 
 def _caption_update(state: CaptionTrainState, optimizer: Optimizer, logits,
                     targets, mask, label_smoothing: float,
-                    weight: float = 1.0):
+                    weight: float = 1.0, aux=None):
     """The caption-family steps' loss: ``smoothed_nll_loss`` itself, never
     the fused kernels (the JAX steps call it directly, whatever
     ``use_pallas_xent`` says)."""
     sum_l, n = smoothed_nll_loss(logits, targets, mask,
                                  epsilon=label_smoothing)
-    return _update(state, optimizer, sum_l, torch.clamp(n, min=1.0), weight)
+    return _update(state, optimizer, sum_l, torch.clamp(n, min=1.0), weight,
+                   aux)
 
 
 def _caption_targets(batch):
@@ -301,12 +392,13 @@ def make_caption_train_step(model, optimizer: Optimizer,
 
     def step_fn(state: CaptionTrainState, batch: Dict[str, torch.Tensor],
                 rng: torch.Generator):
-        logits = model.caption_forward(
-            batch["images"], batch["captions"], batch["caption_mask"],
-            batch["langs"], train=True, deterministic=False, rng=rng)
+        logits, aux = _with_aux(
+            model, model.caption_forward, batch["images"], batch["captions"],
+            batch["caption_mask"], batch["langs"], train=True,
+            deterministic=False, rng=rng)
         return _caption_update(state, optimizer, logits,
                                *_caption_targets(batch), label_smoothing,
-                               loss_weight)
+                               loss_weight, aux)
 
     return step_fn
 
@@ -319,12 +411,14 @@ def make_caption_obj_train_step(model, optimizer: Optimizer,
 
     def step_fn(state: CaptionTrainState, batch: Dict[str, torch.Tensor],
                 rng: torch.Generator):
-        logits = model.caption_forward_with_objects(
-            batch["images"], batch["box_features"], batch["object_labels"],
-            batch["captions"], batch["caption_mask"], batch["langs"],
-            train=True, deterministic=False, rng=rng)
+        logits, aux = _with_aux(
+            model, model.caption_forward_with_objects, batch["images"],
+            batch["box_features"], batch["object_labels"], batch["captions"],
+            batch["caption_mask"], batch["langs"], train=True,
+            deterministic=False, rng=rng)
         return _caption_update(state, optimizer, logits,
-                               *_caption_targets(batch), label_smoothing)
+                               *_caption_targets(batch), label_smoothing,
+                               aux=aux)
 
     return step_fn
 
@@ -338,14 +432,15 @@ def make_caption_mt_train_step(model, optimizer: Optimizer,
 
     def step_fn(state: CaptionTrainState, batch: Dict[str, torch.Tensor],
                 rng: torch.Generator):
-        logits = model(batch["src"], batch["src_mask"], batch["dst"],
-                       batch["dst_mask"], batch["src_langs"],
-                       batch["dst_langs"], deterministic=False, rng=rng)
+        logits, aux = _with_aux(
+            model, model, batch["src"], batch["src_mask"], batch["dst"],
+            batch["dst_mask"], batch["src_langs"], batch["dst_langs"],
+            deterministic=False, rng=rng)
         mask = batch["dst_mask"][:, 1:] & batch["row_mask"][:, None]
         sum_l, n = smoothed_nll_loss(logits, batch["dst"][:, 1:], mask,
                                      epsilon=label_smoothing)
         return _update(state, optimizer, sum_l, torch.clamp(n, min=1.0),
-                       mtl_weight)
+                       mtl_weight, aux)
 
     return step_fn
 
@@ -377,14 +472,15 @@ def make_multimodal_mass_step(model, optimizer: Optimizer, cfg,
             mask_id=mask_id, pad_id=cfg.pad_id,
             span_width=caps.shape[1] // 2 + 1)
         dec_mask = masked.dec_inputs != cfg.pad_id
-        logits = model.multimodal_mass_forward(
-            batch["images"], masked.src, batch["caption_mask"],
-            batch["langs"], masked.dec_inputs, dec_mask, masked.positions,
-            train=True, deterministic=False, rng=drop)
+        logits, aux = _with_aux(
+            model, model.multimodal_mass_forward, batch["images"],
+            masked.src, batch["caption_mask"], batch["langs"],
+            masked.dec_inputs, dec_mask, masked.positions, train=True,
+            deterministic=False, rng=drop)
         mask = dec_mask[:, 1:] & batch["row_mask"][:, None]
         return _caption_update(state, optimizer, logits,
                                masked.dec_inputs[:, 1:], mask,
-                               label_smoothing)
+                               label_smoothing, aux=aux)
 
     return step_fn
 
@@ -411,12 +507,12 @@ def make_contrastive_step(model, optimizer: Optimizer) -> Callable:
 
     def step_fn(state: CaptionTrainState, batch: Dict[str, torch.Tensor],
                 rng: torch.Generator):
-        loss = model.contrastive_loss(
-            batch["images"], batch["captions"], batch["caption_mask"],
-            batch["langs"], batch["neg"], batch["neg_mask"],
-            batch["neg_langs"], train=True, deterministic=False,
-            row_mask=batch.get("row_mask"), rng=rng)
-        _descend(state, optimizer, loss)
+        loss, aux = _with_aux(
+            model, model.contrastive_loss, batch["images"],
+            batch["captions"], batch["caption_mask"], batch["langs"],
+            batch["neg"], batch["neg_mask"], batch["neg_langs"], train=True,
+            deterministic=False, row_mask=batch.get("row_mask"), rng=rng)
+        _descend(state, optimizer, _plus(loss, aux))
         n = torch.tensor(float(batch["captions"].shape[0]),
                          device=loss.device)
         return state, {"sum_loss": loss.detach() * n, "ntokens": n}

@@ -20,7 +20,12 @@ a map numbered by chain position, ``ScaleByAdamState`` as count/mu/nu,
 accumulated gradients are parameter-shaped trees and go through the same
 layout maps as the parameters.
 
-One ``Bridge`` per model: ``SEQ2SEQ``, ``LM``, ``LONGDOC`` and ``CAPTION`` (the
+A layer whose ``ffn`` is an MoE bank (``router``, ``wi``, ``bi``, ``wo``,
+``bo``, ``ln``) maps to keys under ``{layer}.moe``; every other key is the
+dense model's.
+
+One ``Bridge`` per model: ``SEQ2SEQ``, ``LM``, ``LONGDOC``, ``SENSIM``,
+``CAPTION2IMAGE`` and ``CAPTION`` (the
 captioning model's variables are ``{"params", "batch_stats"}``: the ResNet's
 running statistics cross as ``state_dict`` buffers), and ``CAPTION_PARAMS``
 for the caption trainer's optimizer state, whose moments are trees of the
@@ -62,7 +67,20 @@ def _attn(sd, prefix: str, p: Mapping, E: int):
     sd[f"{prefix}.output.LayerNorm.bias"] = _t(p["ln"]["bias"])
 
 
+_MOE = ("wi", "bi", "wo", "bo")
+
+
 def _ffn(sd, prefix: str, p: Mapping):
+    """A layer's ``ffn`` sub-tree -> its keys: the dense FFN's, or an MoE
+    bank's under ``{prefix}.moe`` (router [E, H] as a Linear weight, the
+    stacked expert weights as they are, ``ln``)."""
+    if "router" in p:
+        sd[f"{prefix}.moe.router.weight"] = _t(p["router"]["kernel"]).T
+        for name in _MOE:
+            sd[f"{prefix}.moe.{name}"] = _t(p[name])
+        sd[f"{prefix}.moe.ln.weight"] = _t(p["ln"]["scale"])
+        sd[f"{prefix}.moe.ln.bias"] = _t(p["ln"]["bias"])
+        return
     for name in ("intermediate", "output"):
         sd[f"{prefix}.{name}.dense.weight"] = _t(p[name]["kernel"]).T
         sd[f"{prefix}.{name}.dense.bias"] = _t(p[name]["bias"])
@@ -146,6 +164,11 @@ def _attn_tree(sd, prefix: str, H: int, D: int) -> dict:
 
 
 def _ffn_tree(sd, prefix: str) -> dict:
+    if f"{prefix}.moe.wi" in sd:
+        tree = {name: sd[f"{prefix}.moe.{name}"] for name in _MOE}
+        tree["router"] = {"kernel": sd[f"{prefix}.moe.router.weight"].T}
+        tree["ln"] = _ln_tree(sd, f"{prefix}.moe.ln")
+        return tree
     tree = {name: {"kernel": sd[f"{prefix}.{name}.dense.weight"].T,
                    "bias": sd[f"{prefix}.{name}.dense.bias"]}
             for name in ("intermediate", "output")}
@@ -223,8 +246,9 @@ def flax_from_state_dict(sd: Mapping[str, torch.Tensor],
 def random_params(cfg: Seq2SeqConfig, seed: int = 0) -> dict:
     """Random flax-layout ``Seq2Seq`` params from
     ``numpy.random.RandomState(seed)``, with the JAX model's initializers:
-    normal(initializer_range) for kernels and embeddings, zero biases, unit
-    LayerNorm scales, a 0.1 proposal gate. fp32 numpy leaves."""
+    normal(initializer_range) for kernels and embeddings (an MoE bank's
+    router and experts too), zero biases, unit LayerNorm scales, a 0.1
+    proposal gate. fp32 numpy leaves."""
     rng = np.random.RandomState(seed)
     E, H, D = cfg.hidden_size, cfg.num_heads, cfg.head_dim
     FF, V = cfg.intermediate_size, cfg.vocab_size
@@ -246,6 +270,11 @@ def random_params(cfg: Seq2SeqConfig, seed: int = 0) -> dict:
                 "ln": ln()}
 
     def ffn():
+        if cfg.moe_experts:
+            n = cfg.moe_experts
+            return {"router": {"kernel": normal(E, n)},
+                    "wi": normal(n, E, FF), "bi": zeros(n, FF),
+                    "wo": normal(n, FF, E), "bo": zeros(n, E), "ln": ln()}
         return {"intermediate": {"kernel": normal(E, FF), "bias": zeros(FF)},
                 "output": {"kernel": normal(FF, E), "bias": zeros(E)},
                 "ln": ln()}
@@ -297,14 +326,22 @@ def flax_from_lm_state_dict(sd: Mapping[str, torch.Tensor],
     return {"params": _contiguous_tree(p)}
 
 
-def random_lm_params(cfg: Seq2SeqConfig, seed: int = 0) -> dict:
-    """Random flax-layout ``LM`` params: the embeddings and the encoder that
-    ``random_params`` draws from the same seed, and a zero ``out_bias``."""
+def _random_text_encoder(cfg: Seq2SeqConfig, seed: int):
+    """(params of the embeddings and the encoder as ``random_params`` draws
+    them, the generator to draw the rest from)."""
     p = random_params(dataclasses.replace(
         cfg, dec_layers=0, tie_embed=True, lang_dec=False,
         use_proposals=False), seed)["params"]
-    return {"params": {"embeddings": p["embeddings"],
-                       "encoder": p["encoder"], "out_bias": p["out_bias_0"]}}
+    return ({"embeddings": p["embeddings"], "encoder": p["encoder"]},
+            np.random.RandomState(seed + 1))
+
+
+def random_lm_params(cfg: Seq2SeqConfig, seed: int = 0) -> dict:
+    """Random flax-layout ``LM`` params: the embeddings and the encoder that
+    ``random_params`` draws from the same seed, and a zero ``out_bias``."""
+    p, _ = _random_text_encoder(cfg, seed)
+    p["out_bias"] = np.zeros((cfg.vocab_size,), np.float32)
+    return {"params": p}
 
 
 _LONGDOC_EMBED = ("word", "position", "lang")
@@ -396,6 +433,87 @@ def random_longdoc_params(cfg: Seq2SeqConfig, seed: int = 0) -> dict:
         lp["ln2"] = ln()
         p[f"layers_{i}"] = lp
     p["out_bias"] = zeros(cfg.vocab_size)
+    return {"params": p}
+
+
+# ---------------- SenSim and Caption2Image ----------------
+
+def _pool_sd(sd, name: str, p: Mapping):
+    sd[f"{name}.w.weight"] = _t(p[name]["w"]["kernel"]).T
+    sd[f"{name}.w.bias"] = _t(p[name]["w"]["bias"])
+
+
+def _pool_tree(sd, name: str) -> dict:
+    return {"w": {"kernel": sd[f"{name}.w.weight"].T,
+                  "bias": sd[f"{name}.w.bias"]}}
+
+
+def sensim_state_dict_from_flax(params: Mapping, cfg: Seq2SeqConfig
+                                ) -> Dict[str, torch.Tensor]:
+    """The JAX ``SenSim`` params -> the port's ``SenSim.state_dict()``: the
+    ``embeddings`` and ``encoder`` sub-trees as in ``Seq2Seq``, and the
+    ``input_attention`` pool."""
+    p = params.get("params", params)
+    sd: Dict[str, torch.Tensor] = {}
+    _encoder_sd(sd, p, cfg)
+    _pool_sd(sd, "input_attention", p)
+    return _contiguous_sd(sd)
+
+
+def flax_from_sensim_state_dict(sd: Mapping[str, torch.Tensor],
+                                cfg: Seq2SeqConfig) -> dict:
+    """The inverse of ``sensim_state_dict_from_flax``."""
+    sd = {k: v.detach().cpu() for k, v in sd.items()}
+    p = _encoder_tree(sd, cfg)
+    p["input_attention"] = _pool_tree(sd, "input_attention")
+    return {"params": _contiguous_tree(p)}
+
+
+def random_sensim_params(cfg: Seq2SeqConfig, seed: int = 0) -> dict:
+    """Random flax-layout ``SenSim`` params: the text encoder as
+    ``random_params`` draws it, the pool's kernel from normal(0.02) of
+    ``RandomState(seed + 1)``, a zero bias."""
+    p, rng = _random_text_encoder(cfg, seed)
+    p["input_attention"] = {"w": {
+        "kernel": (rng.standard_normal((cfg.hidden_size, 1))
+                   * cfg.initializer_range).astype(np.float32),
+        "bias": np.zeros((1,), np.float32)}}
+    return {"params": p}
+
+
+def c2i_state_dict_from_flax(params: Mapping, cfg: Seq2SeqConfig
+                             ) -> Dict[str, torch.Tensor]:
+    """The JAX ``Caption2Image`` params -> the port's state_dict: SenSim's
+    keys and the fp32 grid head ``decoder`` (a Dense [E, 49 E])."""
+    p = params.get("params", params)
+    sd = dict(sensim_state_dict_from_flax(p, cfg))
+    sd["decoder.weight"] = _t(p["decoder"]["kernel"]).T.contiguous()
+    sd["decoder.bias"] = _t(p["decoder"]["bias"])
+    return sd
+
+
+def flax_from_c2i_state_dict(sd: Mapping[str, torch.Tensor],
+                             cfg: Seq2SeqConfig) -> dict:
+    """The inverse of ``c2i_state_dict_from_flax``."""
+    p = flax_from_sensim_state_dict(
+        {k: v for k, v in sd.items() if not k.startswith("decoder.")},
+        cfg)["params"]
+    p["decoder"] = {"kernel": sd["decoder.weight"].detach().cpu().T
+                    .contiguous(), "bias": sd["decoder.bias"].detach().cpu()}
+    return {"params": p}
+
+
+def random_c2i_params(cfg: Seq2SeqConfig, seed: int = 0) -> dict:
+    """Random flax-layout ``Caption2Image`` params: ``random_sensim_params``
+    and the grid head's kernel from normal(initializer_range), a zero
+    bias."""
+    p = random_sensim_params(cfg, seed)["params"]
+    E = cfg.hidden_size
+    rng = np.random.RandomState(seed + 2)
+    p["decoder"] = {
+        "kernel": (rng.standard_normal((E, 49 * E))
+                   * cfg.initializer_range).astype(np.float32),
+        "bias": np.zeros((49 * E,), np.float32)}
     return {"params": p}
 
 
@@ -508,8 +626,7 @@ def caption_state_dict_from_flax(variables: Mapping, cfg: Seq2SeqConfig
                cfg.resnet_depth)
     sd["multimodal_attention_gate"] = _t(p["multimodal_attention_gate"])
     for name in _POOLS:
-        sd[f"{name}.w.weight"] = _t(p[name]["w"]["kernel"]).T
-        sd[f"{name}.w.bias"] = _t(p[name]["w"]["bias"])
+        _pool_sd(sd, name, p)
     if cfg.use_obj:
         for theirs, ours in _obj_names(cfg):
             _decoder_sd(sd, f"obj_decoder{ours}", p[f"obj_decoder{theirs}"],
@@ -536,8 +653,7 @@ def flax_from_caption_state_dict(sd: Mapping[str, torch.Tensor],
                                             cfg.resnet_depth)
     p["multimodal_attention_gate"] = sd["multimodal_attention_gate"]
     for name in _POOLS:
-        p[name] = {"w": {"kernel": sd[f"{name}.w.weight"].T,
-                         "bias": sd[f"{name}.w.bias"]}}
+        p[name] = _pool_tree(sd, name)
     if cfg.use_obj:
         for theirs, ours in _obj_names(cfg):
             p[f"obj_decoder{theirs}"] = _decoder_tree(
@@ -675,6 +791,10 @@ LM = Bridge(lm_state_dict_from_flax, flax_from_lm_state_dict,
             random_lm_params)
 LONGDOC = Bridge(longdoc_state_dict_from_flax, flax_from_longdoc_state_dict,
                  random_longdoc_params)
+SENSIM = Bridge(sensim_state_dict_from_flax, flax_from_sensim_state_dict,
+                random_sensim_params)
+CAPTION2IMAGE = Bridge(c2i_state_dict_from_flax, flax_from_c2i_state_dict,
+                       random_c2i_params)
 CAPTION = Bridge(caption_state_dict_from_flax, flax_from_caption_state_dict,
                  random_caption_params)
 # The caption trainer's optimizer state: its moments are trees of the

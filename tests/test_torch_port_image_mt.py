@@ -722,7 +722,7 @@ def test_cli_train_captioning_mixed_mode(corpus, tmp_path):
 @pytest.mark.parametrize("flags, message", [
     (["--lm", "x"], "--lm with --train"),
     (["--pp-microbatches", "2"], "text MT/MASS trainer only"),
-    (["--mesh", "2x1"], "module 14"), (["--moe-experts", "4"], "module 13"),
+    (["--mesh", "2x1"], "module 14"), (["--zero"], "module 14"),
 ])
 def test_cli_train_mt_refusals_with_images(corpus, tmp_path, flags, message):
     from imagetranslate_tpu_torch.cli.train_mt import main

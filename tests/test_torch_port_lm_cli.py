@@ -326,9 +326,10 @@ def test_clis_refuse_what_is_not_ported(work, tmp_path):
         train_mt.main(["--tok", str(work / "tok"), "--model",
                        str(tmp_path / "m"), "--lm", str(work / "lm"),
                        "--train", "images", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="module 13"):
+    with pytest.raises(ValueError, match="moe_top_k"):
         ckpt.load_config(str(work / "lm")).__class__(vocab_size=10,
-                                                     moe_experts=2)
+                                                     moe_experts=2,
+                                                     moe_top_k=3)
     with pytest.raises(NotImplementedError, match="module 14"):
         LMTrainer(ckpt.load_config(str(work / "lm")),
                   TextProcessor(str(work / "tok")), mesh=object(),

@@ -211,7 +211,8 @@ def test_project_topk_matches_flax(pair):
 
 def test_config_json_interchange():
     """Either package's config.json loads in the other, TPU-only knobs
-    included; dtype names map to torch dtypes; MoE is refused."""
+    included; dtype names map to torch dtypes; an MoE top-k above the
+    expert count is refused, as in the JAX config."""
     from imagetranslate_tpu.models.config import Seq2SeqConfig as JaxConfig
 
     jcfg = JaxConfig(vocab_size=100, lang_dec=True, kv_cache_dtype="float8_e4m3fn",
@@ -223,5 +224,5 @@ def test_config_json_interchange():
     assert cfg.kv_dtype == torch.float8_e4m3fn
     with pytest.raises(ValueError):
         torch_dtype("float64")
-    with pytest.raises(NotImplementedError, match="module 13"):
-        Seq2SeqConfig(vocab_size=8, moe_experts=4)
+    with pytest.raises(ValueError, match="moe_top_k"):
+        Seq2SeqConfig(vocab_size=8, moe_experts=4, moe_top_k=5)

@@ -314,10 +314,9 @@ def test_cli_resumes_with_optimizer_state(corpus, trained, tmp_path, capsys):
 
 @pytest.mark.parametrize("flags,module", [
     (["--lm", "x", "--train", "y"], "--lm with --train"),  # --lm alone runs
-    (["--moe-experts", "4"], "module 13"), (["--mesh", "2x1"], "module 14"),
+    (["--mesh", "2x1"], "module 14"),
     (["--pp-microbatches", "2"], "module 14"), (["--zero"], "module 14"),
     (["--pack"], "module 15"), (["--profile", "x"], "module 15"),
-    (["--moe-top-k", "1"], "module 13"),
 ])
 def test_cli_refuses_unported_flags(corpus, tmp_path, flags, module):
     from imagetranslate_tpu_torch.cli.train_mt import main
