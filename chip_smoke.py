@@ -15,9 +15,11 @@ train -> caption CLIs) and image MT training (ImageMTTrainer's multimodal
 MASS, contrastive, text MASS and MT steps, back-translation with images,
 then cli.train_mt --train -> cli.translate and mmid_sim), the sentence
 similarity and caption -> image models (SenSim and Caption2Image steps,
-translate_img's three decode rounds, their four CLIs) and the MoE FFN (MT
-steps and the beam decode of an MoE model), and checks that each path went
-through its kernels.
+translate_img's three decode rounds, their four CLIs), the MoE FFN (MT
+steps and the beam decode of an MoE model), the object detector (Faster
+R-CNN at 800 pixels, cli.extract_objects, cli.caption --obj) and packed MT
+training (steps on 64 x 256 packed rows, cli.train_mt --pack --profile), and
+checks that each path went through its kernels.
 
 Run from the root of a checkout, with one visible CUDA card:
 
@@ -68,7 +70,9 @@ Phases, each fatal on failure:
                text MASS steps' B=128 at T=S=32 and T=32, S=64) and of
                phase 21 (the SenSim pairs and pools at B=128, S=64, the
                Caption2Image captions at B=32, T=32, and every batch shape
-               of its two training CLIs' batchers); bf16 outputs within
+               of its two training CLIs' batchers) and of phase 24 (the
+               packed rows' B=64 at T=S=256, T=S=255 and T=255 over S=256,
+               and the bucketed batches of the same pairs); bf16 outputs within
                2^-6 of the plain result's largest magnitude (a few bf16 ulps), fp32 dbias
                within 1e-4 of it. S = 513 and fp32 inputs raise before a
                launch; two launches on the same inputs give the same bits.
@@ -98,7 +102,8 @@ Phases, each fatal on failure:
   9. kernel  — the fused label-smoothed cross-entropy kernels (forward and
      (K5)      backward; runs between phases 6 and 7) vs their plain version:
                the MT step's shape (N=16128, V=32000), the MASS step's
-               (N=8192), phase 20's text MASS step's (N=4096), the
+               (N=8192), phase 20's text MASS step's (N=4096), phase 24's
+               packed step's (N=16320) and its bucketed batches', the
                back-translation step's, ragged V (84, 30522,
                32003), N not a multiple of 8, N=1, fp32 and bf16 logits,
                eps 0 and 0.1, targets outside the vocabulary, an all-masked
@@ -286,6 +291,34 @@ Phases, each fatal on failure:
                MoE model in bf16 with decode_attention_impl="fused": K2 = 1
                and K4 = 3 a step, tok/s.
 
+ 23. detector — FasterRCNN (ResNet-50 FPN, the JAX defaults: pre-NMS top-k
+               1000 a level, 256 proposals, 36 detections, fp32) from a
+               random torchvision state_dict saved as .pth and read back
+               through load_torchvision_frcnn: B=8 uint8 images at 800, 5
+               timed forwards (ms a batch, images/s, the convolutions' and
+               linear layers' operations over 67 TFLOP/s fp32, peak memory),
+               the time of its stages, the launches and time of one RPN-stage
+               NMS (8 x 4507 boxes, 256 slots); image 0 against the same
+               module on the CPU (labels and valid equal; scores rtol 2e-3 /
+               atol 1e-4, boxes 2e-3 / 5e-2, features 1e-2); then, where
+               Pillow is installed, cli.extract_objects over 20 JPEGs
+               (--batch 8, a tail of 4) read back through ObjectStore, and
+               cli.caption --obj --fcnn over 200 JPEGs at its default --batch
+               192 and --max_len 32 (a BERT-base captioner with the object
+               stream, fused: K2 = 1 and K4 = 6 a step, at shapes phases 3
+               and 16 held), images/s.
+ 24. pack    — phase 7's model with the fused cross-entropy on 16 packed
+               batches of 64 rows x 256 tokens (6000 pairs of 6-60 tokens)
+               beside the bucketed batches cli.train_mt builds of the same
+               pairs without --pack, blocks of 6 steps in the order bucketed,
+               packed, packed, bucketed: ms/step, target tok/s and the share
+               of real target slots of each; K1 = 12 + 12 and K5 = 1 + 1 a
+               step at shapes phases 6 and 9 held (packed: T=S=256, T=S=255
+               and T=255, S=256 with a per-row segment bias; K5 at N=16320);
+               then cli.train_mt --pack --profile DIR for 16 steps of its
+               default model (6+6 layers, K1 = 18 + 18 a step), the trace of
+               steps 10-15 written.
+
 ``--profile`` adds a phase after 4 (one more decode) and one after 7 (three
 more train steps) under torch.profiler, printing the device time by operation
 and the device's busy share of that same profiled run (the union of kernel
@@ -294,8 +327,9 @@ recorded, printing the dtype casts' (aten::copy_) device time by shape,
 three steps of the paired reading's fused-cross-entropy arm, five long
 encodes with K3 and five with the plain attention (phase 13), and three MLM
 steps (phase 14), one caption decode over the grid and one over grid +
-objects (phase 18), one caption train step (phase 19) and one image MT
-tick (phase 20).
+objects (phase 18), one caption train step (phase 19), one image MT
+tick (phase 20), one detector batch (phase 23) and three packed steps (phase
+24).
 
 The second-to-last line is a JSON object describing each kernel, with its
 launches on its main path, its times, and its bound: the larger of the bytes
@@ -2751,6 +2785,10 @@ def decode_path_shapes():
             CAPTION_EVAL[0] * CAPTION_EVAL[1]: CAPTION_EVAL[2]}
     for R, L in module11_decode_rows().items():
         rows[R] = max(L, rows.get(R, 0))
+    # Phase 23's cli.caption --obj: a full batch and the tail's rows.
+    det_tail = DET_CAPTION_JPEGS % CAPTION_B
+    for R in (CAPTION_B * CAPTION_K, -(-det_tail // 8) * 8 * CAPTION_K):
+        rows[R] = max(DET_CAPTION_L, rows.get(R, 0))
     return [(R, 12, 64, n) for R, L in rows.items() for n in range(1, L)]
 
 
@@ -4891,6 +4929,520 @@ def phase_moe(card, checked_k1, checked_xent, checked_k4):
     return out
 
 
+# ---------------- phase 23: the detector ----------------
+
+DET_B = 8                 # images a detector batch (build_object_extractor's)
+DET_SIZE = 800            # the detector's input side
+DET_TIMED = 5             # timed forwards of the batch
+DET_JPEGS = 20            # cli.extract_objects' folder: 8 + 8 + a tail of 4
+DET_CAPTION_JPEGS = 200   # cli.caption --obj at its default --batch 192
+DET_CAPTION_L = 32        # that run's --max_len
+# Card against CPU, fp32 (tests/test_detector_e2e.py's tolerances):
+DET_TOL = {"scores": (2e-3, 1e-4), "boxes": (2e-3, 5e-2),
+           "features": (1e-2, 1e-2)}
+
+
+def detector_images(n: int, seed=SEED):
+    """n smooth uint8 pictures at 800 x 800, each with a constant band (the
+    padding a letterbox leaves) and a bright square."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    yy, xx = np.mgrid[0:DET_SIZE, 0:DET_SIZE].astype(np.float32)
+    out = np.empty((n, DET_SIZE, DET_SIZE, 3), np.uint8)
+    for i in range(n):
+        f = rng.uniform(20, 90, 6)
+        out[i] = np.stack([127 + 110 * np.sin(xx / f[c] + yy / f[c + 3])
+                           for c in range(3)], -1).astype(np.uint8)
+        out[i, :rng.randint(40, 160)] = 114
+        y, x, s = rng.randint(100, 600, 3)
+        out[i, y:y + s // 3, x:x + s // 3] = 250
+    return out
+
+
+def write_jpegs(folder: str, n: int, seed=SEED):
+    """n JPEG files of several sizes under ``folder`` (Pillow)."""
+    import numpy as np
+    from PIL import Image
+
+    os.makedirs(folder)
+    rng = np.random.RandomState(seed)
+    for i in range(n):
+        w, h = int(rng.randint(320, 960)), int(rng.randint(320, 960))
+        yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+        f = rng.uniform(15, 80, 6)
+        arr = np.stack([127 + 120 * np.sin(xx / f[c] + yy / f[c + 3])
+                        for c in range(3)], -1).astype(np.uint8)
+        Image.fromarray(arr).save(os.path.join(folder, f"{i:04d}.jpg"),
+                                  quality=85)
+
+
+def detector_flops(model, images) -> float:
+    """The operations of one forward on ``images``: 2 x multiply-adds of
+    every convolution and linear layer, counted from the shapes this run
+    gave them (RoIAlign, NMS and the elementwise work are left out)."""
+    import torch
+    from torch import nn
+
+    total = [0.0]
+
+    def conv(m, args, out):
+        k = m.weight.shape[1] * m.weight.shape[2] * m.weight.shape[3]
+        total[0] += 2.0 * out.numel() * k
+
+    def linear(m, args, out):
+        total[0] += 2.0 * out.numel() * m.in_features
+
+    hooks = [m.register_forward_hook(conv if isinstance(m, nn.Conv2d)
+                                     else linear)
+             for m in model.modules()
+             if isinstance(m, (nn.Conv2d, nn.Linear))]
+    try:
+        with torch.no_grad():
+            model(images)
+    finally:
+        for h in hooks:
+            h.remove()
+    return total[0]
+
+
+def phase_detector(card, profile: bool, checked_k4, corpus):
+    """Phase 23: the Faster R-CNN at full width (ResNet-50 FPN, 800 pixels,
+    the JAX defaults, fp32) from a random torchvision state_dict saved as
+    .pth: ms a batch, images/s, its operation bound, peak memory, the NMS
+    loop's launches; one image against the same module on the CPU; then
+    cli.extract_objects over a folder of JPEGs read back through
+    ObjectStore, and cli.caption --obj --fcnn over 200 JPEGs. Returns its
+    (K2, K4) launches."""
+    import numpy as np
+    import torch
+
+    from imagetranslate_tpu_torch.cli import caption as ccli
+    from imagetranslate_tpu_torch.cli import extract_objects
+    from imagetranslate_tpu_torch.data.images import ObjectStore
+    from imagetranslate_tpu_torch.models.detector import FasterRCNN
+    from imagetranslate_tpu_torch.ops import decode_attention as da
+    from imagetranslate_tpu_torch.ops import detection as dops
+    from imagetranslate_tpu_torch.ops import topk_project as tkp
+    from imagetranslate_tpu_torch.train.checkpoint import save_checkpoint
+    from imagetranslate_tpu_torch.train.weights import (
+        CAPTION,
+        load_torchvision_frcnn,
+        random_frcnn_state_dict,
+    )
+
+    device = torch.device("cuda")
+    workdir = tempfile.mkdtemp()
+    try:
+        t0 = time.perf_counter()
+        pth = os.path.join(workdir, "frcnn.pth")
+        torch.save(random_frcnn_state_dict(SEED), pth)
+        sd = load_torchvision_frcnn(torch.load(pth, map_location="cpu"))
+        model = FasterRCNN(device=device)
+        model.load_state_dict(sd)
+        model.eval()
+        images_np = detector_images(DET_B)
+        images = torch.as_tensor(images_np).to(device)
+        log(f"[detector] FasterRCNN ResNet-50 FPN, fp32, "
+            f"{sum(p.numel() for p in model.parameters()) / 1e6:.1f} M "
+            f"parameters from a random torchvision state_dict (numpy seed "
+            f"{SEED}, BatchNorm calibrated) through a .pth, built in "
+            f"{time.perf_counter() - t0:.1f} s")
+
+        flops = detector_flops(model, images)
+
+        def forward():
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            with torch.no_grad():
+                det = model(images)
+            torch.cuda.synchronize()
+            return det, time.perf_counter() - t
+
+        forward()                                         # warm-up
+        torch.cuda.reset_peak_memory_stats()
+        walls = []
+        for _ in range(DET_TIMED):
+            det, wall = forward()
+            walls.append(wall)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        ms = 1e3 * sum(walls) / len(walls)
+        bound_ms = 1e3 * flops / FP32_FLOPS_PER_S
+        n_valid = det.valid.sum(1).tolist()
+        if not all(torch.isfinite(t).all() for t in det) or min(n_valid) < 1:
+            raise AssertionError(f"detections not finite, or an image with "
+                                 f"none: valid per image {n_valid}")
+        log(f"[detector] B={DET_B} at {DET_SIZE} (uint8, normalised on the "
+            f"card), {DET_TIMED} timed forwards: {ms:.1f} ms a batch "
+            f"(spread {1e3 * min(walls):.1f}-{1e3 * max(walls):.1f}), "
+            f"{DET_B / (ms / 1e3):.1f} images/s; {flops / 1e9 / DET_B:.1f} "
+            f"GFLOP an image in convolutions and linear layers, bound "
+            f"{bound_ms:.2f} ms a batch at 67 TFLOP/s fp32 ({bound_ms / ms:.3f}"
+            f" of it); peak memory {peak:.2f} GiB; valid detections per image "
+            f"{n_valid} ({card})")
+
+        # Where a batch's time goes, by stage (host clock around a sync).
+        from imagetranslate_tpu_torch.data.images import normalize_uint8
+
+        stages = {}
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            x = normalize_uint8(images).permute(0, 3, 1, 2)
+            pyramid = model.backbone["fpn"](model.backbone["body"](x))
+            torch.cuda.synchronize()
+            stages["backbone + FPN"] = time.perf_counter() - t
+            t = time.perf_counter()
+            rpn = model.rpn["head"](pyramid)
+            torch.cuda.synchronize()
+            stages["RPN head"] = time.perf_counter() - t
+            t = time.perf_counter()
+            model._proposals(rpn, DET_SIZE, DET_SIZE)
+            torch.cuda.synchronize()
+            stages["proposals (top-k, decode, NMS of 4507 -> 256)"] = (
+                time.perf_counter() - t)
+        log("[detector] stages of one batch: " + ", ".join(
+            f"{k} {1e3 * v:.1f} ms" for k, v in stages.items()))
+
+        # The NMS loop's launches: one RPN-stage call under the profiler.
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity
+        from torch.profiler import profile as torch_profile
+
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        n_cand = 4 * 1000 + 507
+        xy = torch.rand(DET_B, n_cand, 2, generator=gen, device=device) * 700
+        wh = torch.rand(DET_B, n_cand, 2, generator=gen, device=device) * 200
+        boxes = torch.cat([xy, xy + wh + 1], -1)
+        scores = torch.rand(DET_B, n_cand, generator=gen, device=device)
+        dops.nms(boxes, scores, 0.7, 256)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        dops.nms(boxes, scores, 0.7, 256)
+        torch.cuda.synchronize()
+        nms_ms = 1e3 * (time.perf_counter() - t)
+        with torch_profile(activities=[ProfilerActivity.CPU,
+                                       ProfilerActivity.CUDA]) as prof:
+            dops.nms(boxes, scores, 0.7, 256)
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.events()
+                   if e.device_type == DeviceType.CUDA]
+        dev_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+        log(f"[detector] nms over B={DET_B} x {n_cand} boxes, 256 slots: "
+            f"{len(kernels)} kernel launches ({len(kernels) / 256:.1f} an "
+            f"iteration), {nms_ms:.1f} ms wall, {dev_ms:.2f} ms of device "
+            f"time ({card})")
+
+        # One image against the same module on the CPU.
+        cpu = FasterRCNN(device="cpu")
+        cpu.load_state_dict(sd)
+        cpu.eval()
+        with torch.no_grad():
+            want = cpu(torch.as_tensor(images_np[:1]))
+        errs = {}
+        for name in ("valid", "labels"):
+            got = getattr(det, name)[:1].cpu()
+            if not torch.equal(got, getattr(want, name)):
+                raise AssertionError(f"detector {name} on the card "
+                                     f"{got.tolist()} != the CPU's "
+                                     f"{getattr(want, name).tolist()}")
+        for name, (rtol, atol) in DET_TOL.items():
+            got, ref = getattr(det, name)[:1].cpu(), getattr(want, name)
+            err = (got - ref).abs()
+            if (err > atol + rtol * ref.abs()).any():
+                raise AssertionError(f"detector {name}: card vs CPU differ "
+                                     f"by {err.max().item():.3g} (rtol "
+                                     f"{rtol}, atol {atol})")
+            errs[name] = err.max().item()
+        log(f"[detector] image 0 on the card vs the same module on the CPU: "
+            f"labels and valid equal ({int(want.valid.sum())} detections), "
+            f"max abs err " + ", ".join(f"{k} {v:.3g}"
+                                        for k, v in errs.items()))
+        if profile:
+            def run():
+                return forward()[1], f"B={DET_B} at {DET_SIZE}"
+            _profile(run, "detector", card)
+        del model, cpu, images, det, pyramid, rpn, boxes, scores
+        torch.cuda.empty_cache()
+
+        try:
+            import PIL  # noqa: F401
+        except ImportError:
+            log("[detector cli] Pillow is not installed on this machine: "
+                "cli.extract_objects and cli.caption --obj over JPEGs were "
+                "not run")
+            return 0, 0
+
+        folder = os.path.join(workdir, "det_images")
+        write_jpegs(folder, DET_JPEGS)
+        npz = os.path.join(workdir, "dets.npz")
+        t = time.perf_counter()
+        extract_objects.main(["--input", folder, "--fcnn", pth, "--output",
+                              npz, "--batch", str(DET_B), "--device", "cuda"])
+        wall = time.perf_counter() - t
+        store = ObjectStore(npz)
+        paths = [os.path.join(folder, f"{i:04d}.jpg")
+                 for i in range(DET_JPEGS)]
+        feats, labels = store.lookup(paths, DET_JPEGS)
+        live = (labels > 0).sum(1)
+        n_arrays = len(np.load(npz).files)
+        if (n_arrays != 2 * DET_JPEGS or store.n_obj != 36
+                or store.feat_dim != 1031 or not np.isfinite(feats).all()
+                or live.min() < 1 or (feats[labels == 0] != 0).any()):
+            raise AssertionError(
+                f"extract_objects wrote {n_arrays} arrays, "
+                f"[{store.n_obj}, {store.feat_dim}] features, live "
+                f"detections per image {live.tolist()}")
+        log(f"[detector cli] cli.extract_objects over {DET_JPEGS} JPEGs "
+            f"(--batch {DET_B}: a tail of {DET_JPEGS % DET_B}) -> ObjectStore:"
+            f" [36, 1031] features and labels per image, {live.min()}-"
+            f"{live.max()} live detections, {wall:.1f} s wall = "
+            f"{DET_JPEGS / wall:.1f} images/s ({card})")
+
+        tok, _, _, tp = corpus
+        cfg = caption_config(tp.vocab_size())
+        ckpt = os.path.join(workdir, "captioner")
+        save_checkpoint(ckpt, cfg, CAPTION.random_params(cfg, SEED))
+        folder = os.path.join(workdir, "caption_images")
+        write_jpegs(folder, DET_CAPTION_JPEGS, seed=SEED + 1)
+        out = os.path.join(workdir, "captions.tsv")
+        da.LAUNCHES = tkp.LAUNCHES = 0
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with recording_decode_attention() as seen:
+            ccli.main(["--tok", tok, "--model", ckpt, "--input", folder,
+                       "--output", out, "--target", "fa", "--max_len",
+                       str(DET_CAPTION_L), "--obj", "--fcnn", pth,
+                       "--device", "cuda"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        k4, k2 = da.LAUNCHES, tkp.LAUNCHES
+        with open(out) as f:
+            rows = [ln.split("\t") for ln in f.read().splitlines()]
+        if len(rows) != DET_CAPTION_JPEGS or not all(
+                len(r) == 2 and r[0].endswith(".jpg") for r in rows):
+            raise AssertionError(f"cli.caption --obj wrote {len(rows)} lines "
+                                 f"for {DET_CAPTION_JPEGS} files")
+        # Grid + objects: two streams of the 3-layer decoder, a K4 launch
+        # each a step, and one K2 launch a step.
+        if not seen or seen - checked_k4 or k2 == 0 or k4 != 6 * k2:
+            raise AssertionError(
+                f"cli.caption --obj: {k4} K4 and {k2} K2 launches, "
+                f"unchecked shapes {sorted(seen - checked_k4)[:8]}")
+        log(f"[detector cli] cli.caption --obj --fcnn over "
+            f"{DET_CAPTION_JPEGS} JPEGs (--batch 192: 192 + 8, beam 4, "
+            f"max_len {DET_CAPTION_L}; BERT-base 6+3, ResNet-18 at 224, the "
+            f"object stream, fused): {len(rows)} lines in {wall:.1f} s = "
+            f"{DET_CAPTION_JPEGS / wall:.1f} images/s (decode at 224 and 800, "
+            f"detector, grid, dual beam search), K2 launches {k2}, K4 "
+            f"launches {k4}, e.g. {rows[0]!r} ({card})")
+        return k2, k4
+    finally:
+        import shutil
+
+        shutil.rmtree(workdir, ignore_errors=True)
+
+
+# ---------------- phase 24: packed MT steps ----------------
+
+PACK = (64, 256)          # rows a packed batch, tokens a row (the JAX defaults)
+PACK_EXAMPLES = 6000      # pairs of 6-60 tokens: ~12 packed batches
+PACK_BLOCK = 6            # steps a timed block
+CLI_BATCH = 20000         # cli.train_mt's --batch and --capacity defaults:
+CLI_CAPACITY = 600        # its mt stream takes half of each
+
+
+def pack_examples(vocab_size: int, n: int, seed=SEED):
+    """n (src, dst, 0, 1) pairs of 6-60 tokens each, language token first
+    and separator last, word ids skewed as ``train_batches`` draws them,
+    sorted by target length as the binarizer writes them."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(n):
+        ls, ld = rng.randint(4, 59, 2)
+        s = (7 + (vocab_size - 7) * rng.rand(ls) ** 3).astype(int).tolist()
+        d = (7 + (vocab_size - 7) * rng.rand(ld) ** 3).astype(int).tolist()
+        out.append(([5] + s + [4], [6] + d + [4], 0, 1))
+    out.sort(key=lambda e: len(e[1]))
+    return out
+
+
+def pack_shapes():
+    """Phase 24's batches and the shapes they give K1 and K5: (packed
+    batches, the bucketed batches of the same pairs that cli.train_mt
+    builds without --pack, K1 (B, T, S, H, D) list, K5 (N, V) list).
+    Computed before phase 6 so that it holds every one of them."""
+    from imagetranslate_tpu_torch.data.loader import MTBatcher
+    from imagetranslate_tpu_torch.data.packing import PackedMTBatcher
+
+    examples = pack_examples(32000, PACK_EXAMPLES)
+    packed = PackedMTBatcher(examples, rows_per_batch=PACK[0],
+                             src_budget=PACK[1], dst_budget=PACK[1]).batches
+    plain = list(MTBatcher(examples, pad_id=0, max_batch=CLI_BATCH // 2,
+                           capacity_mb=CLI_CAPACITY // 2).shuffled(SEED))
+    plain = plain[:len(packed)]
+    k1, k5 = set(), set()
+    for b in packed + plain:
+        B, S = b.src.shape
+        T = b.dst.shape[1] - 1                 # the decoder reads dst[:, :-1]
+        k1 |= {(B, S, S, 12, 64), (B, T, T, 12, 64), (B, T, S, 12, 64)}
+        k5.add((B * T, 32000))
+    return packed, plain, sorted(k1), sorted(k5)
+
+
+def phase_pack(card, profile: bool, checked, checked_xent, pack, corpus):
+    """Phase 24: phase 7's model (BERT-base, fp32 masters, bf16 compute,
+    dropout 0.1, the fused cross-entropy) on packed 64 x 256 batches beside
+    the bucketed batches of the same pairs, in blocks; then
+    cli.train_mt --pack --profile for 16 steps, its trace written. Returns
+    (K1 fwd, K1 bwd, K5 fwd, K5 bwd) launches."""
+    import dataclasses
+    import marshal
+
+    import torch
+
+    from imagetranslate_tpu_torch.cli import train_mt
+    from imagetranslate_tpu_torch.data.packing import (
+        PackedMTBatcher,
+        packing_efficiency,
+    )
+    from imagetranslate_tpu_torch.ops import train_attention as ta
+    from imagetranslate_tpu_torch.ops import xent
+    from imagetranslate_tpu_torch.train.step import (
+        mt_batch_to_device,
+        packed_mt_batch_to_device,
+    )
+    from imagetranslate_tpu_torch.train.trainer_mt import MTTrainer
+
+    device = torch.device("cuda")
+    packed, plain, _, _ = pack
+    cfg = dataclasses.replace(bert_base(32000), dropout=RATE,
+                              attention_dropout=RATE, use_pallas_xent=True)
+    trainer = MTTrainer(cfg, FullVocab(), lr=5e-4, warmup=8, seed=SEED,
+                        device=device)
+    arms = {"bucketed": [mt_batch_to_device(b, device) for b in plain],
+            "packed": [packed_mt_batch_to_device(b, device) for b in packed]}
+    slots = {"bucketed": sum(b.dst.shape[0] * (b.dst.shape[1] - 1)
+                             for b in plain),
+             "packed": sum(b.dst.shape[0] * (b.dst.shape[1] - 1)
+                           for b in packed)}
+    done = {"bucketed": 0, "packed": 0}
+    metrics = []
+
+    def block(arm, n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tokens = []
+        for _ in range(n):
+            batch = arms[arm][done[arm] % len(arms[arm])]
+            done[arm] += 1
+            trainer.state, m = trainer.mt_step(trainer.state, batch,
+                                               trainer.rng)
+            tokens.append(m["ntokens"])
+            metrics.append(m)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        real = sum(int(t.item()) for t in tokens)
+        return 1e3 * secs / n, real / secs, real / n
+
+    ta.FWD_LAUNCHES = ta.BWD_LAUNCHES = 0
+    xent.FWD_LAUNCHES = xent.BWD_LAUNCHES = 0
+    with Recorder() as rec:
+        block("bucketed", 2)                          # warm-up
+        block("packed", 2)
+        readings = {"bucketed": [], "packed": []}
+        for arm in ("bucketed", "packed", "packed", "bucketed"):
+            readings[arm].append(block(arm, PACK_BLOCK))
+    rec.require_checked("pack", checked, checked_xent)
+    n_steps = len(metrics)
+    per_step = cfg.enc_layers + 2 * cfg.dec_layers
+    got = (ta.FWD_LAUNCHES, ta.BWD_LAUNCHES, xent.FWD_LAUNCHES,
+           xent.BWD_LAUNCHES)
+    if got != (per_step * n_steps,) * 2 + (n_steps,) * 2:
+        raise AssertionError(f"pack: K1 / K5 launches {got} in {n_steps} "
+                             f"steps, want {per_step} + {per_step} and 1 + 1 "
+                             f"a step")
+    losses = [(m["sum_loss"] / m["ntokens"]).item() for m in metrics]
+    if not all(x == x and abs(x) != float("inf") for x in losses):
+        raise AssertionError(f"pack: loss not finite: {losses}")
+    eff = packing_efficiency(packed)
+    real = sum(int(b.dst_seg.astype(bool).sum()) for b in packed)
+    share = {"packed": eff,
+             "bucketed": sum(int(b.dst_mask[:, 1:].sum()) for b in plain)
+             / slots["bucketed"]}
+    shapes = sorted({b.dst.shape for b in plain})
+    for arm, rs in readings.items():
+        log(f"[pack] {arm}: ms/step {[round(r[0], 2) for r in rs]}, target "
+            f"tok/s {[round(r[1], 1) for r in rs]}, real target tokens a "
+            f"step {[round(r[2], 1) for r in rs]}; {len(arms[arm])} batches, "
+            f"{slots[arm]} target slots, {share[arm]:.3f} of them real "
+            f"({card})")
+    log(f"[pack] BERT-base fp32 masters / bf16 compute, dropout {RATE}, fused "
+        f"cross-entropy, {PACK_EXAMPLES} pairs of 6-60 tokens: packed into "
+        f"{len(packed)} batches of {PACK[0]} x {PACK[1]} ({real} target "
+        f"tokens, efficiency {eff:.3f}) against cli.train_mt's bucketed "
+        f"batches {shapes[:4]}...; blocks of {PACK_BLOCK} steps in the order "
+        f"bucketed, packed, packed, bucketed; K1 {got[0]} + {got[1]}, K5 "
+        f"{got[2]} + {got[3]} launches in {n_steps} steps ({card})")
+    if profile:
+        _profile(lambda: (block("packed", 3)[0] * 3e-3, "3 packed steps"),
+                 "pack", card)
+    del trainer, arms
+    torch.cuda.empty_cache()
+
+    # cli.train_mt --pack --profile: 16 steps of the CLI's default model in
+    # its first epoch, the trace of steps 10-15 written.
+    tok, _, _, tp = corpus
+    workdir = tempfile.mkdtemp()
+    try:
+        examples = pack_examples(tp.vocab_size(), PACK_EXAMPLES * 3 // 2,
+                                 seed=SEED + 1)
+        examples = [([tp.token_id("<en>")] + s[1:], [tp.token_id("<fa>")]
+                     + d[1:-1] + [tp.sep_token_id()], 0, 1)
+                    for s, d, _, _ in examples]
+        n_batches = len(PackedMTBatcher(examples))
+        if n_batches < 16:
+            raise AssertionError(f"pack cli: {n_batches} packed batches, "
+                                 f"want 16 in the first (profiled) epoch")
+        data = os.path.join(workdir, "train.mt")
+        with open(data, "wb") as f:
+            marshal.dump(examples, f)
+        prof_dir = os.path.join(workdir, "trace")
+        fwd0, bwd0 = ta.FWD_LAUNCHES, ta.BWD_LAUNCHES
+        t0 = time.perf_counter()
+        with Recorder() as rec:
+            train_mt.main(["--tok", tok, "--model", os.path.join(workdir, "m"),
+                           "--train_mt", data, "--step", "16", "--pack",
+                           "--profile", prof_dir, "--device", "cuda"])
+        wall = time.perf_counter() - t0
+        rec.require_checked("pack cli", checked, checked_xent, want_k5=False)
+        trace = os.path.join(prof_dir, "trace_steps_10_15.json")
+        if not os.path.isfile(trace) or os.path.getsize(trace) == 0:
+            raise AssertionError(f"cli.train_mt --profile wrote no trace: "
+                                 f"{os.listdir(prof_dir) if os.path.isdir(prof_dir) else 'no directory'}")
+        with open(trace) as f:
+            events = json.load(f)["traceEvents"]
+        kernels = sum(1 for e in events if e.get("cat") == "kernel")
+        cli_fwd = ta.FWD_LAUNCHES - fwd0
+        cli_bwd = ta.BWD_LAUNCHES - bwd0
+        if not (cli_fwd == cli_bwd == 16 * 18):
+            raise AssertionError(f"pack cli: {cli_fwd} + {cli_bwd} K1 "
+                                 f"launches in 16 steps, want 18 + 18 a step")
+        log(f"[pack cli] cli.train_mt --pack --profile: 16 steps of the "
+            f"default model (768/12/3072, 6+6, bf16) on packed {PACK[0]} x "
+            f"{PACK[1]} batches in {wall:.1f} s wall (build included); trace "
+            f"{os.path.getsize(trace) / 2 ** 20:.1f} MiB with {len(events)} "
+            f"events, {kernels} of them device kernels; K1 {cli_fwd} + "
+            f"{cli_bwd} launches ({card})")
+    finally:
+        import shutil
+
+        shutil.rmtree(workdir, ignore_errors=True)
+    return (got[0] + cli_fwd, got[1] + cli_bwd, got[2], got[3])
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "imagetranslate_tpu_torch")):
         print("chip_smoke.py must run from a checkout of the repository "
@@ -4926,11 +5478,13 @@ def main() -> int:
         m11 = prepare_module11_corpus(umt_dir, corpus)
         cli_k1, cli_k5 = umt_cli_shapes(corpus[3].vocab_size())
         mt_k1, mt_k5 = image_mt_shapes()
+        pack = pack_shapes()
         attn_fwd, attn_bwd, checked = phase_kernel_attention(
             cli_k1 + caption_train_k1_shapes() + mt_k1
-            + module11_shapes(m11))
+            + module11_shapes(m11) + pack[2])
         done("6")
-        xent_fwd, xent_bwd, checked_xent = phase_kernel_xent(cli_k5 + mt_k5)
+        xent_fwd, xent_bwd, checked_xent = phase_kernel_xent(
+            cli_k5 + mt_k5 + pack[3])
         flash, checked_flash = phase_kernel_flash([long_cli_shape()])
         dec_attn, checked_k4 = phase_kernel_decode_attention(
             decode_path_shapes())
@@ -4960,6 +5514,14 @@ def main() -> int:
         dec_attn_launches += m11_k4 + moe_k4
         torch.cuda.empty_cache()
         done("21-22")
+        det_k2, det_k4 = phase_detector(card, profile, checked_k4, corpus)
+        caption_k2 += det_k2
+        dec_attn_launches += det_k4
+        torch.cuda.empty_cache()
+        pk_fwd, pk_bwd, pk_k5f, pk_k5b = phase_pack(
+            card, profile, checked, checked_xent, pack, corpus)
+        torch.cuda.empty_cache()
+        done("23-24")
         fwd_launches, bwd_launches = phase_train(card, profile, checked,
                                                  checked_xent)
         torch.cuda.empty_cache()
@@ -4967,8 +5529,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         done("7-8")
         xent_launches = phase_umt_train(card, checked, checked_xent)
-        xent_launches = (xent_launches[0] + im_k5f + moe_k5f,
-                         xent_launches[1] + im_k5b + moe_k5b)
+        xent_launches = (xent_launches[0] + im_k5f + moe_k5f + pk_k5f,
+                         xent_launches[1] + im_k5b + moe_k5b + pk_k5b)
         torch.cuda.empty_cache()
         phase_umt_cli(umt_dir, corpus, checked, checked_xent)
         torch.cuda.empty_cache()
@@ -4977,8 +5539,10 @@ def main() -> int:
         lm_k3, lm_fwd, lm_bwd = phase_lm(card, profile, checked_flash,
                                          checked)
         flash_launches += lm_k3
-        fwd_launches += lm_fwd + ct_fwd + im_fwd + m11_fwd + moe_fwd
-        bwd_launches += lm_bwd + ct_bwd + im_bwd + m11_bwd + moe_bwd
+        fwd_launches += (lm_fwd + ct_fwd + im_fwd + m11_fwd + moe_fwd
+                         + pk_fwd)
+        bwd_launches += (lm_bwd + ct_bwd + im_bwd + m11_bwd + moe_bwd
+                         + pk_bwd)
         phase_lm_cli(umt_dir, corpus)
         done("13-15")
     attn_src = "imagetranslate_tpu_torch/csrc/train_attention.cu"

@@ -15,8 +15,11 @@ own batcher (dicts of ``paths``, uint8 ``images``, ``first_tokens`` and
 directly, and with ``box_features``/``object_labels`` in a batch it runs the
 grid + object decode.
 
-``--obj`` is refused: extracting box features needs the Faster-RCNN detector,
-which is not ported (ROADMAP module 12).
+``--obj --fcnn DETECTOR.pth`` adds the object stream: a torchvision
+``fasterrcnn_resnet50_fpn`` state_dict (``build_object_extractor``) detects
+objects in each image at 800 pixels (staged as uint8 by the prefetch thread,
+the paths padded to the grid batch's rows), and the grid + object decode
+(``beam_search_dual``) captions from both.
 """
 
 from __future__ import annotations
@@ -25,11 +28,6 @@ import argparse
 import sys
 
 import torch
-
-OBJ_REFUSAL = ("--obj: box-feature extraction needs the Faster-RCNN detector, "
-               "which is not ported yet (ROADMAP module 12); the object-stream "
-               "decode itself runs from precomputed features through "
-               "caption_batches")
 
 
 def get_parser() -> argparse.ArgumentParser:
@@ -47,10 +45,11 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument("--len-penalty", dest="len_penalty_ratio", type=float,
                    default=0.8)
     p.add_argument("--obj", dest="use_obj", action="store_true",
-                   help="object stream (refused: the detector is not ported)")
+                   help="object stream: Faster R-CNN box features blended "
+                        "into the decode")
     p.add_argument("--fcnn", dest="detector_path", default=None,
                    help="torchvision fasterrcnn_resnet50_fpn state_dict "
-                        "(.pth), with --obj")
+                        "(.pth); required with --obj")
     p.add_argument("--device", default="cuda",
                    help="torch device to decode on (cuda, cuda:N or cpu)")
     return p
@@ -78,6 +77,40 @@ def load_captioner(path: str, device):
     return model.eval()
 
 
+DET_SIZE = 800          # the detector's input: short side 800, centre crop
+DET_CHUNK = 8           # images a detector forward, to bound its memory
+
+
+def build_object_extractor(detector_path: str, device="cuda"):
+    """Load a torchvision ``fasterrcnn_resnet50_fpn`` state_dict (``.pth``)
+    and return images ([B, 800, 800, 3] uint8, any device) ->
+    (box_features [B, 36, 1031] float32, labels [B, 36] int32) on
+    ``device``. The detector runs ``DET_CHUNK`` images at a time: its
+    RoIAlign and NMS hold a few hundred MB an image."""
+    from imagetranslate_tpu_torch.models.detector import (
+        FasterRCNN,
+        detection_to_object_inputs,
+    )
+    from imagetranslate_tpu_torch.train.weights import load_torchvision_frcnn
+
+    device = torch.device(device)
+    detector = FasterRCNN(device=device)
+    detector.load_state_dict(load_torchvision_frcnn(
+        torch.load(detector_path, map_location="cpu")))
+    detector.eval()
+
+    @torch.no_grad()
+    def extract(images):
+        images = torch.as_tensor(images).to(device)
+        outs = [detection_to_object_inputs(
+            detector(images[i:i + DET_CHUNK]), image_size=DET_SIZE)
+            for i in range(0, images.shape[0], DET_CHUNK)]
+        return (torch.cat([f for f, _ in outs]),
+                torch.cat([lab for _, lab in outs]))
+
+    return extract
+
+
 def build_model(options):
     from imagetranslate_tpu_torch.text.processor import TextProcessor
 
@@ -87,12 +120,18 @@ def build_model(options):
 
 
 def caption_batches(model, tp, batches, writer, *, beam_width: int = 4,
-                    max_len: int = 256, len_penalty_ratio: float = 0.8) -> int:
+                    max_len: int = 256, len_penalty_ratio: float = 0.8,
+                    extract=None) -> int:
     """Caption every batch of ``batches`` and write ``path<TAB>caption``
     lines to ``writer``; returns the number of images. The staging of batch
     N+1 (its decode on the host and its copy to the device) overlaps the beam
-    search of batch N."""
-    from imagetranslate_tpu_torch.data.prefetch import PrefetchIterator
+    search of batch N. With ``extract`` (``build_object_extractor``) the
+    staging also decodes each batch's files at 800 pixels for the detector,
+    and the detections feed the object stream."""
+    from imagetranslate_tpu_torch.data.prefetch import (
+        PrefetchIterator,
+        default_image_pool,
+    )
     from imagetranslate_tpu_torch.decoding.beam import (
         beam_search,
         beam_search_dual,
@@ -112,11 +151,22 @@ def caption_batches(model, tp, batches, writer, *, beam_width: int = 4,
                     "object_labels"):
             if key in batch:
                 staged[key] = torch.as_tensor(batch[key]).to(device)
+        if extract is not None:
+            # The detector's rows match the grid's, tail padding included.
+            rows = staged["images"].shape[0]
+            paths = list(batch["paths"])
+            paths += paths[:1] * (rows - len(paths))
+            staged["det_images"] = torch.as_tensor(default_image_pool().decode(
+                paths, size=DET_SIZE, resize_min=DET_SIZE, raw=True)).to(
+                    device)
         return staged
 
     n = 0
     with torch.no_grad(), PrefetchIterator(batches, stage, depth=2) as staged:
         for batch in staged:
+            if "det_images" in batch:
+                batch["box_features"], batch["object_labels"] = extract(
+                    batch["det_images"])
             grid = model.encode_images(batch["images"])
             img_mask = torch.ones(grid.shape[:2], dtype=torch.bool,
                                   device=device)
@@ -143,12 +193,16 @@ def caption_batches(model, tp, batches, writer, *, beam_width: int = 4,
 
 def main(argv=None):
     options = get_parser().parse_args(argv)
-    if options.use_obj:
-        raise SystemExit(OBJ_REFUSAL)
+    if options.use_obj and options.detector_path is None:
+        raise SystemExit("--obj needs --fcnn <state_dict.pth>")
 
     from imagetranslate_tpu_torch.data.images import ImageFolderBatcher
 
     model, cfg, tp = build_model(options)
+    extract = None
+    if options.use_obj:
+        extract = build_object_extractor(options.detector_path,
+                                         options.device)
     target_lang_tok = f"<{options.target_lang}>"
     batcher = ImageFolderBatcher(options.input_path, options.batch,
                                  tp.languages[target_lang_tok],
@@ -158,7 +212,8 @@ def main(argv=None):
         caption_batches(model, tp, batcher, writer,
                         beam_width=options.beam_width,
                         max_len=options.max_len,
-                        len_penalty_ratio=options.len_penalty_ratio)
+                        len_penalty_ratio=options.len_penalty_ratio,
+                        extract=extract)
 
 
 if __name__ == "__main__":

@@ -11,6 +11,10 @@ then ``--fstep`` steps of back-translation between the two ``--langs``:
     python -m imagetranslate_tpu_torch.cli.train_mt --tok TOKDIR --model OUT \
         --mass_train PREFIX --step N --fstep M --langs aa,bb [--device cuda]
 
+``--pack`` packs the MT stream's examples into rows of 256 source and 256
+target tokens, 64 rows a batch (data/packing.py); ``--profile DIR`` writes a
+``torch.profiler`` trace of the first epoch's steps 10-15 into DIR.
+
 ``--lm LMDIR`` starts the embeddings, the encoder and (when it is untied) the
 output layer from a checkpoint of ``cli.train_lm``. ``--moe-experts N
 --moe-top-k K`` puts a routed bank of N experts in every layer's FFN, its
@@ -43,10 +47,6 @@ UNPORTED = {
     "pp_microbatches": ("--pp-microbatches",
                         "pipeline parallelism: ROADMAP module 14"),
     "zero": ("--zero", "ZeRO-1: ROADMAP module 14"),
-    "pack_mt": ("--pack", "sequence packing (data/packing.py): ROADMAP "
-                          "module 15"),
-    "profile_dir": ("--profile", "the step profiler (utils/profiling.py): "
-                                 "ROADMAP module 15"),
 }
 
 
@@ -274,14 +274,31 @@ def main(argv=None):
                          bucket_step=options.bucket_step, lex_dict=lex_dict)
 
     mt_batcher = None
-    if options.mt_train_path is not None:
+    if options.mt_train_path is not None and options.pack_mt:
+        from imagetranslate_tpu_torch.data.packing import (
+            PackedMTBatcher,
+            packing_efficiency,
+        )
+
+        examples = []
+        for path in options.mt_train_path.split(","):
+            examples.extend(load_mt(path))
+        mt_batcher = PackedMTBatcher(examples, pad_id=pad,
+                                     max_seq_len=options.max_seq_len)
+    elif options.mt_train_path is not None:
         mt_batcher = batcher(options.mt_train_path, options.batch // 2,
                              options.total_capacity // 2)
+    if mt_batcher is not None:
         if len(mt_batcher) == 0:
             raise SystemExit(f"--train_mt {options.mt_train_path!r} matched "
                              "no examples: refusing to train on an empty "
                              "stream")
-        print(f"MT train batches: {len(mt_batcher)}")
+        if options.pack_mt:
+            eff = packing_efficiency(mt_batcher.batches)
+            print(f"MT train batches: {len(mt_batcher)} (packed, "
+                  f"{eff:.0%} of target slots carry real tokens)")
+        else:
+            print(f"MT train batches: {len(mt_batcher)}")
 
     def build_mass_batcher(max_batch, capacity_mb):
         examples = []
@@ -332,7 +349,8 @@ def main(argv=None):
             mass_batcher=mass_batcher, dev_batcher=dev_batcher,
             img_batcher=img_batcher, image_root=options.image_dir,
             max_step=options.step, eval_every=options.eval_every,
-            save_every=options.save_every, epoch_seed=epoch)
+            save_every=options.save_every, epoch_seed=epoch,
+            profile_dir=options.profile_dir if epoch == 0 else None)
         if step == step_before:
             raise SystemExit("an epoch produced zero train steps (all "
                              "streams empty?): aborting instead of "

@@ -151,9 +151,14 @@ class MTTrainer:
                     max_step: int = 300_000, fine_tune: bool = False,
                     lang_directions: Optional[Dict[int, int]] = None,
                     eval_every: int = 5000, save_every: int = 10_000,
-                    log_every: int = 50, epoch_seed: int = 0) -> int:
+                    log_every: int = 50, epoch_seed: int = 0,
+                    profile_dir: Optional[str] = None) -> int:
+        """Train one epoch from ``step``; returns the step reached.
+        ``profile_dir``: write a ``torch.profiler`` trace of steps step + 10
+        .. step + 15 there (``utils/profiling.py``)."""
         from imagetranslate_tpu_torch.data.prefetch import PrefetchIterator
         from imagetranslate_tpu_torch.utils.metrics import AsyncStepMeter
+        from imagetranslate_tpu_torch.utils.profiling import StepProfiler
 
         if img_batcher is not None and not hasattr(self, "_img_step"):
             raise ValueError("the image stream trains an ImageSeq2Seq: use "
@@ -202,6 +207,7 @@ class MTTrainer:
             return kind, b, None
 
         meter = AsyncStepMeter(log_every=log_every)
+        profiler = StepProfiler(profile_dir, start=step + 10, stop=step + 15)
         prefetcher = PrefetchIterator(interleaved(), stage, depth=3)
         try:
             for kind, b, staged in prefetcher:
@@ -217,6 +223,7 @@ class MTTrainer:
                 else:
                     m = self._bt_step(b, lang_directions, self.rng)
                 step += 1
+                profiler.tick(step)
                 # Device scalars: the meter syncs once per log window.
                 meter.update(step, m["sum_loss"], m["ntokens"])
                 if dev_batcher is not None and step % eval_every == 0:
@@ -227,6 +234,8 @@ class MTTrainer:
                     break
         finally:
             prefetcher.close()
+            # A loop that ends or raises inside the window still writes it.
+            profiler.close()
 
         meter.finish(step)
         print(f"Total loss in this epoch: {meter.epoch_loss():.4f}",

@@ -27,9 +27,11 @@ dense model's.
 One ``Bridge`` per model: ``SEQ2SEQ``, ``LM``, ``LONGDOC``, ``SENSIM``,
 ``CAPTION2IMAGE`` and ``CAPTION`` (the
 captioning model's variables are ``{"params", "batch_stats"}``: the ResNet's
-running statistics cross as ``state_dict`` buffers), and ``CAPTION_PARAMS``
+running statistics cross as ``state_dict`` buffers), ``CAPTION_PARAMS``
 for the caption trainer's optimizer state, whose moments are trees of the
-``params`` collection alone.
+``params`` collection alone, and ``DETECTOR`` for the Faster R-CNN, whose
+``state_dict`` is torchvision's (``load_torchvision_frcnn`` reads a
+torchvision checkpoint; ``random_frcnn_state_dict`` draws one).
 """
 
 from __future__ import annotations
@@ -566,8 +568,9 @@ def _resnet_sd(sd, pre: str, p: Mapping, stats, depth: int):
             if theirs in bp:
                 bn(f"{pre}{key}.{ours}", bp[theirs],
                    None if bs is None else bs[theirs])
-    sd[f"{pre}fc.weight"] = _t(p["fc"]["kernel"]).T
-    sd[f"{pre}location_embedding"] = _t(p["location_embedding"])
+    if "fc" in p:     # the grid encoder's head; the detector's trunk has none
+        sd[f"{pre}fc.weight"] = _t(p["fc"]["kernel"]).T
+        sd[f"{pre}location_embedding"] = _t(p["location_embedding"])
 
 
 def _resnet_trees(sd, pre: str, depth: int):
@@ -593,8 +596,9 @@ def _resnet_trees(sd, pre: str, depth: int):
             if f"{pre}{key}.{ours}.weight" in sd:
                 p[name][theirs], stats[name][theirs] = bn(
                     f"{pre}{key}.{ours}")
-    p["fc"] = {"kernel": sd[f"{pre}fc.weight"].T}
-    p["location_embedding"] = sd[f"{pre}location_embedding"]
+    if f"{pre}fc.weight" in sd:
+        p["fc"] = {"kernel": sd[f"{pre}fc.weight"].T}
+        p["location_embedding"] = sd[f"{pre}location_embedding"]
     return p, stats
 
 
@@ -777,6 +781,207 @@ def random_caption_params(cfg: Seq2SeqConfig, seed: int = 0,
     return {"params": p, "batch_stats": {"image_model": st}}
 
 
+# ---------------- the Faster R-CNN detector ----------------
+
+_FRCNN_CONVS = (("lateral_{}", "backbone.fpn.inner_blocks.{}"),
+                ("out_{}", "backbone.fpn.layer_blocks.{}"))
+_FRCNN_RPN = ("conv", "cls_logits", "bbox_pred")     # under rpn.head.
+_FRCNN_DENSE = (("fc7", "roi_heads.box_head.fc7"),
+                ("cls_score", "roi_heads.box_predictor.cls_score"),
+                ("bbox_pred", "roi_heads.box_predictor.bbox_pred"))
+_FC6 = "roi_heads.box_head.fc6"
+
+
+def _conv_b_sd(sd, key: str, p: Mapping):
+    sd[f"{key}.weight"] = _t(p["kernel"]).permute(3, 2, 0, 1)
+    sd[f"{key}.bias"] = _t(p["bias"])
+
+
+def _conv_b_tree(sd, key: str) -> dict:
+    return {"kernel": sd[f"{key}.weight"].permute(2, 3, 1, 0),
+            "bias": sd[f"{key}.bias"]}
+
+
+def detector_state_dict_from_flax(variables: Mapping, cfg=None
+                                  ) -> Dict[str, torch.Tensor]:
+    """The JAX ``FasterRCNN`` variables (what
+    ``train.torch_import.import_torchvision_frcnn`` makes) -> the port's
+    ``FasterRCNN.state_dict()``, torchvision's keys and layouts: fc6 takes
+    its input in (C, H, W) order again. ``cfg`` is unused (the detector has
+    one shape)."""
+    p, stats = variables["params"], variables["batch_stats"]
+    sd: Dict[str, torch.Tensor] = {}
+    _resnet_sd(sd, "backbone.body.", p["backbone"], stats["backbone"], 3)
+    for i in range(4):
+        for theirs, ours in _FRCNN_CONVS:
+            _conv_b_sd(sd, ours.format(i), p["fpn"][theirs.format(i)])
+    for name in _FRCNN_RPN:
+        _conv_b_sd(sd, f"rpn.head.{name}", p["rpn"][name])
+    bh = p["box_head"]
+    w6 = _t(bh["fc6"]["kernel"]).T                    # [1024, (H, W, C)]
+    sd[f"{_FC6}.weight"] = w6.reshape(-1, 7, 7, 256).permute(
+        0, 3, 1, 2).reshape(w6.shape[0], -1)
+    sd[f"{_FC6}.bias"] = _t(bh["fc6"]["bias"])
+    for theirs, ours in _FRCNN_DENSE:
+        sd[f"{ours}.weight"] = _t(bh[theirs]["kernel"]).T
+        sd[f"{ours}.bias"] = _t(bh[theirs]["bias"])
+    return _contiguous_sd(sd)
+
+
+def flax_from_detector_state_dict(sd: Mapping[str, torch.Tensor], cfg=None
+                                  ) -> dict:
+    """The inverse of ``detector_state_dict_from_flax``: the variables that
+    ``import_torchvision_frcnn`` makes of the same torchvision state_dict."""
+    sd = {k: _t(v).detach().cpu() for k, v in sd.items()}
+    body, stats = _resnet_trees(sd, "backbone.body.", 3)
+    fpn = {theirs.format(i): _conv_b_tree(sd, ours.format(i))
+           for i in range(4) for theirs, ours in _FRCNN_CONVS}
+    rpn = {name: _conv_b_tree(sd, f"rpn.head.{name}") for name in _FRCNN_RPN}
+    w6 = sd[f"{_FC6}.weight"]
+    w6 = w6.reshape(-1, 256, 7, 7).permute(0, 2, 3, 1).reshape(
+        w6.shape[0], -1)
+    box_head = {"fc6": {"kernel": w6.T, "bias": sd[f"{_FC6}.bias"]}}
+    for theirs, ours in _FRCNN_DENSE:
+        box_head[theirs] = {"kernel": sd[f"{ours}.weight"].T,
+                            "bias": sd[f"{ours}.bias"]}
+    return {"params": _contiguous_tree({"backbone": body, "fpn": fpn,
+                                        "rpn": rpn, "box_head": box_head}),
+            "batch_stats": _contiguous_tree({"backbone": stats})}
+
+
+def _detector_keys():
+    from imagetranslate_tpu_torch.models.detector import FasterRCNN
+
+    return set(FasterRCNN(device="meta").state_dict())
+
+
+def load_torchvision_frcnn(sd) -> Dict[str, torch.Tensor]:
+    """A torchvision ``fasterrcnn_resnet50_fpn`` checkpoint -> the port's
+    ``FasterRCNN`` state_dict (fp32). Takes a module or anything with
+    ``state_dict()``, a ``{"model": state_dict}`` wrapper or the state_dict
+    itself; reads both spellings torchvision has used
+    (``backbone.fpn.inner_blocks.i`` / ``inner_blocks.i.0``,
+    ``rpn.head.conv`` / ``rpn.head.conv.0.0``); ignores
+    ``num_batches_tracked`` and keys the detector does not have. A missing
+    key raises ``KeyError``."""
+    import re
+
+    if hasattr(sd, "state_dict"):
+        sd = sd.state_dict()
+    if "model" in sd and isinstance(sd["model"], dict):
+        sd = sd["model"]
+    renamed = {}
+    for k, v in sd.items():
+        if not hasattr(v, "numpy"):
+            continue
+        k = re.sub(r"^(backbone\.fpn\.(?:inner|layer)_blocks\.\d+)\.0\.",
+                   r"\1.", k)
+        k = re.sub(r"^rpn\.head\.conv\.0\.0\.", "rpn.head.conv.", k)
+        renamed[k] = v
+    keys = _detector_keys()
+    missing = sorted(keys - set(renamed))
+    if missing:
+        raise KeyError(f"not a fasterrcnn_resnet50_fpn state_dict: missing "
+                       f"{missing[:4]}{' ...' if len(missing) > 4 else ''}")
+    return {k: torch.as_tensor(renamed[k]).to(torch.float32).contiguous()
+            for k in sorted(keys)}
+
+
+def random_frcnn_state_dict(seed: int = 0) -> Dict[str, torch.Tensor]:
+    """A random ``fasterrcnn_resnet50_fpn`` state_dict in torchvision's
+    layout, from ``numpy.random.RandomState(seed)``: He-normal convolutions,
+    BatchNorm affine terms near (1, 0), small objectness and box-delta
+    weights (unsaturated logits, boxes that stay boxes), and class-score
+    biases spread by 1.0 so that some detections clear the 0.05 score.
+    The BatchNorm running statistics are then calibrated on the CPU to the
+    true statistics of a random 128 x 128 image (+1e-3 on the variance), as
+    trained ones would be: random statistics let the activations grow ~4x
+    a stage through the residual sums, and every box collapses."""
+    from imagetranslate_tpu_torch.models.detector import (
+        ANCHOR_RATIOS,
+        NUM_CLASSES,
+        FasterRCNN,
+    )
+    from imagetranslate_tpu_torch.models.resnet import BatchNorm2d
+
+    rs = np.random.RandomState(seed)
+    f32 = np.float32
+    sd: Dict[str, np.ndarray] = {}
+
+    def conv(key, co, ci, k, scale=1.0, bias=True):
+        sd[f"{key}.weight"] = (rs.randn(co, ci, k, k)
+                               * np.sqrt(2.0 / (ci * k * k)) * scale
+                               ).astype(f32)
+        if bias:
+            sd[f"{key}.bias"] = (rs.randn(co) * 0.01).astype(f32)
+
+    def bn(key, c, gamma=1.0):
+        sd[f"{key}.weight"] = (gamma * (1.0 + 0.1 * rs.randn(c))).astype(f32)
+        sd[f"{key}.bias"] = (0.1 * rs.randn(c)).astype(f32)
+        sd[f"{key}.running_mean"] = np.zeros(c, f32)
+        sd[f"{key}.running_var"] = np.ones(c, f32)
+
+    def dense(key, co, ci, w_scale=1.0, b_scale=0.01):
+        sd[f"{key}.weight"] = (rs.randn(co, ci) * np.sqrt(1.0 / ci)
+                               * w_scale).astype(f32)
+        sd[f"{key}.bias"] = (rs.randn(co) * b_scale).astype(f32)
+
+    conv("backbone.body.conv1", 64, 3, 7, bias=False)
+    bn("backbone.body.bn1", 64)
+    cin = 64
+    for s, blocks in enumerate((3, 4, 6, 3)):
+        width = 64 * 2 ** s
+        for j in range(blocks):
+            t = f"backbone.body.layer{s + 1}.{j}"
+            conv(f"{t}.conv1", width, cin, 1, bias=False)
+            bn(f"{t}.bn1", width)
+            conv(f"{t}.conv2", width, width, 3, bias=False)
+            bn(f"{t}.bn2", width)
+            conv(f"{t}.conv3", width * 4, width, 1, bias=False)
+            bn(f"{t}.bn3", width * 4, gamma=0.2)
+            if j == 0:
+                conv(f"{t}.downsample.0", width * 4, cin, 1, bias=False)
+                bn(f"{t}.downsample.1", width * 4)
+            cin = width * 4
+    lin = np.sqrt(0.5)          # fan-in scaling where no ReLU precedes
+    for i, c in enumerate((256, 512, 1024, 2048)):
+        conv(f"backbone.fpn.inner_blocks.{i}", 256, c, 1, scale=lin)
+        conv(f"backbone.fpn.layer_blocks.{i}", 256, 256, 3, scale=lin)
+    A = len(ANCHOR_RATIOS)
+    conv("rpn.head.conv", 256, 256, 3, scale=lin)
+    conv("rpn.head.cls_logits", A, 256, 1, scale=0.02)
+    conv("rpn.head.bbox_pred", A * 4, 256, 1, scale=0.05)
+    dense("roi_heads.box_head.fc6", 1024, 256 * 49)
+    dense("roi_heads.box_head.fc7", 1024, 1024)
+    dense("roi_heads.box_predictor.cls_score", NUM_CLASSES, 1024, b_scale=1.0)
+    dense("roi_heads.box_predictor.bbox_pred", NUM_CLASSES * 4, 1024,
+          w_scale=0.05)
+
+    model = FasterRCNN(device="cpu")
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in sd.items()})
+
+    def calibrate(module, args):
+        x = args[0].to(torch.float32)
+        module.running_mean.copy_(x.mean(dim=(0, 2, 3)))
+        module.running_var.copy_(x.var(dim=(0, 2, 3), unbiased=False) + 1e-3)
+
+    hooks = [m.register_forward_pre_hook(calibrate)
+             for m in model.modules() if isinstance(m, BatchNorm2d)]
+    image = np.random.RandomState(seed + 7).randn(1, 3, 128, 128).astype(f32)
+    try:
+        with torch.no_grad():
+            model.backbone["body"](torch.from_numpy(image))
+    finally:
+        for h in hooks:
+            h.remove()
+    return {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+
+def random_detector_params(seed: int = 0) -> dict:
+    """``random_frcnn_state_dict(seed)`` as the JAX module's variables."""
+    return flax_from_detector_state_dict(random_frcnn_state_dict(seed))
+
+
 class Bridge(NamedTuple):
     """How one model's weights cross between the flax tree and the port's
     ``state_dict``, and how they are drawn at random."""
@@ -802,6 +1007,8 @@ CAPTION = Bridge(caption_state_dict_from_flax, flax_from_caption_state_dict,
 # wrapper).
 CAPTION_PARAMS = Bridge(caption_state_dict_from_flax,
                         flax_from_caption_params, random_caption_params)
+DETECTOR = Bridge(detector_state_dict_from_flax, flax_from_detector_state_dict,
+                  random_detector_params)
 
 
 def _count(n: int) -> torch.Tensor:

@@ -4,7 +4,8 @@ checkpoint (``{"params", "batch_stats"}``) written by either package loads in
 the other; ``load_image`` and ``ImageFolderBatcher`` give the JAX package's
 arrays on JPEGs written here (the JAX side forced onto its Pillow path: the
 port has no native decoder); both ``cli.caption`` write the same file from
-one checkpoint and one folder; ``--obj`` is refused with a message; and the
+one checkpoint and one folder; ``--obj`` without ``--fcnn`` stops with the
+JAX CLI's message; and the
 port's CLI captions with jax, flax and the JAX package impossible to import.
 """
 
@@ -266,10 +267,12 @@ def test_caption_batches_takes_a_callers_batcher_and_objects(workdir):
 
 
 def test_obj_flag_is_refused_with_a_message(workdir, tmp_path):
+    """``--obj`` runs the detector (tests/test_torch_port_detector.py);
+    without ``--fcnn`` it stops with the JAX CLI's message."""
     d = workdir[0]
     with pytest.raises(SystemExit) as info:
         port_cli.main(_cli_args(d, tmp_path / "o.tsv") + ["--obj"])
-    assert "module 12" in str(info.value) and "detector" in str(info.value)
+    assert str(info.value) == "--obj needs --fcnn <state_dict.pth>"
     assert not (tmp_path / "o.tsv").exists()
 
 

@@ -6,7 +6,8 @@ and the capacity split included), and ``mmid.mmid_sim`` (the embedding and
 the avg-max cosine on shared ResNet weights within 1e-4; the CLI over
 folders of JPEGs).
 
-The last test runs the new CLIs and one ``ImageMTTrainer`` tick with jax,
+The last test runs the new CLIs, one ``ImageMTTrainer`` tick,
+``cli.extract_objects`` and ``cli.train_mt --pack --profile`` with jax,
 jaxlib, flax, optax and the JAX package impossible to import.
 """
 
@@ -319,6 +320,27 @@ _NO_JAX = textwrap.dedent("""
                                img_batcher=CaptionBatcher(d + "/caps.bin", tp),
                                max_step=2, log_every=1)
     assert step == 2 and trainer.state.step == 2
+
+    # The detector's CLI over one JPEG at 800 pixels, a random .pth; the
+    # training CLI's --pack and --profile (its batches built, no step).
+    from imagetranslate_tpu_torch.cli import extract_objects, train_mt
+    from imagetranslate_tpu_torch.data.images import ObjectStore
+    from imagetranslate_tpu_torch.train.weights import (
+        random_frcnn_state_dict)
+    torch.save(random_frcnn_state_dict(0), d + "/frcnn.pth")
+    extract_objects.main(["--input", mmid + "/foreign/perro", "--fcnn",
+                          d + "/frcnn.pth", "--output", d + "/dets.npz",
+                          "--device", "cpu"])
+    assert ObjectStore(d + "/dets.npz").feat_dim == 1031
+    create_mt_batches.main(tok + ["--src", corpus + "/mono.txt",
+                                  "--src-lang", "en", "--dst",
+                                  corpus + "/mono.txt", "--dst-lang", "fa",
+                                  "--output", d + "/pairs.mt"])
+    train_mt.main(tok + ["--model", d + "/packed", "--train_mt",
+                         d + "/pairs.mt", "--embed", "24", "--intermediate",
+                         "32", "--enc", "1", "--dec", "1", "--step", "0",
+                         "--pack", "--profile", d + "/prof", "--device",
+                         "cpu"])
     assert not any(m.split(".")[0] in BLOCKED for m in sys.modules)
 """)
 
@@ -335,3 +357,6 @@ def test_host_clis_and_an_image_mt_tick_run_without_jax(pairs, mmid_dirs,
     assert (tmp_path / "sims.tsv").read_text().count("\n") == 4
     assert ckpt.load_checkpoint(str(tmp_path / "m") + ".latest")[2][
         "step"] == 2
+    dets = np.load(tmp_path / "dets.npz")
+    assert sorted(dets.files) == [str(mmid_dirs / "foreign" / "perro" / k)
+                                  for k in ("0.jpg||feat", "0.jpg||lab")]

@@ -12,7 +12,8 @@ tiny size.
   port trained translated identically by the JAX CLI, and ``--pretrained
   --cont`` resuming with the optimizer state;
 - flags whose path is not ported stop the run with the ROADMAP module named,
-  and the flags of the MASS and back-translation phases are accepted;
+  and the flags of the MASS and back-translation phases, ``--pack`` and
+  ``--profile`` are accepted;
 - the training CLI runs with jax, flax, optax and the JAX package impossible
   to import.
 """
@@ -316,7 +317,6 @@ def test_cli_resumes_with_optimizer_state(corpus, trained, tmp_path, capsys):
     (["--lm", "x", "--train", "y"], "--lm with --train"),  # --lm alone runs
     (["--mesh", "2x1"], "module 14"),
     (["--pp-microbatches", "2"], "module 14"), (["--zero"], "module 14"),
-    (["--pack"], "module 15"), (["--profile", "x"], "module 15"),
 ])
 def test_cli_refuses_unported_flags(corpus, tmp_path, flags, module):
     from imagetranslate_tpu_torch.cli.train_mt import main
@@ -324,6 +324,33 @@ def test_cli_refuses_unported_flags(corpus, tmp_path, flags, module):
     with pytest.raises(SystemExit, match=module):
         main(_train_args(corpus[0], tmp_path / "m", "--step", "1", *flags))
     assert not (tmp_path / "m").exists()
+
+
+@pytest.mark.parametrize("flag", ["--pack", "--profile"])
+def test_cli_accepts_pack_and_profile(corpus, tmp_path, capsys, flag):
+    """``--pack`` and ``--profile``, once refused (ROADMAP module 15), are
+    taken: ``--pack`` builds the JAX CLI's packed stream (here with
+    ``--step 0``: tests/test_torch_port_packing.py trains on it), and
+    ``--profile`` traces nothing before the window's first step (10)."""
+    from imagetranslate_tpu.data.packing import (
+        PackedMTBatcher,
+        packing_efficiency,
+    )
+    from imagetranslate_tpu_torch.cli.train_mt import main
+
+    d, tp = corpus
+    model, prof = tmp_path / "m", tmp_path / "prof"
+    if flag == "--pack":
+        main(_train_args(d, model, "--step", "0", "--pack"))
+        want = PackedMTBatcher(binarize.load_mt(str(d / "train.mt")),
+                               pad_id=0, max_seq_len=175)
+        eff = packing_efficiency(want.batches)
+        assert (f"MT train batches: {len(want)} (packed, {eff:.0%} of target "
+                "slots carry real tokens)") in capsys.readouterr().out
+    else:
+        main(_train_args(d, model, "--step", "1", "--profile", str(prof)))
+        assert ckpt.load_checkpoint(str(model) + ".latest")[2]["step"] == 1
+        assert not prof.exists()
 
 
 @pytest.mark.parametrize("flags", [
