@@ -17,9 +17,12 @@ then cli.train_mt --train -> cli.translate and mmid_sim), the sentence
 similarity and caption -> image models (SenSim and Caption2Image steps,
 translate_img's three decode rounds, their four CLIs), the MoE FFN (MT
 steps and the beam decode of an MoE model), the object detector (Faster
-R-CNN at 800 pixels, cli.extract_objects, cli.caption --obj) and packed MT
-training (steps on 64 x 256 packed rows, cli.train_mt --pack --profile), and
-checks that each path went through its kernels.
+R-CNN at 800 pixels, cli.extract_objects, cli.caption --obj), packed MT
+training (steps on 64 x 256 packed rows, cli.train_mt --pack --profile) and
+the tensor- and data-parallel path (the beam decode through the
+vocab-sharded projection K2b on four ranks that share the card,
+cli.train_mt --mesh 2x2, cli.translate --dp 2), and checks that each path
+went through its kernels.
 
 Run from the root of a checkout, with one visible CUDA card:
 
@@ -318,6 +321,30 @@ Phases, each fatal on failure:
                then cli.train_mt --pack --profile DIR for 16 steps of its
                default model (6+6 layers, K1 = 18 + 18 a step), the trace of
                steps 10-15 written.
+ 25. kernel  — K2b's merge (itt_topk_merge) on a BERT-base head (V=32000,
+     (K2b)     E=768, bf16), one process: K2 on each of n = 2, 4 column
+               slices, indices shifted, merged, against K2 over the whole
+               vocabulary (indices equal, values bit-equal, lse within
+               1e-5) and against the plain merge on the same gathered
+               triples, at M = 256, 100, 1 and k = 1, 4, 16, with ties
+               across the shard boundaries (columns 77, 333, 900 and one in
+               each further quarter equal) and all-equal rows. One rank's
+               K2b (K2 on V/4 + the merge) and the merge alone timed at
+               M=256, k=4, n=4 beside the plain version and the library
+               chain.
+ 26. tp path — four spawned ranks on the one card over gloo: phase 4's
+               decode (BERT-base bf16, B=64, S=64, beam 4) under meshes 1x4
+               and 2x2 against the one-process decode (sequence scores
+               within 2e-2: bf16 near-ties may part the tokens), each rank's
+               merge and K2 launches equal to its decode steps, every K2
+               launch over V/n rows; in the same ranks cli.train_mt --mesh
+               2x2 for 4 MT steps and a dev decode (loss finite, K1 and the
+               merge launched; BLEU scored where sacrebleu is installed);
+               then cli.translate --dp 2 under torchrun (two ranks, gloo)
+               on 50 lines of that checkpoint, byte for byte --dp 0's file.
+               Alone, ~1.5 min with the build: python3 -c "import
+               chip_smoke as cs; card = cs.phase_device(); cs.phase_build();
+               print(cs.phase_kernel_k2b()); print(cs.phase_tp_path(card))"
 
 ``--profile`` adds a phase after 4 (one more decode) and one after 7 (three
 more train steps) under torch.profiler, printing the device time by operation
@@ -5443,6 +5470,412 @@ def phase_pack(card, profile: bool, checked, checked_xent, pack, corpus):
     return (got[0] + cli_fwd, got[1] + cli_bwd, got[2], got[3])
 
 
+K2B = (256, 4, 4)      # M, k, shards of the timed K2b (BERT-base head)
+
+
+def k2b_bound(M: int, k: int, n: int, E: int = 768, V: int = 32000):
+    """One rank's K2b: K2 over V/n rows (h, its W and bias read once) and
+    the merge of the gathered n triples (read once) into the output
+    (written once); 2 M E V/n operations on the bf16 tensor cores. The
+    all_gather between them is communication, not counted."""
+    vs = V // n
+    return bound(M * E * 2 + vs * E * 2 + vs * 4 + n * M * (8 * k + 4)
+                 + M * (8 * k + 4), 2.0 * M * E * vs)
+
+
+def merge_bound(M: int, k: int, n: int):
+    return bound(n * M * (8 * k + 4) + M * (8 * k + 4), 0.0)
+
+
+def phase_kernel_k2b():
+    """Phase 25: K2b on the card, in one process. K2 over each of n column
+    slices of a BERT-base head plus the merge kernel against K2 over the
+    whole vocabulary (indices equal, values bit-equal: each logit is the
+    same fp32 sum over E in either launch; lse within 1e-5), and the merge
+    kernel against its plain version on the same gathered triples; ties
+    across the shard boundaries, all-equal rows, ragged M, k = 1, 4, 16.
+    Then the merge alone and one rank's K2b (K2 on its slice + the merge)
+    timed at M=256, k=4, n=4, beside the plain version and the library
+    chain. Returns the kernels-line entry."""
+    import torch
+    import torch.nn.functional as F
+
+    from imagetranslate_tpu_torch.ops import topk_project as tkp
+
+    E, V = 768, 32000
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 25)
+
+    def head(M, ties=False, flat=False):
+        h = torch.randn(M, E, generator=gen, device="cuda").bfloat16()
+        w = (torch.randn(V, E, generator=gen, device="cuda") * 0.05).bfloat16()
+        b = torch.randn(V, generator=gen, device="cuda") * 0.1
+        if ties:   # columns 77, 333, 900 and one in each further quarter
+            cols = [77, 333, 900, 8077, 16333, 24900, 31999]
+            w[cols] = w[77].clone()
+            b[cols] = b[77] + 30.0         # the top of every row
+        if flat:   # rows 0 and M - 1 all equal (zero h, zero bias)
+            b.zero_()
+            h[0] = 0.0
+            h[-1] = 0.0
+        return h, w, b
+
+    def split(h, w, b, k, n):
+        """K2 on each slice, indices shifted: the gathered [n, M, k],
+        [n, M, k], [n, M] of n ranks."""
+        parts = [tkp.project_topk(h, ws.contiguous(), bs.contiguous(), k)
+                 for ws, bs in zip(w.chunk(n), b.chunk(n))]
+        vs = V // n
+        return (torch.stack([p[0] for p in parts]),
+                torch.stack([p[1] + i * vs for i, p in enumerate(parts)]),
+                torch.stack([p[2] for p in parts]))
+
+    max_err = 0.0
+    cases = [(M, k, n, t, f) for n in (2, 4) for M, k in
+             ((256, 4), (100, 1), (100, 16), (1, 4), (1, 16), (256, 16))
+             for t, f in ((False, False), (True, False), (False, True))]
+    for M, k, n, ties, flat in cases:
+        h, w, b = head(M, ties, flat)
+        full = tkp.project_topk(h, w, b, k)
+        vals, idxs, lses = split(h, w, b, k, n)
+        got = tkp.merge_shard_topk(vals, idxs, lses, k)
+        plain = tkp.merge_shard_topk_reference(vals, idxs, lses, k)
+        torch.cuda.synchronize()
+        lse_err = (got[2] - full[2]).abs().max().item()
+        plain_err = (got[2] - plain[2]).abs().max().item()
+        if not (torch.equal(got[1], full[1]) and torch.equal(got[0], full[0])
+                and lse_err <= 1e-5):
+            bad = int((got[1] != full[1]).sum())
+            raise AssertionError(
+                f"K2b at M={M} k={k} n={n} ties={ties} flat={flat}: {bad} "
+                f"indices differ from K2 over V, values bit-equal "
+                f"{torch.equal(got[0], full[0])}, lse err {lse_err:.3g}")
+        if not (torch.equal(got[1], plain[1]) and torch.equal(got[0], plain[0])
+                and plain_err <= 1e-5):
+            raise AssertionError(f"merge kernel vs plain at M={M} k={k} "
+                                 f"n={n}: lse err {plain_err:.3g}")
+        tied = [77, 333, 900, 8077, 16333, 24900, 31999][:k]
+        if ties and not (got[1][:, :len(tied)] == torch.tensor(
+                tied, device="cuda")).all():
+            raise AssertionError("cross-shard ties out of index order")
+        if flat and not (got[1][0] == torch.arange(k, device="cuda")).all():
+            raise AssertionError("an all-equal row out of index order")
+        max_err = max(max_err, lse_err, plain_err)
+    log(f"[kernel K2b] {len(cases)} cases (n = 2, 4; M = 256, 100, 1; k = 1, "
+        f"4, 16; cross-shard ties, all-equal rows): K2 on V/n + "
+        f"itt_topk_merge gives K2's indices over V=32000 and bit-equal "
+        f"values, lse within {max_err:.3g}; the merge kernel equals its "
+        "plain version")
+
+    # Times at the main path's shape, in turns, with a cold L2.
+    M, k, n = K2B
+    h, w, b = head(M)
+    ws, bs = w.chunk(n)[0].contiguous(), b.chunk(n)[0].contiguous()
+    vals, idxs, lses = split(h, w, b, k, n)
+
+    def rank_k2b():
+        tkp.project_topk(h, ws, bs, k)
+        return tkp.merge_shard_topk(vals, idxs, lses, k)
+
+    def rank_plain():
+        tkp.project_topk_reference(h, ws, bs, k)
+        return tkp.merge_shard_topk_reference(vals, idxs, lses, k)
+
+    def rank_chain():
+        logits = F.linear(h, ws).float() + bs
+        shard = torch.topk(logits, k), torch.logsumexp(logits, -1)
+        cand = vals.permute(1, 0, 2).reshape(M, n * k)
+        return shard, torch.topk(cand, k), torch.logsumexp(lses, 0)
+
+    runs = {"kernel": [], "merge": [], "plain": [], "chain": []}
+    fns = {"kernel": rank_k2b, "plain": rank_plain, "chain": rank_chain,
+           "merge": lambda: tkp.merge_shard_topk(vals, idxs, lses, k)}
+    for name in ("plain", "kernel", "merge", "chain", "chain", "merge",
+                 "kernel", "plain"):
+        runs[name].append(_time_ms(fns[name]))
+    ms = {name: sum(v) / len(v) for name, v in runs.items()}
+    bound_ms, bound_by = k2b_bound(M, k, n)
+    mbound_ms, _ = merge_bound(M, k, n)
+    log(f"[kernel K2b] one rank at M={M} E={E} V={V}/{n} k={k}: K2 on its "
+        f"slice + merge {runs['kernel']} ms (bound {bound_ms:.4f} ms, "
+        f"{bound_by}), the merge alone {runs['merge']} ms (bound "
+        f"{mbound_ms:.5f} ms), plain {runs['plain']} ms, library chain "
+        f"(F.linear + topk + logsumexp, topk of the candidates) "
+        f"{runs['chain']} ms")
+    # No single PyTorch call computes K2 + the merge; the chain of calls is
+    # reported beside it.
+    return {"max_abs_err": max_err, "ms": ms["kernel"],
+            "plain_ms": ms["plain"], "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None,
+            "chain_ms": ms["chain"], "merge_ms": ms["merge"],
+            "merge_bound_ms": mbound_ms}
+
+
+TP_MESHES = ((1, 4), (2, 2))   # phase 26's decode meshes over four ranks
+
+
+def tp_path_rank(rank, src, B, K, train_argv):
+    """One of phase 26's four ranks, all on the one card over gloo: the
+    beam decode of phase 4's model under each mesh of TP_MESHES (each data
+    rank decodes its rows, every rank of a model group through K2b), then
+    ``cli.train_mt`` under ``--mesh 2x2`` (the CLI finds the process group
+    up and builds its mesh on it). Returns, per mesh, the gathered tokens,
+    the decode steps, the K2 and merge launches and the vocab rows each K2
+    launch saw; then the CLI's K1, K2 and merge launches and its output;
+    and the backend and device of the rank."""
+    import contextlib
+    import io
+
+    import torch
+
+    from imagetranslate_tpu_torch.cli.train_mt import main as train_main
+    from imagetranslate_tpu_torch.decoding.beam import beam_search
+    from imagetranslate_tpu_torch.models.seq2seq import Seq2Seq
+    from imagetranslate_tpu_torch.ops import topk_project as tkp
+    from imagetranslate_tpu_torch.ops import train_attention as ta
+    from imagetranslate_tpu_torch.parallel.comm import (
+        all_gather_stack,
+        all_reduce_sum,
+    )
+    from imagetranslate_tpu_torch.parallel.mesh import make_mesh, shard_params
+    from imagetranslate_tpu_torch.train.weights import (
+        random_params,
+        state_dict_from_flax,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = bert_base(32000)
+    full = state_dict_from_flax(random_params(cfg, SEED), cfg)
+    rows_seen = []
+    k2 = tkp.project_topk
+
+    def recording(h, w, b, k):
+        rows_seen.append(int(w.shape[0]))
+        return k2(h, w, b, k)
+
+    out = []
+    backend = torch.distributed.get_backend()
+    for n_data, n_model in TP_MESHES:
+        mesh = make_mesh(n_data, n_model, device="cuda")
+        dev = mesh.device
+        # A group's first collective sets it up (NCCL's communicator): not
+        # in the timed decode.
+        for group in (mesh.model_group, mesh.data_group):
+            all_reduce_sum(torch.zeros(1, device=dev), group)
+        model = Seq2Seq(cfg, device=dev)
+        model.load_state_dict(shard_params(full, mesh, model.shard_(mesh)))
+        model.eval()
+        rows = B // n_data
+        mine = torch.as_tensor(src[mesh.d * rows:(mesh.d + 1) * rows]).to(dev)
+        S = mine.shape[1]
+        mask = torch.ones_like(mine, dtype=torch.bool)
+        steps = 0
+        step = model.decode_step
+
+        def counted(*a, **kw):
+            nonlocal steps
+            steps += 1
+            return step(*a, **kw)
+
+        model.decode_step = counted
+        tkp.project_topk = recording
+        rows_seen.clear()
+        tkp.LAUNCHES = tkp.MERGE_LAUNCHES = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            with torch.no_grad():
+                enc = model.encode(mine, mask, torch.zeros(
+                    (rows,), dtype=torch.int32, device=dev))
+                best, _ = beam_search(
+                    model, enc, mask,
+                    torch.full((rows,), 6, dtype=torch.int32, device=dev),
+                    torch.ones((rows,), dtype=torch.int32, device=dev),
+                    torch.full((rows,), S, dtype=torch.int32, device=dev),
+                    beam_width=K, max_len=max_len_for_decode(S),
+                    len_penalty_ratio=0.8, pad_id=cfg.pad_id, eos_id=-1,
+                    data_group=mesh.data_group)
+            torch.cuda.synchronize()
+        finally:
+            tkp.project_topk = k2
+        seconds = time.perf_counter() - t0
+        launches = (tkp.LAUNCHES, tkp.MERGE_LAUNCHES)
+        best = all_gather_stack(best, mesh.data_group).flatten(0, 1)
+        out.append((best.cpu().numpy(), steps, launches, sorted(
+            set(rows_seen)), seconds))
+        del model, enc
+        torch.cuda.empty_cache()
+    ta.FWD_LAUNCHES = ta.BWD_LAUNCHES = 0
+    tkp.LAUNCHES = tkp.MERGE_LAUNCHES = 0
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        train_main(train_argv)
+    cli = (ta.FWD_LAUNCHES, ta.BWD_LAUNCHES, tkp.LAUNCHES,
+           tkp.MERGE_LAUNCHES, text.getvalue())
+    return out, cli, (backend, str(dev))
+
+
+def max_len_for_decode(S: int) -> int:
+    """L of run_decode: max_len_for(S, 1.3, 5, 512)."""
+    return min(int(1.3 * S + 5), 512)
+
+
+def phase_tp_path(card):
+    """Phase 26: the tensor- and data-parallel path. Four spawned ranks (on
+    the one card over gloo; one card each over NCCL where there are four)
+    decode phase 4's model and batch (BERT-base
+    bf16, B=64, S=64, beam 4, every row to its limit) under 1x4 and 2x2
+    against the one-process decode (the sequence scores of both under the
+    one-process model within DECODE_SCORE_RTOL: bf16 near-ties may part the
+    tokens; every rank's merge launches and K2 launches equal its decode
+    steps, and every K2 launch sees V/n rows); then, in the same ranks,
+    cli.train_mt --mesh 2x2 for a few MT steps and a dev decode (loss
+    finite, K1 and the merge launched); then cli.translate --dp 2 under
+    torchrun on 50 lines of that checkpoint, byte for byte --dp 0's output.
+    Returns the merge, K2, K1 forward and K1 backward launches of the
+    path."""
+    import importlib.util
+
+    import numpy as np
+    import torch
+
+    from imagetranslate_tpu_torch.cli import create_mt_batches
+    from imagetranslate_tpu_torch.cli import train_tokenizer
+    from imagetranslate_tpu_torch.cli.translate import main as translate_main
+    from imagetranslate_tpu_torch.ops import topk_project as tkp
+    from imagetranslate_tpu_torch.parallel.spawn import run_ranks
+
+    device = torch.device("cuda")
+    B, S, K, _ = MT_DECODE
+    V = 32000
+    one = build_model(bert_base(V), device)
+    best_one, _, steps_one, _ = run_decode(one, B, S, K, device)
+    src = np.random.RandomState(SEED).randint(5, V, (B, S))
+    src_t = torch.as_tensor(src).to(device)
+    score_one = sequence_scores(one, src_t, best_one)
+    bleu = importlib.util.find_spec("sacrebleu") is not None
+    with tempfile.TemporaryDirectory() as workdir:
+        rng = np.random.RandomState(SEED + 26)
+        lines = [" ".join(WORDS[j] for j in rng.randint(
+            0, len(WORDS), rng.randint(2, 12))) for _ in range(200)]
+        paths = {n: os.path.join(workdir, n) for n in (
+            "src.txt", "dst.txt", "tagged.txt", "tok", "train.mt", "dev.src",
+            "dev.dst", "dev.mt", "model", "in.txt", "dp0.txt", "dp2.txt",
+            "store")}
+        for name, rows in (("src.txt", lines), ("dev.src", lines[:8]),
+                           ("dst.txt", [" ".join(reversed(ln.split()))
+                                        for ln in lines]),
+                           ("dev.dst", [" ".join(reversed(ln.split()))
+                                        for ln in lines[:8]]),
+                           ("in.txt", lines[:50])):
+            with open(paths[name], "w") as f:
+                f.write("\n".join(rows) + "\n")
+        with open(paths["tagged.txt"], "w") as f:
+            f.write("\n".join(f"<en> {ln} </s>" for ln in lines) + "\n")
+            f.write("<fa> " + lines[0] + " </s>\n")
+        train_tokenizer.main(["--data", paths["tagged.txt"], "--vocab_size",
+                              "300", "--model", paths["tok"]])
+        for src_f, dst_f, out_f in (("src.txt", "dst.txt", "train.mt"),
+                                    ("dev.src", "dev.dst", "dev.mt")):
+            create_mt_batches.main(["--tok", paths["tok"], "--src",
+                                    paths[src_f], "--src-lang", "en", "--dst",
+                                    paths[dst_f], "--dst-lang", "fa",
+                                    "--output", paths[out_f]])
+        cli_steps = 4
+        train_argv = ["--mesh", "2x2", "--tok", paths["tok"], "--model",
+                      paths["model"], "--train_mt", paths["train.mt"],
+                      "--dec", "3", "--step", str(cli_steps), "--batch",
+                      "2000", "--lr", "0.001", "--warmup", "10",
+                      "--eval-every", "1000", "--device", "cuda"]
+        train_argv += ["--dev_mt", paths["dev.mt"], "--beam", "4"]
+        t0 = time.perf_counter()
+        per_rank = run_ranks(tp_path_rank, 4, paths["store"],
+                             (src, B, K, train_argv), device="cuda",
+                             timeout=600)
+        ranks_s = time.perf_counter() - t0
+        merge_launches = k2_launches = k1_fwd = k1_bwd = 0
+        where = (f"{per_rank[0][2][0]} on "
+                 f"{sorted(set(r[2][1] for r in per_rank))}")
+        for i, (n_data, n_model) in enumerate(TP_MESHES):
+            for r, (decodes, _, _) in enumerate(per_rank):
+                best, steps, (k2_n, merge_n), seen, secs = decodes[i]
+                if not (steps == steps_one and k2_n == steps
+                        and merge_n == steps and seen == [V // n_model]):
+                    raise AssertionError(
+                        f"{n_data}x{n_model} rank {r}: {steps} steps (one "
+                        f"process: {steps_one}), {k2_n} K2 and {merge_n} "
+                        f"merge launches, K2 saw vocab rows {seen}")
+                merge_launches += merge_n
+                k2_launches += k2_n
+            best = torch.as_tensor(per_rank[0][0][i][0]).to(device)
+            score = sequence_scores(one, src_t, best)
+            rel = ((score - score_one).abs() / score_one.abs()).max().item()
+            same = (best == best_one).float().mean().item()
+            if rel > DECODE_SCORE_RTOL:
+                raise AssertionError(
+                    f"{n_data}x{n_model} decode: sequence scores differ from "
+                    f"the one-process decode by {rel:.3g}")
+            log(f"[tp path] {n_data}x{n_model} over {where}: B={B} "
+                f"S={S} beam {K}, {steps_one} steps, each rank {steps_one} "
+                f"K2 launches over {V // n_model} vocab rows and "
+                f"{steps_one} merges; tokens {same:.4f} equal to the "
+                f"one-process decode's, sequence scores within {rel:.2e} "
+                f"(limit {DECODE_SCORE_RTOL:.0e}); rank 0 decoded in "
+                f"{per_rank[0][0][i][4]:.2f} s ({card})")
+        fwd, bwd, cli_k2, cli_merge, text = per_rank[0][1]
+        losses = [float(ln.rsplit(" ", 1)[1]) for ln in text.splitlines()
+                  if ln.startswith("Total loss in this epoch:")]
+        if not losses or not all(np.isfinite(losses)) or fwd == 0 or bwd == 0:
+            raise AssertionError(f"train_mt --mesh 2x2: losses {losses}, "
+                                 f"K1 {fwd} + {bwd} launches")
+        if cli_merge == 0:
+            raise AssertionError("train_mt --mesh 2x2: the dev decode "
+                                 "launched no merge")
+        for _, (f, b, k2_n, merge_n, _), _ in per_rank:
+            k1_fwd += f
+            k1_bwd += b
+            merge_launches += merge_n
+            k2_launches += k2_n
+        log(f"[tp path] cli.train_mt --mesh 2x2: {cli_steps} steps, epoch "
+            f"losses {losses}, rank 0 {fwd} + {bwd} K1 launches, "
+            f"a dev decode with {cli_merge} merges on rank 0 (BLEU "
+            f"{'scored' if bleu else 'not scored: no sacrebleu here'}); "
+            f"the four ranks in {ranks_s:.1f} s in all")
+        # cli.translate --dp 2 under torchrun against --dp 0, one card.
+        latest = paths["model"] + ".latest"
+        args = ["--tok", paths["tok"], "--model", latest, "--input",
+                paths["in.txt"], "--src", "en", "--target", "fa", "--device",
+                "cuda"]
+        tkp.LAUNCHES = 0
+        translate_main(args + ["--output", paths["dp0.txt"]])
+        k2_launches += tkp.LAUNCHES
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc-per-node", "2", "-m",
+             "imagetranslate_tpu_torch.cli.translate", "--dp", "2", *args,
+             "--output", paths["dp2.txt"]],
+            cwd=HERE, capture_output=True, text=True, timeout=300,
+            env=dict(os.environ, PYTHONPATH=HERE + os.pathsep
+                     + os.environ.get("PYTHONPATH", "")))
+        if proc.returncode != 0:
+            raise AssertionError("translate --dp 2 failed:\n"
+                                 + proc.stdout[-3000:] + proc.stderr[-3000:])
+        with open(paths["dp0.txt"], "rb") as f:
+            want = f.read()
+        with open(paths["dp2.txt"], "rb") as f:
+            got = f.read()
+        if got != want or len(want.splitlines()) != 50:
+            raise AssertionError("translate --dp 2 wrote other bytes than "
+                                 "--dp 0")
+        log(f"[tp path] cli.translate --dp 2 (torchrun, two ranks, "
+            f"{torch.cuda.device_count()} card(s)) wrote --dp 0's 50 lines "
+            f"byte for byte in "
+            f"{time.perf_counter() - t0:.1f} s")
+    del one
+    torch.cuda.empty_cache()
+    return merge_launches, k2_launches, k1_fwd, k1_bwd
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "imagetranslate_tpu_torch")):
         print("chip_smoke.py must run from a checkout of the repository "
@@ -5545,6 +5978,14 @@ def main() -> int:
                          + pk_bwd)
         phase_lm_cli(umt_dir, corpus)
         done("13-15")
+    torch.cuda.empty_cache()
+    k2b = phase_kernel_k2b()
+    torch.cuda.empty_cache()
+    tp_merge, tp_k2, tp_fwd, tp_bwd = phase_tp_path(card)
+    launches += tp_k2
+    fwd_launches += tp_fwd
+    bwd_launches += tp_bwd
+    done("25-26")
     attn_src = "imagetranslate_tpu_torch/csrc/train_attention.cu"
     xent_src = "imagetranslate_tpu_torch/csrc/xent.cu"
     print(card)
@@ -5577,6 +6018,10 @@ def main() -> int:
          "source": "imagetranslate_tpu_torch/csrc/decode_attention.cu",
          "replaces": "imagetranslate_tpu/ops/decode_attention.py:188",
          "launches": dec_attn_launches, **dec_attn},
+        {"name": "sharded_project_topk", "route": "cuda",
+         "source": "imagetranslate_tpu_torch/csrc/topk_project.cu",
+         "replaces": "imagetranslate_tpu/ops/topk_project.py:305",
+         "launches": tp_merge, **k2b},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

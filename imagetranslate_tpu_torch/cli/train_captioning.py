@@ -15,7 +15,7 @@ InfoNCE, or a coin per batch) in place of plain captioning.
 the JAX package's captioning layout, so ``cli.caption`` of either package
 captions with what this one trained.
 
-A non-empty ``--mesh`` (ROADMAP module 14) stops the run with a message.
+A non-empty ``--mesh`` (ROADMAP module 14b) stops the run with a message.
 """
 
 from __future__ import annotations
@@ -87,7 +87,7 @@ def main(argv=None):
     options = get_parser().parse_args(argv)
     if options.mesh_spec:
         raise SystemExit("--mesh is not ported yet (multi-device training: "
-                         "ROADMAP module 14)")
+                         "ROADMAP module 14b)")
     if options.train_path is None:
         raise SystemExit("--train <caption binary> is required")
     if options.use_obj and options.obj_feats_path is None:

@@ -9,7 +9,7 @@ flags and defaults, plus ``--device``.
 ``--reformer`` selects the long-document LM with local block attention at
 4096 positions. ``--pretrained`` starts from an LM checkpoint (its weights;
 the model is built from the flags, as in the JAX CLI). Checkpoints are the
-JAX package's directory layout. ``--mesh`` is refused (ROADMAP module 14).
+JAX package's directory layout. ``--mesh`` is refused (ROADMAP module 14b).
 """
 
 from __future__ import annotations
@@ -54,7 +54,7 @@ def main(argv=None):
     options = get_parser().parse_args(argv)
     if options.mesh_spec:
         raise SystemExit("--mesh is not ported yet (multi-device training: "
-                         "ROADMAP module 14)")
+                         "ROADMAP module 14b)")
 
     from imagetranslate_tpu_torch.data.loader import DocBlockDataset
     from imagetranslate_tpu_torch.models.config import Seq2SeqConfig

@@ -28,6 +28,15 @@ back-translation. ``--pretrained`` then takes a multimodal checkpoint, or a
 text one whose weights become the text core. ``--lm`` with ``--train`` is
 refused (the JAX CLI ignores ``--lm`` there).
 
+Data and tensor parallelism: ``--mesh DxM`` under torchrun, one process a
+rank, D x M = the number of ranks (parallel/mesh.py):
+
+    torchrun --nproc-per-node 4 -m imagetranslate_tpu_torch.cli.train_mt \
+        --mesh 2x2 --tok TOKDIR --model OUT --train_mt train.mt ...
+
+Every rank builds the same batches and trains on its rows; rank 0 writes
+the checkpoints (the one-device layout) and logs.
+
 Checkpoints are the JAX package's directory layout, so either package resumes
 from and translates with what the other trained. A flag whose path is not
 ported yet stops the run with a message that names the ROADMAP module.
@@ -43,10 +52,9 @@ import os
 # command lines stay interchangeable) but whose path is not ported: any value
 # but the flag's default stops the run.
 UNPORTED = {
-    "mesh_spec": ("--mesh", "multi-device training: ROADMAP module 14"),
     "pp_microbatches": ("--pp-microbatches",
-                        "pipeline parallelism: ROADMAP module 14"),
-    "zero": ("--zero", "ZeRO-1: ROADMAP module 14"),
+                        "pipeline parallelism: ROADMAP module 14b"),
+    "zero": ("--zero", "ZeRO-1: ROADMAP module 14b"),
 }
 
 
@@ -139,6 +147,11 @@ def main(argv=None):
     for dest, (flag, where) in UNPORTED.items():
         if getattr(options, dest) != parser.get_default(dest):
             raise SystemExit(f"{flag} is not ported yet ({where})")
+    if options.mesh_spec and (options.train_path is not None
+                              or options.moe_experts):
+        raise SystemExit("--mesh with --train (the image trainer) or with "
+                         "--moe-experts is not ported yet (ROADMAP module "
+                         "14b)")
 
     bt_langs = [lang for lang in options.bt_langs.strip().split(",") if lang]
     if options.finetune_step > 0 and len(set(bt_langs)) != 2:
@@ -167,8 +180,22 @@ def main(argv=None):
     from imagetranslate_tpu_torch.train.weights import (
         CAPTION_PARAMS,
         SEQ2SEQ,
-        opt_state_from_flax,
     )
+
+    mesh = None
+    if options.mesh_spec:
+        from imagetranslate_tpu_torch.parallel.mesh import (
+            init_distributed,
+            parse_mesh,
+        )
+
+        if not init_distributed(device=options.device):
+            raise SystemExit("--mesh runs one process a rank: launch with "
+                             "torchrun --nproc-per-node N")
+        try:
+            mesh = parse_mesh(options.mesh_spec, options.device)
+        except ValueError as e:
+            raise SystemExit(f"--mesh {options.mesh_spec}: {e}") from None
 
     tp = TextProcessor(options.tokenizer_path)
     if tp.pad_token_id() != 0:
@@ -222,6 +249,8 @@ def main(argv=None):
         len_penalty_ratio=options.len_penalty_ratio,
         label_smoothing=0.0 if options.nll_loss else 0.1,
         device=options.device)
+    if mesh is not None:
+        trainer_kwargs["mesh"] = mesh
     if options.train_path is not None:
         trainer = ImageMTTrainer(cfg, tp, mm_mode=options.mm_mode,
                                  **trainer_kwargs)
@@ -258,8 +287,7 @@ def main(argv=None):
         if params is not None:
             trainer.set_reference_params(params)
         if opt_tree is not None:
-            trainer.state.opt_state = opt_state_from_flax(
-                opt_tree, trainer.optimizer, cfg, trainer.device, bridge)
+            trainer.load_opt_state(opt_tree, bridge)
         print(f"Restored pretrained model (step {meta.get('step', 0)})")
 
     pad = tp.pad_token_id()
@@ -388,6 +416,10 @@ def main(argv=None):
             fepoch += 1
 
     print("Finished Training!")
+    if mesh is not None:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -10,7 +10,7 @@ drawn from monolingual MASS shards (``--src-neg``/``--dst-neg``, the
 prefixes ``data.binarize.write_mt`` writes without a target file).
 ``--pretrained`` starts from a SenSim checkpoint. Checkpoints are the JAX
 package's layout, so ``cli.get_sen_sim`` of either package scores with what
-this one trained. A non-empty ``--mesh`` (ROADMAP module 14) stops the run
+this one trained. A non-empty ``--mesh`` (ROADMAP module 14b) stops the run
 with a message.
 """
 
@@ -63,7 +63,7 @@ def encoder_config(options, tp):
 
     if options.mesh_spec:
         raise SystemExit("--mesh is not ported yet (multi-device training: "
-                         "ROADMAP module 14)")
+                         "ROADMAP module 14b)")
     if tp.pad_token_id() != 0:
         raise SystemExit("the tokenizer's <pad> must have id 0")
     cfg = Seq2SeqConfig(

@@ -8,7 +8,7 @@ plus ``--device``.
 
 Caption2Image learns, by L2 regression, the image grid that the frozen
 captioner of ``--pretrained`` (a captioning checkpoint of either package)
-encodes each caption's image to. A non-empty ``--mesh`` (ROADMAP module 14)
+encodes each caption's image to. A non-empty ``--mesh`` (ROADMAP module 14b)
 stops the run with a message.
 """
 

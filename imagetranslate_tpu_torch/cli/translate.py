@@ -9,6 +9,16 @@ Usage:
 
 The checkpoint is the JAX package's directory layout (train/checkpoint.py),
 so a model trained by either package translates here.
+
+Data-parallel decode: ``--dp N`` under torchrun (one process a rank, N
+ranks). Rank r decodes the batches r, r + N, r + 2N, ... whole, so each
+batch is decoded exactly as ``--dp 0`` decodes it; the decoded lines travel
+to rank 0 as pickled strings over the process group (host memory), and rank
+0 writes them in the order ``--dp 0`` does:
+
+    torchrun --nproc-per-node 2 -m imagetranslate_tpu_torch.cli.translate \
+        --dp 2 --tok TOKDIR --model CKPTDIR --input in.txt --output out.txt \
+        --src en --target fa
 """
 
 from __future__ import annotations
@@ -45,14 +55,14 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument("--bucket_step", type=int, default=16,
                    help="length bucket multiple")
     p.add_argument("--dp", type=int, default=0,
-                   help="data-parallel decode over N devices (not ported: "
-                        "values above 1 are refused)")
+                   help="data-parallel decode over N ranks launched by "
+                        "torchrun (0 or 1: one process)")
     p.add_argument("--device", default="cuda",
                    help="torch device to decode on (cuda, cuda:N or cpu)")
     return p
 
 
-def build_model(options):
+def build_model(options, device=None):
     from imagetranslate_tpu_torch.models.seq2seq import Seq2Seq
     from imagetranslate_tpu_torch.text.processor import TextProcessor
     from imagetranslate_tpu_torch.train.checkpoint import (
@@ -63,7 +73,7 @@ def build_model(options):
 
     tp = TextProcessor(options.tokenizer_path)
     cfg = load_config(options.model_path)
-    device = torch.device(options.device)
+    device = torch.device(options.device if device is None else device)
     model = Seq2Seq(cfg, device=device)
     sd = state_dict_from_flax(load_params(options.model_path), cfg)
     model.load_state_dict(sd, strict=True)
@@ -106,7 +116,11 @@ def _pad_rows(arr, rows):
     return np.pad(arr, pad)
 
 
-def translate_batches(model, cfg, tp, batcher, options, writer=sys.stdout):
+def translate_batches(model, cfg, tp, batcher, options, writer=sys.stdout,
+                      rank: int = 0, world: int = 1):
+    """Decode ``batcher`` and write one line per input line. ``rank`` of
+    ``world`` (``--dp``): decode the batches i with i % world == rank and
+    gather the lines on rank 0, the one that writes."""
     from imagetranslate_tpu_torch.data.prefetch import PrefetchIterator
     from imagetranslate_tpu_torch.decoding.beam import (
         beam_search,
@@ -114,9 +128,6 @@ def translate_batches(model, cfg, tp, batcher, options, writer=sys.stdout):
         trim_outputs,
     )
 
-    if getattr(options, "dp", 0) > 1:
-        raise NotImplementedError("--dp > 1: multi-device decode is not "
-                                  "ported yet (ROADMAP module 14)")
     device = next(model.parameters()).device
 
     def dev(x):
@@ -141,12 +152,13 @@ def translate_batches(model, cfg, tp, batcher, options, writer=sys.stdout):
         return b, int(b.row_mask.sum()), s
 
     sen_count = 0
+    decoded = []    # (batch index, its lines) under --dp
 
     def flush(item):
         # Detokenize + write the previous batch while the device decodes
         # the current one.
         nonlocal sen_count
-        b, n_real, best, lengths = item
+        index, b, n_real, best, lengths = item
         outs = trim_outputs(best, lengths, remove_first_token=True)
         lines = []
         for i in range(n_real):
@@ -159,13 +171,19 @@ def translate_batches(model, cfg, tp, batcher, options, writer=sys.stdout):
                 lines.append(hyp + " ||| " + tp.decode(src_ids))
             else:
                 lines.append(hyp)
-        writer.write("\n".join(lines) + "\n")
+        if world > 1:
+            decoded.append((index, lines))
+        else:
+            writer.write("\n".join(lines) + "\n")
         sen_count += n_real
         print(f"Translated {sen_count} sentences", end="\r", file=sys.stderr)
 
     pending = None
-    with torch.no_grad(), PrefetchIterator(batcher, stage, depth=2) as staged:
-        for b, n_real, s in staged:
+    mine = ((i, b) for i, b in enumerate(batcher) if i % world == rank)
+    with torch.no_grad(), PrefetchIterator(
+            mine, lambda item: (item[0], *stage(item[1])),
+            depth=2) as staged:
+        for index, b, n_real, s in staged:
             enc = model.encode(s["src"], s["src_mask"], s["src_langs"])
             L = max_len_for(s["src"].shape[1], options.max_len_a,
                             options.max_len_b, cfg.max_position_embeddings)
@@ -181,18 +199,50 @@ def translate_batches(model, cfg, tp, batcher, options, writer=sys.stdout):
                 ref_ties=not getattr(options, "clean_ties", False))
             if pending is not None:
                 flush(pending)
-            pending = (b, n_real, best, lengths)
+            pending = (index, b, n_real, best, lengths)
     if pending is not None:
         flush(pending)
+    if world > 1:
+        import torch.distributed as dist
+
+        parts = [None] * world if rank == 0 else None
+        dist.gather_object(decoded, parts, dst=0)
+        if rank == 0:
+            for _, lines in sorted(p for part in parts for p in part):
+                writer.write("\n".join(lines) + "\n")
     print(f"\nTranslated {sen_count} sentences", file=sys.stderr)
 
 
 def main(argv=None):
+    import contextlib
+
     options = get_parser().parse_args(argv)
-    model, cfg, tp = build_model(options)
-    batcher = build_batches(options, tp)
-    with open(options.output_path, "w") as writer:
-        translate_batches(model, cfg, tp, batcher, options, writer)
+    rank, world, device = 0, 1, None
+    if options.dp > 1:
+        import torch.distributed as dist
+
+        from imagetranslate_tpu_torch.parallel.mesh import (
+            init_distributed,
+            rank_device,
+        )
+
+        if not init_distributed(device=options.device) \
+                or dist.get_world_size() != options.dp:
+            raise SystemExit(f"--dp {options.dp} runs one process a rank: "
+                             f"launch with torchrun --nproc-per-node "
+                             f"{options.dp}")
+        rank, world = dist.get_rank(), options.dp
+        device = rank_device(options.device)
+    try:
+        model, cfg, tp = build_model(options, device)
+        batcher = build_batches(options, tp)
+        with (open(options.output_path, "w") if rank == 0
+              else contextlib.nullcontext()) as writer:
+            translate_batches(model, cfg, tp, batcher, options, writer,
+                              rank, world)
+    finally:
+        if world > 1:
+            dist.destroy_process_group()
     print("Done!", file=sys.stderr)
 
 

@@ -48,6 +48,12 @@
 // that keeps the running entry on equal values gives); the lse folds the
 // ranges' (max, sum) in a fixed order. No atomics: two launches give the
 // same bits.
+// K2b (the tensor-parallel decode, ops/topk_project.py:sharded_project_topk):
+// each rank runs both passes over its V/n vocab rows; after the all_gather,
+// itt_topk_merge runs pass 2 once more with the n shards as its ranges,
+// reading the gathered [n, M, k] lists and [n, M] lses in place (strides,
+// no transposed copy). The shards hold ascending vocab ranges, so the merge
+// keeps lax.top_k's lowest-index rule across them.
 //
 // Plain C interface, loaded with ctypes (imagetranslate_tpu_torch/ops/_build.py).
 // The TMA, mbarrier and wgmma helpers are in hopper.cuh.
@@ -388,13 +394,21 @@ __device__ __forceinline__ float block_sum(float x, float* red) {
 }
 
 // One block per row: the top-k of the row's R sorted lists, and its lse.
+// Entry p of range r's list for row `row` lies at [row * row_stride + r *
+// range_stride + p] of part_val / part_idx; the range's (max, sum exp) at
+// [row * ms_row + r * ms_range] of part_max / part_sum (sum 1 where part_sum
+// is null: the range's lse stands in as its max). Pass 2 of project_topk reads
+// its scratch [M, R, k] and [M, R, 2]; itt_topk_merge reads the all_gather of
+// n vocab shards' (val, idx) [n, M, k] and lse [n, M] in place.
 // Thread i holds the heads of ranges i and i + MERGE_THREADS (R <= SMS <= 2
 // MERGE_THREADS); k rounds each take the best head of the block (value
 // descending, index ascending) and advance its list, which gives what an
 // ascending merge that keeps the running entry on equal values gives.
 __global__ void __launch_bounds__(MERGE_THREADS)
 project_topk_merge(const float* __restrict__ part_val, const int* __restrict__ part_idx,
-                   const float* __restrict__ part_ms,
+                   long long row_stride, long long range_stride,
+                   const float* __restrict__ part_max, const float* __restrict__ part_sum,
+                   long long ms_row, long long ms_range,
                    float* __restrict__ out_val,  // [M, k]
                    int* __restrict__ out_idx,    // [M, k]
                    float* __restrict__ out_lse,  // [M]
@@ -403,24 +417,25 @@ project_topk_merge(const float* __restrict__ part_val, const int* __restrict__ p
   extern __shared__ __align__(16) unsigned char cand[];  // values [R k], indices [R k]
   __shared__ float red[WARPS], best_v[2][WARPS];
   __shared__ int best_i[2][WARPS];
-  const int row = blockIdx.x, n = R * k;
+  const long long row = blockIdx.x;
+  const int n = R * k;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   float* sv = reinterpret_cast<float*>(cand);
   int* si = reinterpret_cast<int*>(sv + n);
-  const size_t cbase = (size_t)row * n;
   for (int i = threadIdx.x; i < n; i += MERGE_THREADS) {
-    sv[i] = part_val[cbase + i];
-    si[i] = part_idx[cbase + i];
+    const long long at = row * row_stride + (i / k) * range_stride + i % k;
+    sv[i] = part_val[at];
+    si[i] = part_idx[at];
   }
   const float NEG_INF = -__int_as_float(0x7f800000);
-  const float2* ms = reinterpret_cast<const float2*>(part_ms) + (size_t)row * R;
+  const float* mx = part_max + row * ms_row;
   float m = NEG_INF;
-  for (int r = threadIdx.x; r < R; r += MERGE_THREADS) m = fmaxf(m, ms[r].x);
+  for (int r = threadIdx.x; r < R; r += MERGE_THREADS) m = fmaxf(m, mx[r * ms_range]);
   m = block_max(m, red);  // its __syncthreads also put the candidates in place
   float s = 0.0f;
   for (int r = threadIdx.x; r < R; r += MERGE_THREADS) {
-    const float2 p = ms[r];
-    if (p.y > 0.0f) s += p.y * expf(p.x - m);  // a range with no column < V adds nothing
+    const float sum = part_sum == nullptr ? 1.0f : part_sum[row * ms_row + r * ms_range];
+    if (sum > 0.0f) s += sum * expf(mx[r * ms_range] - m);  // a range with no column < V adds nothing
   }
   s = block_sum(s, red);
 
@@ -521,10 +536,11 @@ int launch(const void* h, const void* w, const void* bias, void* part_val, void*
       static_cast<int*>(part_idx), static_cast<float*>(part_ms), M, E, V, k, per, R);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
+  const float* ms = static_cast<const float*>(part_ms);
   project_topk_merge<<<M, MERGE_THREADS, (size_t)R * k * 8, stream>>>(
-      static_cast<const float*>(part_val), static_cast<const int*>(part_idx),
-      static_cast<const float*>(part_ms), static_cast<float*>(out_val),
-      static_cast<int*>(out_idx), static_cast<float*>(out_lse), k, R);
+      static_cast<const float*>(part_val), static_cast<const int*>(part_idx), (long long)R * k, k,
+      ms, ms + 1, 2LL * R, 2, static_cast<float*>(out_val), static_cast<int*>(out_idx),
+      static_cast<float*>(out_lse), k, R);
   return (int)cudaGetLastError();
 }
 
@@ -554,6 +570,25 @@ extern "C" int itt_project_topk_bf16(const void* h, const void* w, const void* b
                      V, k, per, R, st);
   return launch<16>(h, w, bias, part_val, part_idx, part_ms, out_val, out_idx, out_lse, M, E,
                     V, k, per, R, st);
+}
+
+// The merge of K2b (vocab-sharded project_topk; replaces the all_gather + top_k
+// + logsumexp of imagetranslate_tpu/ops/topk_project.py:sharded_project_topk
+// :305): the n shards of ascending vocab ranges are pass 2's ranges, read in
+// the all_gather's layout. val, idx [n, M, k] (each list value descending,
+// index ascending, indices already global), lse [n, M]; out [M, k], [M, k],
+// [M]. The shards' (max, sum exp) are (lse, 1), so the lse is the logsumexp
+// of the shard lses. Bound by its reads, n M (8 k + 4) bytes: microseconds.
+extern "C" int itt_topk_merge(const void* val, const void* idx, const void* lse, void* out_val,
+                              void* out_idx, void* out_lse, int M, int n, int k, void* stream) {
+  if (M < 1 || n < 1 || n > 2 * MERGE_THREADS || k < 1 || k > MAX_K)
+    return (int)cudaErrorInvalidValue;
+  project_topk_merge<<<M, MERGE_THREADS, (size_t)n * k * 8,
+                       reinterpret_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(val), static_cast<const int*>(idx), k, (long long)M * k,
+      static_cast<const float*>(lse), nullptr, 1, M, static_cast<float*>(out_val),
+      static_cast<int*>(out_idx), static_cast<float*>(out_lse), k, n);
+  return (int)cudaGetLastError();
 }
 
 extern "C" const char* itt_error_string(int err) {

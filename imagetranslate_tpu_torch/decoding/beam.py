@@ -21,6 +21,13 @@ Reference semantics kept exactly as the JAX decoder has them:
   gives the clean semantics;
 - early exit once every beam of every row is finished; greedy (K=1) skips the
   penalty and the cache reorder.
+
+Under a tensor-parallel model (``Seq2Seq.shard_``) every rank of the model
+group gets the same merged triple from K2b, so the beams' bookkeeping, and
+the early exit that reads it, stay in lockstep with no further collective.
+Ranks that decode rows of their own (``data_group``) exit together, when
+every beam of every rank is finished: a rank's rows then take the steps
+they would take in one decode of all the rows.
 """
 
 from __future__ import annotations
@@ -33,6 +40,7 @@ import torch
 from imagetranslate_tpu_torch.models.seq2seq import first_lang
 from imagetranslate_tpu_torch.models.transformer import pad_bias
 from imagetranslate_tpu_torch.ops.topk_project import stable_topk
+from imagetranslate_tpu_torch.parallel.comm import all_reduce_max
 
 NEG = -1e9
 
@@ -65,9 +73,16 @@ def _max_lens(src_sizes, B: int, L: int, max_len_a: float, max_len_b: int,
     return torch.clamp(per_row, max=L)
 
 
+def _all_finished(finished: torch.Tensor, data_group) -> bool:
+    if data_group is None:
+        return bool(finished.all())
+    busy = (~finished).any().to(torch.int32).reshape(1)
+    return not bool(all_reduce_max(busy, data_group))
+
+
 def _beam_loop(step, caches, first_tokens, max_lens, *, beam_width: int,
                max_len: int, len_penalty_ratio: float, pad_id: int,
-               eos_id: int, ref_ties: bool):
+               eos_id: int, ref_ties: bool, data_group=None):
     """The decode loop and its selection, shared by ``beam_search`` and
     ``beam_search_dual``. ``step(prev [B*K, 1], index)`` decodes one token
     per beam and returns the project_topk triple; ``caches`` are the
@@ -89,7 +104,7 @@ def _beam_loop(step, caches, first_tokens, max_lens, *, beam_width: int,
     row_base = torch.arange(B, device=dev)[:, None] * K
 
     i = 1
-    while i < L and not bool(finished.all()):
+    while i < L and not _all_finished(finished, data_group):
         prev = tokens[:, :, i - 1].reshape(B * K, 1)
         top_val, top_word, lse = step(prev, i - 1)
         top_logp = (top_val - lse[:, None]).reshape(B, K, K)
@@ -153,10 +168,12 @@ def beam_search(
     pad_id: int = 0,
     eos_id: int = 4,
     ref_ties: bool = True,
+    data_group=None,
 ):
     """Returns (best [B, L] int64: the top beam per row, starting with the
     first token, padded after EOS; lengths [B] int64: index of the first EOS,
-    or the row's limit)."""
+    or the row's limit). ``data_group``: the ranks that decode other rows
+    of the same batch (with the same L), whose early exit this one joins."""
     B = enc_states.shape[0]
     K, L = beam_width, max_len
     lang_idx = first_lang(tgt_langs)
@@ -178,7 +195,8 @@ def beam_search(
 
     return _beam_loop(step, [cache], first_tokens, max_lens, beam_width=K,
                       max_len=L, len_penalty_ratio=len_penalty_ratio,
-                      pad_id=pad_id, eos_id=eos_id, ref_ties=ref_ties)
+                      pad_id=pad_id, eos_id=eos_id, ref_ties=ref_ties,
+                      data_group=data_group)
 
 
 @torch.no_grad()

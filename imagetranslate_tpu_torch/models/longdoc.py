@@ -5,7 +5,7 @@ side, O(T * 3 block) instead of O(T^2), as dense per-block products.
 
 ``local_block_attention`` is plain tensor code, as in the JAX package, where
 it runs outside any kernel. Sharding the sequence over devices
-(``seq_sharding``) is not ported (ROADMAP module 14).
+(``seq_sharding``) is not ported (ROADMAP module 14b).
 """
 
 from __future__ import annotations
@@ -118,7 +118,7 @@ class LongDocLM(nn.Module):
         if seq_sharding is not None:
             raise NotImplementedError(
                 "seq_sharding: sequence parallelism over devices is not "
-                "ported yet (ROADMAP module 14)")
+                "ported yet (ROADMAP module 14b)")
         if cfg.moe_experts:
             # The JAX LongDocLM's layers keep their dense FFN whatever the
             # config says, and its MLM step then averages no aux losses.

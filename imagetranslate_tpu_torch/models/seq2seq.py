@@ -5,20 +5,27 @@ Seq2Seq's encode, forward, project, project_topk, init_cache and decode_step).
 One language per batch: the decoder head is chosen by the language of the
 FIRST target row, as in the JAX model (seq2seq.py:315). Here that index is a
 host int, so the per-language decoders of ``lang_dec`` are plain indexing.
+
+Under a mesh (``shard_``) the model holds this rank's shard of the JAX TP
+rules; with the vocab split, ``project`` returns this rank's V/n logits
+columns and ``project_topk`` takes K2b (``sharded_project_topk``).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
 
 from imagetranslate_tpu_torch.models.config import Seq2SeqConfig
 from imagetranslate_tpu_torch.models.transformer import (
+    Attention,
     Cache,
     Decoder,
+    Embeddings,
     Encoder,
+    EncoderLayer,
     OutputLayer,
     _linear,
     causal_pad_bias,
@@ -29,6 +36,13 @@ from imagetranslate_tpu_torch.models.transformer import (
 )
 from imagetranslate_tpu_torch.ops import topk_project as tkp
 from imagetranslate_tpu_torch.ops.attention import NEG_INF
+from imagetranslate_tpu_torch.parallel.comm import tp_copy
+from imagetranslate_tpu_torch.parallel.mesh import (
+    Plan,
+    ProcessMesh,
+    shard_params,
+    shard_plan,
+)
 
 
 def expand_langs(langs: torch.Tensor, seq_len: int) -> torch.Tensor:
@@ -94,6 +108,9 @@ class Seq2Seq(nn.Module):
     ``torch.float32`` holds fp32 masters, for training. Either way they are
     used in ``cfg.compute_dtype``."""
 
+    mesh: Optional[ProcessMesh] = None       # set by shard_
+    vocab_tp: Optional[ProcessMesh] = None   # the mesh when V is split
+
     def __init__(self, cfg: Seq2SeqConfig, device=None, param_dtype=None):
         super().__init__()
         self.cfg = cfg
@@ -123,14 +140,66 @@ class Seq2Seq(nn.Module):
 
     def _head(self, lang_idx: int):
         """(weight [V, E] cast to the compute dtype, fp32 bias [V]) of the
-        language's output projection."""
+        language's output projection; with the vocab split, this rank's V/n
+        rows of both (the tied bias is replicated and sliced here)."""
         ol = self._heads(self.output_layer)[
             lang_idx if self.cfg.lang_dec else 0]
         w = (self.embeddings.word_embeddings.weight if self.cfg.tie_embed
              else ol.layer.weight)
-        return w.to(self.cfg.compute_dtype), ol.layer.bias
+        b = ol.layer.bias
+        if self.vocab_tp is not None and b.shape[0] != w.shape[0]:
+            # Replicated: its gradient is the group's sum of the slices'.
+            # A copy, so that the kernel finds it 16-byte aligned.
+            tp = self.vocab_tp
+            b = tp_copy(b, tp.model_group).chunk(tp.n_model)[tp.m].clone()
+        return w.to(self.cfg.compute_dtype), b
 
-    _drop = staticmethod(dropout_stream)
+    def _drop(self, deterministic: bool, rng, device):
+        return dropout_stream(deterministic, rng, device, self.mesh)
+
+    def vocab_range(self) -> Tuple[int, int]:
+        """[lo, hi) of the vocab columns ``project`` returns on this rank."""
+        if self.vocab_tp is None:
+            return 0, self.cfg.vocab_size
+        n = self.cfg.vocab_size // self.vocab_tp.n_model
+        return self.vocab_tp.m * n, (self.vocab_tp.m + 1) * n
+
+    def shard_(self, mesh: ProcessMesh) -> Plan:
+        """Keep this rank's shard of every parameter (JAX ``shard_params``
+        under the TP rules; parallel/mesh.py), in place, and return the plan
+        (state_dict key -> split dim or None). The parameters' values are
+        kept: load a full state through ``shard_params`` with the plan
+        afterwards. MoE (expert parallelism) is refused."""
+        if self.cfg.moe_experts:
+            raise NotImplementedError(
+                "MoE under a mesh (expert parallelism) is not ported yet "
+                "(ROADMAP module 14b)")
+        sd = self.state_dict()
+        plan = shard_plan({k: tuple(v.shape) for k, v in sd.items()}, mesh,
+                          self.cfg)
+        local = shard_params(sd, mesh, plan)
+        for name, param in self.named_parameters():
+            if plan[name] is not None:
+                param.data = local[name]
+        self.mesh = mesh
+
+        def split(key):
+            return mesh if plan.get(key) is not None else None
+
+        for name, mod in self.named_modules():
+            pre = name + "." if name else ""
+            if isinstance(mod, Attention):
+                mod.tp = split(pre + "self.query.weight")
+            elif isinstance(mod, EncoderLayer):
+                mod.tp = split(pre + "intermediate.dense.weight")
+            elif isinstance(mod, Embeddings):
+                mod.tp = split(pre + "word_embeddings.weight")
+        out = ("encoder.embeddings.word_embeddings.weight"
+               if self.cfg.tie_embed else
+               ("output_layer.0.layer.weight" if self.cfg.lang_dec
+                else "output_layer.layer.weight"))
+        self.vocab_tp = split(out)
+        return plan
 
     # ---------------- encoding ----------------
 
@@ -154,8 +223,11 @@ class Seq2Seq(nn.Module):
     # ---------------- projections ----------------
 
     def project(self, hidden, lang_idx: int = 0):
-        """hidden -> vocab logits (fp32 unless cfg.fp32_logits is off)."""
+        """hidden -> vocab logits (fp32 unless cfg.fp32_logits is off); with
+        the vocab split, the columns of ``vocab_range``."""
         w, b = self._head(lang_idx)
+        if self.vocab_tp is not None:
+            hidden = tp_copy(hidden, self.vocab_tp.model_group)
         logits = torch.nn.functional.linear(hidden.to(w.dtype), w)
         if self.cfg.fp32_logits:
             return logits.to(torch.float32) + b
@@ -167,9 +239,16 @@ class Seq2Seq(nn.Module):
         fp32 weights and beams wider than the kernel's 16 take its plain
         version on the card too, as the JAX model takes XLA's top_k where
         the kernel's gate says no; any other call the kernel cannot take
-        raises. Returns (val [M, k] fp32, idx [M, k] int32, lse [M] fp32)."""
+        raises. Returns (val [M, k] fp32, idx [M, k] int32, lse [M] fp32).
+        With the vocab split (JAX's gate: V divisible by the model axis),
+        K2b: K2 over this rank's V/n rows, merged over the model group, the
+        same triple on every rank of the group."""
         h = hidden[:, 0, :] if hidden.ndim == 3 else hidden
         w, b = self._head(lang_idx)
+        if self.vocab_tp is not None:
+            return tkp.sharded_project_topk(
+                h.contiguous(), w, b, k, self.vocab_tp.model_group,
+                plain=w.dtype == torch.float32 or k > tkp.MAX_K)
         if w.dtype == torch.float32 or k > tkp.MAX_K:
             return tkp.project_topk_reference(h, w, b, k)
         return tkp.project_topk(h.contiguous(), w, b, k)
@@ -212,7 +291,7 @@ class Seq2Seq(nn.Module):
         hidden = self._decoder(lang_idx)(x, enc_states, self_bias, cross_bias,
                                          drop)
         if self.cfg.use_proposals and proposals is not None:
-            pe = self.embeddings.word_embeddings(proposals)
+            pe = self.embeddings.embed_words(proposals)
             hidden = self.proposal_attn(hidden, pe, proposal_mask)
         return self.project(hidden, lang_idx)
 
@@ -237,7 +316,7 @@ class Seq2Seq(nn.Module):
         x = self.embeddings(prev_token, positions, expand_langs(tgt_langs, 1))
         hidden = self._decoder(lang_idx).step(x, cache, index, cross_bias)
         if self.cfg.use_proposals and proposals is not None:
-            pe = self.embeddings.word_embeddings(proposals)
+            pe = self.embeddings.embed_words(proposals)
             hidden = self.proposal_attn(hidden, pe, proposal_mask)
         if topk is not None:
             return self.project_topk(hidden, topk, lang_idx)

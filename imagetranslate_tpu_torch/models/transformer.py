@@ -24,6 +24,14 @@ Dropout (after the embedding LayerNorm, on the attention probabilities, on
 the attention output projection and on the FFN output, as in the JAX
 modules) is on where a ``DropoutRng`` is handed down (``drop``), and off
 where it is None: the decode path never takes one.
+
+Tensor parallelism (``Seq2Seq.shard_``; the JAX TP rules of
+parallel/mesh.py): a module whose ``tp`` is a ``ProcessMesh`` holds its
+rank's shard, H/n heads of Q, K, V and the matching input columns of the
+attention output, F/n of the FFN intermediate and of the FFN output's input,
+V/n rows of the word embedding. The products of the split input columns are
+summed over the model group before the replicated bias is added once;
+``tp_copy`` sums the gradients of the inputs that reach every rank whole.
 """
 
 from __future__ import annotations
@@ -44,6 +52,7 @@ from imagetranslate_tpu_torch.ops.decode_attention import (
     decode_attention,
     kernel_dtypes,
 )
+from imagetranslate_tpu_torch.parallel.comm import tp_copy, tp_reduce
 
 # Per decoder layer: self-attention K/V buffers "k", "v" [B, L, H, D] in the
 # cache dtype, and the once-projected encoder K/V "ek", "ev" [B, S, H, D].
@@ -54,15 +63,33 @@ class DropoutRng:
     """The dropout stream of one forward pass, the counterpart of flax's
     ``rngs={"dropout": key}`` + ``make_rng``. Seeds for the fused attention
     kernel are drawn from the caller's host generator (no device sync);
-    elementwise masks come from a device generator seeded from it."""
+    elementwise masks come from a device generator seeded from it.
 
-    def __init__(self, generator: torch.Generator, device):
+    Under a ``mesh`` every rank draws the same host seeds. The device
+    generator is shifted by the data index, so the ranks of a model group
+    (which hold the same rows) drop the same replicated activations; an
+    attention seed is shifted by the linear shard index where the heads are
+    split (the JAX call site's shift) and by the data index's first shard
+    where they are not."""
+
+    mesh = None
+
+    def __init__(self, generator: torch.Generator, device, mesh=None):
         self.host = generator
+        self.mesh = mesh
         self.dev = torch.Generator(device=device)
-        self.dev.manual_seed(self.next_seed())
+        self.dev.manual_seed(self.next_seed()
+                             + (0 if mesh is None else mesh.d))
 
     def next_seed(self) -> int:
         return int(torch.randint(0, 2 ** 31 - 1, (1,), generator=self.host))
+
+    def attention_seed(self, heads_split: bool) -> int:
+        mesh = self.mesh
+        if mesh is None:
+            return self.next_seed()
+        return self.next_seed() + (mesh.rank if heads_split
+                                   else mesh.d * mesh.n_model)
 
     def dropout(self, x: torch.Tensor, rate: float) -> torch.Tensor:
         """flax ``nn.Dropout``: keep with probability 1 - rate, kept values
@@ -74,16 +101,32 @@ class DropoutRng:
         return torch.where(keep, x / (1.0 - rate), 0.0)
 
 
-def dropout_stream(deterministic: bool, rng, device) -> Optional[DropoutRng]:
+def dropout_stream(deterministic: bool, rng, device,
+                   mesh=None) -> Optional[DropoutRng]:
     """The ``drop`` a model's forward hands down: None when deterministic,
     else ``rng`` itself if it is a DropoutRng, else a new one over ``rng``
-    (the host torch.Generator the dropout seeds come from)."""
+    (the host torch.Generator the dropout seeds come from) for ``mesh``."""
     if deterministic:
         return None
     if rng is None:
         raise ValueError("deterministic=False needs rng, the "
                          "torch.Generator the dropout seeds come from")
-    return rng if isinstance(rng, DropoutRng) else DropoutRng(rng, device)
+    return (rng if isinstance(rng, DropoutRng)
+            else DropoutRng(rng, device, mesh))
+
+
+def _group(tp):
+    return None if tp is None else tp.model_group
+
+
+def row_parallel(dense: nn.Linear, x: torch.Tensor, tp) -> torch.Tensor:
+    """``dense(x)`` for a Linear whose input columns are split over the
+    model group (``tp``; None: not split): the partial products summed over
+    the group, then the replicated bias added once."""
+    if tp is None:
+        return dense(x)
+    out = tp_reduce(F.linear(x, dense.weight.to(x.dtype)), tp.model_group)
+    return out + dense.bias.to(x.dtype)
 
 
 class Linear(nn.Linear):
@@ -130,6 +173,8 @@ class Embeddings(nn.Module):
     """word + position + language (token-type) embeddings -> LayerNorm ->
     dropout."""
 
+    tp = None   # the mesh when the word table's rows are split
+
     def __init__(self, cfg: Seq2SeqConfig, device=None, param_dtype=None):
         super().__init__()
         self.cfg = cfg
@@ -143,9 +188,22 @@ class Embeddings(nn.Module):
                                                cd, **kw)
         self.LayerNorm = _layer_norm(cfg, device)
 
+    def embed_words(self, ids: torch.Tensor) -> torch.Tensor:
+        """Word-table rows in the compute dtype. With the table's rows split
+        over the model group, each rank looks up the ids of its own range,
+        zeros elsewhere, and the group sums them."""
+        if self.tp is None:
+            return self.word_embeddings(ids)
+        w = self.word_embeddings.weight
+        local = ids - self.tp.m * w.shape[0]
+        inside = (local >= 0) & (local < w.shape[0])
+        x = F.embedding(torch.where(inside, local, 0), w)
+        x = x.masked_fill(~inside[..., None], 0.0).to(self.cfg.compute_dtype)
+        return tp_reduce(x, self.tp.model_group)
+
     def forward(self, input_ids, position_ids, lang_ids,
                 drop: Optional[DropoutRng] = None):
-        x = (self.word_embeddings(input_ids)
+        x = (self.embed_words(input_ids)
              + self.position_embeddings(position_ids)
              + self.token_type_embeddings(lang_ids))
         x = layer_norm(self.LayerNorm, x)
@@ -155,6 +213,8 @@ class Embeddings(nn.Module):
 class Attention(nn.Module):
     """BertSelfAttention + BertSelfOutput: multi-head attention with a
     post-LN residual block, and an optional KV cache for one-token decode."""
+
+    tp = None   # the mesh when the heads are split
 
     def __init__(self, cfg: Seq2SeqConfig, device=None, param_dtype=None):
         super().__init__()
@@ -166,8 +226,13 @@ class Attention(nn.Module):
             "dense": _linear(cfg, E, E, device, param_dtype),
             "LayerNorm": _layer_norm(cfg, device)})
 
+    @property
+    def heads(self) -> int:
+        """The heads this rank holds (all of them without a split)."""
+        return self.self["query"].weight.shape[0] // self.cfg.head_dim
+
     def _heads(self, x: torch.Tensor) -> torch.Tensor:
-        return x.reshape(*x.shape[:-1], self.cfg.num_heads, self.cfg.head_dim)
+        return x.reshape(*x.shape[:-1], -1, self.cfg.head_dim)
 
     def project_kv(self, kv: torch.Tensor):
         """Encoder states -> (k, v) [B, S, H, D], once per sequence (the
@@ -188,12 +253,14 @@ class Attention(nn.Module):
         (cross-attention in decode). ``drop`` turns on the
         attention-probability and output dropout."""
         cfg = self.cfg
-        q = self._heads(self.self["query"](x))
+        g = _group(self.tp)
+        xin = tp_copy(x, g)
+        q = self._heads(self.self["query"](xin))
         ctx = None
         if precomputed_kv is not None:
             k, v = precomputed_kv
         else:
-            k, v = self.project_kv(kv)
+            k, v = self.project_kv(xin if kv is x else tp_copy(kv, g))
             if cache is not None:
                 T = k.shape[1]
                 cache["k"][:, index:index + T] = k.to(cache["k"].dtype)
@@ -212,10 +279,12 @@ class Attention(nn.Module):
             ctx = dot_product_attention(
                 q, k, v, bias, dropout_rate=cfg.attention_dropout,
                 deterministic=drop is None,
-                seed=None if drop is None else drop.next_seed(),
+                seed=(None if drop is None
+                      else drop.attention_seed(self.tp is not None)),
                 use_pallas=cfg.use_pallas_attention,
                 use_fused_dropout=cfg.fused_attn_dropout)
-        out = self.output["dense"](ctx.reshape(*ctx.shape[:2], -1))
+        out = row_parallel(self.output["dense"],
+                           ctx.reshape(*ctx.shape[:2], -1), self.tp)
         if drop is not None:
             out = drop.dropout(out, cfg.dropout)
         return layer_norm(self.output["LayerNorm"], out + x)
@@ -226,6 +295,8 @@ class EncoderLayer(nn.Module):
     post-LN residual (BertIntermediate + BertOutput), or with
     ``cfg.moe_experts > 0`` the routed expert bank ``moe``
     (``models/moe.py``, the JAX ``make_ffn``) in the FFN's place."""
+
+    tp = None   # the mesh when the FFN's F is split
 
     def __init__(self, cfg: Seq2SeqConfig, device=None, param_dtype=None):
         super().__init__()
@@ -244,8 +315,8 @@ class EncoderLayer(nn.Module):
     def ffn(self, x, drop: Optional[DropoutRng] = None):
         if self.cfg.moe_experts:
             return self.moe(x, drop)
-        h = F.gelu(self.intermediate["dense"](x))   # exact (erf) gelu
-        out = self.output["dense"](h)
+        h = F.gelu(self.intermediate["dense"](tp_copy(x, _group(self.tp))))
+        out = row_parallel(self.output["dense"], h, self.tp)  # exact gelu
         if drop is not None:
             out = drop.dropout(out, self.cfg.dropout)
         return layer_norm(self.output["LayerNorm"], out + x)
@@ -351,9 +422,9 @@ class Decoder(nn.Module):
     def init_cache(self, enc_states, batch: int, max_len: int) -> Cache:
         """Zeroed self-attention K/V buffers + once-projected encoder K/V."""
         cfg = self.cfg
-        shape = (batch, max_len, cfg.num_heads, cfg.head_dim)
         cache = []
         for layer in self.decoder.layer:
+            shape = (batch, max_len, layer.attention.heads, cfg.head_dim)
             ek, ev = layer.crossattention.project_kv(enc_states)
             cache.append({
                 "k": torch.zeros(shape, dtype=cfg.kv_dtype,

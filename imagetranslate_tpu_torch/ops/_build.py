@@ -115,6 +115,9 @@ def load() -> ctypes.CDLL:
         # ranges | stream
         lib.itt_project_topk_bf16.argtypes = [p] * 9 + [i] * 7 + [p]
         lib.itt_project_topk_bf16.restype = ctypes.c_int
+        # val idx lse out_val out_idx out_lse | M n k | stream
+        lib.itt_topk_merge.argtypes = [p] * 6 + [i] * 3 + [p]
+        lib.itt_topk_merge.restype = ctypes.c_int
         # q k v bias out stats | B T S H D bias_rows | scale keep_prob |
         # threshold seed_lo seed_hi | stream
         lib.itt_fused_attn_fwd_bf16.argtypes = (

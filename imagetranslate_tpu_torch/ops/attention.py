@@ -8,8 +8,9 @@ S >= 1024 keys with ``use_pallas`` goes through the flash-attention kernel of
 T >= 8; on the card bf16 and D in {32, 64, 128}); with dropout on and
 ``use_fused_dropout`` the call goes through the fused kernel of
 ``ops/train_attention.py`` when the shape gate passes; every other call takes
-the plain path below. The sharded (mesh) dispatch of the JAX module is not
-ported (ROADMAP module 14).
+the plain path below. Under a mesh each rank calls this on its own rows and
+heads (the JAX module's shard_map over batch and heads), with the dropout
+seed shifted by the linear shard index (``DropoutRng.attention_seed``).
 """
 
 from __future__ import annotations

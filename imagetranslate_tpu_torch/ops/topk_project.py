@@ -1,5 +1,7 @@
 """Fused vocab projection + exact top-k + logsumexp (port of
-imagetranslate_tpu/ops/topk_project.py::project_topk).
+imagetranslate_tpu/ops/topk_project.py::project_topk, K2, and
+``sharded_project_topk``, K2b, its vocab-sharded form for the
+tensor-parallel decode).
 
 Every beam-decode step selects its candidates from ``logits = h @ W^T + b``:
 the top-k values and vocab indices per row and the row's logsumexp. On a
@@ -22,12 +24,15 @@ import torch
 
 from imagetranslate_tpu_torch.ops import _build
 
-# Kernel launches, counted where the kernel is launched and nowhere else.
+# Kernel launches, counted where the kernel is launched and nowhere else:
+# K2's, and K2b's merge.
 LAUNCHES = 0
+MERGE_LAUNCHES = 0
 
 MAX_K = 16
 ROW_TILE = 128   # rows a block of the kernel's first pass (BM)
 SMS = 132        # an H100's SMs: the plan fills them about once
+MAX_SHARDS = 256  # the merge's ranges: two a thread of its 128
 
 
 class WorkPlan(NamedTuple):
@@ -155,3 +160,88 @@ def project_topk(h: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
         b = torch.zeros((w.shape[0],), dtype=torch.float32, device=h.device)
     _check_cuda_args(h, w, b, k)
     return _launch(h, w, b, k)
+
+
+# ---------------- K2b: the vocab-sharded projection ----------------
+
+def merge_shard_topk_reference(vals: torch.Tensor, idxs: torch.Tensor,
+                               lses: torch.Tensor, k: int):
+    """Plain version of the merge: the n shards' candidates concatenated
+    shard-major, a stable top-k (the JAX ``lax.top_k`` over the same
+    concatenation: on equal values the lower position, so the lower vocab
+    index, wins), and the logsumexp of the shard lses. vals, idxs [n, M, k],
+    lses [n, M] -> (val [M, k] fp32, idx [M, k] int32, lse [M] fp32)."""
+    n, m, kk = vals.shape
+    cand_v = vals.permute(1, 0, 2).reshape(m, n * kk)
+    cand_i = idxs.permute(1, 0, 2).reshape(m, n * kk)
+    val, pos = stable_topk(cand_v, k)
+    idx = torch.gather(cand_i, 1, pos)
+    return val, idx.to(torch.int32), torch.logsumexp(lses, dim=0)
+
+
+def merge_shard_topk(vals: torch.Tensor, idxs: torch.Tensor,
+                     lses: torch.Tensor, k: int):
+    """The merge of K2b. A CPU tensor runs the plain version; a CUDA tensor
+    launches ``itt_topk_merge`` (csrc/topk_project.cu: K2's second pass
+    over the shards as its ranges, reading the gathered [n, M, k] layout in
+    place) or raises."""
+    global MERGE_LAUNCHES
+    if vals.device.type == "cpu":
+        return merge_shard_topk_reference(vals, idxs, lses, k)
+    n, m, kk = vals.shape
+    if kk != k or not 1 <= k <= MAX_K:
+        raise ValueError(f"the merge takes lists of k (1 <= k <= {MAX_K}), "
+                         f"got {kk} for k={k}")
+    if n > MAX_SHARDS or idxs.shape != vals.shape or lses.shape != (n, m):
+        raise ValueError(f"merge shapes: vals {tuple(vals.shape)}, idxs "
+                         f"{tuple(idxs.shape)}, lses {tuple(lses.shape)}")
+    for name, t, dt in (("vals", vals, torch.float32),
+                        ("idxs", idxs, torch.int32),
+                        ("lses", lses, torch.float32)):
+        if t.device != vals.device or t.dtype != dt or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous {dt} on "
+                             f"{vals.device}")
+    _build.require_hopper(vals.device, "the top-k merge kernel is")
+    lib = _build.load()
+    val = torch.empty((m, k), dtype=torch.float32, device=vals.device)
+    idx = torch.empty((m, k), dtype=torch.int32, device=vals.device)
+    lse = torch.empty((m,), dtype=torch.float32, device=vals.device)
+    with torch.cuda.device(vals.device):
+        stream = torch.cuda.current_stream(vals.device).cuda_stream
+        err = lib.itt_topk_merge(vals.data_ptr(), idxs.data_ptr(),
+                                 lses.data_ptr(), val.data_ptr(),
+                                 idx.data_ptr(), lse.data_ptr(), m, n, k,
+                                 stream)
+    if err != 0:
+        raise RuntimeError("top-k merge kernel launch failed: "
+                           + lib.itt_error_string(err).decode())
+    MERGE_LAUNCHES += 1
+    return val, idx, lse
+
+
+def sharded_project_topk(h: torch.Tensor, w_local: torch.Tensor,
+                         b_local: Optional[torch.Tensor], k: int, group,
+                         plain: bool = False):
+    """K2b: ``project_topk`` over a vocab shard, merged over the model
+    group. h [M, E] (the same rows on every rank of the group), w_local
+    [V/n, E] and b_local [V/n] this rank's rows of the projection (rank i of
+    the group holds vocab [i V/n, (i + 1) V/n)). Runs K2 on the shard,
+    shifts its indices to global ones, gathers the n triples and merges
+    them: every rank returns the same (val [M, k], idx [M, k] int32, lse
+    [M]) as ``project_topk`` over the whole vocab, ties on the lowest index.
+    ``plain``: the plain versions of both halves (fp32 weights, k > 16)."""
+    from imagetranslate_tpu_torch.parallel.comm import (
+        all_gather_stack,
+        group_rank,
+    )
+
+    if plain:
+        val, idx, lse = project_topk_reference(h, w_local, b_local, k)
+    else:
+        val, idx, lse = project_topk(h, w_local, b_local, k)
+    idx = idx + group_rank(group) * w_local.shape[0]
+    vals = all_gather_stack(val, group)
+    idxs = all_gather_stack(idx, group)
+    lses = all_gather_stack(lse, group)
+    merge = merge_shard_topk_reference if plain else merge_shard_topk
+    return merge(vals, idxs, lses, k)

@@ -1,0 +1,99 @@
+"""The collectives of the port's data and tensor parallelism, over one
+``torch.distributed`` process group (a mesh's model or data group).
+
+The JAX package inserts no communication by hand: XLA places it from the
+sharding annotations. The port runs one process per rank and calls these
+where the JAX program's collectives sit. ``group=None`` means no group (a
+mesh axis of size 1): each function then returns its input.
+
+``tp_copy`` and ``tp_reduce`` carry the tensor-parallel layers' gradients:
+the input of a layer whose weight is split by output rows reaches every rank
+whole, so its gradient is the sum of the ranks' partial gradients
+(``tp_copy``: identity forward, all_reduce backward); the output of a layer
+whose weight is split by input columns is the sum of the ranks' partial
+products (``tp_reduce``: all_reduce forward, identity backward).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.distributed as dist
+
+
+def group_size(group) -> int:
+    return 1 if group is None else dist.get_world_size(group)
+
+
+def group_rank(group) -> int:
+    return 0 if group is None else dist.get_rank(group)
+
+
+def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """Sum of ``x`` over the group, in place; returns ``x``. Over gloo a
+    16-bit float tensor is summed in fp32 and rounded once, whatever 16-bit
+    support the installed gloo has (NCCL sums it in its own type)."""
+    if group_size(group) == 1:
+        return x
+    if x.dtype in (torch.bfloat16, torch.float16) and \
+            dist.get_backend(group) != "nccl":
+        wide = x.to(torch.float32)
+        dist.all_reduce(wide, op=dist.ReduceOp.SUM, group=group)
+        return x.copy_(wide)
+    dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
+    return x
+
+
+def all_reduce_max(x: torch.Tensor, group) -> torch.Tensor:
+    """Elementwise max of ``x`` over the group, in place; returns ``x``."""
+    if group_size(group) > 1:
+        dist.all_reduce(x, op=dist.ReduceOp.MAX, group=group)
+    return x
+
+
+def all_gather_stack(x: torch.Tensor, group) -> torch.Tensor:
+    """[n, *x.shape]: slot i holds the ``x`` of the group's rank i. NCCL
+    gathers; gloo (which may refuse ``all_gather`` on CUDA tensors) sums a
+    zero buffer in which each rank filled its own slot, exact for floats and
+    ints, on the tensors' own device."""
+    n = group_size(group)
+    if n == 1:
+        return x[None]
+    x = x.contiguous()
+    if dist.get_backend(group) == "nccl":
+        out = torch.empty((n, *x.shape), dtype=x.dtype, device=x.device)
+        dist.all_gather_into_tensor(out, x, group=group)
+        return out
+    out = torch.zeros((n, *x.shape), dtype=x.dtype, device=x.device)
+    out[group_rank(group)] = x
+    return all_reduce_sum(out, group)
+
+
+class _Copy(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_sum(g.contiguous().clone(), ctx.group), None
+
+
+class _Reduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce_sum(x.contiguous().clone(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def tp_copy(x: torch.Tensor, group) -> torch.Tensor:
+    """Identity forward; the gradient summed over the group."""
+    return x if group is None else _Copy.apply(x, group)
+
+
+def tp_reduce(x: torch.Tensor, group) -> torch.Tensor:
+    """Sum over the group forward; the gradient passed through."""
+    return x if group is None else _Reduce.apply(x, group)

@@ -73,6 +73,11 @@ class InverseSqrtAdam:
     update IN PLACE to ``params`` and ``state`` (both dicts of tensors keyed
     by parameter name, ``grads`` in the same order)."""
 
+    # Under a tensor-parallel mesh: the model group and the names of the
+    # parameters split over it (set_tensor_parallel).
+    tp_group = None
+    tp_sharded: frozenset = frozenset()
+
     def __init__(self, lr: float, warmup_updates: int,
                  clip_norm: Optional[float], weight_decay: float):
         self.clip_norm = clip_norm if clip_norm and clip_norm > 0 else None
@@ -90,6 +95,30 @@ class InverseSqrtAdam:
                         {k: torch.zeros_like(p) for k, p in params.items()},
                         0)
 
+    def set_tensor_parallel(self, group, sharded) -> None:
+        """The global-norm clip of a model split over ``group``: the norm's
+        square is the group's sum of the split parameters' squares plus the
+        replicated ones' counted once (``sharded``: the split parameters'
+        names), so every rank clips by the same factor."""
+        self.tp_group, self.tp_sharded = group, frozenset(sharded)
+
+    def _global_norm(self, grads: List[torch.Tensor],
+                     names: List[str]) -> torch.Tensor:
+        if self.tp_group is None:
+            return torch.linalg.vector_norm(
+                torch.stack(torch._foreach_norm(grads)))
+        from imagetranslate_tpu_torch.parallel.comm import all_reduce_sum
+
+        def sq(gs):
+            if not gs:
+                return torch.zeros((), device=grads[0].device)
+            return torch.stack(torch._foreach_norm(gs)).square().sum()
+
+        split = [g for n, g in zip(names, grads) if n in self.tp_sharded]
+        whole = [g for n, g in zip(names, grads) if n not in self.tp_sharded]
+        return torch.sqrt(all_reduce_sum(sq(split), self.tp_group)
+                          + sq(whole))
+
     @torch.no_grad()
     def update(self, grads: List[torch.Tensor], state: OptState,
                params: Dict[str, torch.Tensor]) -> None:
@@ -100,8 +129,7 @@ class InverseSqrtAdam:
         if self.clip_norm is not None:
             # optax.clip_by_global_norm: untouched below the limit, else
             # g / norm * limit. No host sync: the factor stays on the device.
-            norm = torch.linalg.vector_norm(
-                torch.stack(torch._foreach_norm(grads)))
+            norm = self._global_norm(grads, list(params))
             factor = torch.where(norm < self.clip_norm, torch.ones_like(norm),
                                  self.clip_norm / norm)
             grads = torch._foreach_mul(grads, factor)
@@ -133,6 +161,11 @@ class MultiSteps:
         self.inner = inner
         self.every_k = int(every_k)
 
+    def set_tensor_parallel(self, group, sharded) -> None:
+        """The inner update's clip (``InverseSqrtAdam.set_tensor_parallel``);
+        the running mean is elementwise on each rank's shards."""
+        self.inner.set_tensor_parallel(group, sharded)
+
     def init(self, params: Dict[str, torch.Tensor]) -> MultiStepsState:
         return MultiStepsState(
             0, 0, self.inner.init(params),
@@ -163,6 +196,19 @@ def build_optimizer(lr: float = 1e-4, warmup_updates: int = 4000,
                     weight_decay: float = 0.0) -> InverseSqrtAdam:
     """Adam(0.9, 0.98) + inverse-sqrt warmup + global-norm clipping."""
     return InverseSqrtAdam(lr, warmup_updates, clip_norm, weight_decay)
+
+
+def map_moments(opt_state: AnyOptState, fn: Callable) -> AnyOptState:
+    """The state with ``fn`` applied to each of its parameter-keyed dicts
+    (Adam's moments, the accumulated gradients): a mesh's trainer gathers
+    them for a checkpoint and shards a loaded one."""
+    if isinstance(opt_state, MultiStepsState):
+        return dataclasses.replace(
+            opt_state,
+            inner_opt_state=map_moments(opt_state.inner_opt_state, fn),
+            acc_grads=fn(opt_state.acc_grads))
+    return dataclasses.replace(opt_state, mu=fn(opt_state.mu),
+                               nu=fn(opt_state.nu))
 
 
 def _inner(opt_state: AnyOptState) -> OptState:

@@ -18,6 +18,14 @@ A model with MoE FFNs (``cfg.moe_experts > 0``) adds ``cfg.moe_aux_weight``
 times the mean of its expert banks' load-balance losses to every training
 objective, as each JAX step does; a dense model's objective is what it was.
 Evaluation applies no such term.
+
+Under a mesh (the model's ``mesh``, set by ``Seq2Seq.shard_``) the MT and
+MASS steps hold the JAX program's global batch semantics: the loss is the
+data group's sum over its count, and each rank's gradients (of its sum over
+that global count) are summed over the data group before the update. With
+the vocab split over the model group the loss is
+``smoothed_nll_loss_vocab_parallel``; under pure data parallelism each rank
+holds the whole vocab and keeps the fused kernels where the config asks.
 """
 
 from __future__ import annotations
@@ -29,7 +37,11 @@ import torch
 
 from imagetranslate_tpu_torch.models.moe import collect_aux
 from imagetranslate_tpu_torch.models.transformer import DropoutRng
-from imagetranslate_tpu_torch.ops.losses import nll_loss, smoothed_nll_loss
+from imagetranslate_tpu_torch.ops.losses import (
+    nll_loss,
+    smoothed_nll_loss,
+    smoothed_nll_loss_vocab_parallel,
+)
 from imagetranslate_tpu_torch.ops.masking import (
     MassDraws,
     MLMDraws,
@@ -39,6 +51,7 @@ from imagetranslate_tpu_torch.ops.masking import (
     mass_mask_core,
 )
 from imagetranslate_tpu_torch.ops.xent import smoothed_nll_loss_fused
+from imagetranslate_tpu_torch.parallel.comm import all_reduce_sum
 from imagetranslate_tpu_torch.train.optimizer import (
     AnyOptState,
     MultiSteps,
@@ -69,7 +82,18 @@ def wrap_accum(optimizer, accum: int):
 def _loss_impl(model) -> Callable:
     """The fused softmax-xent kernels (ops/xent.py) when the model config
     asks for them (``use_pallas_xent``: the key keeps the name both packages
-    read from config.json); the same function either way."""
+    read from config.json); the same function either way. Logits split over
+    the vocab take the vocab-parallel loss."""
+    tp = getattr(model, "vocab_tp", None)
+    if tp is not None:
+        lo = model.vocab_range()[0]
+
+        def vocab_parallel(logits, targets, mask, epsilon):
+            return smoothed_nll_loss_vocab_parallel(
+                logits, targets, mask, epsilon, lo, model.cfg.vocab_size,
+                tp.model_group)
+
+        return vocab_parallel
     if getattr(model.cfg, "use_pallas_xent", False):
         return smoothed_nll_loss_fused
     return smoothed_nll_loss
@@ -92,25 +116,38 @@ def _plus(objective, aux):
     return objective if aux is None else objective + aux
 
 
-def _descend(state, optimizer: Optimizer, objective) -> None:
-    """Backward of the scalar ``objective``, the optimizer update in
-    place."""
+def _descend(state, optimizer: Optimizer, objective, mesh=None) -> None:
+    """Backward of the scalar ``objective``, the gradients summed over the
+    mesh's data group, the optimizer update in place."""
     params = list(state.params.values())
     grads = torch.autograd.grad(objective, params, allow_unused=True)
     # A parameter the batch did not reach (another language's decoder)
     # gets a zero gradient, as jax.grad gives it.
     grads = [torch.zeros_like(p) if g is None else g
              for p, g in zip(params, grads)]
+    if mesh is not None and mesh.data_group is not None:
+        flat = all_reduce_sum(torch.cat([g.reshape(-1) for g in grads]),
+                              mesh.data_group)
+        grads = [f.view_as(g) for f, g in
+                 zip(flat.split([g.numel() for g in grads]), grads)]
     optimizer.update(grads, state.opt_state, state.params)
     state.step += 1
 
 
 def _update(state, optimizer: Optimizer, sum_l, n, weight: float = 1.0,
-            aux=None):
+            aux=None, mesh=None):
     """Backward of weight * sum_l / n (+ ``aux``, the weighted MoE term),
-    the optimizer update in place, the metrics (the unweighted sum)."""
-    _descend(state, optimizer, _plus(weight * sum_l / n, aux))
-    return state, {"sum_loss": sum_l.detach(), "ntokens": n}
+    the optimizer update in place, the metrics (the unweighted sum). Under
+    ``mesh`` n is the data group's count (at least 1) and the metrics the
+    group's sums."""
+    if mesh is not None and mesh.data_group is not None:
+        n = all_reduce_sum(n.detach().clone(), mesh.data_group)
+    n = torch.clamp(n, min=1.0)
+    _descend(state, optimizer, _plus(weight * sum_l / n, aux), mesh)
+    sum_l = sum_l.detach()
+    if mesh is not None and mesh.data_group is not None:
+        sum_l = all_reduce_sum(sum_l.clone(), mesh.data_group)
+    return state, {"sum_loss": sum_l, "ntokens": n}
 
 
 def make_mt_train_step(model, optimizer: Optimizer,
@@ -120,8 +157,10 @@ def make_mt_train_step(model, optimizer: Optimizer,
     packed (``src_seg`` ...; ``mt_batch_to_device`` /
     ``packed_mt_batch_to_device``); ``rng`` is the host torch.Generator the
     dropout seeds of this step are drawn from. ``state.params`` must be this
-    model's ``dict(named_parameters())``."""
+    model's ``dict(named_parameters())``. Under the model's mesh the batch
+    holds this rank's rows (``parallel.mesh.shard_batch_safe``)."""
     loss_fn_impl = _loss_impl(model)
+    mesh = getattr(model, "mesh", None)
 
     def step_fn(state: TrainState, batch: Dict[str, torch.Tensor],
                 rng: torch.Generator):
@@ -151,8 +190,7 @@ def make_mt_train_step(model, optimizer: Optimizer,
             mask = batch["dst_mask"][:, 1:] & batch["row_mask"][:, None]
         sum_l, n = loss_fn_impl(logits, batch["dst"][:, 1:], mask,
                                 epsilon=label_smoothing)
-        return _update(state, optimizer, sum_l, torch.clamp(n, min=1.0),
-                       aux=aux)
+        return _update(state, optimizer, sum_l, n, aux=aux, mesh=mesh)
 
     return step_fn
 
@@ -169,13 +207,15 @@ def make_mass_train_step(model, optimizer: Optimizer, cfg,
     lengths, row_mask). ``rng``: the host torch.Generator; it seeds the
     device generator that the span draws and the dropout masks come from.
     ``draws``: a ``MassDraws`` to use in place of drawing (the tests feed the
-    JAX package's draws)."""
+    JAX package's draws). Under the model's mesh as ``make_mt_train_step``;
+    each data rank draws the spans of its own rows."""
     loss_fn_impl = _loss_impl(model)
+    mesh = getattr(model, "mesh", None)
 
     def step_fn(state: TrainState, batch: Dict[str, torch.Tensor],
                 rng: torch.Generator, draws: Optional[MassDraws] = None):
         src = batch["src"]
-        drop = DropoutRng(rng, src.device)
+        drop = DropoutRng(rng, src.device, mesh)
         if draws is None:
             draws = draw_mass(drop.dev, src, batch["lengths"], mask_prob,
                               n_specials=n_specials,
@@ -191,8 +231,7 @@ def make_mass_train_step(model, optimizer: Optimizer, cfg,
         mask = dec_mask[:, 1:] & batch["row_mask"][:, None]
         sum_l, n = loss_fn_impl(logits, masked.dec_inputs[:, 1:], mask,
                                 epsilon=label_smoothing)
-        return _update(state, optimizer, sum_l, torch.clamp(n, min=1.0),
-                       aux=aux)
+        return _update(state, optimizer, sum_l, n, aux=aux, mesh=mesh)
 
     return step_fn
 

@@ -26,7 +26,7 @@ The model holds fp32 master parameters and computes in ``cfg.dtype``. The
 dev decode runs on the same model: each weight is cast to the compute dtype
 where it is used, so under a bf16 config the projection + top-k kernel and
 (with ``decode_attention_impl="fused"``) the decode attention kernel launch.
-One device: a mesh is refused (ROADMAP module 14).
+One device: a mesh is refused (ROADMAP module 14b).
 """
 
 from __future__ import annotations
@@ -162,7 +162,7 @@ class CaptionTrainer(CaptionVariables):
         card."""
         if mesh is not None:
             raise NotImplementedError("a mesh: multi-device training is not "
-                                      "ported yet (ROADMAP module 14)")
+                                      "ported yet (ROADMAP module 14b)")
         if img_size is not None and img_size != cfg.img_size:
             cfg = dataclasses.replace(cfg, img_size=img_size)
         self.cfg = cfg

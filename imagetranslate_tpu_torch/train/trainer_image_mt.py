@@ -69,7 +69,7 @@ class ImageMTTrainer(CaptionVariables, MTTrainer):
         if mesh is not None or zero:
             raise NotImplementedError(
                 "mesh and zero: multi-device training is not ported yet "
-                "(ROADMAP module 14)")
+                "(ROADMAP module 14b)")
         if mm_mode not in MM_MODES:
             raise ValueError(f"mm_mode {mm_mode!r}: one of {MM_MODES}")
         if img_size is not None and img_size != cfg.img_size:

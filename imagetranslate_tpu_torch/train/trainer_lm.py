@@ -3,7 +3,7 @@ corruption, NLL on the masked positions, model selection by dev loss with the
 best slot at ``model_path`` and the rolling best-train slot at ``.latest``.
 
 The model holds fp32 master parameters and computes in ``cfg.dtype``. One
-device: a mesh is refused (ROADMAP module 14).
+device: a mesh is refused (ROADMAP module 14b).
 """
 
 from __future__ import annotations
@@ -43,7 +43,7 @@ class LMTrainer:
         if mesh is not None:
             raise NotImplementedError(
                 "mesh: multi-device training is not ported yet (ROADMAP "
-                "module 14)")
+                "module 14b)")
         self.cfg = cfg
         self.tp = tp
         self.device = torch.device(device)

@@ -1,7 +1,7 @@
 """Long-document LM trainer, the ``--reformer`` path of the LM CLI (port of
 imagetranslate_tpu/train/trainer_longdoc.py): ``LMTrainer`` over the
 local-block-attention ``LongDocLM``. Sequence parallelism over a mesh is not
-ported (ROADMAP module 14)."""
+ported (ROADMAP module 14b)."""
 
 from __future__ import annotations
 

@@ -18,9 +18,17 @@ checkpoints).
   ``bleu.output`` / ``bleu.best.output`` transcripts and a best-slot
   checkpoint.
 
-The model holds fp32 master parameters and computes in ``cfg.dtype``. One
-device: a mesh, pipeline microbatches and ZeRO are refused (ROADMAP module
-14).
+The model holds fp32 master parameters and computes in ``cfg.dtype``.
+
+Under a mesh (``parallel.mesh.ProcessMesh``, one process a rank) the model
+keeps this rank's shard of the JAX TP rules, each step takes this rank's
+rows of the batch (every rank builds the same batches) and the steps hold
+the global batch semantics (train/step.py). The dev and back-translation
+decodes split the rows over the data group and decode through K2b across
+the model group. Checkpoints hold the gathered full state in the one-device
+layout, written by rank 0; every rank loads the full state and shards it.
+Only rank 0 logs. Pipeline microbatches and ZeRO are refused (ROADMAP module
+14b).
 """
 
 from __future__ import annotations
@@ -40,10 +48,18 @@ from imagetranslate_tpu_torch.decoding.beam import (
 )
 from imagetranslate_tpu_torch.models.config import Seq2SeqConfig
 from imagetranslate_tpu_torch.models.seq2seq import Seq2Seq
+from imagetranslate_tpu_torch.parallel.comm import all_gather_stack
+from imagetranslate_tpu_torch.parallel.mesh import (
+    ProcessMesh,
+    gather_params,
+    shard_batch_safe,
+    shard_params,
+)
 from imagetranslate_tpu_torch.text.processor import TextProcessor
 from imagetranslate_tpu_torch.train.checkpoint import save_checkpoint
 from imagetranslate_tpu_torch.train.optimizer import (
     build_optimizer,
+    map_moments,
     reset_schedule,
     set_schedule_step,
 )
@@ -57,37 +73,49 @@ from imagetranslate_tpu_torch.train.step import (
     wrap_accum,
 )
 from imagetranslate_tpu_torch.train.weights import (
+    SEQ2SEQ,
     flax_from_opt_state,
     flax_from_state_dict,
+    opt_state_from_flax,
     random_params,
     state_dict_from_flax,
 )
 
 
 class MTTrainer:
+    mesh: Optional[ProcessMesh] = None
+    chief = True    # rank 0 of the mesh, or no mesh: logs and writes
+    plan = None     # under a mesh: state_dict key -> split dim or None
+
     def __init__(self, cfg: Seq2SeqConfig, tp: TextProcessor,
                  params=None, lr: float = 1e-4, warmup: int = 4000,
                  clip: float = 1.0, accum: int = 1, mask_prob: float = 0.5,
                  beam_width: int = 4, bt_beam_width: int = 1,
                  max_len_a: float = 1.1, max_len_b: int = 5,
                  len_penalty_ratio: float = 0.8, label_smoothing: float = 0.1,
-                 mesh=None, seed: int = 0, pp_microbatches: int = 0,
-                 zero: bool = False, device="cuda"):
+                 mesh: Optional[ProcessMesh] = None, seed: int = 0,
+                 pp_microbatches: int = 0, zero: bool = False,
+                 device="cuda"):
         """``params``: a flax-layout parameter tree to start from (None:
         random, the JAX model's initializers from ``seed``). ``device``: where
-        the model trains; ``cuda`` fails without a card. ``mask_prob`` bounds
-        where a MASS span may start; ``bt_beam_width`` is the beam of the
-        back-translation decode (1: greedy)."""
-        if mesh is not None or pp_microbatches or zero:
+        the model trains; ``cuda`` fails without a card; under a ``mesh``
+        the mesh's device. ``mask_prob`` bounds where a MASS span may start;
+        ``bt_beam_width`` is the beam of the back-translation decode (1:
+        greedy)."""
+        if pp_microbatches or zero:
             raise NotImplementedError(
-                "mesh, pp_microbatches and zero: multi-device training is "
-                "not ported yet (ROADMAP module 14)")
+                "pp_microbatches and zero: pipeline parallelism and ZeRO-1 "
+                "are not ported yet (ROADMAP module 14b)")
         self.cfg = cfg
         self.tp = tp
-        self.device = torch.device(device)
+        self.mesh = mesh
+        self.chief = mesh is None or mesh.rank == 0
+        self.device = torch.device(device) if mesh is None else mesh.device
         self.model = Seq2Seq(cfg, device=self.device,
                              param_dtype=torch.float32)
-        self.rng = torch.Generator().manual_seed(seed)  # the dropout seeds
+        self.plan = None if mesh is None else self.model.shard_(mesh)
+        # The dropout seeds: the same stream on every rank.
+        self.rng = torch.Generator().manual_seed(seed)
         self.beam_width = beam_width
         self.bt_beam_width = bt_beam_width
         self.max_len_a = max_len_a
@@ -99,6 +127,10 @@ class MTTrainer:
         self.optimizer = wrap_accum(
             build_optimizer(lr=lr, warmup_updates=warmup, clip_norm=clip),
             accum)
+        if mesh is not None and mesh.model_group is not None:
+            self.optimizer.set_tensor_parallel(
+                mesh.model_group,
+                [k for k, dim in self.plan.items() if dim is not None])
         self.mt_step = make_mt_train_step(self.model, self.optimizer,
                                           label_smoothing=label_smoothing)
         self.mass_step = make_mass_train_step(
@@ -116,16 +148,25 @@ class MTTrainer:
                       max_len: Optional[int] = None):
         """Rows pad to the next power of two (>= 8), as the JAX trainer pads
         them: padded rows carry src_size 0 and freeze within a few steps, and
-        keeping them keeps the loop's early exit the same."""
+        keeping them keeps the loop's early exit the same. Under a mesh
+        whose data axis divides the rows, each data rank decodes its slice
+        of them and every rank returns all of them."""
         n = src.shape[0]
         rows = max(8, 1 << (int(n) - 1).bit_length())
+        mesh = self.mesh
+        split = (mesh is not None and mesh.data_group is not None
+                 and rows % mesh.n_data == 0)
+        lo, hi = 0, rows
+        if split:
+            lo, hi = (mesh.d * rows // mesh.n_data,
+                      (mesh.d + 1) * rows // mesh.n_data)
 
         def dev(a):
             a = np.asarray(a)
             if a.shape[0] != rows:
                 a = np.pad(a, [(0, rows - a.shape[0])]
                            + [(0, 0)] * (a.ndim - 1))
-            return torch.as_tensor(a).to(self.device)
+            return torch.as_tensor(a[lo:hi]).to(self.device)
 
         mask = dev(src_mask)
         enc = self.model.encode(dev(src), mask, dev(src_langs))
@@ -138,8 +179,17 @@ class MTTrainer:
             dev(src_sizes), beam_width=beam_width, max_len=L,
             max_len_a=self.max_len_a, max_len_b=self.max_len_b,
             len_penalty_ratio=self.len_penalty_ratio,
-            pad_id=self.tp.pad_token_id(), eos_id=self.tp.sep_token_id())
+            pad_id=self.tp.pad_token_id(), eos_id=self.tp.sep_token_id(),
+            data_group=mesh.data_group if split else None)
+        if split:
+            best = all_gather_stack(best, mesh.data_group).flatten(0, 1)
+            lengths = all_gather_stack(lengths, mesh.data_group).flatten()
         return best[:n], lengths[:n]
+
+    def _shard(self, batch: Dict[str, torch.Tensor]):
+        """This rank's rows of a staged batch under a mesh."""
+        return batch if self.mesh is None else shard_batch_safe(batch,
+                                                                self.mesh)
 
     # ---------------- train loops ----------------
 
@@ -199,15 +249,17 @@ class MTTrainer:
             if kind == "mt":
                 to_dev = (packed_mt_batch_to_device if hasattr(b, "src_seg")
                           else mt_batch_to_device)
-                return kind, b, to_dev(b, self.device)
+                return kind, b, self._shard(to_dev(b, self.device))
             if kind == "img":
                 return kind, b, self._stage_img(b, image_root)
             if not fine_tune:
-                return kind, b, mass_batch_to_device(b, self.device)
+                return kind, b, self._shard(mass_batch_to_device(b,
+                                                                 self.device))
             return kind, b, None
 
-        meter = AsyncStepMeter(log_every=log_every)
-        profiler = StepProfiler(profile_dir, start=step + 10, stop=step + 15)
+        meter = AsyncStepMeter(log_every=log_every, quiet=not self.chief)
+        profiler = StepProfiler(profile_dir if self.chief else None,
+                                start=step + 10, stop=step + 15)
         prefetcher = PrefetchIterator(interleaved(), stage, depth=3)
         try:
             for kind, b, staged in prefetcher:
@@ -238,8 +290,9 @@ class MTTrainer:
             profiler.close()
 
         meter.finish(step)
-        print(f"Total loss in this epoch: {meter.epoch_loss():.4f}",
-              flush=True)
+        if self.chief:
+            print(f"Total loss in this epoch: {meter.epoch_loss():.4f}",
+                  flush=True)
         self._save(saving_path + ".latest", step)
         if dev_batcher is not None:
             self._try_eval(dev_batcher, saving_path)
@@ -250,7 +303,8 @@ class MTTrainer:
         printed."""
         try:
             bleu = self.eval_bleu(dev_batcher, saving_path)
-            print(f"BLEU: {bleu:.2f}", flush=True)
+            if self.chief:
+                print(f"BLEU: {bleu:.2f}", flush=True)
         except Exception:
             traceback.print_exc()
 
@@ -290,7 +344,7 @@ class MTTrainer:
         }
         batch = {k: torch.as_tensor(v).to(self.device)
                  for k, v in batch.items()}
-        self.state, m = self.mt_step(self.state, batch, rng)
+        self.state, m = self.mt_step(self.state, self._shard(batch), rng)
         return m
 
     # ---------------- evaluation ----------------
@@ -304,8 +358,8 @@ class MTTrainer:
         return ids
 
     def eval_bleu(self, dev_batcher: MTBatcher, saving_path: str) -> float:
-        import sacrebleu
-
+        """Decode the dev set, then score it (sacrebleu is imported after
+        the decode: without it the decode runs and the scoring raises)."""
         if not self.reference:
             self._build_reference(dev_batcher)
         mt_output: List[str] = []
@@ -320,9 +374,18 @@ class MTTrainer:
                 mt_output.append(self.tp.decode(outs[i]))
                 src_text.append(self.tp.decode(self._strip(b.src[i])))
 
+        import sacrebleu
+
         bleu = sacrebleu.corpus_bleu(mt_output,
                                      [self.reference[:len(mt_output)]],
                                      lowercase=True, tokenize="intl")
+        best = bleu.score > self.best_bleu
+        if best:
+            self.best_bleu = bleu.score
+            # Every rank gathers the state; rank 0 writes it.
+            self._save(saving_path, step=self.state.step)
+        if not self.chief:
+            return bleu.score
         os.makedirs(saving_path, exist_ok=True)
         transcript = "\n".join(
             s + "\n" + o + "\n" + r + "\n\n***************\n"
@@ -330,13 +393,11 @@ class MTTrainer:
                                self.reference[:len(mt_output)]))
         with open(os.path.join(saving_path, "bleu.output"), "w") as w:
             w.write(transcript)
-        if bleu.score > self.best_bleu:
-            self.best_bleu = bleu.score
+        if best:
             print(f"Saving best BLEU {self.best_bleu:.2f}", flush=True)
             with open(os.path.join(saving_path, "bleu.best.output"),
                       "w") as w:
                 w.write(transcript)
-            self._save(saving_path, step=self.state.step)
         return bleu.score
 
     def _build_reference(self, dev_batcher: MTBatcher):
@@ -347,26 +408,51 @@ class MTTrainer:
 
     # ---------------- persistence / phases ----------------
 
+    def _full(self, sd):
+        """A dict of this rank's shards -> the full tensors (collective
+        over the model group under a mesh)."""
+        return sd if self.mesh is None else gather_params(sd, self.mesh,
+                                                          self.plan)
+
+    def _local(self, sd):
+        """A dict of full tensors -> this rank's shards."""
+        return sd if self.mesh is None else shard_params(sd, self.mesh,
+                                                         self.plan)
+
     def params_tree(self) -> dict:
-        """The fp32 master parameters as the flax-layout tree."""
-        return flax_from_state_dict(self.model.state_dict(), self.cfg)
+        """The fp32 master parameters as the flax-layout tree (gathered
+        under a mesh: every rank calls it)."""
+        return flax_from_state_dict(self._full(self.model.state_dict()),
+                                    self.cfg)
 
     def _save(self, path: str, step: int):
-        save_checkpoint(
-            path, self.cfg, self.params_tree(),
-            opt_state=flax_from_opt_state(self.state.opt_state,
-                                          self.optimizer, self.cfg),
-            step=step, best_metric=self.best_bleu)
+        """Every rank gathers; rank 0 writes the one-device layout."""
+        params = self.params_tree()
+        opt_state = flax_from_opt_state(
+            map_moments(self.state.opt_state, self._full), self.optimizer,
+            self.cfg)
+        if self.chief:
+            save_checkpoint(path, self.cfg, params, opt_state=opt_state,
+                            step=step, best_metric=self.best_bleu)
 
     def set_reference_params(self, params, step: int = 0):
-        """Replace the model weights from a flax-layout tree and reset the
-        optimizer state to match. ``step`` (a checkpoint's saved step)
-        re-seats the LR schedule there."""
-        self.model.load_state_dict(state_dict_from_flax(params, self.cfg))
+        """Replace the model weights from a flax-layout tree (the full
+        state; sharded here under a mesh) and reset the optimizer state to
+        match. ``step`` (a checkpoint's saved step) re-seats the LR schedule
+        there."""
+        self.model.load_state_dict(
+            self._local(state_dict_from_flax(params, self.cfg)))
         self.state = create_train_state(dict(self.model.named_parameters()),
                                         self.optimizer)
         if step:
             set_schedule_step(self.state.opt_state, step)
+
+    def load_opt_state(self, tree, bridge=SEQ2SEQ):
+        """The optimizer state from a checkpoint's optax tree (the full
+        state; sharded here under a mesh)."""
+        self.state.opt_state = map_moments(
+            opt_state_from_flax(tree, self.optimizer, self.cfg, self.device,
+                                bridge), self._local)
 
     def reset_for_finetune(self):
         """Phase 2 entry: restart the LR schedule, keep the moments."""

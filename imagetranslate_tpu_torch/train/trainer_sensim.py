@@ -15,7 +15,7 @@ checkpoints), and ``BridgedTrainer``, the part it shares with
 The model holds fp32 master parameters and computes in ``cfg.dtype``.
 Checkpoints are the JAX package's layout (``weights.SENSIM``), so either
 package resumes from and scores with what the other trained. One device: a
-mesh is refused (ROADMAP module 14).
+mesh is refused (ROADMAP module 14b).
 """
 
 from __future__ import annotations
@@ -58,7 +58,7 @@ class BridgedTrainer:
                warmup: int, clip: float, mesh, seed: int, make_step):
         if mesh is not None:
             raise NotImplementedError("a mesh: multi-device training is not "
-                                      "ported yet (ROADMAP module 14)")
+                                      "ported yet (ROADMAP module 14b)")
         self.cfg = cfg
         self.model = model
         self.device = next(model.parameters()).device

@@ -8,7 +8,7 @@ in inference mode (running BatchNorm statistics, no gradient); a prefetch
 thread decodes each batch's images and runs that encode while the previous
 step trains. Dev loss, best-slot and ``.latest`` checkpoints as
 ``SenSimTrainer`` has them (a strictly lower dev loss saves). One device: a
-mesh is refused (ROADMAP module 14).
+mesh is refused (ROADMAP module 14b).
 """
 
 from __future__ import annotations

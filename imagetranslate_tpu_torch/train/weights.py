@@ -58,12 +58,15 @@ def _t(x) -> torch.Tensor:
 
 
 def _attn(sd, prefix: str, p: Mapping, E: int):
+    """An attention sub-tree -> its keys. The head dims fold into one
+    (-1): a tensor-parallel shard of the tree ([E, H/n, D] kernels) maps to
+    the same rows of the port's shard."""
     for name in ("query", "key", "value"):
         sd[f"{prefix}.self.{name}.weight"] = _t(p[name]["kernel"]).reshape(
-            E, E).T
-        sd[f"{prefix}.self.{name}.bias"] = _t(p[name]["bias"]).reshape(E)
+            E, -1).T
+        sd[f"{prefix}.self.{name}.bias"] = _t(p[name]["bias"]).reshape(-1)
     sd[f"{prefix}.output.dense.weight"] = _t(p["out"]["kernel"]).reshape(
-        E, E).T
+        -1, E).T
     sd[f"{prefix}.output.dense.bias"] = _t(p["out"]["bias"])
     sd[f"{prefix}.output.LayerNorm.weight"] = _t(p["ln"]["scale"])
     sd[f"{prefix}.output.LayerNorm.bias"] = _t(p["ln"]["bias"])
@@ -150,6 +153,21 @@ def state_dict_from_flax(params: Mapping,
         sd["proposal_attn.LayerNorm.weight"] = _t(pa["ln"]["scale"])
         sd["proposal_attn.LayerNorm.bias"] = _t(pa["ln"]["bias"])
     return _contiguous_sd(sd)
+
+
+def state_dict_shard_from_flax(params: Mapping, cfg: Seq2SeqConfig,
+                               mesh) -> Dict[str, torch.Tensor]:
+    """One rank's shard (``mesh``: a ``parallel.mesh.ProcessMesh``) of the
+    port's ``state_dict`` of a full JAX ``Seq2Seq`` tree: the TP rules'
+    ``shard_params`` after ``state_dict_from_flax``."""
+    from imagetranslate_tpu_torch.parallel.mesh import (
+        shard_params,
+        shard_plan,
+    )
+
+    sd = state_dict_from_flax(params, cfg)
+    plan = shard_plan({k: tuple(v.shape) for k, v in sd.items()}, mesh, cfg)
+    return shard_params(sd, mesh, plan)
 
 
 def _attn_tree(sd, prefix: str, H: int, D: int) -> dict:

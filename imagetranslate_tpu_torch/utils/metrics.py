@@ -11,11 +11,14 @@ import torch
 
 
 class StepMeter:
+    """``quiet``: count, print nothing (the ranks of a mesh other than 0)."""
+
     def __init__(self, log_every: int = 50, jsonl: Optional[TextIO] = None,
-                 prefix: str = ""):
+                 prefix: str = "", quiet: bool = False):
         self.log_every = log_every
         self.jsonl = jsonl
         self.prefix = prefix
+        self.quiet = quiet
         self.reset_window()
         self.total_tokens = 0
         self.total_loss = 0.0
@@ -30,7 +33,8 @@ class StepMeter:
         self.win_loss += sum_loss
         self.total_tokens += ntokens
         self.total_loss += sum_loss
-        if step % self.log_every == 0 and self.win_tokens > 0:
+        if step % self.log_every == 0 and self.win_tokens > 0 \
+                and not self.quiet:
             elapsed = max(time.time() - self.win_start, 1e-9)
             tps = self.win_tokens / elapsed
             loss = self.win_loss / self.win_tokens
@@ -57,8 +61,10 @@ class AsyncStepMeter(StepMeter):
     transfer. That transfer waits for every step enqueued so far, so the
     window's tokens/sec is wall-clock throughput, not the enqueue rate."""
 
-    def __init__(self, log_every: int = 50, jsonl=None, prefix: str = ""):
-        super().__init__(log_every=log_every, jsonl=jsonl, prefix=prefix)
+    def __init__(self, log_every: int = 50, jsonl=None, prefix: str = "",
+                 quiet: bool = False):
+        super().__init__(log_every=log_every, jsonl=jsonl, prefix=prefix,
+                         quiet=quiet)
         self._pending = []
 
     def update(self, step: int, sum_loss, ntokens):

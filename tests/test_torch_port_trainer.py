@@ -38,6 +38,7 @@ from imagetranslate_tpu_torch.data.loader import MassBatcher, MTBatcher
 from imagetranslate_tpu_torch.models.config import tiny_config
 from imagetranslate_tpu_torch.text.processor import TextProcessor
 from imagetranslate_tpu_torch.train import checkpoint as ckpt
+from imagetranslate_tpu_torch.parallel.mesh import ProcessMesh
 from imagetranslate_tpu_torch.train.trainer_mt import MTTrainer
 from imagetranslate_tpu_torch.train.weights import opt_state_from_flax
 from imagetranslate_tpu_torch.utils import metrics
@@ -210,9 +211,14 @@ def test_train_epoch_learns_and_eval_bleu_saves_best(corpus, tmp_path,
 def test_trainer_refuses_what_is_not_ported(corpus, tmp_path):
     d, tp = corpus
     cfg = tiny_config(vocab_size=tp.vocab_size())
-    for kw in ({"mesh": object()}, {"pp_microbatches": 2}, {"zero": True}):
-        with pytest.raises(NotImplementedError, match="module 14"):
+    for kw in ({"pp_microbatches": 2}, {"zero": True}):
+        with pytest.raises(NotImplementedError, match="module 14b"):
             MTTrainer(cfg, tp, device="cpu", **kw)
+    # A mesh is ported (tests/test_torch_port_parallel.py); MoE under one
+    # (expert parallelism) is not.
+    moe = tiny_config(vocab_size=tp.vocab_size(), moe_experts=2)
+    with pytest.raises(NotImplementedError, match="module 14b"):
+        MTTrainer(moe, tp, device="cpu", mesh=ProcessMesh(1, 1))
     trainer = _trainer(tp)
     # The image stream trains an ImageSeq2Seq (ImageMTTrainer), not this
     # trainer's text model.
@@ -315,8 +321,10 @@ def test_cli_resumes_with_optimizer_state(corpus, trained, tmp_path, capsys):
 
 @pytest.mark.parametrize("flags,module", [
     (["--lm", "x", "--train", "y"], "--lm with --train"),  # --lm alone runs
-    (["--mesh", "2x1"], "module 14"),
-    (["--pp-microbatches", "2"], "module 14"), (["--zero"], "module 14"),
+    # --mesh is ported: outside torchrun it asks for it; with MoE it is not.
+    (["--mesh", "2x1"], "torchrun"),
+    (["--mesh", "2x1", "--moe-experts", "2"], "module 14b"),
+    (["--pp-microbatches", "2"], "module 14b"), (["--zero"], "module 14b"),
 ])
 def test_cli_refuses_unported_flags(corpus, tmp_path, flags, module):
     from imagetranslate_tpu_torch.cli.train_mt import main
