@@ -21,8 +21,11 @@ R-CNN at 800 pixels, cli.extract_objects, cli.caption --obj), packed MT
 training (steps on 64 x 256 packed rows, cli.train_mt --pack --profile) and
 the tensor- and data-parallel path (the beam decode through the
 vocab-sharded projection K2b on four ranks that share the card,
-cli.train_mt --mesh 2x2, cli.translate --dp 2), and checks that each path
-went through its kernels.
+cli.train_mt --mesh 2x2, cli.translate --dp 2), layer and FFN recompute
+(remat, remat_ffn) in full-width training, the ITR1 record files through the
+binarizer, training and translation CLIs with the native host libraries, and
+the recipe ladder (cli.recipe_check), and checks that each path went through
+its kernels.
 
 Run from the root of a checkout, with one visible CUDA card:
 
@@ -345,6 +348,45 @@ Phases, each fatal on failure:
                Alone, ~1.5 min with the build: python3 -c "import
                chip_smoke as cs; card = cs.phase_device(); cs.phase_build();
                print(cs.phase_kernel_k2b()); print(cs.phase_tp_path(card))"
+ 27. remat   — phase 7's trainer (BERT-base, V=32000, fp32 masters, bf16
+               compute, dropout 0.1, the fused cross-entropy) on B=256,
+               S=T=64 and on phase 24's packed 64 x 256 batches, each in
+               three arms from one seed: no recompute, remat_ffn, remat.
+               The objective bit-equal across the arms and every gradient
+               within 1e-6 of its tensor's largest value of the arm without
+               recompute, under torch's deterministic algorithms (the
+               largest difference printed; 0 expected); first-step
+               losses bit-equal; K1 launches a step 12 + 12 without
+               recompute and with remat_ffn, 24 + 12 with remat (each
+               attention's forward again in the backward, with its seed),
+               K5 1 + 1, at shapes phase 6 held; ms/step and peak memory of
+               each arm.
+ 28. itr1    — the native host libraries (librecordio and libbpe built by
+               g++ on this host and in use; the JPEG decoder where
+               jpeglib.h is found); a generated corpus through
+               cli.create_mt_batches --packed (the ITR1 file's batches
+               equal to the marshal file's) -> cli.train_mt on the ITR1
+               file at its default model (6+6, K1 18 + 18 a step) ->
+               cli.translate; cli.create_batches --packed (rows equal to
+               the marshal blocks') -> cli.train_lm; where Pillow is
+               installed, cli.binarize_captions_from_list --packed ->
+               CaptionTrainer steps over JPEGs. K1 shapes that phase 6 did
+               not hold are held here after the run. Host numbers beside
+               the CPU's name: from_packed against the list batcher over
+               200000 pairs, the C++ BPE encode against the Python one.
+ 29. recipe  — cli.recipe_check at its default steps and floors on a
+               generated sample corpus (a word-for-word substitution
+               cipher), its ledger in the temporary workdir, where
+               sacrebleu and Pillow are installed (else the phase says
+               which is missing and does not run).
+               Phases 27-29 alone, ~3 min with the build: python3 -c
+               "import tempfile, chip_smoke as cs; card = cs.phase_device();
+               cs.phase_build(); pack = cs.pack_shapes(); f, b, k1 =
+               cs.phase_kernel_attention(pack[2]); xf, xb, k5 =
+               cs.phase_kernel_xent(pack[3]); print(cs.phase_remat(card, k1,
+               k5, pack)); corpus = cs.prepare_umt_corpus(tempfile.mkdtemp());
+               print(cs.phase_itr1(card, k1, k5, corpus));
+               print(cs.phase_recipe(card, k1))"
 
 ``--profile`` adds a phase after 4 (one more decode) and one after 7 (three
 more train steps) under torch.profiler, printing the device time by operation
@@ -5876,6 +5918,576 @@ def phase_tp_path(card):
     return merge_launches, k2_launches, k1_fwd, k1_bwd
 
 
+# ---------------- phases 27-29: module 15 ----------------
+
+REMAT_ARMS = ("off", "remat_ffn", "remat")
+REMAT_STEPS = 4       # steps an arm and batch shape takes after its first
+
+
+def hold_k1(what: str, seen, checked):
+    """Hold K1 (forward and backward at rate 0.1, as phase 6 does) against
+    its plain version at every shape of ``seen`` (B, T, S, H, D, bias rows)
+    that the kernel phases did not check; those join ``checked``. Runs
+    after the run's launches were read: these launches are not counted in
+    it."""
+    import torch
+
+    from imagetranslate_tpu_torch.ops import train_attention as ta
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 27)
+    new = sorted(seen - checked)
+    for shape in new:
+        B, T, S, H, D, rows = shape
+        q, k, v, g = (torch.randn(B, n, H, D, generator=gen,
+                                  device="cuda").bfloat16()
+                      for n in (T, S, S, T))
+        bias = torch.randn(B, 1, rows, S, generator=gen, device="cuda")
+        masked = torch.rand(bias.shape, generator=gen, device="cuda") < 0.2
+        bias = torch.where(masked, torch.full_like(bias, -10000.0), bias)
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v, bias)]
+        out = ta.fused_dropout_attention(*leaves, RATE, 5)
+        grads = torch.autograd.grad(out, leaves, g)
+        want = ta.fused_dropout_attention_reference(q, k, v, bias, RATE, 5)
+        hand = ta.fused_dropout_attention_backward_reference(
+            q, k, v, bias, g, RATE, 5)
+        for name, got, ref in zip(("out", "dq", "dk", "dv", "dbias"),
+                                  (out, *grads), (want, *hand)):
+            err = (got.float() - ref.float()).abs().max().item()
+            scale = ref.float().abs().max().item()
+            tol = DBIAS_TOL if name == "dbias" else ATTN_TOL
+            if got.shape != ref.shape or not err <= tol * scale:
+                raise AssertionError(f"[{what}] K1 vs plain, {name} at "
+                                     f"{shape}: err {err:.3g} > {tol:.3g} "
+                                     f"* {scale:.3g}")
+        checked.add(shape)
+    log(f"[{what}] K1 shapes (B, T, S, H, D, bias rows) {sorted(seen)}: "
+        f"{len(new)} of them held against the plain version here {new}, "
+        "the rest by phase 6")
+
+
+def mt_objective(model, batch, rng):
+    """The MT step's objective on a staged batch, padded or packed (the
+    train step's forward and loss, ``train/step.py``), dropout from
+    ``rng``."""
+    from imagetranslate_tpu_torch.train.step import _loss_impl
+
+    if "src_seg" in batch:
+        logits = model(batch["src"], batch["src_seg"] > 0, batch["dst"],
+                       batch["dst_seg"] > 0, batch["src_langs"],
+                       batch["dst_langs"], tgt_positions=batch["dst_pos"],
+                       src_positions=batch["src_pos"],
+                       src_segments=batch["src_seg"],
+                       tgt_segments=batch["dst_seg"], deterministic=False,
+                       rng=rng)
+        seg = batch["dst_seg"]
+        mask = (seg[:, 1:] == seg[:, :-1]) & (seg[:, 1:] > 0)
+    else:
+        logits = model(batch["src"], batch["src_mask"], batch["dst"],
+                       batch["dst_mask"], batch["src_langs"],
+                       batch["dst_langs"], deterministic=False, rng=rng)
+        mask = batch["dst_mask"][:, 1:] & batch["row_mask"][:, None]
+    s, n = _loss_impl(model)(logits, batch["dst"][:, 1:], mask, epsilon=0.1)
+    return s / n
+
+
+def phase_remat(card, checked, checked_xent, pack):
+    """Phase 27: phase 7's trainer (BERT-base, fp32 masters, bf16 compute,
+    dropout 0.1, the fused cross-entropy) on B=256, S=T=64 and on phase
+    24's packed 64 x 256 batches, each in three arms from one seed: without
+    recompute, with ``remat_ffn`` and with ``remat``. Returns (K1 fwd, K1
+    bwd, K5 fwd, K5 bwd) launches of the arms' steps."""
+    import dataclasses
+
+    import torch
+
+    from imagetranslate_tpu_torch.ops import train_attention as ta
+    from imagetranslate_tpu_torch.ops import xent
+    from imagetranslate_tpu_torch.train.step import packed_mt_batch_to_device
+    from imagetranslate_tpu_torch.train.trainer_mt import MTTrainer
+
+    device = torch.device("cuda")
+    cfg = dataclasses.replace(bert_base(32000), dropout=RATE,
+                              attention_dropout=RATE, use_pallas_xent=True)
+    shapes = {
+        "B=256 S=T=64": train_batches(cfg, 2, 256, 64, 64, device),
+        "packed 64 x 256": [packed_mt_batch_to_device(b, device)
+                            for b in pack[0][:2]],
+    }
+    per_step = cfg.enc_layers + 2 * cfg.dec_layers
+    n = REMAT_STEPS + 1
+    totals = [0, 0, 0, 0]
+    with Recorder() as rec:
+        for label, batches in shapes.items():
+            ref = None
+            first = {}
+            for arm in REMAT_ARMS:
+                arm_cfg = dataclasses.replace(cfg, remat=arm == "remat",
+                                              remat_ffn=arm == "remat_ffn")
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                trainer = MTTrainer(arm_cfg, FullVocab(), lr=5e-4, warmup=8,
+                                    seed=SEED, device=device)
+                params = list(trainer.model.parameters())
+                # Deterministic algorithms for the comparison: the CUDA
+                # embedding backward accumulates with atomics, which moves
+                # the position and language tables' gradients by ~1e-6 of
+                # their largest value between two runs of one arm.
+                was = torch.are_deterministic_algorithms_enabled()
+                torch.use_deterministic_algorithms(True, warn_only=True)
+                try:
+                    loss = mt_objective(trainer.model, batches[0],
+                                        torch.Generator().manual_seed(SEED))
+                    grads = [torch.zeros_like(p) if g is None else g
+                             for p, g in zip(params, torch.autograd.grad(
+                                 loss, params, allow_unused=True))]
+                finally:
+                    torch.use_deterministic_algorithms(was)
+                worst = 0.0
+                if ref is None:
+                    ref = (loss.item(), grads)
+                else:
+                    if loss.item() != ref[0]:
+                        raise AssertionError(f"remat {label} {arm}: loss "
+                                             f"{loss.item()!r} != "
+                                             f"{ref[0]!r} without recompute")
+                    for g, r in zip(grads, ref[1]):
+                        scale = r.abs().max().item()
+                        err = (g - r).abs().max().item()
+                        worst = max(worst, err / scale if scale else err)
+                    if worst > 1e-6:
+                        raise AssertionError(f"remat {label} {arm}: "
+                                             f"gradients differ by {worst:.3g}"
+                                             " of a tensor's largest value")
+                del grads, loss
+                ta.FWD_LAUNCHES = ta.BWD_LAUNCHES = 0
+                xent.FWD_LAUNCHES = xent.BWD_LAUNCHES = 0
+                metrics = []
+                for i in range(n):
+                    if i == 1:
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                    trainer.state, m = trainer.mt_step(
+                        trainer.state, batches[i % len(batches)],
+                        trainer.rng)
+                    metrics.append(m)
+                torch.cuda.synchronize()
+                ms = 1e3 * (time.perf_counter() - t0) / REMAT_STEPS
+                peak = torch.cuda.max_memory_allocated() / 2 ** 30
+                got = (ta.FWD_LAUNCHES, ta.BWD_LAUNCHES, xent.FWD_LAUNCHES,
+                       xent.BWD_LAUNCHES)
+                want = (per_step * n * (2 if arm == "remat" else 1),
+                        per_step * n, n, n)
+                if got != want:
+                    raise AssertionError(f"remat {label} {arm}: K1 / K5 "
+                                         f"launches {got} in {n} steps, "
+                                         f"want {want}")
+                totals = [a + b for a, b in zip(totals, got)]
+                losses = [(m["sum_loss"] / m["ntokens"]).item()
+                          for m in metrics]
+                if not all(x == x and abs(x) != float("inf") for x in losses):
+                    raise AssertionError(f"remat {label} {arm}: loss not "
+                                         f"finite: {losses}")
+                first[arm] = metrics[0]["sum_loss"].item()
+                log(f"[remat] {label}, {arm}: {ms:.2f} ms/step ({REMAT_STEPS}"
+                    f" steps after the first), peak memory {peak:.2f} GiB "
+                    f"(model, Adam state and the step); K1 {got[0] // n} + "
+                    f"{got[1] // n} and K5 {got[2] // n} + {got[3] // n} "
+                    f"launches a step; first-step loss sum {first[arm]!r}; "
+                    f"objective {ref[0]!r}, largest gradient difference "
+                    f"{worst:.3g} of a tensor's largest value against the "
+                    f"arm without recompute (deterministic algorithms) "
+                    f"({card})")
+                del trainer, params, metrics
+            if len(set(first.values())) != 1:
+                raise AssertionError(f"remat {label}: first-step losses "
+                                     f"{first} differ across the arms")
+            del ref
+    rec.require_checked("remat", checked, checked_xent)
+    torch.cuda.empty_cache()
+    return tuple(totals)
+
+
+def prepare_itr1_corpus(workdir):
+    """A parallel corpus (phase 8's: lines of 2-12 words, the reversed line
+    as the target) and a 300-entry tokenizer from cli.train_tokenizer.
+    Returns (tokenizer dir, source path, target path, lines)."""
+    import numpy as np
+
+    from imagetranslate_tpu_torch.cli import train_tokenizer
+
+    rng = np.random.RandomState(SEED + 28)
+    lines = [" ".join(WORDS[j] for j in rng.randint(
+        0, len(WORDS), rng.randint(2, 12))) for _ in range(1200)]
+    src, dst = (os.path.join(workdir, n) for n in ("src.txt", "dst.txt"))
+    with open(src, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    with open(dst, "w") as f:
+        f.write("\n".join(" ".join(reversed(ln.split())) for ln in lines)
+                + "\n")
+    tagged = os.path.join(workdir, "tagged.txt")
+    with open(tagged, "w") as f:
+        f.write("\n".join(f"<en> {ln} </s>" for ln in lines) + "\n")
+        f.write("<fa> " + lines[0] + " </s>\n")
+    tok = os.path.join(workdir, "tok")
+    train_tokenizer.main(["--data", tagged, "--vocab_size", "300",
+                          "--model", tok])
+    return tok, src, dst, lines
+
+
+def _same_batches(what, got, want, names):
+    if len(got) != len(want) or not got:
+        raise AssertionError(f"{what}: {len(got)} batches, want "
+                             f"{len(want)}")
+    for g, w in zip(got, want):
+        for name in names:
+            a, b = getattr(g, name), getattr(w, name)
+            if (a is None) != (b is None) or (
+                    a is not None and (a.dtype != b.dtype
+                                       or not (a == b).all())):
+                raise AssertionError(f"{what}: batch field {name} differs")
+
+
+def cpu_name() -> str:
+    """The host CPU as /proc/cpuinfo names it (model name, else vendor and
+    family), and its core count."""
+    import platform
+
+    info = {}
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                key, _, value = line.partition(":")
+                info.setdefault(key.strip(), value.strip())
+    except OSError:
+        pass
+    name = info.get("model name") or " ".join(
+        v for v in (info.get("vendor_id"), info.get("cpu family") and
+                    f"family {info['cpu family']}",
+                    info.get("model") and f"model {info['model']}") if v)
+    return (f"{name or platform.machine() or 'unknown CPU'}, "
+            f"{os.cpu_count()} cores")
+
+
+def phase_host_native():
+    """The native host libraries of module 15 on this host: the record
+    library and the BPE library must have been built by g++ here and be in
+    use; the JPEG decoder where jpeglib.h is found (its build must not fail
+    then). Returns the decoder's name for the logs."""
+    from imagetranslate_tpu_torch.data import imagedec, recordio
+    from imagetranslate_tpu_torch.text import native as bpe_native
+    from imagetranslate_tpu_torch.utils import native
+
+    build_dir = os.path.realpath(native.BUILD_DIR)
+    for name, get in (("recordio", recordio.get_lib),
+                      ("bpe", bpe_native.get_lib)):
+        if get() is None:
+            raise AssertionError(f"lib{name}.so was not built by g++ on "
+                                 "this host")
+        path = os.path.realpath(native.LOADED[name])
+        if not path.startswith(build_dir + os.sep):
+            raise AssertionError(f"lib{name}.so loaded from {path}, not "
+                                 f"from {build_dir}")
+    header = native.has_header("jpeglib.h")
+    lib = imagedec.get_lib()
+    if header and lib is None:
+        raise AssertionError("jpeglib.h is present but the native JPEG "
+                             "decoder did not build")
+    decoder = ("native (libjpeg, DCT prescale "
+               f"{'on' if imagedec.FAST_DCT_SCALE else 'off'})"
+               if lib is not None else "Pillow (no jpeglib.h on this host)")
+    log(f"[itr1] host libraries: "
+        + ", ".join(f"lib{n}.so {'compiled in this run' if native.COMPILED.get(n) else 'from an earlier build'} "
+                    f"at {os.path.relpath(native.LOADED[n], HERE)}"
+                    for n in sorted(native.LOADED))
+        + f"; JPEG decoder: {decoder}")
+    return decoder
+
+
+def time_host_itr1(n_examples: int = 200_000):
+    """Host numbers: batching ITR1 records through pack_padded against the
+    list batcher over the marshal file of the same examples, and the C++
+    BPE encode against the Python one."""
+    import marshal
+
+    from imagetranslate_tpu_torch.data.binarize import load_mt
+    from imagetranslate_tpu_torch.data.loader import MTBatcher
+    from imagetranslate_tpu_torch.data.recordio import (
+        PackedReader,
+        PackedWriter,
+    )
+
+    examples = pack_examples(32000, n_examples, seed=SEED + 5)
+    kw = dict(pad_id=0, max_batch=CLI_BATCH // 2,
+              capacity_mb=CLI_CAPACITY // 2)
+    with tempfile.TemporaryDirectory() as d:
+        mpath, ppath = os.path.join(d, "m.mt"), os.path.join(d, "p.mt")
+        with open(mpath, "wb") as f:
+            marshal.dump(examples, f)
+        with PackedWriter(ppath, 4) as w:
+            for ex in examples:
+                w.add(*ex)
+        t0 = time.perf_counter()
+        listed = MTBatcher(load_mt(mpath), **kw)
+        t_list = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        reader = PackedReader(ppath)
+        packed = MTBatcher.from_packed(reader, **kw)
+        t_packed = time.perf_counter() - t0
+        if not reader.native:
+            raise AssertionError("the ITR1 reader did not use librecordio")
+        _same_batches("host batching", packed.batches, listed.batches,
+                      ("src", "dst", "src_sizes", "row_mask", "src_langs",
+                       "dst_langs"))
+    return t_list, t_packed, len(packed), n_examples
+
+
+def time_host_bpe(tp, lines):
+    """(Python encode s, C++ encode s, lines) over ``lines``, the ids
+    equal."""
+    from imagetranslate_tpu_torch.text.native import NativeBPE
+
+    if not isinstance(tp.tokenizer, NativeBPE):
+        raise AssertionError("TextProcessor did not take the C++ encoder")
+    t0 = time.perf_counter()
+    fast = [tp.tokenizer.encode(ln) for ln in lines]
+    t_native = time.perf_counter() - t0
+    py = tp.tokenizer.py
+    py._cache.clear()
+    t0 = time.perf_counter()
+    slow = [py.encode(ln) for ln in lines]
+    t_py = time.perf_counter() - t0
+    if fast != slow:
+        raise AssertionError("the C++ BPE encode differs from the Python "
+                             "one")
+    return t_py, t_native, len(lines)
+
+
+def phase_itr1(card, checked, checked_xent, corpus):
+    """Phase 28: a generated corpus through cli.create_mt_batches --packed
+    -> cli.train_mt on the ITR1 file at its default model -> cli.translate;
+    the batches of the ITR1 file against those of the marshal file;
+    cli.create_batches --packed -> cli.train_lm; where Pillow is installed,
+    cli.binarize_captions_from_list --packed -> CaptionTrainer steps; the
+    native libraries and the host times. Returns (K1 fwd, K1 bwd, K2)
+    launches."""
+    import importlib.util
+
+    import numpy as np
+    import torch
+
+    from imagetranslate_tpu_torch.cli import create_batches, create_mt_batches
+    from imagetranslate_tpu_torch.cli import train_lm, train_mt, translate
+    from imagetranslate_tpu_torch.data.binarize import load_mt
+    from imagetranslate_tpu_torch.data.loader import DocBlockDataset, MTBatcher
+    from imagetranslate_tpu_torch.data.recordio import PackedReader, is_packed
+    from imagetranslate_tpu_torch.ops import topk_project as tkp
+    from imagetranslate_tpu_torch.ops import train_attention as ta
+    from imagetranslate_tpu_torch.text.processor import TextProcessor
+
+    t_start = time.perf_counter()
+    decoder = phase_host_native()
+    steps = 4
+    fwd = bwd = k2 = 0
+    with tempfile.TemporaryDirectory() as workdir, Recorder() as rec:
+        tok, src, dst, lines = prepare_itr1_corpus(workdir)
+        tp = TextProcessor(tok)
+        args = ["--tok", tok, "--src", src, "--src-lang", "en", "--dst", dst,
+                "--dst-lang", "fa"]
+        itr1, marsh = (os.path.join(workdir, n) for n in ("t.itr1", "t.mt"))
+        create_mt_batches.main(args + ["--output", itr1, "--packed"])
+        create_mt_batches.main(args + ["--output", marsh])
+        reader = PackedReader(itr1)
+        if not (is_packed(itr1) and reader.native):
+            raise AssertionError("create_mt_batches --packed did not write "
+                                 "ITR1 through librecordio")
+        kw = dict(pad_id=tp.pad_token_id(), max_batch=CLI_BATCH // 2,
+                  capacity_mb=CLI_CAPACITY // 2)
+        from_itr1 = MTBatcher.from_packed(reader, **kw)
+        _same_batches("ITR1 vs marshal", from_itr1.batches,
+                      MTBatcher(load_mt(marsh), **kw).batches,
+                      ("src", "src_mask", "dst", "dst_mask", "src_langs",
+                       "dst_langs", "src_sizes", "row_mask"))
+        model = os.path.join(workdir, "model")
+        ta.FWD_LAUNCHES = ta.BWD_LAUNCHES = 0
+        tkp.LAUNCHES = 0
+        train_mt.main(["--tok", tok, "--model", model, "--train_mt", itr1,
+                       "--step", str(steps), "--lr", "0.001", "--warmup",
+                       "10", "--device", "cuda"])
+        fwd, bwd = ta.FWD_LAUNCHES, ta.BWD_LAUNCHES
+        if not (fwd == bwd == 18 * steps):
+            raise AssertionError(f"train_mt on ITR1: {fwd} + {bwd} K1 "
+                                 f"launches in {steps} steps, want 18 + 18 "
+                                 "a step")
+        inp, out = (os.path.join(workdir, n) for n in ("in.txt", "out.txt"))
+        with open(inp, "w") as f:
+            f.write("\n".join(lines[:40]) + "\n")
+        translate.main(["--tok", tok, "--model", model + ".latest",
+                        "--input", inp, "--output", out, "--src", "en",
+                        "--target", "fa", "--device", "cuda"])
+        k2 = tkp.LAUNCHES
+        with open(out) as f:
+            hyps = f.read().splitlines()
+        if len(hyps) != 40 or k2 == 0:
+            raise AssertionError(f"translate wrote {len(hyps)} lines with "
+                                 f"{k2} K2 launches")
+        log(f"[itr1] cli.create_mt_batches --packed: {len(reader)} pairs, "
+            f"{len(from_itr1)} batches from pack_padded equal to the marshal "
+            f"file's; cli.train_mt on the ITR1 file (768/12/3072, 6+6): "
+            f"{steps} steps, K1 {fwd} + {bwd}; cli.translate of 40 lines, "
+            f"{k2} K2 launches, e.g. {hyps[0]!r} ({card})")
+
+        # The LM path on packed blocks (phase 15's documents and flags).
+        _, _, doc_lines, _ = corpus
+        docs = os.path.join(workdir, "docs.txt")
+        with open(docs, "w") as f:
+            for i in range(0, len(doc_lines), 12):
+                lang = "en" if (i // 12) % 2 == 0 else "fa"
+                f.write(f"<{lang}> " + " </s> ".join(doc_lines[i:i + 12])
+                        + " </s>\n")
+        lm_tok = corpus[0]
+        blocks = {}
+        for packed in (True, False):
+            blocks[packed] = os.path.join(workdir, f"blocks_{packed}")
+            create_batches.main(["--data", docs, "--cache", blocks[packed],
+                                 "--tok", lm_tok, "--seq_len", "128",
+                                 "--block", "16"]
+                                + (["--packed"] if packed else []))
+        got, want = (DocBlockDataset(blocks[p]) for p in (True, False))
+        if not is_packed(os.path.join(blocks[True], "0.pkl")) or \
+                [got[i] for i in range(len(got))] != \
+                [want[i] for i in range(len(want))] or len(got) < 16:
+            raise AssertionError("create_batches --packed: the ITR1 blocks "
+                                 "differ from the marshal ones")
+        lm_f0, lm_b0 = ta.FWD_LAUNCHES, ta.BWD_LAUNCHES
+        train_lm.main(["--tok", lm_tok, "--model",
+                       os.path.join(workdir, "lm"), "--train",
+                       blocks[True], "--step", "2", "--batch", "8", "--lr",
+                       "0.001", "--warmup", "10", "--device", "cuda"])
+        lm_f, lm_b = ta.FWD_LAUNCHES - lm_f0, ta.BWD_LAUNCHES - lm_b0
+        fwd, bwd = fwd + lm_f, bwd + lm_b
+        log(f"[itr1] cli.create_batches --packed: {len(got)} rows of 128 in "
+            f"{got.file_count} ITR1 blocks, equal to the marshal blocks; "
+            f"cli.train_lm: 2 steps, K1 {lm_f} + {lm_b} ({card})")
+
+        # Captions, where Pillow can write the JPEGs.
+        if importlib.util.find_spec("PIL") is None:
+            log("[itr1] captions not run: Pillow is not installed")
+        else:
+            from imagetranslate_tpu_torch.cli import (
+                binarize_captions_from_list,
+            )
+            from imagetranslate_tpu_torch.data.images import (
+                CaptionBatcher,
+                load_caption_bin,
+            )
+            from imagetranslate_tpu_torch.train.trainer_caption import (
+                CaptionTrainer,
+            )
+
+            folder = os.path.join(workdir, "jpegs")
+            write_jpegs(folder, 24)
+            tsv = os.path.join(workdir, "caps.tsv")
+            with open(tsv, "w") as f:
+                for i in range(48):
+                    f.write(f"{folder}/{i % 24:04d}.jpg\t{lines[i]}\n")
+            bins = {}
+            for packed in (True, False):
+                bins[packed] = os.path.join(workdir, f"caps_{packed}.bin")
+                binarize_captions_from_list.main(
+                    ["--file", tsv, "--output", bins[packed], "--tok", tok,
+                     "--lang", "en"] + (["--packed"] if packed else []))
+            if not is_packed(bins[True]) or \
+                    load_caption_bin(bins[True]) != load_caption_bin(
+                        bins[False]):
+                raise AssertionError("binarize_captions_from_list --packed "
+                                     "differs from the marshal binary")
+            cap_cfg = caption_train_config(tp.vocab_size())
+            trainer = CaptionTrainer(cap_cfg, tp, lr=1e-4, warmup=10,
+                                     seed=SEED, device="cuda")
+            cap_f0, cap_b0 = ta.FWD_LAUNCHES, ta.BWD_LAUNCHES
+            batcher = CaptionBatcher(bins[True], tp)
+            step = trainer.train_epoch(0, os.path.join(workdir, "cap"),
+                                       batcher, max_step=2,
+                                       eval_every=10 ** 9,
+                                       save_every=10 ** 9)
+            cap_f = ta.FWD_LAUNCHES - cap_f0
+            cap_b = ta.BWD_LAUNCHES - cap_b0
+            if step != 2 or cap_f != cap_b or cap_f == 0:
+                raise AssertionError(f"CaptionTrainer on the packed binary: "
+                                     f"{step} steps, K1 {cap_f} + {cap_b}")
+            fwd, bwd = fwd + cap_f, bwd + cap_b
+            log(f"[itr1] cli.binarize_captions_from_list --packed: 48 "
+                f"captions of 24 JPEGs (decoded by {decoder}), equal to the "
+                f"marshal binary; CaptionTrainer (768/12/3072, 6+6, "
+                f"ResNet-18 at 224): 2 steps on {len(batcher)} batches, K1 "
+                f"{cap_f} + {cap_b} ({card})")
+            del trainer
+            torch.cuda.empty_cache()
+        # Mostly words never seen before, so that neither encoder's word
+        # cache decides the time.
+        rng = np.random.RandomState(SEED)
+        letters = np.array(list("abcdefghiklmnoprstuvwyz"))
+        text = [" ".join("".join(rng.choice(letters, rng.randint(3, 10)))
+                         for _ in range(12)) for _ in range(5000)]
+        bpe_times = time_host_bpe(tp, text)
+    hold_k1("itr1", rec.k1, checked)
+    if rec.k5 - checked_xent:
+        raise AssertionError(f"itr1 gave K5 unchecked shapes "
+                             f"{rec.k5 - checked_xent}")
+    t_list, t_packed, n_batches, n_examples = time_host_itr1()
+    t_py, t_native, n_lines = bpe_times
+    log(f"[itr1] host numbers ({cpu_name()}; card {card}): batching "
+        f"{n_examples} pairs into {n_batches} batches: list batcher over the "
+        f"marshal file {t_list:.3f} s, from_packed over ITR1 (pack_padded) "
+        f"{t_packed:.3f} s ({t_list / t_packed:.1f}x); BPE encode of "
+        f"{n_lines} lines: Python {t_py:.3f} s, C++ {t_native:.3f} s "
+        f"({t_py / t_native:.1f}x); phase 28 took "
+        f"{time.perf_counter() - t_start:.1f} s")
+    return fwd, bwd, k2
+
+
+def phase_recipe(card, checked):
+    """Phase 29: cli.recipe_check at its default steps and floors on a
+    generated sample corpus (make_sample_corpus), where sacrebleu and
+    Pillow are installed; its ledger in the temporary workdir. Returns (K1
+    fwd, K1 bwd, K2) launches."""
+    import importlib.util
+
+    from imagetranslate_tpu_torch.cli import recipe_check
+    from imagetranslate_tpu_torch.ops import topk_project as tkp
+    from imagetranslate_tpu_torch.ops import train_attention as ta
+
+    missing = [m for m in ("sacrebleu", "PIL")
+               if importlib.util.find_spec(m) is None]
+    if missing:
+        log(f"[recipe] not run: {', '.join(missing)} not installed on this "
+            "host (cli.recipe_check scores BLEU with sacrebleu and writes "
+            "its caption JPEGs with Pillow)")
+        return 0, 0, 0
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as workdir:
+        sample = os.path.join(workdir, "sample")
+        recipe_check.make_sample_corpus(sample)
+        ledger = os.path.join(workdir, "RECIPES.md")
+        ta.FWD_LAUNCHES = ta.BWD_LAUNCHES = 0
+        tkp.LAUNCHES = 0
+        with Recorder() as rec:
+            rc = recipe_check.main(["--sample-dir", sample, "--workdir",
+                                    os.path.join(workdir, "work"),
+                                    "--ledger", ledger, "--device", "cuda"])
+        fwd, bwd, k2 = ta.FWD_LAUNCHES, ta.BWD_LAUNCHES, tkp.LAUNCHES
+        with open(ledger) as f:
+            rows = f.read().strip()
+    if rc != 0:
+        raise AssertionError(f"cli.recipe_check exited {rc}:\n{rows}")
+    hold_k1("recipe", rec.k1, checked)
+    log(f"[recipe] cli.recipe_check at its defaults (400 supervised, 60 MASS"
+        f", 30 BT, 40 caption steps) in {time.perf_counter() - t0:.1f} s, "
+        f"K1 {fwd} + {bwd}, K2 {k2} launches; ledger: "
+        + " | ".join(rows.splitlines()) + f" ({card})")
+    return fwd, bwd, k2
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "imagetranslate_tpu_torch")):
         print("chip_smoke.py must run from a checkout of the repository "
@@ -5978,6 +6590,18 @@ def main() -> int:
                          + pk_bwd)
         phase_lm_cli(umt_dir, corpus)
         done("13-15")
+        rm = phase_remat(card, checked, checked_xent, pack)
+        torch.cuda.empty_cache()
+        itr1_fwd, itr1_bwd, itr1_k2 = phase_itr1(card, checked,
+                                                 checked_xent, corpus)
+        torch.cuda.empty_cache()
+        rc_fwd, rc_bwd, rc_k2 = phase_recipe(card, checked)
+        torch.cuda.empty_cache()
+        fwd_launches += rm[0] + itr1_fwd + rc_fwd
+        bwd_launches += rm[1] + itr1_bwd + rc_bwd
+        xent_launches = (xent_launches[0] + rm[2], xent_launches[1] + rm[3])
+        launches += itr1_k2 + rc_k2
+        done("27-29")
     torch.cuda.empty_cache()
     k2b = phase_kernel_k2b()
     torch.cuda.empty_cache()

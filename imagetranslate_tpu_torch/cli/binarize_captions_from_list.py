@@ -2,16 +2,13 @@
 imagetranslate_tpu/cli/binarize_captions_from_list.py, the same flags).
 
     python -m imagetranslate_tpu_torch.cli.binarize_captions_from_list \
-        --file captions.tsv --output captions.bin --tok TOKDIR [--lang en]
+        --file captions.tsv --output captions.bin --tok TOKDIR [--lang en] \
+        [--packed]
 """
 
 from __future__ import annotations
 
 import argparse
-
-PACKED_REFUSAL = ("--packed is not ported yet (the packed record format: "
-                  "ROADMAP module 15)")
-
 
 def main(argv=None):
     p = argparse.ArgumentParser("binarize_captions_from_list")
@@ -22,10 +19,9 @@ def main(argv=None):
     p.add_argument("--max-len", dest="max_len", type=int, default=256)
     p.add_argument("--sample", dest="sample_size", type=int, default=-1)
     p.add_argument("--packed", action="store_true",
-                   help="the packed record format (not ported yet)")
+                   help="write ITR1 records + OUTPUT.paths.json instead of "
+                        "marshal")
     options = p.parse_args(argv)
-    if options.packed:
-        raise SystemExit(PACKED_REFUSAL)
 
     from imagetranslate_tpu_torch.data.binarize_captions import (
         write_from_list,
@@ -35,7 +31,7 @@ def main(argv=None):
     tp = TextProcessor(options.tokenizer_path)
     write_from_list(tp, options.output_file, options.file,
                     max_len=options.max_len, sample_size=options.sample_size,
-                    lang=options.lang)
+                    lang=options.lang, packed=options.packed)
     print("Finished")
 
 

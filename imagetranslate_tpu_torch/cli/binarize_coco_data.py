@@ -9,10 +9,6 @@ from __future__ import annotations
 
 import argparse
 
-from imagetranslate_tpu_torch.cli.binarize_captions_from_list import (
-    PACKED_REFUSAL,
-)
-
 
 def main(argv=None):
     p = argparse.ArgumentParser("binarize_coco_data")
@@ -22,10 +18,9 @@ def main(argv=None):
     p.add_argument("--max-len", dest="max_len", type=int, default=256)
     p.add_argument("--sample", dest="sample_size", type=int, default=-1)
     p.add_argument("--packed", action="store_true",
-                   help="the packed record format (not ported yet)")
+                   help="write ITR1 records + OUTPUT.paths.json instead of "
+                        "marshal")
     options = p.parse_args(argv)
-    if options.packed:
-        raise SystemExit(PACKED_REFUSAL)
 
     from imagetranslate_tpu_torch.data.binarize_captions import (
         write_from_coco,
@@ -34,7 +29,8 @@ def main(argv=None):
 
     tp = TextProcessor(options.tokenizer_path)
     write_from_coco(tp, options.output_file, options.file,
-                    max_len=options.max_len, sample_size=options.sample_size)
+                    max_len=options.max_len, sample_size=options.sample_size,
+                    packed=options.packed)
     print("Finished")
 
 

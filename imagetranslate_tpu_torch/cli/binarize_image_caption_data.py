@@ -10,10 +10,6 @@ from __future__ import annotations
 
 import argparse
 
-from imagetranslate_tpu_torch.cli.binarize_captions_from_list import (
-    PACKED_REFUSAL,
-)
-
 
 def main(argv=None):
     p = argparse.ArgumentParser("binarize_image_caption_data")
@@ -23,7 +19,8 @@ def main(argv=None):
     p.add_argument("--max-len", dest="max_len", type=int, default=256)
     p.add_argument("--only-captions", action="store_true")
     p.add_argument("--packed", action="store_true",
-                   help="the packed record format (not ported yet)")
+                   help="write ITR1 records + OUTPUT.paths.json instead of "
+                        "marshal")
     p.add_argument("--all-sentences", action="store_true",
                    help="use every long sentence, not just relevant ones")
     p.add_argument("--image", dest="image_dir", default=None,
@@ -35,8 +32,6 @@ def main(argv=None):
                    help="wiki-doc JSON; keep only docs sharing an img_path "
                         "with it")
     options = p.parse_args(argv)
-    if options.packed:
-        raise SystemExit(PACKED_REFUSAL)
 
     from imagetranslate_tpu_torch.data.binarize_captions import (
         write_from_wiki_json,
@@ -47,6 +42,7 @@ def main(argv=None):
     write_from_wiki_json(tp, options.output_file, options.file,
                          max_len=options.max_len,
                          only_captions=options.only_captions,
+                         packed=options.packed,
                          choose_relevant=not options.all_sentences,
                          root_img_dir=options.image_dir,
                          skip_check=(options.skip_check

@@ -4,7 +4,10 @@ rows in ``N.pkl`` blocks plus an ``info.txt`` header, the input of
 ``cli.train_lm``.
 
     python -m imagetranslate_tpu_torch.cli.create_batches --data docs.txt \
-        --cache BLOCKDIR --tok TOKDIR [--seq_len 512] [--block 10000]
+        --cache BLOCKDIR --tok TOKDIR [--seq_len 512] [--block 10000] \
+        [--packed]
+
+``--packed`` writes each block as ITR1 records (``data/recordio.py``).
 """
 
 from __future__ import annotations
@@ -20,11 +23,9 @@ def main(argv=None):
     p.add_argument("--seq_len", type=int, default=512)
     p.add_argument("--block", dest="sen_block_size", type=int, default=10000)
     p.add_argument("--packed", action="store_true",
-                   help="the packed record format (not ported yet)")
+                   help="write ITR1 records (data/recordio.py) instead of "
+                        "marshal")
     options = p.parse_args(argv)
-    if options.packed:
-        raise SystemExit("--packed is not ported yet (the packed record "
-                         "format: ROADMAP module 15)")
 
     from imagetranslate_tpu_torch.data.binarize import write_doc_blocks
     from imagetranslate_tpu_torch.text.processor import TextProcessor
@@ -32,7 +33,8 @@ def main(argv=None):
     tp = TextProcessor(options.tokenizer_path)
     n = write_doc_blocks(tp, options.data_path, options.cache_path,
                          seq_len=options.seq_len,
-                         sen_block_size=options.sen_block_size)
+                         sen_block_size=options.sen_block_size,
+                         packed=options.packed)
     print(f"Wrote {n} blocks")
 
 

@@ -7,7 +7,8 @@ shards ``OUTPUT.N``, the inputs of ``cli.train_mt``'s ``--train_mt`` and
         --src src.txt --src-lang en [--dst dst.txt --dst-lang fa] \
         --output train.mt
 
-``--packed`` (the packed record format) stops the run with a message.
+``--packed`` writes ITR1 record files (``data/recordio.py``) in place of
+marshal; ``cli.train_mt`` reads either.
 """
 
 from __future__ import annotations
@@ -26,11 +27,9 @@ def main(argv=None):
     p.add_argument("--src-lang", dest="src_lang", required=True)
     p.add_argument("--dst-lang", dest="dst_lang", default=None)
     p.add_argument("--packed", action="store_true",
-                   help="the packed record format (not ported yet)")
+                   help="write ITR1 records (data/recordio.py) instead of "
+                        "marshal")
     options = p.parse_args(argv)
-    if options.packed:
-        raise SystemExit("--packed is not ported yet (the packed record "
-                         "format: ROADMAP module 15)")
 
     from imagetranslate_tpu_torch.data.binarize import write_mt
     from imagetranslate_tpu_torch.text.processor import TextProcessor
@@ -41,7 +40,8 @@ def main(argv=None):
                 if options.dst_lang is not None else None)
     n = write_mt(tp, options.output_path, options.src_data_path, src_lang,
                  options.dst_data_path, dst_lang,
-                 min_len=options.min_seq_len, max_len=options.max_seq_len)
+                 min_len=options.min_seq_len, max_len=options.max_seq_len,
+                 packed=options.packed)
     print(f"Wrote {n} examples")
 
 

@@ -15,6 +15,11 @@ then ``--fstep`` steps of back-translation between the two ``--langs``:
 target tokens, 64 rows a batch (data/packing.py); ``--profile DIR`` writes a
 ``torch.profiler`` trace of the first epoch's steps 10-15 into DIR.
 
+``--train_mt`` and ``--mass_train`` read marshal files or ITR1 record files
+(``cli.create_mt_batches --packed``): one ITR1 ``.mt`` file, or MASS shards
+that are all ITR1, are batched straight from their mapping
+(``from_packed``).
+
 ``--lm LMDIR`` starts the embeddings, the encoder and (when it is untied) the
 output layer from a checkpoint of ``cli.train_lm``. ``--moe-experts N
 --moe-top-k K`` puts a routed bank of N experts in every layer's FFN, its
@@ -46,6 +51,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import glob
 import os
 
 # dest -> (flag, where the path is planned), for flags that are parsed (the
@@ -165,6 +171,7 @@ def main(argv=None):
         MTBatcher,
         get_lex_dict,
     )
+    from imagetranslate_tpu_torch.data.recordio import PackedReader, is_packed
     from imagetranslate_tpu_torch.models.config import Seq2SeqConfig
     from imagetranslate_tpu_torch.text.processor import TextProcessor
     from imagetranslate_tpu_torch.train.checkpoint import (
@@ -314,8 +321,18 @@ def main(argv=None):
         mt_batcher = PackedMTBatcher(examples, pad_id=pad,
                                      max_seq_len=options.max_seq_len)
     elif options.mt_train_path is not None:
-        mt_batcher = batcher(options.mt_train_path, options.batch // 2,
-                             options.total_capacity // 2)
+        paths = options.mt_train_path.split(",")
+        if len(paths) == 1 and is_packed(paths[0]):
+            # One ITR1 file: batches straight from its mapping.
+            mt_batcher = MTBatcher.from_packed(
+                PackedReader(paths[0]), pad_id=pad,
+                max_batch=options.batch // 2,
+                capacity_mb=options.total_capacity // 2,
+                max_seq_len=options.max_seq_len,
+                bucket_step=options.bucket_step, lex_dict=lex_dict)
+        else:
+            mt_batcher = batcher(options.mt_train_path, options.batch // 2,
+                                 options.total_capacity // 2)
     if mt_batcher is not None:
         if len(mt_batcher) == 0:
             raise SystemExit(f"--train_mt {options.mt_train_path!r} matched "
@@ -329,6 +346,22 @@ def main(argv=None):
             print(f"MT train batches: {len(mt_batcher)}")
 
     def build_mass_batcher(max_batch, capacity_mb):
+        """ITR1 shards batch one shard at a time (their batches
+        concatenate); marshal shards go through the list batcher."""
+        shards = [path for prefix in options.mass_train_path.split(",")
+                  for path in sorted(glob.glob(prefix + "*"))]
+        if shards and all(is_packed(path) for path in shards):
+            out = None
+            for path in shards:
+                nb = MassBatcher.from_packed(
+                    PackedReader(path), pad_id=pad, max_batch=max_batch,
+                    capacity_mb=capacity_mb, max_seq_len=options.max_seq_len,
+                    bucket_step=options.bucket_step)
+                if out is None:
+                    out = nb
+                else:
+                    out.batches.extend(nb.batches)
+            return out
         examples = []
         for prefix in options.mass_train_path.split(","):
             examples.extend(load_mass(prefix))

@@ -9,9 +9,12 @@ marshal list of (ids, lang_type) sorted by length, a new shard every
 (``TextProcessor.languages`` values), not token ids. The document artifact
 (``write_doc_blocks``) is a directory of blocks ``0.pkl, 1.pkl, ...``, each a
 marshal dict {global row number: (ids, lang_type)} of fixed-length rows, and
-an ``info.txt`` header. Either package reads what the other wrote. The packed
-record format (``packed=True``, files that
-start with the ITR1 magic) is not ported yet.
+an ``info.txt`` header. Either package reads what the other wrote.
+
+``packed=True`` writes each of these files as an ITR1 record file instead
+(``data/recordio.py``: MT records of 4 fields, MASS and document records of
+2, ids then language type); the loaders tell the two formats apart by the
+magic.
 """
 
 from __future__ import annotations
@@ -21,9 +24,25 @@ import marshal
 import os
 from typing import List, Optional, Tuple
 
+from imagetranslate_tpu_torch.data.recordio import (
+    PackedReader,
+    PackedTupleView,
+    PackedWriter,
+    is_packed,
+)
 from imagetranslate_tpu_torch.text.processor import TextProcessor
 
-_PACKED_MAGIC = b"ITR1"
+
+def _dump(examples, path: str, packed: bool, n_fields: int):
+    """A list of tuples of ``n_fields`` (id lists and ints) to ``path``:
+    marshal, or ITR1 records."""
+    if not packed:
+        with open(path, "wb") as fw:
+            marshal.dump(examples, fw)
+        return
+    with PackedWriter(path, n_fields) as w:
+        for ex in examples:
+            w.add(*ex)
 
 
 def write_mt(tp: TextProcessor, output_file: str, src_txt_file: str,
@@ -32,16 +51,13 @@ def write_mt(tp: TextProcessor, output_file: str, src_txt_file: str,
              max_len: int = 175, shard_size: int = 6_000_000,
              packed: bool = False) -> int:
     """Parallel text (``dst_txt_file`` given) -> one ``.mt`` file;
-    monolingual text -> MASS shards ``output_file.N``. Returns the number of
-    examples kept."""
-    if packed:
-        raise NotImplementedError(
-            "packed=True: the packed record format is not ported yet "
-            "(ROADMAP module 15)")
+    monolingual text -> MASS shards ``output_file.N``; ITR1 records with
+    ``packed``. Returns the number of examples kept."""
     src_lang_type = tp.languages[tp.id2token(src_lang_token_id)]
     if dst_txt_file is None:
         return _write_mass(tp, output_file, src_txt_file, src_lang_token_id,
-                           src_lang_type, min_len, max_len, shard_size)
+                           src_lang_type, min_len, max_len, shard_size,
+                           packed)
     dst_lang_type = tp.languages[tp.id2token(dst_lang_token_id)]
     examples: List[Tuple] = []
     with open(src_txt_file) as s_fp, open(dst_txt_file) as d_fp:
@@ -57,21 +73,19 @@ def write_mt(tp: TextProcessor, output_file: str, src_txt_file: str,
                 examples.append((src_ids, dst_ids, src_lang_type,
                                  dst_lang_type))
     examples.sort(key=lambda e: len(e[1]))
-    with open(output_file, "wb") as fw:
-        marshal.dump(examples, fw)
+    _dump(examples, output_file, packed, 4)
     return len(examples)
 
 
 def _write_mass(tp, output_file, src_txt_file, lang_token_id, lang_type,
-                min_len, max_len, shard_size) -> int:
+                min_len, max_len, shard_size, packed) -> int:
     part_num, total = 0, 0
     examples: List[Tuple] = []
 
     def flush():
         nonlocal examples, part_num
         examples.sort(key=lambda e: len(e[0]))
-        with open(f"{output_file}.{part_num}", "wb") as fw:
-            marshal.dump(examples, fw)
+        _dump(examples, f"{output_file}.{part_num}", packed, 2)
         examples = []
         part_num += 1
 
@@ -91,28 +105,27 @@ def _write_mass(tp, output_file, src_txt_file, lang_token_id, lang_type,
     return total
 
 
-def _load_marshal(path: str):
+def _load(path: str, scalar_fields):
+    """A marshal file's object, or a sequence of tuples over an ITR1 file
+    (id fields as int32 arrays, ``scalar_fields`` as ints)."""
+    if is_packed(path):
+        return PackedTupleView(PackedReader(path), scalar_fields)
     with open(path, "rb") as fr:
-        if fr.read(len(_PACKED_MAGIC)) == _PACKED_MAGIC:
-            raise NotImplementedError(
-                f"{path} is a packed record file; that format is not ported "
-                "yet (ROADMAP module 15)")
-        fr.seek(0)
         return marshal.load(fr)
 
 
 def load_mt(path: str):
-    """A marshal ``.mt`` file -> list of (src_ids, dst_ids, src_lang_type,
-    dst_lang_type)."""
-    return _load_marshal(path)
+    """A ``.mt`` file, marshal or ITR1 -> sequence of (src_ids, dst_ids,
+    src_lang_type, dst_lang_type)."""
+    return _load(path, (2, 3))
 
 
 def load_mass(path_prefix: str) -> List[Tuple]:
-    """Every shard ``path_prefix*`` in sorted order -> list of
-    (ids, lang_type)."""
+    """Every shard ``path_prefix*`` in sorted order, marshal or ITR1 ->
+    list of (ids, lang_type)."""
     examples: List[Tuple] = []
     for path in sorted(glob.glob(path_prefix + "*")):
-        examples.extend(_load_marshal(path))
+        examples.extend(_load(path, (1,)))
     return examples
 
 
@@ -122,20 +135,17 @@ def write_doc_blocks(tp: TextProcessor, txt_file: str, cache_dir: str,
     """Documents (one a line) -> fixed ``seq_len`` rows, blindly split, in
     blocks of ``sen_block_size`` rows: ``{N}.pkl`` marshals a dict
     {global row number: (ids, lang_type)}, the language type taken from the
-    document's first token. The rows left at the end are always dumped, so a
+    document's first token (with ``packed``, ITR1 records (ids, lang_type)
+    under the same names). The rows left at the end are always dumped, so a
     row count that is an exact multiple of the block size ends with an EMPTY
     block (the on-disk format of the original binarizer, kept byte for byte).
     ``info.txt`` holds "block size, rows, blocks", tab-separated. Returns
     the number of rows."""
-    if packed:
-        raise NotImplementedError(
-            "packed=True: the packed record format is not ported yet "
-            "(ROADMAP module 15)")
     os.makedirs(cache_dir, exist_ok=True)
 
     def dump_block(examples, path):
-        with open(path, "wb") as fw:
-            marshal.dump(examples, fw)
+        _dump(list(examples.values()) if packed else examples, path, packed,
+              2)
 
     examples = {}
     line_num, file_count = 0, 0

@@ -7,8 +7,10 @@ All three write the marshal tuple that ``data.images.CaptionBatcher`` reads:
 
 with the captions sorted by length (stable) and captions longer than
 ``max_len`` tokens dropped; image ids number the distinct paths in the order
-they are first seen. The file is byte for byte the JAX package's. The packed
-record format (``packed=True``) is not ported (ROADMAP module 15).
+they are first seen. With ``packed=True`` the captions go to an ITR1 record
+file (``data/recordio.py``, records (image_id, caption_ids)) and the
+{image_id: path} table to ``<output>.paths.json`` beside it. Either file is
+byte for byte the JAX package's.
 """
 
 from __future__ import annotations
@@ -18,10 +20,8 @@ import marshal
 import os
 from typing import Dict, Iterable, List, Optional, Tuple
 
+from imagetranslate_tpu_torch.data.recordio import PackedWriter
 from imagetranslate_tpu_torch.text.processor import TextProcessor
-
-PACKED_REFUSAL = ("packed=True: the packed record format is not ported yet "
-                  "(ROADMAP module 15)")
 
 
 def _finalize(tp: TextProcessor, output_file: str,
@@ -34,8 +34,6 @@ def _finalize(tp: TextProcessor, output_file: str,
     ``path_checker(path) -> bool`` runs the first time a path is seen; a
     path that fails drops its caption and stays unnumbered, so a later
     caption of the same path probes it again."""
-    if packed:
-        raise NotImplementedError(PACKED_REFUSAL)
     skipped = 0
     skipped_imgs = 0
     image_path_dict: Dict[str, int] = {}
@@ -69,8 +67,15 @@ def _finalize(tp: TextProcessor, output_file: str,
         print(f"Skipped unreadable images: {skipped_imgs}")
     by_len = sorted(tok_captions.items(), key=lambda kv: len(kv[1]))
     caption_sorted = [(image_ids[cid], ids) for cid, ids in by_len]
-    with open(output_file, "wb") as wfp:
-        marshal.dump((unique_images, caption_sorted), wfp)
+    if packed:
+        with PackedWriter(output_file, 2) as w:
+            for img_id, ids in caption_sorted:
+                w.add(img_id, ids)
+        with open(output_file + ".paths.json", "w") as jf:
+            json.dump({str(k): v for k, v in unique_images.items()}, jf)
+    else:
+        with open(output_file, "wb") as wfp:
+            marshal.dump((unique_images, caption_sorted), wfp)
     print(f"Dumped {len(caption_sorted)} captions from "
           f"{len(unique_images)} unique images")
     return len(caption_sorted)
@@ -94,8 +99,6 @@ def write_from_list(tp: TextProcessor, output_file: str, input_file: str,
     not start with "<lang>" becomes "<lang> caption </s>"; a line without
     exactly one tab is printed and skipped; ``sample_size`` counts the
     lines parsed."""
-    if packed:
-        raise NotImplementedError(PACKED_REFUSAL)
     lang_tok = f"<{lang}>" if lang is not None else None
 
     def gen():
@@ -111,7 +114,7 @@ def write_from_list(tp: TextProcessor, output_file: str, input_file: str,
                 yield path, caption
 
     return _finalize(tp, output_file, gen(), max_len, sample_size,
-                     path_fixer=_sniff_extension)
+                     path_fixer=_sniff_extension, packed=packed)
 
 
 def write_from_coco(tp: TextProcessor, output_file: str, input_file: str,
@@ -119,8 +122,6 @@ def write_from_coco(tp: TextProcessor, output_file: str, input_file: str,
                     packed: bool = False) -> int:
     """A COCO annotation JSON: each caption "<en> caption </s>" of the image
     file named by its 12-digit zero-padded id + ".jpg"."""
-    if packed:
-        raise NotImplementedError(PACKED_REFUSAL)
     with open(input_file) as r:
         obj = json.load(r)
 
@@ -132,7 +133,8 @@ def write_from_coco(tp: TextProcessor, output_file: str, input_file: str,
             yield (id2path(str(ann["image_id"])),
                    " ".join(["<en>", ann["caption"], "</s>"]))
 
-    return _finalize(tp, output_file, gen(), max_len, sample_size)
+    return _finalize(tp, output_file, gen(), max_len, sample_size,
+                     packed=packed)
 
 
 def write_from_wiki_json(tp: TextProcessor, output_file: str, input_file: str,
@@ -152,8 +154,6 @@ def write_from_wiki_json(tp: TextProcessor, output_file: str, input_file: str,
     with it is dropped. Unless ``skip_check``, each image is opened and
     converted to RGB the first time it is seen (under ``root_img_dir``), and
     one that fails drops its captions."""
-    if packed:
-        raise NotImplementedError(PACKED_REFUSAL)
     with open(input_file) as fp:
         doc_dicts = json.load(fp)
 
@@ -209,4 +209,5 @@ def write_from_wiki_json(tp: TextProcessor, output_file: str, input_file: str,
             except Exception:
                 return False
 
-    return _finalize(tp, output_file, gen(), max_len, path_checker=checker)
+    return _finalize(tp, output_file, gen(), max_len, packed=packed,
+                     path_checker=checker)

@@ -7,22 +7,24 @@ The transform is the JAX package's: resize so that the short side is
 ``resize_min`` (256 unless the crop is larger), centre crop to ``size``, with
 the crop fused into the bilinear resize; a file that cannot be read becomes a
 black image; ``.png`` entries are skipped. Output is channels last, uint8
-(``raw=True``) or ImageNet-normalised float32. (The JAX package first tries
-its C++ JPEG decoder and falls back to this path; that decoder is not ported,
-so Pillow decodes every file here.)
+(``raw=True``) or ImageNet-normalised float32. As in the JAX package, a JPEG
+goes through the native decoder first (``data/imagedec.py``, with its DCT
+prescale of large inputs), and Pillow decodes what that does not take.
 
 Caption batches keep the reference's budgets (``max_img_per_batch`` images,
 a cubic capacity ``2 * t^3 * n`` bytes) over length buckets, and pad their
 rows to a multiple of 8 with copies of row 0 under ``row_mask``; images
 decode lazily, a batch at a time. A caption binary is the marshal tuple
 (unique_images {id: path}, [(image_id, caption_ids), ...]) that
-``data.binarize_captions`` writes; the packed record format is not ported
-(ROADMAP module 15).
+``data.binarize_captions`` writes, or its packed pair: ITR1 records and the
+``.paths.json`` table beside them.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import marshal
 import os
 import random
 from typing import Dict, Iterator, List, Optional, Sequence, Tuple
@@ -30,8 +32,9 @@ from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from imagetranslate_tpu_torch.data.binarize import _load_marshal
+from imagetranslate_tpu_torch.data.imagedec import decode_resize
 from imagetranslate_tpu_torch.data.loader import bucket_len
+from imagetranslate_tpu_torch.data.recordio import PackedReader, is_packed
 
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
 IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
@@ -54,6 +57,14 @@ def load_image(path: str, size: int = 224, resize_min: Optional[int] = None,
     normalise uint8 input on the device with the same arithmetic)."""
     if resize_min is None:
         resize_min = max(256, size)
+    try:
+        u8 = decode_resize(path, size=size, resize_min=resize_min)
+    except Exception:
+        u8 = None
+    if u8 is not None:
+        if raw:
+            return u8
+        return (u8.astype(np.float32) / 255.0 - IMAGENET_MEAN) / IMAGENET_STD
     try:
         from PIL import Image
 
@@ -113,8 +124,17 @@ class CaptionBatch:
 
 def load_caption_bin(data_bin_file: str):
     """(unique_images {id: path}, [(image_id, caption_ids), ...]) from a
-    marshal caption binary; a packed record file raises."""
-    return _load_marshal(data_bin_file)
+    marshal caption binary or a packed pair (ITR1 records + .paths.json)."""
+    if not is_packed(data_bin_file):
+        with open(data_bin_file, "rb") as fp:
+            return marshal.load(fp)
+    r = PackedReader(data_bin_file)
+    with open(data_bin_file + ".paths.json") as jf:
+        unique_images = {int(k): v for k, v in json.load(jf).items()}
+    captions = [(int(r.field(i, 0)[0]), r.field(i, 1).tolist())
+                for i in range(len(r))]
+    r.close()
+    return unique_images, captions
 
 
 class ObjectStore:

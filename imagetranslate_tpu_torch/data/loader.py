@@ -1,7 +1,9 @@
 """Length-bucketed, fixed-shape host batching for translation and MASS, and
 block-cached document rows for the LMs (port of ``MTBatcher``,
 ``MassBatcher``, ``DocBlockDataset`` and the lexical dictionary of
-imagetranslate_tpu/data/loader.py).
+imagetranslate_tpu/data/loader.py). ``from_packed`` builds the same batches
+from an ITR1 file (``data/recordio.py``): the grouping reads only the length
+arrays, and the rows are padded in C.
 
 Sequence lengths round up to a bucket multiple and row counts are a
 deterministic function of the bucketed shape, under the reference's budget:
@@ -23,6 +25,8 @@ import random
 from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
+
+from imagetranslate_tpu_torch.data.recordio import PackedReader, is_packed
 
 ROW_QUANTUM = 8
 
@@ -96,10 +100,32 @@ class MTBatch:
     proposal_mask: Optional[np.ndarray] = None   # [N, P]
 
 
+def _groups(ls, ld, max_batch: int, capacity_mb: int, bucket_step: int):
+    """The batches of consecutive examples of source lengths ``ls`` and
+    target lengths ``ld`` (None: skipped): (indices, sb, db) for each run
+    that shares one bucketed shape within the row budget."""
+    cur: List[int] = []
+    cur_sb = cur_db = 0
+    for i, (a, b) in enumerate(zip(ls, ld)):
+        if a is None:
+            continue
+        sb, db = bucket_len(a, bucket_step), bucket_len(b, bucket_step)
+        nsb, ndb = max(cur_sb, sb), max(cur_db, db)
+        if cur and (nsb != cur_sb or ndb != cur_db or len(cur) + 1 >
+                    _rows_for(nsb, ndb, max_batch, capacity_mb)):
+            yield cur, cur_sb, cur_db
+            cur, nsb, ndb = [], sb, db
+        cur.append(i)
+        cur_sb, cur_db = nsb, ndb
+    if cur:
+        yield cur, cur_sb, cur_db
+
+
 class MTBatcher:
     """examples: (src_ids, dst_ids, src_lang_type, dst_lang_type) tuples in
     order; consecutive examples share a batch while their bucketed shape and
-    the row budget allow."""
+    the row budget allow. ``from_packed`` builds the same batches from an
+    ITR1 file's reader."""
 
     def __init__(self, examples: Sequence[Tuple], pad_id: int = 0,
                  max_batch: int = 4000, capacity_mb: int = 600,
@@ -108,41 +134,60 @@ class MTBatcher:
         self.pad_id = pad_id
         self.lex_dict = lex_dict
         self.batches: List[MTBatch] = []
-        cur: List[Tuple] = []
-        cur_sb = cur_db = 0
-        for ex in examples:
-            src, dst = ex[0][:max_seq_len], ex[1][:max_seq_len]
-            sb = bucket_len(len(src), bucket_step)
-            db = bucket_len(len(dst), bucket_step)
-            nsb, ndb = max(cur_sb, sb), max(cur_db, db)
-            if cur and (nsb != cur_sb or ndb != cur_db or len(cur) + 1 >
-                        _rows_for(nsb, ndb, max_batch, capacity_mb)):
-                self._flush(cur, cur_sb, cur_db, max_batch, capacity_mb)
-                cur, nsb, ndb = [], sb, db
-            cur.append((src, dst, ex[2], ex[3]))
-            cur_sb, cur_db = nsb, ndb
-        if cur:
-            self._flush(cur, cur_sb, cur_db, max_batch, capacity_mb)
+        examples = [(ex[0][:max_seq_len], ex[1][:max_seq_len], ex[2], ex[3])
+                    for ex in examples]
+        for idx, sb, db in _groups([len(ex[0]) for ex in examples],
+                                   [len(ex[1]) for ex in examples],
+                                   max_batch, capacity_mb, bucket_step):
+            rows = _batch_rows(len(idx), sb, db, max_batch, capacity_mb)
+            src = np.full((rows, sb), pad_id, np.int32)
+            dst = np.full((rows, db), pad_id, np.int32)
+            for r, i in enumerate(idx):
+                s, d = examples[i][0], examples[i][1]
+                src[r, :len(s)], dst[r, :len(d)] = s, d
+            self._append(src, dst, [examples[i][2] for i in idx],
+                         [examples[i][3] for i in idx],
+                         [len(examples[i][0]) for i in idx])
 
-    def _flush(self, rows_data, sb, db, max_batch, capacity_mb):
-        n = len(rows_data)
-        rows = _batch_rows(n, sb, db, max_batch, capacity_mb)
-        src = np.full((rows, sb), self.pad_id, np.int32)
-        dst = np.full((rows, db), self.pad_id, np.int32)
-        src_langs = np.zeros((rows,), np.int32)
-        dst_langs = np.zeros((rows,), np.int32)
-        src_sizes = np.ones((rows,), np.int32)
-        row_mask = np.zeros((rows,), bool)
-        for i, (s, d, sl, dl) in enumerate(rows_data):
-            src[i, :len(s)] = s
-            dst[i, :len(d)] = d
-            src_langs[i], dst_langs[i] = sl, dl
-            src_sizes[i] = len(s)
-            row_mask[i] = True
-        # Padding rows copy row 0, so no row is wholly empty.
-        src[n:], dst[n:] = src[0], dst[0]
-        src_langs[n:], dst_langs[n:] = src_langs[0], dst_langs[0]
-        src_sizes[n:] = src_sizes[0]
+    @classmethod
+    def from_packed(cls, reader: PackedReader, pad_id: int = 0,
+                    max_batch: int = 4000, capacity_mb: int = 600,
+                    max_seq_len: int = 175, bucket_step: int = 16,
+                    lex_dict=None) -> "MTBatcher":
+        """The batches of ``MTBatcher(load_mt(path))`` from the ITR1 file's
+        reader: the grouping reads the length arrays, and the rows of a
+        batch are gathered and padded by ``reader.pack_padded``."""
+        self = cls.__new__(cls)
+        self.pad_id = pad_id
+        self.lex_dict = lex_dict
+        self.batches = []
+        ls = np.minimum(reader.lengths(0), max_seq_len).astype(np.int32)
+        ld = np.minimum(reader.lengths(1), max_seq_len).astype(np.int32)
+        sl_all, dl_all = reader.scalars(2), reader.scalars(3)
+        for idx, sb, db in _groups(ls.tolist(), ld.tolist(), max_batch,
+                                   capacity_mb, bucket_step):
+            n = len(idx)
+            rows = _batch_rows(n, sb, db, max_batch, capacity_mb)
+            ii = np.asarray(idx, np.int64)
+            src = np.full((rows, sb), pad_id, np.int32)
+            dst = np.full((rows, db), pad_id, np.int32)
+            src[:n] = reader.pack_padded(ii, 0, sb, pad_id)
+            dst[:n] = reader.pack_padded(ii, 1, db, pad_id)
+            # The max_seq_len cut: the C gather cuts at the bucket's width.
+            src[:n][np.arange(sb)[None, :] >= ls[ii][:, None]] = pad_id
+            dst[:n][np.arange(db)[None, :] >= ld[ii][:, None]] = pad_id
+            self._append(src, dst, sl_all[ii], dl_all[ii], ls[ii])
+        return self
+
+    def _append(self, src, dst, src_langs, dst_langs, src_sizes):
+        """Close a batch whose first len(src_sizes) rows are real: padding
+        rows copy row 0, so no row is wholly empty."""
+        n, rows = len(src_sizes), src.shape[0]
+        langs = np.zeros((2, rows), np.int32)
+        sizes = np.ones((rows,), np.int32)
+        langs[0, :n], langs[1, :n], sizes[:n] = src_langs, dst_langs, src_sizes
+        src[n:], dst[n:], langs[:, n:], sizes[n:] = (src[0], dst[0],
+                                                     langs[:, :1], sizes[0])
         proposals = proposal_mask = None
         if self.lex_dict is not None:
             proposals = pack_proposals(
@@ -150,8 +195,8 @@ class MTBatcher:
                  for i in range(rows)], self.pad_id)
             proposal_mask = proposals != self.pad_id
         self.batches.append(MTBatch(
-            src, src != self.pad_id, dst, dst != self.pad_id, src_langs,
-            dst_langs, src_sizes, row_mask, proposals, proposal_mask))
+            src, src != self.pad_id, dst, dst != self.pad_id, langs[0],
+            langs[1], sizes, np.arange(rows) < n, proposals, proposal_mask))
 
     def __len__(self):
         return len(self.batches)
@@ -182,46 +227,58 @@ class MassBatcher:
     """Monolingual batches for MASS and back-translation. examples:
     (ids, lang_type) tuples, length-sorted; consecutive examples share a
     batch while their bucketed length and the row budget (the MT formula at
-    sb = db = s) allow. Building batches from a packed record file
-    (``from_packed``) is not ported."""
+    sb = db = s) allow, examples longer than ``max_seq_len`` left out;
+    ``from_packed`` builds the same batches from an ITR1 shard."""
 
     def __init__(self, examples: Sequence[Tuple], pad_id: int = 0,
                  max_batch: int = 4000, capacity_mb: int = 600,
                  max_seq_len: int = 512, bucket_step: int = 16):
         self.pad_id = pad_id
         self.batches: List[MassBatch] = []
-        cur: List[Tuple] = []
-        cur_s = 0
-        for ex in examples:
-            if len(ex[0]) > max_seq_len:
-                continue
-            s = bucket_len(len(ex[0]), bucket_step)
-            ns = max(cur_s, s)
-            if cur and (ns != cur_s or len(cur) + 1 >
-                        _rows_for(ns, ns, max_batch, capacity_mb)):
-                self._flush(cur, cur_s, max_batch, capacity_mb)
-                cur, ns = [], s
-            cur.append(ex)
-            cur_s = ns
-        if cur:
-            self._flush(cur, cur_s, max_batch, capacity_mb)
+        lens = [len(ex[0]) if len(ex[0]) <= max_seq_len else None
+                for ex in examples]
+        for idx, s, _ in _groups(lens, lens, max_batch, capacity_mb,
+                                 bucket_step):
+            rows = _batch_rows(len(idx), s, s, max_batch, capacity_mb)
+            src = np.full((rows, s), pad_id, np.int32)
+            for r, i in enumerate(idx):
+                src[r, :lens[i]] = examples[i][0]
+            self._append(src, [examples[i][1] for i in idx],
+                         [lens[i] for i in idx])
 
-    def _flush(self, rows_data, s, max_batch, capacity_mb):
-        n = len(rows_data)
-        rows = _batch_rows(n, s, s, max_batch, capacity_mb)
-        src = np.full((rows, s), self.pad_id, np.int32)
-        langs = np.zeros((rows,), np.int32)
-        lengths = np.ones((rows,), np.int32)
-        row_mask = np.zeros((rows,), bool)
-        for i, (ids, lang_type) in enumerate(rows_data):
-            src[i, :len(ids)] = ids
-            langs[i] = lang_type
-            lengths[i] = len(ids)
-            row_mask[i] = True
-        # Padding rows copy row 0, so no row is wholly empty.
-        src[n:], langs[n:], lengths[n:] = src[0], langs[0], lengths[0]
-        self.batches.append(MassBatch(src, src != self.pad_id, langs,
-                                      src[:, 0].copy(), lengths, row_mask))
+    @classmethod
+    def from_packed(cls, reader: PackedReader, pad_id: int = 0,
+                    max_batch: int = 4000, capacity_mb: int = 600,
+                    max_seq_len: int = 512,
+                    bucket_step: int = 16) -> "MassBatcher":
+        """The batches of ``MassBatcher`` over an ITR1 shard's records, the
+        rows padded by ``reader.pack_padded``."""
+        self = cls.__new__(cls)
+        self.pad_id = pad_id
+        self.batches = []
+        lens = reader.lengths(0).astype(np.int32)
+        langs_all = reader.scalars(1)
+        kept = [int(n) if n <= max_seq_len else None for n in lens]
+        for idx, s, _ in _groups(kept, kept, max_batch, capacity_mb,
+                                 bucket_step):
+            rows = _batch_rows(len(idx), s, s, max_batch, capacity_mb)
+            ii = np.asarray(idx, np.int64)
+            src = np.full((rows, s), pad_id, np.int32)
+            src[:len(idx)] = reader.pack_padded(ii, 0, s, pad_id)
+            self._append(src, langs_all[ii], lens[ii])
+        return self
+
+    def _append(self, src, langs, lengths):
+        """Close a batch whose first len(lengths) rows are real: padding
+        rows copy row 0, so no row is wholly empty."""
+        n, rows = len(lengths), src.shape[0]
+        lang = np.zeros((rows,), np.int32)
+        size = np.ones((rows,), np.int32)
+        lang[:n], size[:n] = langs, lengths
+        src[n:], lang[n:], size[n:] = src[0], lang[0], size[0]
+        self.batches.append(MassBatch(src, src != self.pad_id, lang,
+                                      src[:, 0].copy(), size,
+                                      np.arange(rows) < n))
 
     def __len__(self):
         return len(self.batches)
@@ -243,9 +300,9 @@ class DocBlockDataset:
     blocks and the ``info.txt`` header "block size, rows, blocks". Rows are
     fixed-length vectors, so batches have one shape.
 
-    Reads the marshal dict {global row number: (ids, lang_type)} and the
-    older marshal list of bare id rows (language type 0). A block in the
-    packed record format (ITR1) is refused: not ported yet."""
+    Reads the marshal dict {global row number: (ids, lang_type)}, the older
+    marshal list of bare id rows (language type 0) and ITR1 blocks (one
+    field: ids, language type 0; two fields: ids and language type)."""
 
     def __init__(self, cache_dir: str, max_cache_size: int = 100,
                  load_all: bool = False):
@@ -284,12 +341,15 @@ class DocBlockDataset:
         self._langs = {}
         for n in range(start, min(end, self.file_count)):
             path = os.path.join(self.cache_dir, f"{n}.pkl")
+            if is_packed(path):
+                r = PackedReader(path)
+                self.cache[n] = [r.field(i, 0).tolist()
+                                 for i in range(len(r))]
+                self._langs[n] = (r.scalars(1).tolist() if r.n_fields >= 2
+                                  else [0] * len(r))
+                r.close()
+                continue
             with open(path, "rb") as fp:
-                if fp.read(4) == b"ITR1":
-                    raise NotImplementedError(
-                        f"{path} is a packed record file; that format is "
-                        "not ported yet (ROADMAP module 15)")
-                fp.seek(0)
                 block = marshal.load(fp)
             self.cache[n], self._langs[n] = self._normalize(block)
 

@@ -15,10 +15,13 @@ kernel does not take raises; an fp32 model or an fp32/fp8 cache on the card
 takes the plain attention; the op's plain version on the CPU);
 ``"onehot"`` (the default) and ``"dense"`` take the plain attention over the
 masked buffer. ``moe_experts > 0`` puts a routed expert bank in every
-encoder and decoder layer's FFN (``models/moe.py``; the ``moe_*`` fields). The other knobs that select TPU kernels or XLA lowerings
-(``dense_decode_cross``, ``fused_project_topk``, ``remat*``) are read and kept
-but have no effect here: the port has one path per operation, and
-recomputation is not ported.
+encoder and decoder layer's FFN (``models/moe.py``; the ``moe_*`` fields).
+``remat`` recomputes every encoder and decoder layer in the backward, and
+``remat_ffn`` (without ``remat``) only the FFN (``models/remat.py``), with
+the dropout stream replayed, so neither changes the loss or the gradients.
+The other knobs that select TPU kernels or XLA lowerings
+(``dense_decode_cross``, ``fused_project_topk``) are read and kept but have
+no effect here: the port has one path per operation.
 """
 
 from __future__ import annotations

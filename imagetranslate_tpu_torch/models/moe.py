@@ -19,7 +19,8 @@ module's, number for number:
 - the load-balance loss E * sum_e f_e * P_e over the first choices (f_e the
   share of tokens, P_e the mean router probability), reported only while a
   ``collect_aux`` block is open (the JAX module sows it into the "moe"
-  collection, which only the train steps make mutable);
+  collection, which only the train steps make mutable), and not again when
+  a checkpointed block recomputes in the backward (``models/remat.py``);
 - the expert products in the compute dtype, exact gelu, dropout on the
   output, then the post-LN residual, as ``FeedForward``.
 
@@ -41,6 +42,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from imagetranslate_tpu_torch.models.config import Seq2SeqConfig
+from imagetranslate_tpu_torch.models.remat import recomputing
 
 
 def _group_size(n_tokens: int, requested: int) -> int:
@@ -124,10 +126,14 @@ class MoEFeedForward(nn.Module):
         G = T // S
         C = _capacity(S, cfg)
         probs, idxs, gates, slots, first = self.route(tokens.reshape(G, S, H))
-        if self.aux_sink is not None:
+        if self.aux_sink is not None or torch.is_grad_enabled():
+            # Under autograd always computed, so that a recompute saves what
+            # the forward saved; reported once, by the forward.
             f = first.mean(dim=(0, 1))
             p = probs.mean(dim=(0, 1))
-            self.aux_sink.append(E * torch.sum(f * p))
+            aux = E * torch.sum(f * p)
+            if self.aux_sink is not None and not recomputing():
+                self.aux_sink.append(aux)
 
         group = torch.arange(G, device=x.device)[:, None]
         trash = E * G * C

@@ -25,6 +25,13 @@ the attention output projection and on the FFN output, as in the JAX
 modules) is on where a ``DropoutRng`` is handed down (``drop``), and off
 where it is None: the decode path never takes one.
 
+Recompute (``models/remat.py``): with ``cfg.remat`` every encoder and
+decoder layer's training forward is recomputed in the backward, with
+``cfg.remat_ffn`` (and not ``remat``) only the FFN, dense or MoE; only under
+autograd, so the decodes and the incremental ``step`` are never wrapped. The
+dropout stream replays in the recompute: from one seed the loss and the
+gradients are those without recompute, as under the JAX ``nn.remat``.
+
 Tensor parallelism (``Seq2Seq.shard_``; the JAX TP rules of
 parallel/mesh.py): a module whose ``tp`` is a ``ProcessMesh`` holds its
 rank's shard, H/n heads of Q, K, V and the matching input columns of the
@@ -44,6 +51,7 @@ from torch import nn
 
 from imagetranslate_tpu_torch.models.config import Seq2SeqConfig
 from imagetranslate_tpu_torch.models.moe import MoEFeedForward
+from imagetranslate_tpu_torch.models.remat import checkpointed
 from imagetranslate_tpu_torch.ops.attention import (
     dot_product_attention,
     make_attention_bias,
@@ -80,6 +88,14 @@ class DropoutRng:
         self.dev = torch.Generator(device=device)
         self.dev.manual_seed(self.next_seed()
                              + (0 if mesh is None else mesh.d))
+
+    def get_state(self):
+        """Where the stream stands: both generators' states."""
+        return self.host.get_state(), self.dev.get_state()
+
+    def set_state(self, state):
+        self.host.set_state(state[0])
+        self.dev.set_state(state[1])
 
     def next_seed(self) -> int:
         return int(torch.randint(0, 2 ** 31 - 1, (1,), generator=self.host))
@@ -313,6 +329,15 @@ class EncoderLayer(nn.Module):
             "LayerNorm": _layer_norm(cfg, device)})
 
     def ffn(self, x, drop: Optional[DropoutRng] = None):
+        """The FFN block; under autograd with ``cfg.remat_ffn`` (and not
+        ``cfg.remat``, which recomputes the whole layer) its activations
+        are recomputed in the backward."""
+        cfg = self.cfg
+        if cfg.remat_ffn and not cfg.remat and torch.is_grad_enabled():
+            return checkpointed(self._ffn, drop, x)
+        return self._ffn(x, drop)
+
+    def _ffn(self, x, drop: Optional[DropoutRng] = None):
         if self.cfg.moe_experts:
             return self.moe(x, drop)
         h = F.gelu(self.intermediate["dense"](tp_copy(x, _group(self.tp))))
@@ -393,13 +418,16 @@ class Encoder(nn.Module):
 
     def __init__(self, cfg: Seq2SeqConfig, device=None, param_dtype=None):
         super().__init__()
+        self.cfg = cfg
         self.embeddings = Embeddings(cfg, device, param_dtype)
         self.encoder = LayerStack([EncoderLayer(cfg, device, param_dtype)
                                    for _ in range(cfg.enc_layers)])
 
     def forward(self, x, bias, drop: Optional[DropoutRng] = None):
+        remat = self.cfg.remat and torch.is_grad_enabled()
         for layer in self.encoder.layer:
-            x = layer(x, bias, drop)
+            x = (checkpointed(layer, drop, x, bias) if remat
+                 else layer(x, bias, drop))
         return x
 
 
@@ -415,8 +443,10 @@ class Decoder(nn.Module):
 
     def forward(self, x, enc, self_bias, cross_bias,
                 drop: Optional[DropoutRng] = None):
+        remat = self.cfg.remat and torch.is_grad_enabled()
         for layer in self.decoder.layer:
-            x = layer(x, enc, self_bias, cross_bias, drop)
+            x = (checkpointed(layer, drop, x, enc, self_bias, cross_bias)
+                 if remat else layer(x, enc, self_bias, cross_bias, drop))
         return x
 
     def init_cache(self, enc_states, batch: int, max_len: int) -> Cache:

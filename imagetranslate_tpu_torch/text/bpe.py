@@ -13,8 +13,10 @@ works in the other:
 - decoding: concatenate the token strings, map '▁' back to space, strip the
   leading space.
 
-Pure Python: the JAX package's optional C++ encoder is not ported (its output
-is identical; only its speed differs).
+The merge loop is the hot path: ``text/native.py`` runs the encode and the
+training in C++ where ``g++`` builds it, with the same ids and merges as the
+Python code here (``TextProcessor`` swaps the encoder in, ``train_bpe`` the
+trainer).
 """
 
 from __future__ import annotations
@@ -146,7 +148,7 @@ class BPE:
 
 def train_bpe(files: Sequence[str], vocab_size: int,
               special_tokens: Sequence[str], min_frequency: int = 5,
-              limit_alphabet: int = 1000) -> BPE:
+              limit_alphabet: int = 1000, use_native: bool = True) -> BPE:
     """BPE trainer with SentencePieceBPETokenizer.train's defaults. The
     vocabulary holds the special tokens first (ids 0..n-1), then the
     single-character alphabet, then one entry per learned merge. Each round
@@ -173,10 +175,29 @@ def train_bpe(files: Sequence[str], vocab_size: int,
 
     alpha_set = set(alphabet)
     words: List[Tuple[List[str], int]] = []
+    filtered_counts: Dict[str, int] = {}
     for word, c in word_counts.items():
         syms = [ch for ch in word if ch in alpha_set]
         if syms:
             words.append((syms, c))
+            # Summed: two words may filter to one symbol string.
+            key = "".join(syms)
+            filtered_counts[key] = filtered_counts.get(key, 0) + c
+
+    max_merges = max(0, vocab_size - len(vocab))
+    # The C trainer hands each merge back as "a<TAB>b": words that hold a tab
+    # take the Python trainer, which learns the same merges.
+    if use_native and max_merges > 0 and not any(
+            "\t" in word for word in filtered_counts):
+        from imagetranslate_tpu_torch.text.native import train_merges_native
+
+        native_merges = train_merges_native(filtered_counts, max_merges,
+                                            min_frequency)
+        if native_merges is not None:
+            for a, b in native_merges:
+                if a + b not in vocab:
+                    vocab[a + b] = len(vocab)
+            return BPE(vocab, native_merges)
 
     pair_counts: Counter = Counter()
     where: defaultdict = defaultdict(set)

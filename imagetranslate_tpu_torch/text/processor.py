@@ -7,7 +7,8 @@ Same artifact directory (``vocab.json`` + ``merges.txt`` + a pickled
 the same sentence layout ``[<lang>] ids... </s>`` cut at 512. Document-level
 tokenization (``tokenize_one_line``, ``tokenize_lines``, ``split_tokenized``)
 serves the LM binarizer: a document's sentences, each with the language token
-repeated, cut blindly into fixed rows or at sentence boundaries.
+repeated, cut blindly into fixed rows or at sentence boundaries. A loaded
+tokenizer encodes in C++ where ``text/native.py`` builds (the same ids).
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 
 from imagetranslate_tpu_torch.text.bpe import BPE, train_bpe
+from imagetranslate_tpu_torch.text.native import NativeBPE
 
 SPECIALS_BASE = ["<pad>", "<s>", "<unk>", "<mask>", "</s>"]
 MAX_LEN = 512
@@ -32,6 +34,9 @@ class TextProcessor:
             self.tokenizer = BPE.load(tok_model_path)
             with open(os.path.join(tok_model_path, "langs"), "rb") as fp:
                 self.languages = pickle.load(fp)
+            native = NativeBPE(self.tokenizer)    # the C++ encode, if built
+            if native.ok:
+                self.tokenizer = native
 
     @property
     def special_tokens(self) -> List[str]:

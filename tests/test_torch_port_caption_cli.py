@@ -2,8 +2,8 @@
 JAX package's: the ``CAPTION`` bridge round-trips and keeps dtypes; a caption
 checkpoint (``{"params", "batch_stats"}``) written by either package loads in
 the other; ``load_image`` and ``ImageFolderBatcher`` give the JAX package's
-arrays on JPEGs written here (the JAX side forced onto its Pillow path: the
-port has no native decoder); both ``cli.caption`` write the same file from
+arrays on JPEGs written here (both packages on their default path: the
+native decoder first, Pillow for what it does not take); both ``cli.caption`` write the same file from
 one checkpoint and one folder; ``--obj`` without ``--fcnn`` stops with the
 JAX CLI's message; and the
 port's CLI captions with jax, flax and the JAX package impossible to import.
@@ -48,17 +48,6 @@ def _leaves(tree, prefix=""):
             yield from _leaves(v, f"{prefix}/{k}")
     else:
         yield prefix, np.asarray(tree)
-
-
-@pytest.fixture(autouse=True)
-def pil_path(monkeypatch):
-    """The JAX package's ``load_image`` on its Pillow path."""
-    from imagetranslate_tpu.data import imagedec
-
-    def refuse(*a, **kw):
-        raise RuntimeError("native decoder off for this test")
-
-    monkeypatch.setattr(imagedec, "decode_resize", refuse)
 
 
 @pytest.fixture(scope="module")

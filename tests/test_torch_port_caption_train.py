@@ -34,7 +34,8 @@ depth 1 at 64 x 64 pixels (a 2 x 2 grid), dropout 0:
 - ``cli.binarize_captions_from_list`` -> ``cli.train_captioning`` (2 steps,
   the MT stream, an MT checkpoint grafted by ``--lm``, a dev BLEU) ->
   ``cli.caption``; caption BLEU equal to the
-  JAX trainer's on the same hypotheses; the refusals.
+  JAX trainer's on the same hypotheses; packed caption binaries read as the
+  marshal ones; the refusals.
 """
 
 import collections
@@ -765,19 +766,28 @@ def test_packed_files_and_trainer_options_are_refused(corpus, tmp_path):
     )
 
     _, tp = _tps(corpus)
-    (tmp_path / "p.bin").write_bytes(b"ITR1" + bytes(16))
-    for fn in (lambda: pimages.load_caption_bin(str(tmp_path / "p.bin")),
-               lambda: pimages.CaptionEvalSet(str(tmp_path / "p.bin"), tp),
-               lambda: pbin.write_from_list(tp, str(tmp_path / "o"),
-                                            str(corpus / "list.tsv"),
-                                            packed=True)):
-        with pytest.raises(NotImplementedError, match="module 15"):
-            fn()
-    for mod in (binarize_captions_from_list, binarize_coco_data,
-                binarize_image_caption_data):
-        with pytest.raises(SystemExit, match="module 15"):
-            mod.main(["--file", "f", "--output", str(tmp_path / "o"),
-                      "--tok", str(corpus / "tok"), "--packed"])
+    # Packed caption binaries (ITR1 + .paths.json) are written and read as
+    # the marshal ones (byte for byte against the JAX CLIs:
+    # tests/test_torch_port_recordio.py).
+    pbin.write_from_list(tp, str(tmp_path / "m.bin"),
+                         str(corpus / "list.tsv"))
+    pbin.write_from_list(tp, str(tmp_path / "p.bin"),
+                         str(corpus / "list.tsv"), packed=True)
+    assert (tmp_path / "p.bin").read_bytes()[:4] == b"ITR1"
+    assert pimages.load_caption_bin(str(tmp_path / "p.bin")) == \
+        pimages.load_caption_bin(str(tmp_path / "m.bin"))
+    assert pimages.CaptionEvalSet(str(tmp_path / "p.bin"), tp).max_len == \
+        pimages.CaptionEvalSet(str(tmp_path / "m.bin"), tp).max_len
+    binarize_captions_from_list.main([
+        "--file", str(corpus / "list.tsv"), "--output",
+        str(tmp_path / "cli.bin"), "--tok", str(corpus / "tok"), "--packed"])
+    assert (tmp_path / "cli.bin").read_bytes() == \
+        (tmp_path / "p.bin").read_bytes()
+    for mod in (binarize_coco_data, binarize_image_caption_data):
+        with pytest.raises(FileNotFoundError):
+            mod.main(["--file", str(tmp_path / "missing.json"), "--output",
+                      str(tmp_path / "o"), "--tok", str(corpus / "tok"),
+                      "--packed"])
     assert not (tmp_path / "o").exists()
     _, cfg = _cfgs()
     # The multimodal streams are taken (tests/test_torch_port_image_mt.py).

@@ -193,16 +193,10 @@ def detector_files(tmp_path_factory):
     return d
 
 
-def test_extract_objects_cli_matches_jax(detector_files, monkeypatch):
+def test_extract_objects_cli_matches_jax(detector_files):
     from imagetranslate_tpu.cli import extract_objects as jcli
-    from imagetranslate_tpu.data import imagedec
     from imagetranslate_tpu_torch.cli import extract_objects as pcli
     from imagetranslate_tpu_torch.data.images import ObjectStore
-
-    def refuse(*a, **kw):       # the JAX decode on its Pillow path
-        raise RuntimeError("native decoder off for this test")
-
-    monkeypatch.setattr(imagedec, "decode_resize", refuse)
     d = detector_files
     args = ["--input", str(d / "images"), "--fcnn", str(d / "frcnn.pth"),
             "--batch", "2"]

@@ -330,15 +330,9 @@ def _caption_args(d, out):
             "--beam", "2", "--obj", "--fcnn", str(d / "frcnn.pth")]
 
 
-def test_caption_obj_cli_matches_jax(caption_dir, monkeypatch):
+def test_caption_obj_cli_matches_jax(caption_dir):
     from imagetranslate_tpu.cli.caption import main as jax_main
-    from imagetranslate_tpu.data import imagedec
     from imagetranslate_tpu_torch.cli.caption import main as port_main
-
-    def refuse(*a, **kw):       # the JAX decode on its Pillow path
-        raise RuntimeError("native decoder off for this test")
-
-    monkeypatch.setattr(imagedec, "decode_resize", refuse)
     d = caption_dir
     jax_main(_caption_args(d, d / "jax.tsv"))
     port_main(_caption_args(d, d / "port.tsv") + ["--device", "cpu"])

@@ -318,10 +318,12 @@ def test_clis_refuse_what_is_not_ported(work, tmp_path):
         train_lm.main(base + ["--mesh", "4x2"])
     with pytest.raises(SystemExit, match="multiple of 12"):
         train_lm.main(base + ["--embed", "32"])
-    with pytest.raises(SystemExit, match="module 15"):
-        create_batches.main(["--data", str(work / "dev.txt"), "--cache",
-                             str(tmp_path / "c"), "--tok", str(work / "tok"),
-                             "--packed"])
+    # --packed is taken: ITR1 blocks that DocBlockDataset reads.
+    create_batches.main(["--data", str(work / "dev.txt"), "--cache",
+                         str(tmp_path / "c"), "--tok", str(work / "tok"),
+                         "--packed"])
+    assert (tmp_path / "c" / "0.pkl").read_bytes()[:4] == b"ITR1"
+    assert len(DocBlockDataset(str(tmp_path / "c"))) > 0
     with pytest.raises(SystemExit, match="--lm with --train"):
         train_mt.main(["--tok", str(work / "tok"), "--model",
                        str(tmp_path / "m"), "--lm", str(work / "lm"),

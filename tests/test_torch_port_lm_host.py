@@ -148,9 +148,17 @@ def test_write_doc_blocks_byte_for_byte(tok, tmp_path, seq_len, block):
         # Rows are an exact multiple of the block size: a final EMPTY block.
         with open(tmp_path / "port" / f"{n}.pkl", "rb") as f:
             assert marshal.load(f) == {}
-    with pytest.raises(NotImplementedError, match="module 15"):
-        binarize.write_doc_blocks(tp, str(docs), str(tmp_path / "p2"),
-                                  packed=True)
+    # Packed blocks: the JAX package's bytes too.
+    binarize.write_doc_blocks(tp, str(docs), str(tmp_path / "p2"),
+                              seq_len=seq_len, sen_block_size=block,
+                              packed=True)
+    jbinarize.write_doc_blocks(jtp, str(docs), str(tmp_path / "j2"),
+                               seq_len=seq_len, sen_block_size=block,
+                               packed=True)
+    assert sorted(os.listdir(tmp_path / "p2")) == names
+    for name in names:
+        assert (tmp_path / "p2" / name).read_bytes() == \
+            (tmp_path / "j2" / name).read_bytes(), name
 
 
 def test_doc_block_dataset_equals_jax(tok, tmp_path):
@@ -189,7 +197,8 @@ def test_doc_block_dataset_equals_jax(tok, tmp_path):
 
 def test_doc_block_dataset_bare_lists_and_packed_blocks(tmp_path):
     """The older layout (a marshal list of bare id rows, language 0) reads as
-    in the JAX package; a packed record block is refused."""
+    in the JAX package; so do packed record blocks of one field (ids,
+    language 0) and of two (ids, language)."""
     rows = [[5, 6, 7, 0], [8, 9, 0, 0], [10, 11, 12, 13]]
     with open(tmp_path / "0.pkl", "wb") as f:
         marshal.dump(rows, f)
@@ -199,6 +208,15 @@ def test_doc_block_dataset_bare_lists_and_packed_blocks(tmp_path):
         for key in w:
             np.testing.assert_array_equal(g[key], w[key], key)
     assert ds.lang_at(2) == 0 and ds[1] == rows[1]
-    (tmp_path / "0.pkl").write_bytes(b"ITR1" + b"\0" * 16)
-    with pytest.raises(NotImplementedError, match="module 15"):
-        DocBlockDataset(str(tmp_path), load_all=True)
+    from imagetranslate_tpu_torch.data.recordio import PackedWriter
+
+    for fields in (1, 2):
+        with PackedWriter(str(tmp_path / "0.pkl"), fields) as w:
+            for i, r in enumerate(rows):
+                w.add(*((r, i % 2) if fields == 2 else (r,)))
+        ds = DocBlockDataset(str(tmp_path), load_all=True)
+        jds = JaxDocBlockDataset(str(tmp_path), load_all=True)
+        for g, w in zip(ds.batches(2), jds.batches(2)):
+            for key in w:
+                np.testing.assert_array_equal(g[key], w[key], key)
+        assert ds[1] == rows[1] and ds.lang_at(1) == (fields == 2)

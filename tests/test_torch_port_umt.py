@@ -225,10 +225,17 @@ def test_monolingual_shards_and_mass_batches_match_jax(corpus, tmp_path):
     assert len(examples) == 179 and {e[1] for e in examples} == {0, 1}
     assert examples[0][0][0] == tp.token_id("<aa>")
     assert examples[0][0][-1] == tp.sep_token_id()
-    packed = tmp_path / "packed.0"
-    packed.write_bytes(b"ITR1" + b"\0" * 16)
-    with pytest.raises(NotImplementedError, match="module 15"):
-        binarize.load_mass(str(tmp_path / "packed"))
+    # ITR1 shards load as the marshal shards' examples; a corrupt one is
+    # refused at open, as in the JAX package.
+    binarize.write_mt(tp, str(tmp_path / "packed"), str(d / "aa.txt"),
+                      tp.token_id("<aa>"), shard_size=40, packed=True)
+    got = binarize.load_mass(str(tmp_path / "packed"))
+    assert [(list(ids), lang) for ids, lang in got] == \
+        binarize.load_mass(str(d / "mono.aa"))
+    (tmp_path / "bad.0").write_bytes(b"ITR1" + b"\0" * 16)
+    for load in (binarize.load_mass, jbinarize.load_mass):
+        with pytest.raises(OSError, match="ITR1"):
+            load(str(tmp_path / "bad"))
 
     examples.sort(key=lambda e: len(e[0]))
     for kw in (dict(max_batch=200, capacity_mb=600),
