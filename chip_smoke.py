@@ -387,6 +387,36 @@ Phases, each fatal on failure:
                k5, pack)); corpus = cs.prepare_umt_corpus(tempfile.mkdtemp());
                print(cs.phase_itr1(card, k1, k5, corpus));
                print(cs.phase_recipe(card, k1))"
+ 30. 14b     — module 14b parts 1-3 at BERT-base width (V=32000, 6+3
+               layers, B=256, S=T=64, fp32 masters), on ranks that share
+               the card over gloo (one spawn of four; the 2x1 and 1x2
+               meshes on ranks 0 and 1):
+               correctness only, no speed is read. ZeRO-1 at 2x1 and 2x2:
+               three fp32 steps with and without --zero from one seed under
+               deterministic algorithms, the largest parameter difference
+               within 1e-5 of the largest value, each rank's optimizer state
+               smaller by (1 - 1/D) of its split tensors'; three bf16 steps
+               at dropout 0.1 under --zero (K1, and K5 at 2x1). GPipe (M=4) at 1x2 and 1x4 (the last
+               stage of 1x4 holds no decoder layer): two fp32 steps at
+               dropout 0 against one process (losses and merged parameters
+               within 1e-4); at 1x2 a bf16 step at dropout 0.1 (K1 12 M + 12
+               M over the stages, 24 M forwards under remat, K5 1 + 1) and
+               a fused beam decode of the gathered model (K2 and 3 K4 a
+               step). Expert parallelism (8 experts, top-2) at 1x2 and 2x2:
+               two fp32 steps against one process, routers and their
+               moments equal across each model group to 1e-6 of their
+               largest value; at 1x2 a bf16 step
+               (K1) and phase 4's beam decode of the MoE model (K2b and K4
+               every step, scores within 2e-2). Then cli.train_mt --mesh
+               2x2 --zero, --mesh 1x4 --pp-microbatches 4 and --mesh 2x2
+               --moe-experts 4 in the four ranks, and cli.translate on the
+               pipelined checkpoint in one process. Alone, ~3 min with the
+               build: python3 -c "import chip_smoke as cs; card =
+               cs.phase_device(); cs.phase_build(); k1, k5 =
+               cs.p30_shapes(); f, b, c1 = cs.phase_kernel_attention(k1);
+               xf, xb, c5 = cs.phase_kernel_xent(k5); e, c4 =
+               cs.phase_kernel_decode_attention(cs.decode_path_shapes());
+               print(cs.phase_14b(card, c1, c5, c4))"
 
 ``--profile`` adds a phase after 4 (one more decode) and one after 7 (three
 more train steps) under torch.profiler, printing the device time by operation
@@ -2845,7 +2875,7 @@ CAPTION_GRID_TOL = 2.0 ** -4       # bf16 ResNet grid vs the fp32 one
 
 def decode_path_shapes():
     """The (R, H, D, live positions) that the decode paths of phases 17,
-    18, 19, 21 and 22 give K4: a decode of L positions launches at
+    18, 19, 21, 22 and 30 give K4: a decode of L positions launches at
     1 .. L-1 live ones."""
     rows = {MT_DECODE[0] * MT_DECODE[2]: MT_DECODE[3],
             CAPTION_B * CAPTION_K: CAPTION_L,
@@ -2858,7 +2888,10 @@ def decode_path_shapes():
     det_tail = DET_CAPTION_JPEGS % CAPTION_B
     for R in (CAPTION_B * CAPTION_K, -(-det_tail // 8) * 8 * CAPTION_K):
         rows[R] = max(DET_CAPTION_L, rows.get(R, 0))
-    return [(R, 12, 64, n) for R, L in rows.items() for n in range(1, L)]
+    shapes = [(R, 12, 64, n) for R, L in rows.items() for n in range(1, L)]
+    # Phase 30's expert-parallel decode at 1x2: the heads split, 6 a rank.
+    R, L = MT_DECODE[0] * MT_DECODE[2], max_len_for_decode(MT_DECODE[1])
+    return shapes + [(R, 6, 64, n) for n in range(1, L)]
 
 
 @contextlib.contextmanager
@@ -6488,6 +6521,657 @@ def phase_recipe(card, checked):
     return fwd, bwd, k2
 
 
+# ---------------- phase 30: module 14b ----------------
+
+P30 = (256, 64, 64)        # B, S, T of the phase's steps: phase 7's shape
+P30_MICRO = 4              # GPipe microbatches
+P30_OPT = dict(lr=1e-3, warmup=1)   # Adam moves each weight ~lr a step
+ZERO_TOL = 1e-5            # --zero against not, fp32: largest parameter
+#                            difference over the largest value (the clip
+#                            norm's order only; bf16 turns such a difference
+#                            into lr-sized steps within a step or two)
+PARITY_TOL = 1e-4          # fp32 mesh steps against one process: loss rtol,
+#                            largest parameter difference / largest value
+ROUTER_TOL = 1e-6          # a router and its moments across a model
+#                            group, over their largest value: equal but for
+#                            rounding (each rank's cuBLAS picks its own
+#                            algorithm: 1.9e-9 absolute at 1x2 in a check)
+P30_CLI_STEPS = 2
+
+
+def p30_shapes():
+    """K1 (B, T, S, H, D) and K5 (N, V) of phase 30's bf16 steps, held by
+    phases 6 and 9 before the run: ZeRO at 2x1 (128 rows a rank) and 2x2
+    (128 rows, 6 heads a rank), the GPipe microbatches (64 rows), the EP step
+    at 1x2 (256 rows, 6 heads); K5 at 2x1 (128 rows) and on the last stage
+    (the whole batch)."""
+    B, S, T = P30
+    k1 = set()
+    for rows, heads in ((B // 2, 12), (B // 2, 6), (B // P30_MICRO, 12),
+                        (B, 6)):
+        k1 |= {(rows, S, S, heads, 64), (rows, T - 1, T - 1, heads, 64),
+               (rows, T - 1, S, heads, 64)}
+    return sorted(k1), [(B // 2 * (T - 1), 32000), (B * (T - 1), 32000)]
+
+
+def card_params(cfg, seed, device):
+    """A flax-layout parameter tree (CPU tensors) drawn on the card from
+    ``seed`` with the JAX initializers that ``weights.random_params`` draws
+    with numpy (normal(initializer_range) for kernels, embeddings, routers
+    and experts; zero biases; unit LayerNorm scales): every process on the
+    card draws the same, in a fraction of numpy's ~10 s at MoE width."""
+    import torch
+
+    from imagetranslate_tpu_torch.models.seq2seq import Seq2Seq
+    from imagetranslate_tpu_torch.train.weights import flax_from_state_dict
+
+    model = Seq2Seq(cfg, device=device, param_dtype=torch.float32)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    sd = model.state_dict()
+    with torch.no_grad():
+        for k, v in sd.items():
+            if k.endswith(("LayerNorm.weight", "ln.weight")):
+                v.fill_(1.0)
+            elif k.endswith((".bias", "moe.bi", "moe.bo")):
+                v.zero_()
+            else:
+                v.normal_(0.0, cfg.initializer_range, generator=gen)
+    return flax_from_state_dict(sd, cfg)
+
+
+def _share(got, want) -> float:
+    """Largest |got - want| over the largest |want|, over two state
+    dicts."""
+    diff = max(float((got[k].float() - want[k].float()).abs().max())
+               for k in want)
+    return diff / max(float(want[k].float().abs().max()) for k in want)
+
+
+def z14b_rank(rank, workdir, cli_argvs):
+    """One of phase 30's four ranks, all on the one card over gloo. Ranks 0
+    and 1: ZeRO-1 at 2x1 (and bf16 steps with it), GPipe at 1x2 (fp32
+    parity, the bf16 launch counts with and without remat, the dev decode
+    of the gathered model), EP at 1x2 (fp32 parity, a bf16 step, the MoE
+    beam decode); then the four: ZeRO-1 at 2x2, GPipe at 1x4, EP at 2x2, and
+    ``cli_argvs`` through cli.train_mt. Rank 0 runs each parity run's
+    one-process reference. Returns a dict of readings ("pair" on ranks 0
+    and 1, "quad" on all)."""
+    import contextlib
+    import dataclasses
+    import io
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from imagetranslate_tpu_torch.cli.train_mt import main as train_main
+    from imagetranslate_tpu_torch.decoding.beam import beam_search
+    from imagetranslate_tpu_torch.models.seq2seq import Seq2Seq
+    from imagetranslate_tpu_torch.ops import decode_attention as da
+    from imagetranslate_tpu_torch.ops import topk_project as tkp
+    from imagetranslate_tpu_torch.ops import train_attention as ta
+    from imagetranslate_tpu_torch.ops import xent
+    from imagetranslate_tpu_torch.parallel.comm import all_gather_stack
+    from imagetranslate_tpu_torch.parallel.mesh import (
+        ProcessMesh,
+        make_mesh,
+        shard_batch_safe,
+        shard_params,
+    )
+    from imagetranslate_tpu_torch.train.optimizer import map_moments
+    from imagetranslate_tpu_torch.train.trainer_mt import MTTrainer
+    from imagetranslate_tpu_torch.train.weights import state_dict_from_flax
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", torch.cuda.current_device())
+    B, S, T = P30
+    dense = bert_base(32000)
+    moe_cfg = dataclasses.replace(dense, **MOE)
+    batches = train_batches(dense, 3, B, S, T, dev)
+    params = {}
+    out = {"where": f"{dist.get_backend()} on {dev}", "seconds": {}}
+    t_part = [time.perf_counter()]
+
+    def mark(name):
+        now = time.perf_counter()
+        out["seconds"][name] = round(now - t_part[0], 1)
+        t_part[0] = now
+
+    def tree(cfg):
+        key = cfg.moe_experts
+        if key not in params:
+            params[key] = card_params(dataclasses.replace(
+                cfg, dtype="float32"), SEED, dev)
+        return params[key]
+
+    def trainer(cfg, mesh, **kw):
+        return MTTrainer(cfg, FullVocab(), params=tree(cfg), mesh=mesh,
+                         seed=SEED, device=dev, **P30_OPT, **kw)
+
+    def steps(tr, mesh, n):
+        losses = []
+        for i in range(n):
+            b = batches[i % len(batches)]
+            tr.state, m = tr.mt_step(
+                tr.state, b if mesh is None else shard_batch_safe(b, mesh),
+                torch.Generator().manual_seed(i))
+            losses.append(float(m["sum_loss"] / m["ntokens"]))
+        return losses
+
+    def reset():
+        ta.FWD_LAUNCHES = ta.BWD_LAUNCHES = 0
+        xent.FWD_LAUNCHES = xent.BWD_LAUNCHES = 0
+        tkp.LAUNCHES = tkp.MERGE_LAUNCHES = da.LAUNCHES = 0
+
+    def counts():
+        return (ta.FWD_LAUNCHES, ta.BWD_LAUNCHES, xent.FWD_LAUNCHES,
+                xent.BWD_LAUNCHES)
+
+    def opt_bytes(tr):
+        total = []
+        map_moments(tr.state.opt_state, lambda d: total.append(sum(
+            t.numel() * t.element_size() for t in d.values())) or d)
+        return sum(total)
+
+    def reference(cfg, n, losses, full):
+        """Rank 0: the one-process steps from the same weights; (largest
+        relative loss difference, largest parameter difference over the
+        largest value, the one-process losses)."""
+        if rank != 0:
+            return None
+        one = trainer(cfg, None)
+        ref = steps(one, None, n)
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref))
+        share = _share(full, one.model.state_dict())
+        del one
+        torch.cuda.empty_cache()
+        return rel, share, ref
+
+    def zero_part(mesh, res, with_bf16):
+        """Three fp32 steps with and without --zero from one seed under
+        deterministic algorithms; then, ``with_bf16``, three bf16 steps at
+        dropout 0.1 with it (K1, and K5 without a split vocab)."""
+        arms = [("off", dataclasses.replace(dense, dtype="float32")),
+                ("zero", dataclasses.replace(dense, dtype="float32"))]
+        if with_bf16:
+            arms.append(("bf16", dataclasses.replace(
+                dense, dropout=RATE, attention_dropout=RATE,
+                use_pallas_xent=True)))
+        runs = {}
+        for arm, cfg in arms:
+            was = torch.are_deterministic_algorithms_enabled()
+            torch.use_deterministic_algorithms(arm != "bf16", warn_only=True)
+            try:
+                tr = trainer(cfg, mesh, zero=arm != "off")
+                reset()
+                with Recorder() as rec:
+                    losses = steps(tr, mesh, 3)
+                split = 0 if tr.zero is None else sum(
+                    p.numel() * p.element_size()
+                    for k, p in tr.state.params.items() if tr.zero.split(k))
+                runs[arm] = (losses, None if arm == "bf16" else tr._full(
+                    tr.model.state_dict()), opt_bytes(tr), split, counts(),
+                    rec.k1, rec.k5)
+                del tr
+                torch.cuda.empty_cache()
+            finally:
+                torch.use_deterministic_algorithms(was)
+        off, on = runs["off"], runs["zero"]
+        bf16 = runs.get("bf16", ([], None, 0, 0, (0, 0, 0, 0), set(), set()))
+        res["zero"] = {
+            "mesh": (mesh.n_data, mesh.n_model),
+            "losses": (off[0], on[0], bf16[0]),
+            "share": _share(on[1], off[1]), "bytes": (off[2], on[2]),
+            "split": on[3], "counts": bf16[4], "k1": bf16[5], "k5": bf16[6]}
+        mark(f"zero {mesh.n_data}x{mesh.n_model}")
+
+    def pp_part(mesh, res):
+        """Two fp32 GPipe steps at dropout 0 (M microbatches) against one
+        process."""
+        cfg = dataclasses.replace(dense, dtype="float32")
+        tr = trainer(cfg, mesh, pp_microbatches=P30_MICRO)
+        losses = steps(tr, mesh, 2)
+        own = sorted({".".join(k.split(".")[:4])
+                      for k in tr.model.layer_names()})
+        full = tr._full(None)
+        del tr
+        torch.cuda.empty_cache()
+        res["pp"] = {"losses": losses, "own": own,
+                     "ref": reference(cfg, 2, losses, full)}
+        mark(f"pp 1x{mesh.n_model}")
+
+    def pp_extra(mesh, res):
+        """GPipe's launches: one bf16 step at dropout 0.1, then one under
+        remat; the fused beam decode of the gathered model."""
+        pp_counts = {}
+        for remat in (False, True):
+            cfg = dataclasses.replace(
+                dense, dropout=RATE, attention_dropout=RATE,
+                use_pallas_xent=True, remat=remat,
+                decode_attention_impl="fused")
+            tr = trainer(cfg, mesh, pp_microbatches=P30_MICRO)
+            reset()
+            with Recorder() as rec:
+                loss = steps(tr, mesh, 1)
+            pp_counts[remat] = (counts(), rec.k1, rec.k5, loss)
+            if not remat:
+                Bd, Sd, K, _ = MT_DECODE
+                src = np.random.RandomState(SEED).randint(5, 32000, (Bd, Sd))
+                model = tr.decode_model()
+                n_steps = 0
+                step = model.decode_step
+
+                def counted(*a, **kw):
+                    nonlocal n_steps
+                    n_steps += 1
+                    return step(*a, **kw)
+
+                model.decode_step = counted
+                reset()
+                with recording_decode_attention() as seen4:
+                    best, lengths = tr._decode_batch(
+                        src, src != 0, np.zeros(Bd, np.int32),
+                        np.full(Bd, 6, np.int32), np.ones(Bd, np.int32),
+                        np.full(Bd, Sd, np.int32), beam_width=K)
+                res["pp_decode"] = (n_steps, tkp.LAUNCHES, da.LAUNCHES,
+                                    seen4, int(lengths.sum()))
+                del model
+            del tr
+            torch.cuda.empty_cache()
+        res["pp_counts"] = pp_counts
+        mark("pp extra")
+
+    def ep_part(mesh, res):
+        """Two fp32 steps of the MoE model, its experts split, at dropout
+        0 against one process; the routers' spread across the model
+        group."""
+        cfg = dataclasses.replace(moe_cfg, dtype="float32")
+        tr = trainer(cfg, mesh)
+        losses = steps(tr, mesh, 2)
+        opt = tr.state.opt_state
+        spread = 0.0    # across the model group, over each tensor's largest
+        for k, p in tr.state.params.items():
+            if k.endswith("moe.router.weight"):
+                for t in (p.detach(), opt.mu[k], opt.nu[k]):
+                    g = all_gather_stack(t, mesh.model_group)
+                    spread = max(spread, float((g - g[0]).abs().max())
+                                 / float(g.abs().max()))
+        experts = tr.state.params["encoder.encoder.layer.0.moe.wi"].shape[0]
+        full = tr._full(tr.model.state_dict())
+        del tr, opt
+        torch.cuda.empty_cache()
+        res["ep"] = {"mesh": (mesh.n_data, mesh.n_model), "losses": losses,
+                     "router_spread": spread, "experts": experts,
+                     "ref": reference(cfg, 2, losses, full)}
+        mark(f"ep {mesh.n_data}x{mesh.n_model}")
+
+    def ep_extra(mesh, res):
+        """A bf16 MoE step at dropout 0.1 (K1); phase 4's beam decode of the
+        MoE model through K2b and K4, scored against one process."""
+        cfg = dataclasses.replace(moe_cfg, dropout=RATE,
+                                  attention_dropout=RATE)
+        tr = trainer(cfg, mesh)
+        reset()
+        with Recorder() as rec:
+            loss = steps(tr, mesh, 1)
+        res["ep_counts"] = (counts(), rec.k1, rec.k5, loss)
+        del tr
+        torch.cuda.empty_cache()
+        serve_cfg = dataclasses.replace(moe_cfg,
+                                        decode_attention_impl="fused")
+        full = state_dict_from_flax(tree(moe_cfg), serve_cfg)
+        model = Seq2Seq(serve_cfg, device=dev)
+        model.load_state_dict(shard_params(full, mesh, model.shard_(mesh)))
+        model.eval()
+        Bd, Sd, K, L = MT_DECODE
+        src = torch.as_tensor(np.random.RandomState(SEED).randint(
+            5, 32000, (Bd, Sd))).to(dev)
+        mask = torch.ones_like(src, dtype=torch.bool)
+        n_steps = 0
+        step = model.decode_step
+
+        def counted(*a, **kw):
+            nonlocal n_steps
+            n_steps += 1
+            return step(*a, **kw)
+
+        model.decode_step = counted
+        reset()
+        with recording_decode_attention() as seen4, torch.no_grad():
+            enc = model.encode(src, mask, torch.zeros(
+                (Bd,), dtype=torch.int32, device=dev))
+            best, _ = beam_search(
+                model, enc, mask,
+                torch.full((Bd,), 6, dtype=torch.int32, device=dev),
+                torch.ones((Bd,), dtype=torch.int32, device=dev),
+                torch.full((Bd,), Sd, dtype=torch.int32, device=dev),
+                beam_width=K, max_len=max_len_for_decode(Sd),
+                len_penalty_ratio=0.8, pad_id=dense.pad_id, eos_id=-1)
+        decode = (n_steps, tkp.LAUNCHES, tkp.MERGE_LAUNCHES, da.LAUNCHES,
+                  seen4)
+        del model, enc
+        torch.cuda.empty_cache()
+        if rank == 0:
+            # The one-process decode, and both decodes' sequence scores
+            # under the one-process model.
+            one = Seq2Seq(serve_cfg, device=dev)
+            one.load_state_dict(full)
+            one.eval()
+            best_one, _, _, _ = run_decode(one, Bd, Sd, K, dev)
+            s_one = sequence_scores(one, src, best_one)
+            s_ep = sequence_scores(one, src, best)
+            rel = float(((s_ep - s_one).abs() / s_one.abs()).max())
+            same = float((best == best_one).float().mean())
+            decode += (rel, same)
+            del one
+        res["ep_decode"] = decode
+        del full
+        torch.cuda.empty_cache()
+        mark("ep extra")
+
+    # Ranks 0 and 1 first, as 2x1 and 1x2 meshes of their own (JAX's
+    # make_mesh over the first D x M devices), while 2 and 3 wait; then
+    # the four.
+    pair_group = dist.new_group([0, 1])       # collective: every rank
+    if rank < 2:
+        pair = out["pair"] = {}
+        zero_part(ProcessMesh(2, 1, rank, 0, None, pair_group, dev), pair,
+                  with_bf16=True)
+        pipe = ProcessMesh(1, 2, 0, rank, pair_group, None, dev)
+        pp_part(pipe, pair)
+        pp_extra(pipe, pair)
+        ep_part(pipe, pair)
+        ep_extra(pipe, pair)
+    dist.barrier()
+    quad = out["quad"] = {}
+    zero_part(make_mesh(2, 2, device="cuda"), quad, with_bf16=False)
+    pp_part(make_mesh(1, 4, device="cuda"), quad)
+    ep_part(make_mesh(2, 2, device="cuda"), quad)
+
+    # ---- the CLI ----
+    cli = []
+    for argv in cli_argvs:
+        reset()
+        text = io.StringIO()
+        with Recorder() as rec, contextlib.redirect_stdout(text):
+            train_main(argv)
+        cli.append((counts(), tkp.LAUNCHES, rec.k1, rec.k5, text.getvalue()))
+        torch.cuda.empty_cache()
+    quad["cli"] = cli
+    mark("cli")
+    return out
+
+
+def phase_14b(card, checked, checked_xent, checked_k4):
+    """Phase 30: ZeRO-1, the GPipe pipeline and expert parallelism
+    (module 14b parts 1-3) at BERT-base width (V=32000, 6+3 layers, B=256,
+    S=T=64, fp32 masters) on ranks that share the card over gloo:
+    correctness only, no speed is read. One spawn of four ranks; the 2x1
+    and 1x2 meshes on ranks 0 and 1. ZeRO-1 at 2x1 and 2x2: three fp32
+    steps with and without --zero from one seed under torch's deterministic
+    algorithms (largest parameter difference within ZERO_TOL of the largest
+    value), each rank's optimizer state smaller by (1 - 1/D) of its split
+    tensors'; then three bf16 steps at dropout 0.1 with the fused
+    cross-entropy under --zero (K1, K5). GPipe (M=4) at 1x2 and 1x4 (its
+    last stage holds no decoder layer): two fp32 steps at dropout 0 against
+    one process (PARITY_TOL); at 1x2 one bf16 step at dropout 0.1 (K1 12 M
+    + 12 M summed over the stages, 24 M forwards under remat; K5 1 + 1) and
+    a beam decode of the gathered model (K2 and, "fused", K4 every step).
+    EP (8 experts, top-2) at 1x2 and 2x2: two fp32 steps against one
+    process, the router and its moments equal across each model group
+    (ROUTER_TOL); at 1x2 a bf16 step at dropout 0.1 (K1) and phase 4's beam
+    decode of the MoE model (K2b and K4 every step, sequence scores within
+    DECODE_SCORE_RTOL of the one-process decode). Then, in the four ranks,
+    cli.train_mt --mesh 2x2 --zero, --mesh 1x4 --pp-microbatches 4 and
+    --mesh 2x2 --moe-experts 4 for a few steps, and cli.translate on the
+    pipelined run's checkpoint in this process. Returns (K1 fwd, K1 bwd, K5
+    fwd, K5 bwd, K2, K2b merges, K4) launches."""
+    import numpy as np
+    import torch
+
+    from imagetranslate_tpu_torch.cli import create_mt_batches
+    from imagetranslate_tpu_torch.cli import train_tokenizer
+    from imagetranslate_tpu_torch.cli.translate import main as translate_main
+    from imagetranslate_tpu_torch.ops import topk_project as tkp
+    from imagetranslate_tpu_torch.parallel.spawn import run_ranks
+
+    per = 6 + 2 * 3                 # K1 calls a forward: 6 enc + 3 dec x 2
+    k1_seen, k5_seen, k4_seen = set(), set(), set()
+    totals = [0] * 7
+
+    def add(c):
+        for i, x in enumerate(c):
+            totals[i] += x
+
+    with tempfile.TemporaryDirectory() as workdir:
+        rng = np.random.RandomState(SEED + 30)
+        lines = [" ".join(WORDS[j] for j in rng.randint(
+            0, len(WORDS), rng.randint(2, 12))) for _ in range(200)]
+        paths = {n: os.path.join(workdir, n) for n in (
+            "src.txt", "dst.txt", "tagged.txt", "tok", "train.mt", "in.txt",
+            "out.txt", "store", "zero", "pp", "moe")}
+        for name, rows in (("src.txt", lines), ("in.txt", lines[:50]),
+                           ("dst.txt", [" ".join(reversed(ln.split()))
+                                        for ln in lines])):
+            with open(paths[name], "w") as f:
+                f.write("\n".join(rows) + "\n")
+        with open(paths["tagged.txt"], "w") as f:
+            f.write("\n".join(f"<en> {ln} </s>" for ln in lines) + "\n")
+            f.write("<fa> " + lines[0] + " </s>\n")
+        train_tokenizer.main(["--data", paths["tagged.txt"], "--vocab_size",
+                              "300", "--model", paths["tok"]])
+        create_mt_batches.main(["--tok", paths["tok"], "--src",
+                                paths["src.txt"], "--src-lang", "en", "--dst",
+                                paths["dst.txt"], "--dst-lang", "fa",
+                                "--output", paths["train.mt"]])
+        # The CLIs at phase 26's width, two layers a stack: a stage of the
+        # 1x4 pipeline holds one layer of a stack or none.
+        common = ["--tok", paths["tok"], "--train_mt", paths["train.mt"],
+                  "--enc", "2", "--dec", "2", "--step", str(P30_CLI_STEPS),
+                  "--batch", "2000", "--lr", "0.001", "--warmup", "10",
+                  "--device", "cuda"]
+        cli_argvs = [
+            ["--mesh", "2x2", "--zero", "--model", paths["zero"], *common],
+            ["--mesh", "1x4", "--pp-microbatches", "4", "--model",
+             paths["pp"], *common],
+            ["--mesh", "2x2", "--moe-experts", "4", "--model", paths["moe"],
+             *common]]
+        t0 = time.perf_counter()
+        got = run_ranks(z14b_rank, 4, paths["store"], (workdir, cli_argvs),
+                        device="cuda", timeout=900)
+        t_ranks = time.perf_counter() - t0
+        pair = [r["pair"] for r in got[:2]]
+        quad = [r["quad"] for r in got]
+
+        # -- ZeRO-1 --
+        for ranks in (pair, quad):
+            for r, res in enumerate(ranks):
+                z = res["zero"]
+                n_data = z["mesh"][0]
+                want = z["bytes"][0] - 2 * z["split"] * (n_data - 1) // n_data
+                if not (z["share"] <= ZERO_TOL and z["bytes"][1] == want
+                        and z["split"] > 0 and all(np.isfinite(
+                            x).all() for x in z["losses"])):
+                    raise AssertionError(
+                        f"zero {z['mesh']} rank {r}: parameters differ by "
+                        f"{z['share']:.3g} of the largest (limit "
+                        f"{ZERO_TOL:.0e}); optimizer state {z['bytes']} B, "
+                        f"want {want} with --zero; losses {z['losses']}")
+                add(z["counts"] + (0, 0, 0))
+                k1_seen |= z["k1"]
+                k5_seen |= z["k5"]
+            z = ranks[0]["zero"]
+            log(f"[14b zero] {z['mesh'][0]}x{z['mesh'][1]}: 3 fp32 steps "
+                f"with and without --zero under deterministic algorithms: "
+                f"losses {z['losses'][0]} and {z['losses'][1]}; largest "
+                f"parameter difference "
+                f"{max(r['zero']['share'] for r in ranks):.3g} of the "
+                f"largest value (limit {ZERO_TOL:.0e}); rank 0's optimizer "
+                f"state {z['bytes'][0] / 2**20:.1f} -> "
+                f"{z['bytes'][1] / 2**20:.1f} MiB (its split tensors "
+                f"{z['split'] / 2**20:.1f} MiB, moments x2, over D="
+                f"{z['mesh'][0]}) ({card})")
+        z = pair[0]["zero"]
+        fwd = sum(r["zero"]["counts"][0] for r in pair)
+        if fwd != per * 3 * 2 or z["counts"][2] != 3:
+            raise AssertionError(f"zero 2x1 bf16: K1 {fwd} forwards over "
+                                 f"the ranks, K5 {z['counts']}")
+        log(f"[14b zero] 2x1, 3 bf16 steps at dropout 0.1 under --zero: "
+            f"losses {z['losses'][2]}, K1 {fwd} + "
+            f"{sum(r['zero']['counts'][1] for r in pair)} over the ranks, "
+            f"K5 {z['counts'][2]} + {z['counts'][3]} on rank 0 ({card})")
+
+        # -- GPipe --
+        for ranks in (pair, quad):
+            res = ranks[0]["pp"]
+            rel, share, ref = res["ref"]
+            enc = [o for r in ranks for o in r["pp"]["own"]
+                   if o.startswith("encoder")]
+            dec = [o for r in ranks for o in r["pp"]["own"]
+                   if o.startswith("decoder")]
+            if not (rel <= PARITY_TOL and share <= PARITY_TOL
+                    and len(enc) == len(set(enc)) == 6
+                    and len(dec) == len(set(dec)) == 3):
+                raise AssertionError(
+                    f"pp 1x{len(ranks)}: losses {res['losses']} against "
+                    f"{ref} (rel {rel:.3g}), parameters {share:.3g} of the "
+                    f"largest (limit {PARITY_TOL:.0e}); stage layers {enc} "
+                    f"{dec}")
+            log(f"[14b pp] 1x{len(ranks)}, M={P30_MICRO}, fp32 at dropout "
+                f"0: losses {res['losses']} against one process {ref} (rel "
+                f"{rel:.2e}); merged parameters within {share:.2e} of the "
+                f"largest value (limit {PARITY_TOL:.0e}); stage layers "
+                f"{[r['pp']['own'] for r in ranks]} ({card})")
+        for remat, want_fwd in ((False, per * P30_MICRO),
+                                (True, 2 * per * P30_MICRO)):
+            c = [r["pp_counts"][remat][0] for r in pair]
+            got_c = tuple(sum(x[i] for x in c) for i in range(4))
+            if got_c != (want_fwd, per * P30_MICRO, 1, 1):
+                raise AssertionError(
+                    f"pp 1x2 {'remat' if remat else 'step'}: (K1 fwd, K1 "
+                    f"bwd, K5 fwd, K5 bwd) over the stages {got_c}, want "
+                    f"({want_fwd}, {per * P30_MICRO}, 1, 1)")
+            for r in pair:
+                add(r["pp_counts"][remat][0] + (0, 0, 0))
+                k1_seen |= r["pp_counts"][remat][1]
+                k5_seen |= r["pp_counts"][remat][2]
+            log(f"[14b pp] 1x2 bf16 step at dropout 0.1"
+                f"{' under remat' if remat else ''}: K1 {got_c[0]} + "
+                f"{got_c[1]} over the stages ({per} + {per} a microbatch, "
+                f"M={P30_MICRO}), K5 {got_c[2]} + {got_c[3]}; loss "
+                f"{pair[0]['pp_counts'][remat][3]} ({card})")
+        for r, res in enumerate(pair):
+            n_steps, k2_n, k4_n, seen4, tokens = res["pp_decode"]
+            if not (n_steps > 0 and k2_n == n_steps and k4_n == 3 * n_steps):
+                raise AssertionError(
+                    f"pp decode rank {r}: {n_steps} steps, K2 {k2_n}, K4 "
+                    f"{k4_n}")
+            k4_seen |= seen4
+            add((0, 0, 0, 0, k2_n, 0, k4_n))
+        log(f"[14b pp] the dev decode of the gathered model on each stage "
+            f"(B={MT_DECODE[0]}, beam {MT_DECODE[2]}, fused): "
+            f"{pair[0]['pp_decode'][0]} steps, K2 and 3 K4 launches a step; "
+            f"{pair[0]['pp_decode'][4]} tokens ({card})")
+
+        # -- EP --
+        for ranks in (pair, quad):
+            res = ranks[0]["ep"]
+            rel, share, ref = res["ref"]
+            spread = max(r["ep"]["router_spread"] for r in ranks)
+            if not (rel <= PARITY_TOL and share <= PARITY_TOL
+                    and spread <= ROUTER_TOL and res["experts"] == 4):
+                raise AssertionError(
+                    f"ep {res['mesh']}: losses {res['losses']} against {ref} "
+                    f"(rel {rel:.3g}), parameters {share:.3g} of the "
+                    f"largest (limit {PARITY_TOL:.0e}), routers differ "
+                    f"across a model group by {spread:.3g} of their "
+                    f"largest (limit {ROUTER_TOL:.0e}), "
+                    f"{res['experts']} experts a rank")
+            log(f"[14b ep] {res['mesh'][0]}x{res['mesh'][1]}, 8 experts "
+                f"top-2 (4 a rank), fp32 at dropout 0: losses "
+                f"{res['losses']} against one process {ref} (rel "
+                f"{rel:.2e}); parameters within {share:.2e} of the largest "
+                f"value (limit {PARITY_TOL:.0e}); router weights and "
+                f"moments across each model group within {spread:.2e} of "
+                f"their largest value (limit {ROUTER_TOL:.0e}) ({card})")
+        c = [r["ep_counts"][0] for r in pair]
+        if sum(x[0] for x in c) != 2 * per or sum(x[1] for x in c) != 2 * per:
+            raise AssertionError(f"ep 1x2 bf16 step: K1 {c}")
+        for r in pair:
+            add(r["ep_counts"][0] + (0, 0, 0))
+            k1_seen |= r["ep_counts"][1]
+        for r, res in enumerate(pair):
+            n_steps, k2_n, merge_n, k4_n, seen4 = res["ep_decode"][:5]
+            if not (n_steps > 0 and k2_n == merge_n == n_steps
+                    and k4_n == 3 * n_steps):
+                raise AssertionError(
+                    f"ep decode rank {r}: {n_steps} steps, K2 {k2_n}, "
+                    f"merges {merge_n}, K4 {k4_n}")
+            k4_seen |= seen4
+            add((0, 0, 0, 0, k2_n, merge_n, k4_n))
+        n_steps, _, _, _, _, rel, same = pair[0]["ep_decode"]
+        if rel > DECODE_SCORE_RTOL:
+            raise AssertionError(f"ep decode: sequence scores differ from "
+                                 f"the one-process decode by {rel:.3g}")
+        log(f"[14b ep] 1x2 bf16 step at dropout 0.1: K1 "
+            f"{sum(x[0] for x in c)} + {sum(x[1] for x in c)} over the "
+            f"ranks; the MoE beam decode at 1x2 (bf16, fused; B="
+            f"{MT_DECODE[0]} S={MT_DECODE[1]} beam {MT_DECODE[2]} L="
+            f"{max_len_for_decode(MT_DECODE[1])}): {n_steps} steps, each "
+            f"rank K2 on V/2, a merge and 3 K4 launches a step; tokens "
+            f"{same:.4f} equal to the one-process decode's, sequence scores "
+            f"within {rel:.2e} (limit {DECODE_SCORE_RTOL:.0e}) ({card})")
+        log(f"[14b] four ranks in {t_ranks:.1f} s, over {got[0]['where']}; "
+            f"seconds a part on rank 0: {got[0]['seconds']}")
+
+        # -- the CLI --
+        for i, name in enumerate(("--mesh 2x2 --zero",
+                                  "--mesh 1x4 --pp-microbatches 4",
+                                  "--mesh 2x2 --moe-experts 4")):
+            fwd = sum(r["cli"][i][0][0] for r in quad)
+            bwd = sum(r["cli"][i][0][1] for r in quad)
+            text = quad[0]["cli"][i][4]
+            losses = [float(ln.rsplit(" ", 1)[1]) for ln in text.splitlines()
+                      if ln.startswith("Total loss in this epoch:")]
+            if (not losses or not all(np.isfinite(losses)) or fwd == 0
+                    or bwd == 0 or "Finished Training!" not in text):
+                raise AssertionError(f"train_mt {name}: losses {losses}, K1 "
+                                     f"{fwd} + {bwd}:\n{text[-2000:]}")
+            for r in quad:
+                add(r["cli"][i][0] + (r["cli"][i][1], 0, 0))
+                k1_seen |= r["cli"][i][2]
+                k5_seen |= r["cli"][i][3]
+            log(f"[14b cli] cli.train_mt {name} (2+2 layers) in the four "
+                f"ranks: {P30_CLI_STEPS} steps, epoch losses {losses}, K1 "
+                f"{fwd} + {bwd} over the ranks ({card})")
+        tkp.LAUNCHES = 0
+        translate_main(["--tok", paths["tok"], "--model",
+                        paths["pp"] + ".latest", "--input", paths["in.txt"],
+                        "--output", paths["out.txt"], "--src", "en",
+                        "--target", "fa", "--device", "cuda"])
+        with open(paths["out.txt"]) as f:
+            n_lines = len(f.read().splitlines())
+        if n_lines != 50 or tkp.LAUNCHES == 0:
+            raise AssertionError(f"translate of the pipelined checkpoint: "
+                                 f"{n_lines} lines, K2 {tkp.LAUNCHES}")
+        add((0, 0, 0, 0, tkp.LAUNCHES, 0, 0))
+        log(f"[14b cli] cli.translate of the --pp-microbatches checkpoint "
+            f"(weights and step) in one process: 50 lines, K2 "
+            f"{tkp.LAUNCHES} launches ({card})")
+
+    # Every shape the ranks gave the kernels was held against its plain
+    # version: K1 here for those phase 6 did not take (the CLI's buckets),
+    # K5 and K4 by phases 9 and 16.
+    hold_k1("14b", k1_seen, checked)
+    if k5_seen - checked_xent or k4_seen - checked_k4:
+        raise AssertionError(f"14b: K5 shapes {sorted(k5_seen - checked_xent)}"
+                             f" or K4 shapes {sorted(k4_seen - checked_k4)[:8]}"
+                             " were not held against the plain version")
+    torch.cuda.empty_cache()
+    return tuple(totals)
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "imagetranslate_tpu_torch")):
         print("chip_smoke.py must run from a checkout of the repository "
@@ -6524,12 +7208,13 @@ def main() -> int:
         cli_k1, cli_k5 = umt_cli_shapes(corpus[3].vocab_size())
         mt_k1, mt_k5 = image_mt_shapes()
         pack = pack_shapes()
+        z14b_k1, z14b_k5 = p30_shapes()
         attn_fwd, attn_bwd, checked = phase_kernel_attention(
             cli_k1 + caption_train_k1_shapes() + mt_k1
-            + module11_shapes(m11) + pack[2])
+            + module11_shapes(m11) + pack[2] + z14b_k1)
         done("6")
         xent_fwd, xent_bwd, checked_xent = phase_kernel_xent(
-            cli_k5 + mt_k5 + pack[3])
+            cli_k5 + mt_k5 + pack[3] + z14b_k5)
         flash, checked_flash = phase_kernel_flash([long_cli_shape()])
         dec_attn, checked_k4 = phase_kernel_decode_attention(
             decode_path_shapes())
@@ -6610,6 +7295,14 @@ def main() -> int:
     fwd_launches += tp_fwd
     bwd_launches += tp_bwd
     done("25-26")
+    z = phase_14b(card, checked, checked_xent, checked_k4)
+    fwd_launches += z[0]
+    bwd_launches += z[1]
+    xent_launches = (xent_launches[0] + z[2], xent_launches[1] + z[3])
+    launches += z[4]
+    tp_merge += z[5]
+    dec_attn_launches += z[6]
+    done("30")
     attn_src = "imagetranslate_tpu_torch/csrc/train_attention.cu"
     xent_src = "imagetranslate_tpu_torch/csrc/xent.cu"
     print(card)

@@ -40,11 +40,27 @@ rank, D x M = the number of ranks (parallel/mesh.py):
         --mesh 2x2 --tok TOKDIR --model OUT --train_mt train.mt ...
 
 Every rank builds the same batches and trains on its rows; rank 0 writes
-the checkpoints (the one-device layout) and logs.
+the checkpoints (the one-device layout) and logs. Under a mesh, ``--zero``
+splits the optimizer state over the data axis (ZeRO-1), ``--pp-microbatches
+M`` makes the model axis M-microbatch GPipe pipeline stages, and
+``--moe-experts N`` splits each bank's experts over the model axis (expert
+parallelism):
+
+    torchrun --nproc-per-node 4 -m imagetranslate_tpu_torch.cli.train_mt \
+        --mesh 2x2 --zero ...
+    torchrun --nproc-per-node 4 -m imagetranslate_tpu_torch.cli.train_mt \
+        --mesh 1x4 --pp-microbatches 4 ...
+    torchrun --nproc-per-node 4 -m imagetranslate_tpu_torch.cli.train_mt \
+        --mesh 2x2 --moe-experts 8 ...
+
+A pipelined run's checkpoints hold the weights and the step: ``--cont`` with
+``--pp-microbatches`` is refused, ``--pretrained`` resumes the schedule at
+the saved step.
 
 Checkpoints are the JAX package's directory layout, so either package resumes
-from and translates with what the other trained. A flag whose path is not
-ported yet stops the run with a message that names the ROADMAP module.
+from and translates with what the other trained. ``--mesh`` with the image
+stream (``--train``) stops the run with a message that names the ROADMAP
+module.
 """
 
 from __future__ import annotations
@@ -53,16 +69,6 @@ import argparse
 import dataclasses
 import glob
 import os
-
-# dest -> (flag, where the path is planned), for flags that are parsed (the
-# command lines stay interchangeable) but whose path is not ported: any value
-# but the flag's default stops the run.
-UNPORTED = {
-    "pp_microbatches": ("--pp-microbatches",
-                        "pipeline parallelism: ROADMAP module 14b"),
-    "zero": ("--zero", "ZeRO-1: ROADMAP module 14b"),
-}
-
 
 def get_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser("train_mt")
@@ -150,14 +156,14 @@ def main(argv=None):
     if options.train_path is not None and options.lm_path is not None:
         raise SystemExit("--lm with --train: the image trainer starts from "
                          "--pretrained (the JAX CLI ignores --lm there)")
-    for dest, (flag, where) in UNPORTED.items():
-        if getattr(options, dest) != parser.get_default(dest):
-            raise SystemExit(f"{flag} is not ported yet ({where})")
-    if options.mesh_spec and (options.train_path is not None
-                              or options.moe_experts):
-        raise SystemExit("--mesh with --train (the image trainer) or with "
-                         "--moe-experts is not ported yet (ROADMAP module "
-                         "14b)")
+    if options.mesh_spec and options.train_path is not None:
+        raise SystemExit("--mesh with --train (the image trainer) is not "
+                         "ported yet (ROADMAP module 14b)")
+    if options.pp_microbatches and options.continue_train:
+        raise SystemExit(
+            "--cont with --pp-microbatches: optimizer moments are "
+            "stage-stacked and geometry-bound; PP restores weights "
+            "+ step only (drop --cont)")
 
     bt_langs = [lang for lang in options.bt_langs.strip().split(",") if lang]
     if options.finetune_step > 0 and len(set(bt_langs)) != 2:
@@ -190,12 +196,16 @@ def main(argv=None):
     )
 
     mesh = None
+    joined = False       # this run joined the process group (and leaves it)
     if options.mesh_spec:
+        import torch.distributed as dist
+
         from imagetranslate_tpu_torch.parallel.mesh import (
             init_distributed,
             parse_mesh,
         )
 
+        joined = not dist.is_initialized()
         if not init_distributed(device=options.device):
             raise SystemExit("--mesh runs one process a rank: launch with "
                              "torchrun --nproc-per-node N")
@@ -203,6 +213,9 @@ def main(argv=None):
             mesh = parse_mesh(options.mesh_spec, options.device)
         except ValueError as e:
             raise SystemExit(f"--mesh {options.mesh_spec}: {e}") from None
+    if options.zero and mesh is None:
+        raise SystemExit("--zero shards optimizer state over the mesh's "
+                         "data axis; pass --mesh (e.g. --mesh 8x1)")
 
     tp = TextProcessor(options.tokenizer_path)
     if tp.pad_token_id() != 0:
@@ -262,7 +275,9 @@ def main(argv=None):
         trainer = ImageMTTrainer(cfg, tp, mm_mode=options.mm_mode,
                                  **trainer_kwargs)
     else:
-        trainer = MTTrainer(cfg, tp, **trainer_kwargs)
+        trainer = MTTrainer(cfg, tp, zero=options.zero,
+                            pp_microbatches=options.pp_microbatches,
+                            **trainer_kwargs)
 
     if options.lm_path is not None:
         lm = load_params(options.lm_path)["params"]
@@ -292,7 +307,11 @@ def main(argv=None):
                 trainer.graft_mt_model(params)
                 params = opt_tree = None
         if params is not None:
-            trainer.set_reference_params(params)
+            # A pipelined run's checkpoint holds weights and step: the
+            # schedule resumes at the saved step.
+            trainer.set_reference_params(
+                params, step=int(meta.get("step", 0))
+                if options.pp_microbatches else 0)
         if opt_tree is not None:
             trainer.load_opt_state(opt_tree, bridge)
         print(f"Restored pretrained model (step {meta.get('step', 0)})")
@@ -449,9 +468,7 @@ def main(argv=None):
             fepoch += 1
 
     print("Finished Training!")
-    if mesh is not None:
-        import torch.distributed as dist
-
+    if joined:
         dist.destroy_process_group()
 
 

@@ -19,6 +19,7 @@ import torch
 from torch import nn
 
 from imagetranslate_tpu_torch.models.config import Seq2SeqConfig
+from imagetranslate_tpu_torch.models.moe import MoEFeedForward
 from imagetranslate_tpu_torch.models.transformer import (
     Attention,
     Cache,
@@ -169,11 +170,9 @@ class Seq2Seq(nn.Module):
         under the TP rules; parallel/mesh.py), in place, and return the plan
         (state_dict key -> split dim or None). The parameters' values are
         kept: load a full state through ``shard_params`` with the plan
-        afterwards. MoE (expert parallelism) is refused."""
-        if self.cfg.moe_experts:
-            raise NotImplementedError(
-                "MoE under a mesh (expert parallelism) is not ported yet "
-                "(ROADMAP module 14b)")
+        afterwards. An MoE bank keeps its rank's experts (expert
+        parallelism) and routes the data group's global batch
+        (models/moe.py)."""
         sd = self.state_dict()
         plan = shard_plan({k: tuple(v.shape) for k, v in sd.items()}, mesh,
                           self.cfg)
@@ -194,6 +193,9 @@ class Seq2Seq(nn.Module):
                 mod.tp = split(pre + "intermediate.dense.weight")
             elif isinstance(mod, Embeddings):
                 mod.tp = split(pre + "word_embeddings.weight")
+            elif isinstance(mod, MoEFeedForward):
+                mod.tp = split(pre + "wi")
+                mod.dp = mesh if mesh.data_group is not None else None
         out = ("encoder.embeddings.word_embeddings.weight"
                if self.cfg.tie_embed else
                ("output_layer.0.layer.weight" if self.cfg.lang_dec

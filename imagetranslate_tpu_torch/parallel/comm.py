@@ -12,6 +12,16 @@ whole, so its gradient is the sum of the ranks' partial gradients
 (``tp_copy``: identity forward, all_reduce backward); the output of a layer
 whose weight is split by input columns is the sum of the ranks' partial
 products (``tp_reduce``: all_reduce forward, identity backward).
+
+ZeRO-1 (parallel/zero.py) reduce-scatters gradients and all-gathers the
+updated parameter slices over the data group (``reduce_scatter_sum``,
+``all_gather_flat``); the GPipe schedule (parallel/pipeline.py) moves
+activations and their gradients between neighbouring stages (``send``,
+``recv``). Over NCCL these are the native collectives on the card. Gloo, on
+the card machine's torch, aborts the process (``gloo::IoException``) when
+asked for one of them on CUDA tensors, where its ``all_reduce`` works: under
+gloo a CUDA tensor goes through host memory for these four (ranks that share
+one card, whose speed nobody reads), and a CPU tensor takes gloo's own.
 """
 
 from __future__ import annotations
@@ -97,3 +107,59 @@ def tp_copy(x: torch.Tensor, group) -> torch.Tensor:
 def tp_reduce(x: torch.Tensor, group) -> torch.Tensor:
     """Sum over the group forward; the gradient passed through."""
     return x if group is None else _Reduce.apply(x, group)
+
+
+# The single-tensor collectives under their newer names where this torch has
+# them (2.13 deprecates the old ones; the card machine's 2.11 has only those).
+_REDUCE_SCATTER = getattr(dist, "reduce_scatter_single", None) or \
+    dist.reduce_scatter_tensor
+_ALL_GATHER = getattr(dist, "all_gather_single", None) or \
+    dist.all_gather_into_tensor
+
+
+def _via_host(x: torch.Tensor, group) -> bool:
+    """Must ``x`` cross the group through host memory (gloo, CUDA)?"""
+    return x.is_cuda and dist.get_backend(group) != "nccl"
+
+
+def reduce_scatter_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` [n * c] (n the group's size) summed over the group; rank i of
+    the group gets elements [i * c, (i + 1) * c) of the sum, a new tensor."""
+    n = group_size(group)
+    if n == 1:
+        return x
+    host = _via_host(x, group)
+    src = x.detach().contiguous().cpu() if host else x.detach().contiguous()
+    out = src.new_empty(src.numel() // n)
+    _REDUCE_SCATTER(out, src, group=group)
+    return out.to(x.device) if host else out
+
+
+def all_gather_flat(x: torch.Tensor, group) -> torch.Tensor:
+    """[n * c]: the ``x`` [c] of the group's rank i at [i * c, (i + 1) * c)."""
+    n = group_size(group)
+    if n == 1:
+        return x
+    host = _via_host(x, group)
+    src = x.detach().contiguous().cpu() if host else x.detach().contiguous()
+    out = src.new_empty(src.numel() * n)
+    _ALL_GATHER(out, src, group=group)
+    return out.to(x.device) if host else out
+
+
+def send(x: torch.Tensor, dst: int) -> None:
+    """Send ``x`` to global rank ``dst`` (blocking)."""
+    host = _via_host(x, None)
+    dist.send(x.detach().contiguous().cpu() if host
+              else x.detach().contiguous(), dst)
+
+
+def recv(shape, dtype: torch.dtype, device, src: int) -> torch.Tensor:
+    """A tensor of ``shape`` and ``dtype`` from global rank ``src``, on
+    ``device``."""
+    device = torch.device(device)
+    host = device.type == "cuda" and dist.get_backend() != "nccl"
+    out = torch.empty(shape, dtype=dtype,
+                      device="cpu" if host else device)
+    dist.recv(out, src)
+    return out.to(device) if host else out

@@ -151,7 +151,11 @@ def model_axis_size(mesh: Optional[ProcessMesh]) -> int:
 # embedding [V, E] and the untied vocab projection [V, E] and bias V. The
 # attention-output and FFN-output biases, LayerNorms, position and language
 # embeddings, the proposal gate and the tied output bias are replicated.
+# Expert parallelism: an MoE bank's stacked experts (wi [E, H, F], bi [E, F],
+# wo [E, F, H], bo [E, H]) split their expert dim; its fp32 router and its
+# LayerNorm stay replicated.
 _TP_RULES = [
+    (r"\.moe\.(wi|bi|wo|bo)$", 0, False),
     (r"\.self\.(query|key|value)\.(weight|bias)$", 0, True),
     (r"attention\.output\.dense\.weight$", 1, True),
     (r"\.intermediate\.dense\.(weight|bias)$", 0, False),
@@ -183,15 +187,11 @@ def shard_plan(shapes: Mapping[str, Tuple[int, ...]], mesh: ProcessMesh,
     """The dim each tensor shards over the model axis, or None. A dim the
     axis does not divide (in heads, for the attention rules) falls back to
     replication, LOUDLY: the layer then runs as pure data parallelism.
-    MoE banks are refused (expert parallelism is ROADMAP module 14b)."""
+    An MoE bank splits its experts (expert parallelism)."""
     n = mesh.n_model
     plan: Plan = {}
     fallbacks = []
     for name, shape in shapes.items():
-        if n > 1 and ".moe." in name:
-            raise NotImplementedError(
-                "MoE under a model-parallel mesh (expert parallelism) is "
-                "not ported yet (ROADMAP module 14b)")
         spec = param_spec(name, cfg.tie_embed) if n > 1 else None
         if spec is None:
             plan[name] = None

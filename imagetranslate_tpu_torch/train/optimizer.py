@@ -73,10 +73,13 @@ class InverseSqrtAdam:
     update IN PLACE to ``params`` and ``state`` (both dicts of tensors keyed
     by parameter name, ``grads`` in the same order)."""
 
-    # Under a tensor-parallel mesh: the model group and the names of the
-    # parameters split over it (set_tensor_parallel).
+    # Under a tensor-parallel or pipelined mesh: the model group and the
+    # names of the parameters that differ over it (set_tensor_parallel).
     tp_group = None
     tp_sharded: frozenset = frozenset()
+    # Under ZeRO-1: the parallel.zero.ZeroLayout whose split parameters'
+    # moments are this rank's slices (set_zero).
+    zero = None
 
     def __init__(self, lr: float, warmup_updates: int,
                  clip_norm: Optional[float], weight_decay: float):
@@ -91,38 +94,57 @@ class InverseSqrtAdam:
                       + ["schedule", "scale"])
 
     def init(self, params: Dict[str, torch.Tensor]) -> OptState:
-        return OptState(0, {k: torch.zeros_like(p) for k, p in params.items()},
-                        {k: torch.zeros_like(p) for k, p in params.items()},
-                        0)
+        return OptState(0, _zeros(params, self.zero),
+                        _zeros(params, self.zero), 0)
 
     def set_tensor_parallel(self, group, sharded) -> None:
         """The global-norm clip of a model split over ``group``: the norm's
         square is the group's sum of the split parameters' squares plus the
         replicated ones' counted once (``sharded``: the split parameters'
-        names), so every rank clips by the same factor."""
+        names, or a pipeline stage's own layers), so every rank clips by the
+        same factor."""
         self.tp_group, self.tp_sharded = group, frozenset(sharded)
+
+    def set_zero(self, layout) -> None:
+        """ZeRO-1 (parallel/zero.py): ``update`` then takes this rank's
+        slices of the split parameters' gradients (``layout.reduce_grads``),
+        keeps slices of their moments (``init``), and all-gathers the
+        updated slices into the parameters. Call before ``init``."""
+        self.zero = layout
 
     def _global_norm(self, grads: List[torch.Tensor],
                      names: List[str]) -> torch.Tensor:
-        if self.tp_group is None:
+        zero = self.zero
+        if self.tp_group is None and zero is None:
             return torch.linalg.vector_norm(
                 torch.stack(torch._foreach_norm(grads)))
         from imagetranslate_tpu_torch.parallel.comm import all_reduce_sum
 
-        def sq(gs):
+        def sq(data: bool, model: bool):
+            gs = [g for n, g in zip(names, grads)
+                  if (zero is not None and zero.split(n)) == data
+                  and (n in self.tp_sharded) == model]
             if not gs:
                 return torch.zeros((), device=grads[0].device)
             return torch.stack(torch._foreach_norm(gs)).square().sum()
 
-        split = [g for n, g in zip(names, grads) if n in self.tp_sharded]
-        whole = [g for n, g in zip(names, grads) if n not in self.tp_sharded]
-        return torch.sqrt(all_reduce_sum(sq(split), self.tp_group)
-                          + sq(whole))
+        # The squares of the ZeRO slices summed over the data group, those
+        # that differ over the model group summed over it, the rest once.
+        sliced = torch.stack([sq(True, True), sq(True, False)])
+        if zero is not None:
+            sliced = all_reduce_sum(sliced, zero.group)
+        split = sq(False, True) + sliced[0]
+        if self.tp_group is not None:
+            split = all_reduce_sum(split, self.tp_group)
+        return torch.sqrt(split + sliced[1] + sq(False, False))
 
     @torch.no_grad()
     def update(self, grads: List[torch.Tensor], state: OptState,
                params: Dict[str, torch.Tensor]) -> None:
-        ps = list(params.values())
+        """``grads``: one per parameter, in ``params``' order; under ZeRO
+        this rank's slice of a split parameter's."""
+        ps = (list(params.values()) if self.zero is None
+              else self.zero.param_slices(params))
         mu = [state.mu[k] for k in params]
         nu = [state.nu[k] for k in params]
         grads = list(grads)
@@ -151,6 +173,8 @@ class InverseSqrtAdam:
         lr = self.schedule(state.schedule_count)
         state.schedule_count += 1
         torch._foreach_add_(ps, step, alpha=-lr)
+        if self.zero is not None:
+            self.zero.gather_(params, ps)
 
 
 class MultiSteps:
@@ -161,15 +185,23 @@ class MultiSteps:
         self.inner = inner
         self.every_k = int(every_k)
 
+    @property
+    def zero(self):
+        return self.inner.zero
+
     def set_tensor_parallel(self, group, sharded) -> None:
         """The inner update's clip (``InverseSqrtAdam.set_tensor_parallel``);
         the running mean is elementwise on each rank's shards."""
         self.inner.set_tensor_parallel(group, sharded)
 
+    def set_zero(self, layout) -> None:
+        """ZeRO-1 for the inner update and for the running mean, which then
+        holds this rank's slices (JAX shards the accumulation buffer too)."""
+        self.inner.set_zero(layout)
+
     def init(self, params: Dict[str, torch.Tensor]) -> MultiStepsState:
-        return MultiStepsState(
-            0, 0, self.inner.init(params),
-            {k: torch.zeros_like(p) for k, p in params.items()})
+        return MultiStepsState(0, 0, self.inner.init(params),
+                               _zeros(params, self.zero))
 
     @torch.no_grad()
     def update(self, grads: List[torch.Tensor], state: MultiStepsState,
@@ -185,6 +217,15 @@ class MultiSteps:
             state.gradient_step += 1
         else:
             state.mini_step += 1
+
+
+def _zeros(params: Dict[str, torch.Tensor], zero) -> Dict[str, torch.Tensor]:
+    """Zeros shaped like each parameter, or like this rank's slice of it
+    under ZeRO."""
+    if zero is None:
+        return {k: torch.zeros_like(p) for k, p in params.items()}
+    return {k: torch.zeros_like(zero.local(p.detach(), k))
+            for k, p in params.items()}
 
 
 Optimizer = Union[InverseSqrtAdam, MultiSteps]

@@ -117,19 +117,30 @@ def _plus(objective, aux):
 
 
 def _descend(state, optimizer: Optimizer, objective, mesh=None) -> None:
-    """Backward of the scalar ``objective``, the gradients summed over the
-    mesh's data group, the optimizer update in place."""
+    """Backward of the scalar ``objective``, then ``apply_grads``."""
     params = list(state.params.values())
     grads = torch.autograd.grad(objective, params, allow_unused=True)
     # A parameter the batch did not reach (another language's decoder)
     # gets a zero gradient, as jax.grad gives it.
     grads = [torch.zeros_like(p) if g is None else g
              for p, g in zip(params, grads)]
+    apply_grads(state, optimizer, grads, mesh)
+
+
+def apply_grads(state, optimizer: Optimizer, grads, mesh=None) -> None:
+    """The gradients (one per ``state.params`` entry, this rank's) summed
+    over the mesh's data group, the optimizer update in place. Under ZeRO-1
+    (``optimizer.zero``) the split parameters' gradients are
+    reduce-scattered instead, and the update all-gathers their slices."""
     if mesh is not None and mesh.data_group is not None:
-        flat = all_reduce_sum(torch.cat([g.reshape(-1) for g in grads]),
-                              mesh.data_group)
-        grads = [f.view_as(g) for f, g in
-                 zip(flat.split([g.numel() for g in grads]), grads)]
+        zero = getattr(optimizer, "zero", None)
+        if zero is not None:
+            grads = zero.reduce_grads(grads, list(state.params))
+        else:
+            flat = all_reduce_sum(torch.cat([g.reshape(-1) for g in grads]),
+                                  mesh.data_group)
+            grads = [f.view_as(g) for f, g in
+                     zip(flat.split([g.numel() for g in grads]), grads)]
     optimizer.update(grads, state.opt_state, state.params)
     state.step += 1
 

@@ -27,8 +27,17 @@ the global batch semantics (train/step.py). The dev and back-translation
 decodes split the rows over the data group and decode through K2b across
 the model group. Checkpoints hold the gathered full state in the one-device
 layout, written by rank 0; every rank loads the full state and shards it.
-Only rank 0 logs. Pipeline microbatches and ZeRO are refused (ROADMAP module
-14b).
+Only rank 0 logs.
+
+``zero=True`` (ZeRO-1, parallel/zero.py) keeps this rank's slices of the
+split tensors' Adam moments (and of the accumulated gradients under
+``accum``) over the data group; the numbers are those without it, and a
+checkpoint gathers the slices into the one-device layout. ``pp_microbatches
+= M`` (parallel/pipeline.py) makes the model axis the pipeline axis: the
+rank holds its stage's layers (``PipelineStage``), each step runs the GPipe
+schedule over M microbatches, the dev and back-translation decodes run on the
+one-device model the stages gather, and checkpoints carry the weights and
+the step only.
 """
 
 from __future__ import annotations
@@ -55,6 +64,14 @@ from imagetranslate_tpu_torch.parallel.mesh import (
     shard_batch_safe,
     shard_params,
 )
+from imagetranslate_tpu_torch.parallel.pipeline import (
+    PipelineStage,
+    gather_pipeline_params,
+    make_mass_train_step_pp,
+    make_mt_train_step_pp,
+    split_pipeline_params,
+)
+from imagetranslate_tpu_torch.parallel.zero import ZeroLayout
 from imagetranslate_tpu_torch.text.processor import TextProcessor
 from imagetranslate_tpu_torch.train.checkpoint import save_checkpoint
 from imagetranslate_tpu_torch.train.optimizer import (
@@ -86,6 +103,11 @@ class MTTrainer:
     mesh: Optional[ProcessMesh] = None
     chief = True    # rank 0 of the mesh, or no mesh: logs and writes
     plan = None     # under a mesh: state_dict key -> split dim or None
+    # Read as "off" by subclasses that build their own state
+    # (ImageMTTrainer): pipeline microbatches, ZeRO-1's layout.
+    pp = 0
+    zero = None
+    _merged = None  # under PP: ((state, step), the one-device Seq2Seq)
 
     def __init__(self, cfg: Seq2SeqConfig, tp: TextProcessor,
                  params=None, lr: float = 1e-4, warmup: int = 4000,
@@ -102,18 +124,29 @@ class MTTrainer:
         the mesh's device. ``mask_prob`` bounds where a MASS span may start;
         ``bt_beam_width`` is the beam of the back-translation decode (1:
         greedy)."""
-        if pp_microbatches or zero:
-            raise NotImplementedError(
-                "pp_microbatches and zero: pipeline parallelism and ZeRO-1 "
-                "are not ported yet (ROADMAP module 14b)")
+        self.pp = int(pp_microbatches)
+        if self.pp and cfg.moe_experts:
+            raise ValueError(
+                "MoE + pipeline parallelism is unsupported: the staged "
+                "pipeline step (parallel/pipeline.py) does not plumb the "
+                "MoE load-balance aux loss; train MoE with dp/tp/ep "
+                "(--mesh without --pp-microbatches)")
+        if self.pp and (mesh is None or mesh.n_model <= 1):
+            raise SystemExit(
+                "--pp-microbatches needs a --mesh with a model axis > 1 "
+                "(its size becomes the pipeline-stage count)")
         self.cfg = cfg
         self.tp = tp
         self.mesh = mesh
         self.chief = mesh is None or mesh.rank == 0
         self.device = torch.device(device) if mesh is None else mesh.device
-        self.model = Seq2Seq(cfg, device=self.device,
-                             param_dtype=torch.float32)
-        self.plan = None if mesh is None else self.model.shard_(mesh)
+        if self.pp:
+            self.model = PipelineStage(cfg, mesh, device=self.device,
+                                       param_dtype=torch.float32)
+        else:
+            self.model = Seq2Seq(cfg, device=self.device,
+                                 param_dtype=torch.float32)
+            self.plan = None if mesh is None else self.model.shard_(mesh)
         # The dropout seeds: the same stream on every rank.
         self.rng = torch.Generator().manual_seed(seed)
         self.beam_width = beam_width
@@ -129,14 +162,29 @@ class MTTrainer:
             accum)
         if mesh is not None and mesh.model_group is not None:
             self.optimizer.set_tensor_parallel(
-                mesh.model_group,
+                mesh.model_group, self.model.layer_names() if self.pp else
                 [k for k, dim in self.plan.items() if dim is not None])
-        self.mt_step = make_mt_train_step(self.model, self.optimizer,
-                                          label_smoothing=label_smoothing)
-        self.mass_step = make_mass_train_step(
-            self.model, self.optimizer, cfg, mask_prob=mask_prob,
-            n_specials=len(tp.special_tokens), mask_id=tp.mask_token_id(),
-            label_smoothing=label_smoothing)
+        if zero and mesh is not None and mesh.n_data > 1:
+            self.zero = ZeroLayout(
+                {k: p.shape for k, p in self.model.named_parameters()}, mesh,
+                cfg, self.plan)
+            self.optimizer.set_zero(self.zero)
+        specials = dict(n_specials=len(tp.special_tokens),
+                        mask_id=tp.mask_token_id(),
+                        label_smoothing=label_smoothing)
+        if self.pp:
+            self.mt_step = make_mt_train_step_pp(
+                self.model, self.optimizer, self.pp,
+                label_smoothing=label_smoothing)
+            self.mass_step = make_mass_train_step_pp(
+                self.model, self.optimizer, self.pp, mask_prob=mask_prob,
+                **specials)
+        else:
+            self.mt_step = make_mt_train_step(
+                self.model, self.optimizer, label_smoothing=label_smoothing)
+            self.mass_step = make_mass_train_step(
+                self.model, self.optimizer, cfg, mask_prob=mask_prob,
+                **specials)
         self.set_reference_params(
             random_params(cfg, seed) if params is None else params)
 
@@ -168,14 +216,15 @@ class MTTrainer:
                            + [(0, 0)] * (a.ndim - 1))
             return torch.as_tensor(a[lo:hi]).to(self.device)
 
+        model = self.decode_model()
         mask = dev(src_mask)
-        enc = self.model.encode(dev(src), mask, dev(src_langs))
+        enc = model.encode(dev(src), mask, dev(src_langs))
         L = max_len or max_len_for(src.shape[1], self.max_len_a,
                                    self.max_len_b,
                                    self.cfg.max_position_embeddings)
         L = min(-(-L // 16) * 16, self.cfg.max_position_embeddings)
         best, lengths = beam_search(
-            self.model, enc, mask, dev(first_tokens), dev(tgt_langs),
+            model, enc, mask, dev(first_tokens), dev(tgt_langs),
             dev(src_sizes), beam_width=beam_width, max_len=L,
             max_len_a=self.max_len_a, max_len_b=self.max_len_b,
             len_penalty_ratio=self.len_penalty_ratio,
@@ -185,6 +234,20 @@ class MTTrainer:
             best = all_gather_stack(best, mesh.data_group).flatten(0, 1)
             lengths = all_gather_stack(lengths, mesh.data_group).flatten()
         return best[:n], lengths[:n]
+
+    def decode_model(self) -> Seq2Seq:
+        """The model the decodes run: the trainer's own, or under PP the
+        one-device model the stages gather (collective over the model
+        group; kept until the parameters move)."""
+        if not self.pp:
+            return self.model
+        key = (id(self.state), self.state.step)
+        if self._merged is None or self._merged[0] != key:
+            model = Seq2Seq(self.cfg, device=self.device,
+                            param_dtype=torch.float32)
+            model.load_state_dict(self._full(self.model.state_dict()))
+            self._merged = (key, model.eval())
+        return self._merged[1]
 
     def _shard(self, batch: Dict[str, torch.Tensor]):
         """This rank's rows of a staged batch under a mesh."""
@@ -409,15 +472,34 @@ class MTTrainer:
     # ---------------- persistence / phases ----------------
 
     def _full(self, sd):
-        """A dict of this rank's shards -> the full tensors (collective
-        over the model group under a mesh)."""
+        """The model's state_dict on this rank -> the one-device state_dict
+        (collective over the model group under a mesh: the TP shards
+        gathered, or the pipeline stages merged)."""
+        if self.pp:
+            return gather_pipeline_params(self.model)
         return sd if self.mesh is None else gather_params(sd, self.mesh,
                                                           self.plan)
 
     def _local(self, sd):
-        """A dict of full tensors -> this rank's shards."""
+        """A dict of full tensors -> this rank's shards (or stage)."""
+        if self.pp:
+            return split_pipeline_params(sd, self.cfg, self.mesh.n_model,
+                                         self.mesh.m)
         return sd if self.mesh is None else shard_params(sd, self.mesh,
                                                          self.plan)
+
+    def _full_moments(self, sd):
+        """A moment dict on this rank -> the one-device layout (collective:
+        ZeRO's slices gathered over the data group, then ``_full``)."""
+        if self.zero is not None:
+            sd = self.zero.full_dict(sd, {k: p.shape for k, p in
+                                          self.state.params.items()})
+        return gather_params(sd, self.mesh, self.plan) if self.mesh else sd
+
+    def _local_moments(self, sd):
+        """The inverse of ``_full_moments``."""
+        sd = self._local(sd)
+        return sd if self.zero is None else self.zero.local_dict(sd)
 
     def params_tree(self) -> dict:
         """The fp32 master parameters as the flax-layout tree (gathered
@@ -426,20 +508,30 @@ class MTTrainer:
                                     self.cfg)
 
     def _save(self, path: str, step: int):
-        """Every rank gathers; rank 0 writes the one-device layout."""
+        """Every rank gathers; rank 0 writes the one-device layout. Under PP
+        the weights and the step only: the moments are the stages' (JAX
+        keeps them stage-stacked and bound to the geometry), so a resumed
+        run keeps its schedule step and restarts Adam's moments."""
         params = self.params_tree()
+        if self.pp:
+            if self.chief:
+                save_checkpoint(path, self.cfg, params, step=step,
+                                best_metric=self.best_bleu)
+            return
         opt_state = flax_from_opt_state(
-            map_moments(self.state.opt_state, self._full), self.optimizer,
-            self.cfg)
+            map_moments(self.state.opt_state, self._full_moments),
+            self.optimizer, self.cfg)
         if self.chief:
             save_checkpoint(path, self.cfg, params, opt_state=opt_state,
                             step=step, best_metric=self.best_bleu)
 
     def set_reference_params(self, params, step: int = 0):
         """Replace the model weights from a flax-layout tree (the full
-        state; sharded here under a mesh) and reset the optimizer state to
-        match. ``step`` (a checkpoint's saved step) re-seats the LR schedule
-        there."""
+        state; sharded here under a mesh, split into the stage under PP) and
+        reset the optimizer state to match. ``step`` (a checkpoint's saved
+        step) re-seats the LR schedule there (PP checkpoints carry the
+        weights and the step only)."""
+        self._merged = None
         self.model.load_state_dict(
             self._local(state_dict_from_flax(params, self.cfg)))
         self.state = create_train_state(dict(self.model.named_parameters()),
@@ -449,10 +541,16 @@ class MTTrainer:
 
     def load_opt_state(self, tree, bridge=SEQ2SEQ):
         """The optimizer state from a checkpoint's optax tree (the full
-        state; sharded here under a mesh)."""
+        state; sharded here under a mesh, sliced under ZeRO: JAX's
+        ``_maybe_zero`` after a restore)."""
+        if self.pp:
+            raise ValueError(
+                "--cont with --pp-microbatches: optimizer moments are "
+                "stage-stacked and geometry-bound; PP restores weights "
+                "+ step only (drop --cont)")
         self.state.opt_state = map_moments(
             opt_state_from_flax(tree, self.optimizer, self.cfg, self.device,
-                                bridge), self._local)
+                                bridge), self._local_moments)
 
     def reset_for_finetune(self):
         """Phase 2 entry: restart the LR schedule, keep the moments."""

@@ -1,5 +1,7 @@
-"""Rank functions for tests/test_torch_port_parallel.py and
-tests/test_torch_port_k2b.py: each runs in a process of its own, spawned by
+"""Rank functions for tests/test_torch_port_parallel.py,
+tests/test_torch_port_k2b.py, tests/test_torch_port_zero.py,
+tests/test_torch_port_pipeline.py and
+tests/test_torch_port_expert_parallel.py: each runs in a process of its own, spawned by
 ``imagetranslate_tpu_torch.parallel.spawn.run_ranks`` and joined to its
 peers over gloo on the CPU. This module imports torch and the port only
 (never JAX), so that the ranks start quickly; inputs and results are numpy
@@ -12,6 +14,7 @@ from imagetranslate_tpu_torch.models.config import Seq2SeqConfig
 from imagetranslate_tpu_torch.models.seq2seq import Seq2Seq
 from imagetranslate_tpu_torch.parallel.comm import group_rank
 from imagetranslate_tpu_torch.parallel.mesh import (
+    ProcessMesh,
     gather_params,
     make_mesh,
     shard_batch_safe,
@@ -60,9 +63,13 @@ def project_topk(rank, cases, k):
 
 
 def train_step(rank, cfg, params, batch, meshes, lr, warmup, clip):
-    """One MT step from ``params`` under each (n_data, n_model) of
-    ``meshes``; per mesh the global loss sum and count and the gathered
-    updated parameters and Adam first moments."""
+    """One MT step from ``params`` under each (n_data, n_model) or
+    (n_data, n_model, min_size) of ``meshes``, the latter under ZeRO-1 with
+    the layout's ``min_size`` lowered (the tiny model's tensors are all
+    below JAX's 4096); per mesh the global loss sum and count, the gathered
+    updated parameters and Adam first moments, and how many tensors this
+    rank holds a ZeRO slice of."""
+    from imagetranslate_tpu_torch.parallel.zero import ZeroLayout
     from imagetranslate_tpu_torch.train.optimizer import build_optimizer
     from imagetranslate_tpu_torch.train.step import (
         create_train_state,
@@ -71,23 +78,32 @@ def train_step(rank, cfg, params, batch, meshes, lr, warmup, clip):
 
     torch.set_num_threads(1)
     out = []
-    for n_data, n_model in meshes:
+    for n_data, n_model, *min_size in meshes:
         mesh = make_mesh(n_data, n_model, device="cpu")
         model, plan = _sharded_model(cfg, params, mesh, torch.float32)
         opt = build_optimizer(lr=lr, warmup_updates=warmup, clip_norm=clip)
         if mesh.model_group is not None:
             opt.set_tensor_parallel(
                 mesh.model_group, [k for k, d in plan.items() if d is not None])
+        shapes = {k: p.shape for k, p in model.named_parameters()}
+        zero = None
+        if min_size:
+            zero = ZeroLayout(shapes, mesh, cfg, plan,
+                              min_size=min_size[0])
+            opt.set_zero(zero)
         state = create_train_state(dict(model.named_parameters()), opt)
         step = make_mt_train_step(model.train(), opt)
         local = shard_batch_safe(
             {k: torch.tensor(v) for k, v in batch.items()}, mesh)
         state, metrics = step(state, local, torch.Generator().manual_seed(0))
         full = gather_params(model.state_dict(), mesh, plan)
-        mu = gather_params(state.opt_state.mu, mesh, plan)
+        mu = state.opt_state.mu
+        if zero is not None:
+            mu = zero.full_dict(mu, shapes)
+        mu = gather_params(mu, mesh, plan)
         out.append((float(metrics["sum_loss"]), float(metrics["ntokens"]),
-                    {k: v.numpy() for k, v in full.items()},
-                    {k: v.numpy() for k, v in mu.items()}))
+                    _np(full), _np(mu),
+                    0 if zero is None else sum(map(zero.split, shapes))))
     return out
 
 
@@ -118,3 +134,178 @@ def beam_decode(rank, cfg, params, src, mask, langs, first, tgt_langs,
         lengths = all_gather_stack(lengths, mesh.data_group).flatten()
         out.append((best.numpy(), lengths.numpy()))
     return out
+
+
+class Tok:
+    """What MTTrainer reads of a TextProcessor outside its decodes."""
+    special_tokens = ["<pad>", "<unk>", "<s>", "<mask>", "</s>"]
+
+    def pad_token_id(self):
+        return 0
+
+    def mask_token_id(self):
+        return 3
+
+    def sep_token_id(self):
+        return 4
+
+
+def _np(sd):
+    return {k: v.detach().cpu().numpy() for k, v in sd.items()}
+
+
+def _trainer_steps(trainer, batches, mesh):
+    """Each (kind, batch) of ``batches`` through the trainer's step on this
+    rank's rows, step i's generator seeded with i (so that a MASS step
+    draws the one-process step's spans: the steps draw different numbers
+    of dropout seeds); the global losses."""
+    losses = []
+    for i, (kind, batch) in enumerate(batches):
+        local = shard_batch_safe({k: torch.tensor(v) for k, v in
+                                  batch.items()}, mesh)
+        fn = trainer.mass_step if kind == "mass" else trainer.mt_step
+        trainer.state, m = fn(trainer.state, local,
+                              torch.Generator().manual_seed(i))
+        losses.append(float(m["sum_loss"]) / float(m["ntokens"]))
+    return losses
+
+
+def _state_bytes(opt_state) -> int:
+    """The bytes of the optimizer state's tensors on this rank."""
+    from imagetranslate_tpu_torch.train.optimizer import map_moments
+
+    total = []
+    map_moments(opt_state, lambda d: total.append(
+        sum(t.numel() * t.element_size() for t in d.values())) or d)
+    return sum(total)
+
+
+def zero_steps(rank, cfg, params, batches, cases, opt_kw, out_dir):
+    """Per (n_data, n_model, zero, accum) of ``cases``: an MTTrainer over
+    that mesh takes ``batches``, then saves its checkpoint (rank 0 writes
+    ``out_dir/case{i}``). Returns per case the losses, this rank's
+    optimizer-state bytes, and the ZeRO layout's flax dims (None without
+    ZeRO), and whether a trainer that loads the checkpoint's optimizer
+    state holds the same moments (slices under ZeRO)."""
+    from imagetranslate_tpu_torch.train.checkpoint import load_checkpoint
+    from imagetranslate_tpu_torch.train.optimizer import map_moments
+    from imagetranslate_tpu_torch.train.trainer_mt import MTTrainer
+
+    torch.set_num_threads(1)
+    out = []
+    for i, (n_data, n_model, zero, accum) in enumerate(cases):
+        mesh = make_mesh(n_data, n_model, device="cpu")
+        trainer = MTTrainer(cfg, Tok(), params=params, mesh=mesh, zero=zero,
+                            accum=accum, device="cpu", **opt_kw)
+        losses = _trainer_steps(trainer, batches, mesh)
+        path = f"{out_dir}/case{i}"
+        trainer._save(path, trainer.state.step)
+        torch.distributed.barrier()
+        # A resumed run's moments: the saved one-device state, sliced again.
+        again = MTTrainer(cfg, Tok(), params=params, mesh=mesh, zero=zero,
+                          accum=accum, device="cpu", **opt_kw)
+        again.load_opt_state(load_checkpoint(path, with_opt_state=True)[1])
+        same = []
+        map_moments(trainer.state.opt_state, lambda d: same.append(d) or d)
+        map_moments(again.state.opt_state, lambda d: same.append(d) or d)
+        half = len(same) // 2
+        resumed = all(torch.equal(a[k], b[k]) for a, b in
+                      zip(same[:half], same[half:]) for k in a)
+        out.append((losses, _state_bytes(trainer.state.opt_state),
+                    None if trainer.zero is None
+                    else dict(trainer.zero.flax_dims), resumed))
+    return out
+
+
+def _meshes(rank):
+    """(mesh of n_data x n_model): the world's mesh, or for a mesh of two
+    ranks in a larger world one over ranks 0 and 1 (JAX's make_mesh over the
+    first D x M devices; None on the other ranks). The pair's group is made
+    here, by every rank."""
+    world = torch.distributed.get_world_size()
+    pair = torch.distributed.new_group([0, 1]) if world > 2 else None
+
+    def mesh(n_data, n_model):
+        if n_data * n_model == world:
+            return make_mesh(n_data, n_model, device="cpu")
+        if rank >= 2:
+            return None
+        d, m = (rank, 0) if n_model == 1 else (0, rank)
+        return ProcessMesh(n_data, n_model, d, m,
+                           pair if n_model > 1 else None,
+                           pair if n_data > 1 else None)
+    return mesh
+
+
+def pipeline_steps(rank, cases, opt_kw):
+    """Per (cfg, params, n_data, n_model, microbatches, zero, batches) of
+    ``cases``: a pipelined MTTrainer takes the (kind, batch) ``batches``
+    (a case of two ranks in a world of four on ranks 0 and 1). Returns per
+    case the losses, this rank's parameter names, and (rank 0) the merged
+    one-device parameters; None where the rank sat out."""
+    from imagetranslate_tpu_torch.train.trainer_mt import MTTrainer
+
+    torch.set_num_threads(1)
+    meshes = _meshes(rank)
+    out = []
+    for cfg, params, n_data, n_model, micro, zero, batches in cases:
+        mesh = meshes(n_data, n_model)
+        if mesh is None:
+            out.append(None)
+            continue
+        trainer = MTTrainer(cfg, Tok(), params=params, mesh=mesh,
+                            pp_microbatches=micro, zero=zero, device="cpu",
+                            **opt_kw)
+        losses = _trainer_steps(trainer, batches, mesh)
+        merged = trainer._full(None)
+        out.append((losses, sorted(trainer.state.params),
+                    _np(merged) if rank == 0 else None))
+    return out
+
+
+def expert_parallel(rank, cfg, params, batches, meshes, opt_kw,
+                    decode=None):
+    """Per (n_data, n_model) of ``meshes`` (one of two ranks in a world of
+    four on ranks 0 and 1): an MoE MTTrainer takes ``batches``. Returns per
+    mesh the losses, this rank's router weights with their Adam moments
+    (each rank holds the whole router), the plan and (rank 0) the gathered
+    parameters, or None where the rank sat out; with ``decode`` = (src,
+    mask, langs, first, tgt_langs, sizes, beam_kw), also the beam decode of
+    ``params`` under 1 x 2 (experts split) on ranks 0 and 1: (best,
+    lengths)."""
+    from imagetranslate_tpu_torch.decoding.beam import beam_search
+    from imagetranslate_tpu_torch.train.trainer_mt import MTTrainer
+
+    torch.set_num_threads(1)
+    make = _meshes(rank)
+    out = []
+    for n_data, n_model in meshes:
+        mesh = make(n_data, n_model)
+        if mesh is None:
+            out.append(None)
+            continue
+        trainer = MTTrainer(cfg, Tok(), params=params, mesh=mesh,
+                            device="cpu", **opt_kw)
+        losses = _trainer_steps(trainer, batches, mesh)
+        opt = trainer.state.opt_state
+        routers = {k: (v.detach().numpy(), opt.mu[k].numpy(),
+                       opt.nu[k].numpy())
+                   for k, v in trainer.state.params.items()
+                   if k.endswith("moe.router.weight")}
+        full = trainer._full(trainer.model.state_dict())
+        out.append((losses, routers, trainer.plan,
+                    _np(full) if rank == 0 else None))
+    if decode is None:
+        return out, None
+    mesh = make(1, 2)
+    if mesh is None:
+        return out, None
+    src, mask, langs, first, tgt_langs, sizes, beam_kw = decode
+    model, _ = _sharded_model(cfg, params, mesh)
+    with torch.no_grad():
+        enc = model.encode(torch.tensor(src), torch.tensor(mask),
+                           torch.tensor(langs))
+        best, lengths = beam_search(
+            model, enc, torch.tensor(mask), torch.tensor(first),
+            torch.tensor(tgt_langs), torch.tensor(sizes), **beam_kw)
+    return out, (best.numpy(), lengths.numpy())

@@ -719,11 +719,15 @@ def test_cli_train_captioning_mixed_mode(corpus, tmp_path):
     assert meta["step"] == 2 and opt_tree is not None
 
 
+# --zero is ported: without --mesh it gets the JAX CLI's message. The ids
+# keep the names the cases had when it was refused as unported.
 @pytest.mark.parametrize("flags, message", [
     (["--lm", "x"], "--lm with --train"),
     (["--pp-microbatches", "2"], "text MT/MASS trainer only"),
-    (["--mesh", "2x1"], "module 14"), (["--zero"], "module 14"),
-])
+    (["--mesh", "2x1"], "module 14"),
+    (["--zero"], "data axis; pass --mesh"),
+], ids=["flags0---lm with --train", "flags1-text MT/MASS trainer only",
+        "flags2-module 14", "flags3-module 14"])
 def test_cli_train_mt_refusals_with_images(corpus, tmp_path, flags, message):
     from imagetranslate_tpu_torch.cli.train_mt import main
 

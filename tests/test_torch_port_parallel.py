@@ -6,13 +6,14 @@ store (``parallel.spawn.run_ranks``; the rank functions are in
 tests/_torch_port_ranks.py), rank r at the JAX device r's grid position.
 
 - (a) the rule table: each rank's shard of a tiny Seq2Seq (plain, tied,
-  lang_dec) equals, through the weight bridge, the addressable shard that
+  lang_dec, MoE: the experts split) equals, through the weight bridge, the addressable shard that
   JAX ``shard_params`` puts on device r, on meshes 2x2 and 1x4; a model axis
   the heads do not divide replicates them with the same warning.
 - (c) ``Seq2Seq.project_topk`` under a 1x2 mesh (K2b: per-shard top-k
   merged over the ranks) against the JAX model's under a TP mesh with its
   kernel forced (interpret mode): indices exact, values and lse 1e-5.
-- (d) one MT step at dropout 0 under 2x2 (and 1x4, 4x1) against the JAX step
+- (d) one MT step at dropout 0 under 2x2 (and 1x4, 4x1, and 2x2 and 4x1
+  under ZeRO-1) against the JAX step
   under ``make_mesh(2, 2)``: the data halves hold different token counts
   (the loss is the global sum over the global count) and the clip binds
   (replicated parameters counted once in the global norm). Loss 1e-5;
@@ -72,7 +73,7 @@ def _np_tree(tree):
 # ---------------- (a) the rule table ----------------
 
 VARIANTS = {"plain": {}, "tied": {"tie_embed": True},
-            "lang_dec": {"lang_dec": True}}
+            "lang_dec": {"lang_dec": True}, "moe": {"moe_experts": 4}}
 
 
 @pytest.mark.parametrize("variant", list(VARIANTS))
@@ -294,7 +295,10 @@ def jax_step():
     return cfg, params, loss, new, mu
 
 
-MESHES = [(2, 2), (1, 4), (4, 1)]
+# The last two under ZeRO-1, its layout's min_size lowered to 512 so that
+# the tiny model's tensors split (tests/test_torch_port_zero.py holds the
+# placement and the trainer at JAX's 4096).
+MESHES = [(2, 2), (1, 4), (4, 1), (2, 2, 512), (4, 1, 512)]
 
 
 @pytest.fixture(scope="module")
@@ -312,8 +316,9 @@ def port_steps(jax_step, tmp_path_factory):
 def test_mt_step_under_a_mesh_matches_jax(jax_step, port_steps, mesh):
     cfg, params, loss, new, mu = jax_step
     tokens = _step_batch()["dst_mask"][:, 1:].sum()
-    for sum_l, n, got, got_mu in port_steps[mesh]:
+    for sum_l, n, got, got_mu, n_split in port_steps[mesh]:
         assert n == tokens                      # the global count
+        assert (n_split > 0) == (len(MESHES[mesh]) == 3)
         np.testing.assert_allclose(sum_l / n, loss, rtol=1e-5)
         for k in new:
             np.testing.assert_allclose(got[k], new[k].numpy(), rtol=1e-4,

@@ -211,14 +211,19 @@ def test_train_epoch_learns_and_eval_bleu_saves_best(corpus, tmp_path,
 def test_trainer_refuses_what_is_not_ported(corpus, tmp_path):
     d, tp = corpus
     cfg = tiny_config(vocab_size=tp.vocab_size())
-    for kw in ({"pp_microbatches": 2}, {"zero": True}):
-        with pytest.raises(NotImplementedError, match="module 14b"):
-            MTTrainer(cfg, tp, device="cpu", **kw)
-    # A mesh is ported (tests/test_torch_port_parallel.py); MoE under one
-    # (expert parallelism) is not.
+    # Pipeline parallelism, ZeRO-1 and expert parallelism are ported
+    # (tests/test_torch_port_pipeline.py, _zero.py, _expert_parallel.py);
+    # what stays refused is what the JAX trainer refuses: pipeline stages
+    # without a model axis > 1, and MoE with pipeline parallelism. ZeRO
+    # without a mesh is off, as in JAX.
+    for mesh in (None, ProcessMesh(2, 1)):
+        with pytest.raises(SystemExit, match="model axis > 1"):
+            MTTrainer(cfg, tp, device="cpu", pp_microbatches=2, mesh=mesh)
     moe = tiny_config(vocab_size=tp.vocab_size(), moe_experts=2)
-    with pytest.raises(NotImplementedError, match="module 14b"):
-        MTTrainer(moe, tp, device="cpu", mesh=ProcessMesh(1, 1))
+    with pytest.raises(ValueError, match=r"MoE \+ pipeline parallelism"):
+        MTTrainer(moe, tp, device="cpu", pp_microbatches=2,
+                  mesh=ProcessMesh(1, 2))
+    assert MTTrainer(cfg, tp, device="cpu", zero=True).zero is None
     trainer = _trainer(tp)
     # The image stream trains an ImageSeq2Seq (ImageMTTrainer), not this
     # trainer's text model.
@@ -319,13 +324,18 @@ def test_cli_resumes_with_optimizer_state(corpus, trained, tmp_path, capsys):
     assert int(opt_tree["1"]["count"]) == 2
 
 
+# --mesh (with --moe-experts too), --pp-microbatches and --zero are ported:
+# outside torchrun a mesh asks for it, and the pipeline and ZeRO-1 without
+# a mesh get the JAX CLI's messages. The ids keep the names the cases had
+# when those flags were refused as unported.
 @pytest.mark.parametrize("flags,module", [
     (["--lm", "x", "--train", "y"], "--lm with --train"),  # --lm alone runs
-    # --mesh is ported: outside torchrun it asks for it; with MoE it is not.
     (["--mesh", "2x1"], "torchrun"),
-    (["--mesh", "2x1", "--moe-experts", "2"], "module 14b"),
-    (["--pp-microbatches", "2"], "module 14b"), (["--zero"], "module 14b"),
-])
+    (["--mesh", "2x1", "--moe-experts", "2"], "torchrun"),
+    (["--pp-microbatches", "2"], "model axis > 1"),
+    (["--zero"], "data axis; pass --mesh"),
+], ids=["flags0---lm with --train", "flags1-torchrun", "flags2-module 14b",
+        "flags3-module 14b", "flags4-module 14b"])
 def test_cli_refuses_unported_flags(corpus, tmp_path, flags, module):
     from imagetranslate_tpu_torch.cli.train_mt import main
 
