@@ -21,7 +21,10 @@ R-CNN at 800 pixels, cli.extract_objects, cli.caption --obj), packed MT
 training (steps on 64 x 256 packed rows, cli.train_mt --pack --profile) and
 the tensor- and data-parallel path (the beam decode through the
 vocab-sharded projection K2b on four ranks that share the card,
-cli.train_mt --mesh 2x2, cli.translate --dp 2), layer and FFN recompute
+cli.train_mt --mesh 2x2, cli.translate --dp 2), ZeRO-1, the pipeline and
+expert parallelism, the other trainers and CLIs on meshes (the MLM, the
+long-document LM's sequence parallelism, SenSim, Caption2Image, captioning,
+image MT under ZeRO-1), layer and FFN recompute
 (remat, remat_ffn) in full-width training, the ITR1 record files through the
 binarizer, training and translation CLIs with the native host libraries, and
 the recipe ladder (cli.recipe_check), and checks that each path went through
@@ -392,7 +395,7 @@ Phases, each fatal on failure:
                the card over gloo (one spawn of four; the 2x1 and 1x2
                meshes on ranks 0 and 1):
                correctness only, no speed is read. ZeRO-1 at 2x1 and 2x2:
-               three fp32 steps with and without --zero from one seed under
+               two fp32 steps with and without --zero from one seed under
                deterministic algorithms, the largest parameter difference
                within 1e-5 of the largest value, each rank's optimizer state
                smaller by (1 - 1/D) of its split tensors'; three bf16 steps
@@ -417,6 +420,33 @@ Phases, each fatal on failure:
                xf, xb, c5 = cs.phase_kernel_xent(k5); e, c4 =
                cs.phase_kernel_decode_attention(cs.decode_path_shapes());
                print(cs.phase_14b(card, c1, c5, c4))"
+ 31. 14b 4-6 — module 14b parts 4-6 on four ranks sharing the card over
+               gloo, correctness only. The BERT-base MLM (V=32000, B=16,
+               T=512: the masked budget over the global batch) at 1x2 and
+               2x2: two fp32 steps at dropout 0 against one process (losses
+               and parameters within 1e-4), a bf16 step at dropout 0.1 (K1
+               6 + 6 a rank on its 6 heads); at 2x2 the dev evaluation at
+               2048 positions (K3 6 a rank) within 5e-4 of one process. The
+               long-document LM (preset 3, T=4096) under sequence
+               parallelism at 1x4 and 2x2: each rank's logits and an fp32
+               step against one process. At 2x1: SenSim (both pools) and
+               Caption2Image fp32 steps against one process; a caption step
+               with the ResNet in training mode (the running statistics of
+               the global batch within 1e-4 of one process's) and the dev
+               decode of 16 images split over the ranks (K2 and K4 every
+               step); ImageMTTrainer with and without --zero (fp32, within
+               1e-5), then a bf16 text MASS step (K5 1 + 1 a rank) and a
+               back-translation step (K2, K4). Then cli.train_lm --mesh
+               2x2, cli.train_lm --reformer --mesh 1x4 and (with Pillow)
+               cli.train_captioning, cli.train_sensim, cli.train_txt2image
+               and cli.train_mt --train --zero at --mesh 2x2 (768 wide, two
+               layers a stack). Alone, ~5 min
+               with the build: python3 -c "import chip_smoke as cs; card =
+               cs.phase_device(); cs.phase_build(); k5, k3, k4 =
+               cs.p31_shapes(); xf, xb, c5 = cs.phase_kernel_xent(k5); f,
+               c3 = cs.phase_kernel_flash(k3); e, c4 =
+               cs.phase_kernel_decode_attention(cs.decode_path_shapes() +
+               k4); print(cs.phase_mesh_families(card, set(), c5, c3, c4))"
 
 ``--profile`` adds a phase after 4 (one more decode) and one after 7 (three
 more train steps) under torch.profiler, printing the device time by operation
@@ -6689,7 +6719,7 @@ def z14b_rank(rank, workdir, cli_argvs):
         return rel, share, ref
 
     def zero_part(mesh, res, with_bf16):
-        """Three fp32 steps with and without --zero from one seed under
+        """Two fp32 steps with and without --zero from one seed under
         deterministic algorithms; then, ``with_bf16``, three bf16 steps at
         dropout 0.1 with it (K1, and K5 without a split vocab)."""
         arms = [("off", dataclasses.replace(dense, dtype="float32")),
@@ -6706,7 +6736,9 @@ def z14b_rank(rank, workdir, cli_argvs):
                 tr = trainer(cfg, mesh, zero=arm != "off")
                 reset()
                 with Recorder() as rec:
-                    losses = steps(tr, mesh, 3)
+                    # fp32: two steps show the order of the clip norm's
+                    # sums; bf16: three, for the launches.
+                    losses = steps(tr, mesh, 3 if arm == "bf16" else 2)
                 split = 0 if tr.zero is None else sum(
                     p.numel() * p.element_size()
                     for k, p in tr.state.params.items() if tr.zero.split(k))
@@ -6908,7 +6940,7 @@ def phase_14b(card, checked, checked_xent, checked_k4):
     (module 14b parts 1-3) at BERT-base width (V=32000, 6+3 layers, B=256,
     S=T=64, fp32 masters) on ranks that share the card over gloo:
     correctness only, no speed is read. One spawn of four ranks; the 2x1
-    and 1x2 meshes on ranks 0 and 1. ZeRO-1 at 2x1 and 2x2: three fp32
+    and 1x2 meshes on ranks 0 and 1. ZeRO-1 at 2x1 and 2x2: two fp32
     steps with and without --zero from one seed under torch's deterministic
     algorithms (largest parameter difference within ZERO_TOL of the largest
     value), each rank's optimizer state smaller by (1 - 1/D) of its split
@@ -7002,7 +7034,7 @@ def phase_14b(card, checked, checked_xent, checked_k4):
                 k1_seen |= z["k1"]
                 k5_seen |= z["k5"]
             z = ranks[0]["zero"]
-            log(f"[14b zero] {z['mesh'][0]}x{z['mesh'][1]}: 3 fp32 steps "
+            log(f"[14b zero] {z['mesh'][0]}x{z['mesh'][1]}: 2 fp32 steps "
                 f"with and without --zero under deterministic algorithms: "
                 f"losses {z['losses'][0]} and {z['losses'][1]}; largest "
                 f"parameter difference "
@@ -7172,6 +7204,798 @@ def phase_14b(card, checked, checked_xent, checked_k4):
     return tuple(totals)
 
 
+# ---------------- phase 31: module 14b, parts 4-6 ----------------
+
+P31_MLM = (16, 512)        # B, T of the MLM steps (phase 14's: the budget)
+P31_LONG = (2, 4096)       # B, T of the long-document steps
+P31_DEV = (8, 2048)        # rows, positions of the LM dev set (K3)
+P31_OPT = dict(lr=1e-3, warmup=1)
+P31_BT = (128, 64)         # rows, tokens of the back-translation batch
+P31_CAPTION = (16, 5, 32)  # dev images, beam, L of the caption decode
+P31_BN_TOL = 1e-4          # running statistics, mesh against one process,
+#                            over the largest value (fp32, cuDNN picks its
+#                            algorithm by batch: the ranks' halves and the
+#                            whole batch convolve in other orders)
+P31_LOGIT_TOL = 1e-4       # long-document logits, mesh against one process,
+#                            over the largest value (fp32)
+P31_CLI_STEPS = 2
+
+
+def p31_shapes():
+    """(K5 (N, V), K3 (B, T, S, H, D, bias), K4 (R, H, D, live)) of phase
+    31, held by phases 9, 12 and 16 before the run: the image trainer's
+    text MASS step at 2x1 (64 rows a rank, 32 span slots); the LM dev
+    evaluation at 2x2 (4 rows and 6 heads a rank, 2048 positions); the
+    caption dev decode at 2x1 (8 images a rank, beam 5, L=32) and the image
+    trainer's back-translation decode at 2x1 (64 rows a rank, greedy, the
+    MT trainer's L for 64 source tokens)."""
+    from imagetranslate_tpu_torch.decoding.beam import max_len_for
+
+    rows, S = P31_BT
+    n_img, beam, L = P31_CAPTION
+    L_bt = -(-max_len_for(S, 1.1, 5, 512) // 16) * 16
+    k4 = [(n_img // 2 * beam, 12, 64, n) for n in range(1, L)]
+    k4 += [(rows // 2, 12, 64, n) for n in range(1, L_bt)]
+    B, T = P31_DEV
+    return ([(rows // 2 * (S // 2), 32000)], [(B // 2, T, T, 6, 64, True)],
+            k4)
+
+
+def p31_host_lm(B: int, T: int, V: int, seed: int):
+    """An MLM batch of numpy arrays: ids over the whole vocabulary with a
+    skew, rows padded to lengths from T/2 up (some across a rank's run of
+    positions), the last row padding."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    texts = (5 + (V - 5) * rng.rand(B, T) ** 3).astype(np.int32)
+    lengths = rng.randint(T // 2, T + 1, B)
+    texts = np.where(np.arange(T)[None, :] < lengths[:, None], texts,
+                     0).astype(np.int32)
+    row_mask = np.ones(B, bool)
+    row_mask[-1] = False
+    return {"texts": texts, "pad_mask": texts != 0,
+            "langs": (np.arange(B) % 2).astype(np.int32),
+            "row_mask": row_mask}
+
+
+def p31_rank(rank, workdir, cli_argvs):
+    """One of phase 31's four ranks, all on the one card over gloo. Ranks 0
+    and 1: the MLM at 1x2, SenSim, Caption2Image, the caption step and its
+    dev decode, and ImageMTTrainer under --zero, all at 2x1 or 1x2; then
+    the four: the MLM at 2x2 with its dev evaluation at 2048 positions,
+    the long-document LM at 1x4 and 2x2, and ``cli_argvs`` (module, argv)
+    through the CLIs. Rank 0 runs each parity run's one-process reference.
+    Returns a dict of readings ("pair" on ranks 0 and 1, "quad" on
+    all)."""
+    import contextlib
+    import dataclasses
+    import importlib
+    import io
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from imagetranslate_tpu_torch.data.loader import DocBlockDataset
+    from imagetranslate_tpu_torch.models.caption2image import Caption2Image
+    from imagetranslate_tpu_torch.models.longdoc import longdoc_config
+    from imagetranslate_tpu_torch.ops import decode_attention as da
+    from imagetranslate_tpu_torch.ops import flash_attention as fa
+    from imagetranslate_tpu_torch.ops import topk_project as tkp
+    from imagetranslate_tpu_torch.ops import train_attention as ta
+    from imagetranslate_tpu_torch.ops import xent
+    from imagetranslate_tpu_torch.parallel.mesh import (
+        ProcessMesh,
+        host_rows,
+        make_mesh,
+        shard_batch_safe,
+        shard_params,
+    )
+    from imagetranslate_tpu_torch.train import step as pstep
+    from imagetranslate_tpu_torch.train.optimizer import build_optimizer
+    from imagetranslate_tpu_torch.train.trainer_caption import (
+        CaptionTrainer,
+        add_negatives,
+    )
+    from imagetranslate_tpu_torch.train.trainer_image_mt import (
+        ImageMTTrainer,
+    )
+    from imagetranslate_tpu_torch.train.trainer_lm import LMTrainer
+    from imagetranslate_tpu_torch.train.trainer_longdoc import LongDocTrainer
+    from imagetranslate_tpu_torch.train.trainer_mt import MTTrainer
+    from imagetranslate_tpu_torch.train.trainer_sensim import SenSimTrainer
+    from imagetranslate_tpu_torch.train.weights import (
+        CAPTION,
+        CAPTION2IMAGE,
+        LM,
+        LONGDOC,
+        SENSIM,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", torch.cuda.current_device())
+    V = 32000
+    vocab = FullVocab()
+    out = {"where": f"{dist.get_backend()} on {dev}", "seconds": {}}
+    t_part = [time.perf_counter()]
+    trees = {}
+
+    def mark(name):
+        now = time.perf_counter()
+        out["seconds"][name] = round(now - t_part[0], 1)
+        t_part[0] = now
+
+    def tree(bridge, cfg):
+        key = (bridge, cfg.hidden_size, cfg.enc_layers, cfg.dec_layers,
+               cfg.max_position_embeddings)
+        if key not in trees:
+            trees[key] = bridge.random_params(cfg, SEED)
+        return trees[key]
+
+    def reset():
+        ta.FWD_LAUNCHES = ta.BWD_LAUNCHES = 0
+        xent.FWD_LAUNCHES = xent.BWD_LAUNCHES = 0
+        tkp.LAUNCHES = tkp.MERGE_LAUNCHES = da.LAUNCHES = fa.LAUNCHES = 0
+
+    def counts():
+        return (ta.FWD_LAUNCHES, ta.BWD_LAUNCHES, xent.FWD_LAUNCHES,
+                xent.BWD_LAUNCHES, tkp.LAUNCHES, da.LAUNCHES, fa.LAUNCHES)
+
+    def parity(losses, ref_losses, full, ref_full):
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses))
+        return rel, _share(full, ref_full), ref_losses
+
+    def lm_cfg(**kw):
+        return dataclasses.replace(bert_base(V), **{
+            "max_position_embeddings": P31_MLM[1], "dtype": "float32",
+            **kw})
+
+    # ---- the MLM: two fp32 steps at dropout 0, then a bf16 step ----
+    B, T = P31_MLM
+    lm_batches = [p31_host_lm(B, T, V, SEED + 31 + i) for i in range(2)]
+
+    def lm_steps(tr, n):
+        losses = []
+        for i in range(n):
+            tr.state, m = tr.step_fn(tr.state, tr.stage(lm_batches[i]),
+                                     torch.Generator().manual_seed(i))
+            losses.append(float(m["sum_loss"] / m["ntokens"]))
+        return losses
+
+    def mlm_part(mesh, res):
+        cfg = lm_cfg()
+        tr = LMTrainer(cfg, vocab, params=tree(LM, cfg), mesh=mesh,
+                       seed=SEED, device=dev, **P31_OPT)
+        losses = lm_steps(tr, 2)
+        full = tr._full(tr.model.state_dict())
+        vocab_split = tr.model.vocab_tp is not None
+        del tr
+        ref = None
+        if rank == 0:
+            one = LMTrainer(cfg, vocab, params=tree(LM, cfg), seed=SEED,
+                            device=dev, **P31_OPT)
+            ref = parity(losses, lm_steps(one, 2), full,
+                         one.model.state_dict())
+            del one
+        del full
+        torch.cuda.empty_cache()
+        bf16 = lm_cfg(dtype="bfloat16", dropout=RATE, attention_dropout=RATE)
+        tr = LMTrainer(bf16, vocab, params=tree(LM, cfg), mesh=mesh,
+                       seed=SEED, device=dev, **P31_OPT)
+        reset()
+        with Recorder() as rec:
+            loss = lm_steps(tr, 1)
+        res["mlm"] = {"mesh": (mesh.n_data, mesh.n_model), "losses": losses,
+                      "ref": ref, "vocab_split": vocab_split,
+                      "bf16": (loss, counts(), rec.k1)}
+        del tr
+        torch.cuda.empty_cache()
+        mark(f"mlm {mesh.n_data}x{mesh.n_model}")
+
+    def lm_dev_part(mesh, res):
+        """The LM's dev evaluation at 2048 positions (K3 on each rank's 6
+        heads), against one process."""
+        cfg = dataclasses.replace(bert_base(V), dtype="bfloat16",
+                                  max_position_embeddings=P31_DEV[1])
+        dev_data = DocBlockDataset(os.path.join(workdir, "dev2048"),
+                                   load_all=True)
+        tr = LMTrainer(cfg, vocab, params=tree(LM, cfg), mesh=mesh,
+                       seed=SEED, device=dev)
+        reset()
+        with recording_flash() as seen:
+            loss = tr.validate_and_save(os.path.join(workdir, "lm2048"),
+                                        dev_data, P31_DEV[0])
+        res["lm_dev"] = (loss, fa.LAUNCHES, seen)
+        del tr
+        if rank == 0:
+            one = LMTrainer(cfg, vocab, params=tree(LM, cfg), seed=SEED,
+                            device=dev)
+            one.best_dev_loss = -1.0                  # nothing is saved
+            res["lm_dev"] += (one.validate_and_save(
+                os.path.join(workdir, "unused"), dev_data, P31_DEV[0]),)
+            del one
+        torch.cuda.empty_cache()
+        mark("lm dev 2x2")
+
+    # ---- the long-document LM: sequence parallelism ----
+    LB, LT = P31_LONG
+    lcfg = dataclasses.replace(longdoc_config(V, num_languages=2, size=3),
+                               dropout=0.0, attention_dropout=0.0,
+                               dtype="float32")
+    long_batch = p31_host_lm(LB, LT, V, SEED + 35)
+
+    def long_part(mesh, res):
+        tr = LongDocTrainer(lcfg, vocab, params=tree(LONGDOC, lcfg),
+                            mesh=mesh, seed=SEED, device=dev, **P31_OPT)
+        staged = tr.stage(long_batch)
+        rows = host_rows(LB, mesh)
+        cols = tr._cols(LT)
+        one = LongDocTrainer(lcfg, vocab, params=tree(LONGDOC, lcfg),
+                             seed=SEED, device=dev, **P31_OPT)
+        whole = one.stage(long_batch)
+        with torch.no_grad():
+            got = tr.model(staged["texts"], staged["pad_mask"],
+                           staged["langs"])
+            h = one.model.encode(whole["texts"], whole["pad_mask"],
+                                 whole["langs"])[rows, cols]
+            want = one.model.project_hidden(h)
+        logit_share = float((got - want).abs().max()
+                            / want.abs().max())
+        del got, want, h
+        tr.state, m = tr.step_fn(tr.state, staged,
+                                 torch.Generator().manual_seed(0))
+        losses = [float(m["sum_loss"] / m["ntokens"])]
+        ref = None
+        if rank == 0:
+            _, m = one.step_fn(one.state, whole,
+                               torch.Generator().manual_seed(0))
+            ref = parity(losses, [float(m["sum_loss"] / m["ntokens"])],
+                         tr.model.state_dict(), one.model.state_dict())
+        res[f"long {mesh.n_data}x{mesh.n_model}"] = {
+                       "logits": logit_share, "losses": losses, "ref": ref,
+                       "run": (cols.start or 0, cols.stop or LT)}
+        del tr, one
+        torch.cuda.empty_cache()
+        mark(f"long {mesh.n_data}x{mesh.n_model}")
+
+    # ---- SenSim and Caption2Image at 2x1 ----
+    scfg = dataclasses.replace(sensim_config(V), dropout=0.0,
+                               attention_dropout=0.0, dtype="float32")
+
+    def sensim_batch():
+        n, t, pool = SENSIM_STEP
+        rng = np.random.RandomState(SEED + 32)
+
+        def ids(rows):
+            x = (5 + (V - 5) * rng.rand(rows, t) ** 3).astype(np.int32)
+            x[:, t // 2 + rng.randint(0, t // 2):] = 0
+            return x
+
+        src, dst = ids(n), ids(n)
+        b = {"src": src, "src_mask": src != 0, "dst": dst,
+             "dst_mask": dst != 0, "src_langs": np.zeros(n, np.int32),
+             "dst_langs": np.ones(n, np.int32), "row_mask": np.ones(n, bool)}
+        for prefix, lang in (("src_neg", 0), ("tgt_neg", 1)):
+            p = ids(pool)
+            b.update({prefix: p, f"{prefix}_mask": p != 0,
+                      f"{prefix}_langs": np.full(pool, lang, np.int32),
+                      f"{prefix}_row_mask": np.ones(pool, bool)})
+        return {k: torch.as_tensor(v).to(dev) for k, v in b.items()}
+
+    def c2i_batch():
+        n, t = C2I_STEP
+        rng = np.random.RandomState(SEED + 33)
+        src = (5 + (V - 5) * rng.rand(n, t) ** 3).astype(np.int32)
+        b = {"src": src, "src_mask": src != 0,
+             "src_langs": np.zeros(n, np.int32),
+             "target_grid": rng.standard_normal(
+                 (n, 49, scfg.hidden_size)).astype(np.float32),
+             "row_mask": np.arange(n) < n - 3}
+        return {k: torch.as_tensor(v).to(dev) for k, v in b.items()}
+
+    def c2i_trainer(mesh):
+        model = Caption2Image(scfg, device=dev, param_dtype=torch.float32)
+        full = CAPTION2IMAGE.state_dict_from_flax(
+            tree(CAPTION2IMAGE, scfg), scfg)
+        if mesh is not None:
+            full = shard_params(full, mesh, model.shard_(mesh))
+        model.load_state_dict(full)
+        opt = build_optimizer(lr=P31_OPT["lr"],
+                              warmup_updates=P31_OPT["warmup"])
+        state = pstep.create_train_state(dict(model.named_parameters()), opt)
+        return model, state, pstep.make_caption2image_train_step(model, opt)
+
+    def text_part(mesh, res):
+        """One fp32 step of each at dropout 0 against one process."""
+        batch = sensim_batch()
+        tr = SenSimTrainer(scfg, vocab, params=tree(SENSIM, scfg), mesh=mesh,
+                           seed=SEED, device=dev, **P31_OPT)
+        tr.state, m = tr.step_fn(tr.state, shard_batch_safe(batch, mesh),
+                                 torch.Generator().manual_seed(0))
+        losses = [float(m["sum_loss"] / m["ntokens"])]
+        ref = None
+        if rank == 0:
+            one = SenSimTrainer(scfg, vocab, params=tree(SENSIM, scfg),
+                                seed=SEED, device=dev, **P31_OPT)
+            _, m = one.step_fn(one.state, batch,
+                               torch.Generator().manual_seed(0))
+            ref = parity(losses, [float(m["sum_loss"] / m["ntokens"])],
+                         tr.model.state_dict(), one.model.state_dict())
+            del one
+        res["sensim"] = {"losses": losses, "ref": ref}
+        del tr
+        batch = c2i_batch()
+        model, state, step = c2i_trainer(mesh)
+        _, m = step(state, shard_batch_safe(batch, mesh),
+                    torch.Generator().manual_seed(0))
+        losses = [float(m["sum_loss"] / m["ntokens"])]
+        ref = None
+        if rank == 0:
+            one, ostate, ostep = c2i_trainer(None)
+            _, m = ostep(ostate, batch, torch.Generator().manual_seed(0))
+            ref = parity(losses, [float(m["sum_loss"] / m["ntokens"])],
+                         model.state_dict(), one.state_dict())
+            del one, ostate
+        res["c2i"] = {"losses": losses, "ref": ref}
+        del model, state
+        torch.cuda.empty_cache()
+        mark("sensim, c2i 2x1")
+
+    # ---- the caption step (the ResNet in training mode) and its decode ----
+    ccfg = caption_train_config(V, dtype="float32", dropout=0.0,
+                                attention_dropout=0.0)
+    host = caption_host_batches(ccfg, 2, SEED + 34)
+
+    def caption_batch(b, mesh):
+        rows = host_rows(b.captions.shape[0], mesh)
+        return pstep.caption_batch_to_device(b, b.images(), dev, rows=rows)
+
+    def caption_part(mesh, res):
+        tr = CaptionTrainer(ccfg, CaptionVocab(),
+                            variables=tree(CAPTION, ccfg), mesh=mesh,
+                            seed=SEED, device=dev, **P31_OPT)
+        tr.state, m = tr.cap_step(tr.state, caption_batch(host[0], mesh),
+                                  torch.Generator().manual_seed(0))
+        losses = [float(m["sum_loss"] / m["ntokens"])]
+        stats = {k: v.clone() for k, v in tr.model.named_buffers()}
+        ref = None
+        if rank == 0:
+            one = CaptionTrainer(ccfg, CaptionVocab(),
+                                 variables=tree(CAPTION, ccfg), seed=SEED,
+                                 device=dev, **P31_OPT)
+            _, m = one.cap_step(one.state, caption_batch(host[0], None),
+                                torch.Generator().manual_seed(0))
+            want = dict(one.model.named_buffers())
+            rel = abs(losses[0] - float(m["sum_loss"] / m["ntokens"])) / abs(
+                float(m["sum_loss"] / m["ntokens"]))
+            ref = (rel, _share(stats, want))
+            del one, want
+        del tr, stats
+        torch.cuda.empty_cache()
+        # The dev decode (bf16, "fused") splits the images over the data
+        # group: K2 and K4 on each rank's rows, the early exit joined.
+        tr = CaptionTrainer(caption_train_config(V), CaptionVocab(),
+                            variables=tree(CAPTION, ccfg), mesh=mesh,
+                            seed=SEED, device=dev)
+        n_img, beam, L = P31_CAPTION
+        images = np.random.RandomState(SEED + 36).randint(
+            0, 256, (n_img, 224, 224, 3)).astype(np.uint8)
+        n_steps = 0
+        step = tr.model.decode_step
+
+        def counted(*a, **kw):
+            nonlocal n_steps
+            n_steps += 1
+            return step(*a, **kw)
+
+        tr.model.decode_step = counted
+        reset()
+        with recording_decode_attention() as seen4:
+            best, lengths = tr.caption_images(
+                images, np.full(n_img, 6, np.int32),
+                np.zeros(n_img, np.int32), L, beam_width=beam)
+        res["caption"] = {"losses": losses, "ref": ref,
+                          "decode": (n_steps, counts(), seen4,
+                                     tuple(best.shape),
+                                     int(lengths.sum()))}
+        del tr
+        torch.cuda.empty_cache()
+        mark("caption 2x1")
+
+    # ---- ImageMTTrainer under --zero ----
+    def image_mt_part(mesh, res):
+        icfg = dataclasses.replace(
+            image_mt_config(V), dtype="float32", dropout=0.0,
+            attention_dropout=0.0, use_pallas_xent=False, freeze_image=True)
+        mass = mass_batches(icfg, 1, *IMAGE_MT_TEXT)[0]
+        cap = host[1]
+        negs = ArrayCaptionBatcher(host).sample_negatives(
+            cap.captions.shape[0], 7)
+
+        def run(tr):
+            losses = []
+            rows = host_rows(mass.src.shape[0], mesh)
+            crows = host_rows(cap.captions.shape[0], mesh)
+            mm = pstep.caption_batch_to_device(cap, cap.images(), dev,
+                                               rows=crows)
+            mm["lengths"] = torch.as_tensor(cap.lengths[crows]).to(dev)
+            mm["mask_prob"] = 0.7
+            con = pstep.caption_batch_to_device(cap, cap.images(), dev,
+                                                rows=crows)
+            add_negatives(con, negs, 0, 0, dev, mesh)
+            for i, (fn, b) in enumerate((
+                    (tr.mass_step, pstep.mass_batch_to_device(mass, dev,
+                                                              rows)),
+                    (tr.mm_mass_step, mm), (tr.contrastive_step, con))):
+                tr.state, m = fn(tr.state, b, torch.Generator().manual_seed(i))
+                losses.append(float(m["sum_loss"] / m["ntokens"]))
+            return losses
+
+        runs = {}
+        for zero in (False, True):
+            was = torch.are_deterministic_algorithms_enabled()
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            try:
+                tr = ImageMTTrainer(icfg, vocab, variables=tree(CAPTION,
+                                                                icfg),
+                                    mesh=mesh, zero=zero, seed=SEED,
+                                    device=dev, **P31_OPT)
+                losses = run(tr)
+                runs[zero] = (losses, tr._full(tr.model.state_dict()),
+                              0 if tr.zero is None else sum(
+                                  map(tr.zero.split, tr.state.params)))
+                del tr
+                torch.cuda.empty_cache()
+            finally:
+                torch.use_deterministic_algorithms(was)
+        # Softmax does not see the attention key biases or the pools'
+        # score biases: their gradients are rounding noise, which Adam
+        # turns into steps of up to lr whatever the order of the sums.
+        kept = [k for k in runs[False][1] if not k.endswith(
+            (".self.key.bias", "attention.w.bias"))]
+        share = _share({k: runs[True][1][k] for k in kept},
+                       {k: runs[False][1][k] for k in kept})
+        res["image_mt"] = {"losses": (runs[False][0], runs[True][0]),
+                           "share": share, "split": runs[True][2]}
+        del runs
+        torch.cuda.empty_cache()
+        # bf16 under --zero: a text MASS step with the fused cross-entropy
+        # (K5 over this rank's rows, the vocab whole), then a
+        # back-translation step (its greedy decode: K2 and K4).
+        bcfg = dataclasses.replace(image_mt_config(V),
+                                   decode_attention_impl="fused")
+        tr = ImageMTTrainer(bcfg, vocab, variables=tree(CAPTION, icfg),
+                            mesh=mesh, zero=True, seed=SEED, device=dev,
+                            **P31_OPT)
+        rows = host_rows(mass.src.shape[0], mesh)
+        reset()
+        with Recorder() as rec:
+            tr.state, m = tr.mass_step(
+                tr.state, pstep.mass_batch_to_device(mass, dev, rows),
+                tr.rng)
+        mass_counts = counts()
+        bt = mass_batches(bcfg, 1, *P31_BT, seed=SEED + 37)[0]
+        n_steps = 0
+        step = tr.model.decode_step
+
+        def counted(*a, **kw):
+            nonlocal n_steps
+            n_steps += 1
+            return step(*a, **kw)
+
+        tr.model.decode_step = counted
+        reset()
+        with Recorder() as rec_bt, recording_decode_attention() as seen4:
+            m = tr._bt_step(bt, MTTrainer.lang_directions(["aa", "bb"],
+                                                          vocab), tr.rng)
+        res["image_mt"]["bf16"] = (
+            float(m["sum_loss"] / m["ntokens"]), mass_counts, rec.k1,
+            rec.k5, n_steps, counts(), seen4, rec_bt.k1)
+        del tr
+        torch.cuda.empty_cache()
+        mark("image_mt 2x1 zero")
+
+    pair_group = dist.new_group([0, 1])       # collective: every rank
+    if rank < 2:
+        pair = out["pair"] = {}
+        mlm_part(ProcessMesh(1, 2, 0, rank, pair_group, None, dev), pair)
+        dp = ProcessMesh(2, 1, rank, 0, None, pair_group, dev)
+        text_part(dp, pair)
+        caption_part(dp, pair)
+        image_mt_part(dp, pair)
+    dist.barrier()
+    quad = out["quad"] = {}
+    mesh = make_mesh(2, 2, device="cuda")
+    mlm_part(mesh, quad)
+    lm_dev_part(mesh, quad)
+    long_part(make_mesh(1, 4, device="cuda"), quad)
+    long_part(mesh, quad)
+
+    # ---- the CLIs ----
+    cli = []
+    for module, argv in cli_argvs:
+        reset()
+        text = io.StringIO()
+        with Recorder() as rec, contextlib.redirect_stdout(text):
+            importlib.import_module(
+                f"imagetranslate_tpu_torch.cli.{module}").main(argv)
+        cli.append((counts(), rec.k1, rec.k5, text.getvalue()))
+        torch.cuda.empty_cache()
+        mark(f"cli {module}")
+    quad["cli"] = cli
+    return out
+
+
+def phase_mesh_families(card, checked, checked_xent, checked_flash,
+                        checked_k4):
+    """Phase 31: module 14b parts 4-6 on ranks that share the card over
+    gloo: correctness only, no speed is read. One spawn of four ranks; the
+    2x1 and 1x2 meshes on ranks 0 and 1. The BERT-base MLM (V=32000, 6
+    layers, B=16, T=512: the masked-budget path) at 1x2 and 2x2: two fp32
+    steps at dropout 0 against one process (PARITY_TOL), then a bf16 step
+    at dropout 0.1 (K1 on each rank's 6 heads); at 2x2 its dev evaluation
+    at 2048 positions (K3 on each rank's 4 rows and 6 heads) against one
+    process (LM_DEV_RTOL). The long-document LM (preset 3, T=4096, B=2)
+    under sequence parallelism at 1x4 and 2x2: each rank's logits against
+    the same positions of one process (P31_LOGIT_TOL) and one fp32 step
+    (PARITY_TOL). At 2x1: one fp32 SenSim step (both pools) and one
+    Caption2Image step against one process; a caption step with the ResNet
+    in training mode (the running statistics within P31_BN_TOL of one
+    process's, from the global batch) and the dev decode of 16 images
+    split over the ranks (bf16, fused: K2 and K4 every step); ImageMTTrainer
+    under --zero (text MASS, multimodal MASS and contrastive fp32 steps
+    with and without it, ZERO_TOL), then a bf16 text MASS step with the
+    fused cross-entropy (K5) and a back-translation step (its greedy decode
+    through K2 and K4). Then, in the four ranks, cli.train_lm --mesh 2x2,
+    cli.train_lm --reformer --mesh 1x4 and (with Pillow)
+    cli.train_captioning, cli.train_sensim, cli.train_txt2image and
+    cli.train_mt --train --zero at --mesh 2x2 for two steps (768 wide, two
+    layers a stack). Returns (K1 fwd, K1 bwd, K5 fwd, K5 bwd, K2, K4, K3)
+    launches."""
+    import numpy as np
+    import torch
+
+    from imagetranslate_tpu_torch.parallel.spawn import run_ranks
+
+    totals = [0] * 7
+    k1_seen, k5_seen, k4_seen = set(), set(), set()
+
+    def add(c):
+        for i, x in enumerate(c):
+            totals[i] += x
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as workdir:
+        write_blocks(os.path.join(workdir, "dev2048"), P31_DEV[0],
+                     P31_DEV[1], 32000, P31_DEV[0], SEED + 38)
+        corpus = prepare_umt_corpus(workdir)
+        m11 = prepare_module11_corpus(workdir, corpus)
+        tok, mono = corpus[0], corpus[1]
+        V = corpus[3].vocab_size()
+        blocks = os.path.join(workdir, "blocks")
+        write_blocks(blocks, 32, 512, V, 16, SEED + 39)
+        # The CLIs at their default widths, two layers a stack (as phase
+        # 30's): the meshes' paths are the same at six.
+        common = ["--tok", tok, "--step", str(P31_CLI_STEPS), "--warmup",
+                  "2", "--enc", "2", "--device", "cuda"]
+
+        def out_dir(name):
+            return os.path.join(workdir, name)
+
+        cli_argvs = [
+            ("train_lm", [*common, "--model", out_dir("lm"), "--train",
+                          blocks, "--batch", "8", "--mesh", "2x2"]),
+            ("train_lm", [*common, "--model", out_dir("longdoc"), "--train",
+                          blocks, "--batch", "4", "--reformer", "--mesh",
+                          "1x4"]),
+            ("train_sensim", [*common, "--model", out_dir("sensim"),
+                              "--train_mt", m11["train"], "--src-neg",
+                              m11["neg"][0], "--dst-neg", m11["neg"][1],
+                              "--batch", str(M11_CLI["batch"]), "--mesh",
+                              "2x2"])]
+        if m11["caps"] is not None:
+            images = ["--train", m11["caps"], "--image", m11["images"],
+                      "--max-image", str(M11_CLI["max_image"]), "--mesh",
+                      "2x2"]
+            cli_argvs += [
+                ("train_captioning", [*common, "--dec", "2", "--model",
+                                      out_dir("cap"), *images]),
+                ("train_txt2image", [*common, "--model", out_dir("c2i"),
+                                     "--pretrained", m11["captioner"],
+                                     *images]),
+                ("train_mt", [*common, "--dec", "2", "--model",
+                              out_dir("imt"), *images, "--zero",
+                              "--mass_train",
+                              f"{mono}en,{mono}fa"])]
+        t_prep = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        got = run_ranks(p31_rank, 4, os.path.join(workdir, "store"),
+                        (workdir, cli_argvs), device="cuda", timeout=900)
+        t_ranks = time.perf_counter() - t0
+        pair = [r["pair"] for r in got[:2]]
+        quad = [r["quad"] for r in got]
+
+        # -- the MLM --
+        per = 6                       # K1 calls a forward: 6 encoder layers
+        for ranks in (pair, quad):
+            res = ranks[0]["mlm"]
+            rel, share, ref = res["ref"]
+            fwd = [r["mlm"]["bf16"][1][:2] for r in ranks]
+            if not (rel <= PARITY_TOL and share <= PARITY_TOL
+                    and res["vocab_split"]
+                    and all(f == (per, per) for f in fwd)
+                    and all(np.isfinite(r["mlm"]["bf16"][0][0])
+                            for r in ranks)):
+                raise AssertionError(
+                    f"mlm {res['mesh']}: losses {res['losses']} against "
+                    f"{ref} (rel {rel:.3g}), parameters {share:.3g} of the "
+                    f"largest (limit {PARITY_TOL:.0e}); vocab split "
+                    f"{res['vocab_split']}; bf16 K1 a rank {fwd}")
+            for r in ranks:
+                add(r["mlm"]["bf16"][1])
+                k1_seen |= r["mlm"]["bf16"][2]
+            log(f"[14b mlm] {res['mesh'][0]}x{res['mesh'][1]}, BERT-base "
+                f"LM B={P31_MLM[0]} T={P31_MLM[1]} (the masked budget over "
+                f"the global batch; heads, FFN and word rows split, out_bias "
+                f"whole), fp32 at dropout 0: losses {res['losses']} against "
+                f"one process {ref} (rel {rel:.2e}); parameters within "
+                f"{share:.2e} of the largest value (limit "
+                f"{PARITY_TOL:.0e}); a bf16 step at dropout {RATE}: K1 "
+                f"{per} + {per} on each rank's 6 heads, loss "
+                f"{res['bf16'][0]} ({card})")
+        dev_losses = [r["lm_dev"][0] for r in quad]
+        loss, _, seen3, ref = quad[0]["lm_dev"]
+        for r in quad:
+            require_flash("lm dev 2x2", r["lm_dev"][2], checked_flash,
+                          r["lm_dev"][1], per)
+            add((0,) * 6 + (r["lm_dev"][1],))
+        if len(set(dev_losses)) != 1 or abs(loss - ref) > LM_DEV_RTOL * abs(
+                ref):
+            raise AssertionError(f"lm dev 2x2: losses {dev_losses} against "
+                                 f"one process {ref}")
+        log(f"[14b mlm] 2x2 dev evaluation, {P31_DEV[0]} rows of "
+            f"{P31_DEV[1]} positions: K3 {per} a rank at {sorted(seen3)}; "
+            f"dev loss {loss:.5f} on every rank, one process {ref:.5f} "
+            f"(rel {abs(loss - ref) / abs(ref):.2e}, limit "
+            f"{LM_DEV_RTOL:.0e}) ({card})")
+
+        # -- the long-document LM --
+        for key in ("long 1x4", "long 2x2"):
+            ranks = [r[key] for r in quad]
+            res = ranks[0]
+            rel, share, ref = res["ref"]
+            worst = max(x["logits"] for x in ranks)
+            if not (rel <= PARITY_TOL and share <= PARITY_TOL
+                    and worst <= P31_LOGIT_TOL):
+                raise AssertionError(
+                    f"{key}: logits {worst:.3g} of the largest (limit "
+                    f"{P31_LOGIT_TOL:.0e}); losses {res['losses']} against "
+                    f"{ref} (rel {rel:.3g}), parameters {share:.3g} (limit "
+                    f"{PARITY_TOL:.0e})")
+            log(f"[14b longdoc] {key}, preset 3 at T={P31_LONG[1]}, B="
+                f"{P31_LONG[0]} (runs {[x['run'] for x in ranks]}, the halo "
+                f"of k, v and the pad mask exchanged in every layer): each "
+                f"rank's logits within {worst:.2e} of one process's (limit "
+                f"{P31_LOGIT_TOL:.0e}); an fp32 step: loss {res['losses']} "
+                f"against {ref} (rel {rel:.2e}), parameters within "
+                f"{share:.2e} (limit {PARITY_TOL:.0e}) ({card})")
+
+        # -- SenSim, Caption2Image --
+        for name in ("sensim", "c2i"):
+            res = pair[0][name]
+            rel, share, ref = res["ref"]
+            if not (rel <= PARITY_TOL and share <= PARITY_TOL):
+                raise AssertionError(f"{name} 2x1: loss {res['losses']} "
+                                     f"against {ref} (rel {rel:.3g}), "
+                                     f"parameters {share:.3g}")
+            log(f"[14b {name}] 2x1, fp32 at dropout 0: loss {res['losses']}"
+                f" against one process {ref} (rel {rel:.2e}); parameters "
+                f"within {share:.2e} of the largest value (limit "
+                f"{PARITY_TOL:.0e}) ({card})")
+
+        # -- the caption step and decode --
+        res = pair[0]["caption"]
+        rel, stats = res["ref"]
+        if not (rel <= PARITY_TOL and stats <= P31_BN_TOL):
+            raise AssertionError(f"caption 2x1: loss {res['losses']} (rel "
+                                 f"{rel:.3g}), running statistics {stats:.3g}"
+                                 f" of the largest (limit {P31_BN_TOL:.0e})")
+        n_img, beam, L = P31_CAPTION
+        dec = 6                                   # decoder layers
+        for r in pair:
+            n_steps, c, seen4, shape, _ = r["caption"]["decode"]
+            if not (n_steps > 0 and c[4] == n_steps
+                    and c[5] == dec * n_steps and shape == (n_img, L)):
+                raise AssertionError(f"caption decode 2x1: {n_steps} steps, "
+                                     f"K2 {c[4]}, K4 {c[5]}, best {shape}")
+            k4_seen |= seen4
+            add(c)
+        log(f"[14b caption] 2x1, fp32 at dropout 0, the ResNet in training "
+            f"mode: loss {res['losses']} (rel {rel:.2e} to one process), "
+            f"running statistics within {stats:.2e} of one process's "
+            f"(limit {P31_BN_TOL:.0e}); the dev decode of {n_img} images "
+            f"({n_img // 2} a rank, beam {beam}, bf16, fused): "
+            f"{res['decode'][0]} steps, K2 and {dec} K4 a step ({card})")
+
+        # -- ImageMTTrainer under --zero --
+        res = pair[0]["image_mt"]
+        if not (res["share"] <= ZERO_TOL and res["split"] > 0):
+            raise AssertionError(f"image_mt 2x1 --zero: parameters differ by "
+                                 f"{res['share']:.3g} (limit {ZERO_TOL:.0e}); "
+                                 f"{res['split']} split tensors")
+        for r in pair:
+            loss, mc, k1, k5, n_steps, c, seen4, k1_bt = r["image_mt"]["bf16"]
+            if not (mc[0] == mc[1] > 0 and mc[2:4] == (1, 1)
+                    and n_steps > 0 and c[4] == n_steps
+                    and c[5] == dec * n_steps and c[0] == c[1] > 0
+                    and np.isfinite(loss)):
+                raise AssertionError(f"image_mt bf16 2x1: MASS (K1 fwd, K1 "
+                                     f"bwd, K5 fwd, K5 bwd) {mc[:4]}; BT "
+                                     f"{n_steps} steps, counts {c}")
+            add(mc)
+            add(c)
+            k1_seen |= k1 | k1_bt
+            k5_seen |= k5
+            k4_seen |= seen4
+        bf = pair[0]["image_mt"]["bf16"]
+        log(f"[14b image_mt] 2x1, ImageMTTrainer with and without --zero "
+            f"(freeze_image; text MASS, multimodal MASS, contrastive "
+            f"fp32 steps under deterministic algorithms): losses "
+            f"{res['losses'][0]} and {res['losses'][1]}, largest parameter "
+            f"difference (but the key and pool biases) {res['share']:.3g} "
+            f"of the largest value (limit "
+            f"{ZERO_TOL:.0e}), {res['split']} tensors split; bf16 under "
+            f"--zero: a text MASS step K1 {bf[1][0]} + {bf[1][1]}, K5 "
+            f"{bf[1][2]} + {bf[1][3]} on each rank's rows; a "
+            f"back-translation step: greedy decode {bf[4]} steps (K2 and "
+            f"{dec} K4 a step), loss {bf[0]:.4f} ({card})")
+        log(f"[14b 4-6] four ranks in {t_ranks:.1f} s (inputs {t_prep:.1f} "
+            f"s), over {got[0]['where']}; seconds a part on rank 0: "
+            f"{got[0]['seconds']}")
+
+        # -- the CLIs --
+        for i, (module, argv) in enumerate(cli_argvs):
+            text = quad[0]["cli"][i][3]
+            fwd = sum(r["cli"][i][0][0] for r in quad)
+            bwd = sum(r["cli"][i][0][1] for r in quad)
+            losses = [float(ln.rsplit(" ", 1)[1]) for ln in text.splitlines()
+                      if ln.startswith("Total loss in this epoch:")]
+            # The long-document LM's local block attention is plain tensor
+            # code: no kernel of its own, and no K1.
+            local = "--reformer" in argv
+            k1_ok = (fwd, bwd) == (0, 0) if local else fwd > 0 and bwd > 0
+            if (not losses or not all(np.isfinite(losses)) or not k1_ok
+                    or "Finished Training!" not in text):
+                raise AssertionError(f"{module} {argv[-2:]}: losses "
+                                     f"{losses}, K1 {fwd} + {bwd}:\n"
+                                     f"{text[-2000:]}")
+            for r in quad:
+                add(r["cli"][i][0])
+                k1_seen |= r["cli"][i][1]
+                k5_seen |= r["cli"][i][2]
+            mesh = argv[argv.index("--mesh") + 1]
+            log(f"[14b cli] cli.{module} --mesh {mesh}"
+                f"{' --reformer' if '--reformer' in argv else ''}"
+                f"{' --train --zero' if '--zero' in argv else ''} in the four "
+                f"ranks: {P31_CLI_STEPS} steps, epoch losses {losses}, K1 "
+                f"{fwd} + {bwd} over the ranks ({card})")
+        if m11["caps"] is None:
+            log("[14b cli] Pillow is not installed on this machine: "
+                "cli.train_captioning, cli.train_txt2image and cli.train_mt "
+                "--train are not run")
+
+    hold_k1("14b 4-6", k1_seen, checked)
+    if k5_seen - checked_xent or k4_seen - checked_k4:
+        raise AssertionError(f"14b 4-6: K5 shapes "
+                             f"{sorted(k5_seen - checked_xent)} or K4 shapes "
+                             f"{sorted(k4_seen - checked_k4)[:8]} were not "
+                             "held against the plain version")
+    torch.cuda.empty_cache()
+    return tuple(totals)
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "imagetranslate_tpu_torch")):
         print("chip_smoke.py must run from a checkout of the repository "
@@ -7209,15 +8033,17 @@ def main() -> int:
         mt_k1, mt_k5 = image_mt_shapes()
         pack = pack_shapes()
         z14b_k1, z14b_k5 = p30_shapes()
+        p31_k5, p31_k3, p31_k4 = p31_shapes()
         attn_fwd, attn_bwd, checked = phase_kernel_attention(
             cli_k1 + caption_train_k1_shapes() + mt_k1
             + module11_shapes(m11) + pack[2] + z14b_k1)
         done("6")
         xent_fwd, xent_bwd, checked_xent = phase_kernel_xent(
-            cli_k5 + mt_k5 + pack[3] + z14b_k5)
-        flash, checked_flash = phase_kernel_flash([long_cli_shape()])
+            cli_k5 + mt_k5 + pack[3] + z14b_k5 + p31_k5)
+        flash, checked_flash = phase_kernel_flash([long_cli_shape()]
+                                                  + p31_k3)
         dec_attn, checked_k4 = phase_kernel_decode_attention(
-            decode_path_shapes())
+            decode_path_shapes() + p31_k4)
         done("9, 12, 16")
         dec_attn_launches = phase_decode_fused(card, checked_k4)
         torch.cuda.empty_cache()
@@ -7303,6 +8129,15 @@ def main() -> int:
     tp_merge += z[5]
     dec_attn_launches += z[6]
     done("30")
+    z = phase_mesh_families(card, checked, checked_xent, checked_flash,
+                            checked_k4)
+    fwd_launches += z[0]
+    bwd_launches += z[1]
+    xent_launches = (xent_launches[0] + z[2], xent_launches[1] + z[3])
+    launches += z[4]
+    dec_attn_launches += z[5]
+    flash_launches += z[6]
+    done("31")
     attn_src = "imagetranslate_tpu_torch/csrc/train_attention.cu"
     xent_src = "imagetranslate_tpu_torch/csrc/xent.cu"
     print(card)

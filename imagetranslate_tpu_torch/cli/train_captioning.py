@@ -15,7 +15,13 @@ InfoNCE, or a coin per batch) in place of plain captioning.
 the JAX package's captioning layout, so ``cli.caption`` of either package
 captions with what this one trained.
 
-A non-empty ``--mesh`` (ROADMAP module 14b) stops the run with a message.
+``--mesh DxM`` under torchrun, one process a rank: the text core splits over
+the model axis, the rows over the data axis (BatchNorm over the global
+batch); rank 0 logs and writes:
+
+    torchrun --nproc-per-node 2 -m \
+        imagetranslate_tpu_torch.cli.train_captioning --mesh 2x1 \
+        --tok TOKDIR --model OUT --train cap.bin ...
 """
 
 from __future__ import annotations
@@ -77,7 +83,7 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument("--obj-feats", dest="obj_feats_path", default=None,
                    help="precomputed detections .npz")
     p.add_argument("--mesh", dest="mesh_spec", default="",
-                   help="device mesh (not ported yet: one device)")
+                   help="device mesh DxM (under torchrun)")
     p.add_argument("--device", default="cuda",
                    help="torch device to train on (cuda, cuda:N or cpu)")
     return p
@@ -85,9 +91,6 @@ def get_parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     options = get_parser().parse_args(argv)
-    if options.mesh_spec:
-        raise SystemExit("--mesh is not ported yet (multi-device training: "
-                         "ROADMAP module 14b)")
     if options.train_path is None:
         raise SystemExit("--train <caption binary> is required")
     if options.use_obj and options.obj_feats_path is None:
@@ -105,6 +108,9 @@ def main(argv=None):
     from imagetranslate_tpu_torch.train.checkpoint import load_params
     from imagetranslate_tpu_torch.train.trainer_caption import CaptionTrainer
 
+    from imagetranslate_tpu_torch.parallel.mesh import cli_mesh, leave
+
+    mesh, joined = cli_mesh(options.mesh_spec, options.device)
     tp = TextProcessor(options.tokenizer_path)
     if tp.pad_token_id() != 0:
         raise SystemExit("the tokenizer's <pad> must have id 0")
@@ -144,16 +150,21 @@ def main(argv=None):
         clip=options.clip, accum=options.accum, beam_width=options.beam_width,
         len_penalty_ratio=options.len_penalty_ratio,
         mtl_weight=options.mtl_weight, mm_mode=options.mm_mode,
-        mask_prob=options.mask_prob, device=options.device, **kw)
+        mask_prob=options.mask_prob, mesh=mesh, device=options.device,
+        **kw)
+
+    def say(line):
+        if trainer.chief:
+            print(line, flush=True)
 
     if options.lm_path is not None:
         trainer.graft_mt_model(load_params(options.lm_path))
-        print("Grafted pretrained MT model into the captioner")
+        say("Grafted pretrained MT model into the captioner")
 
     cap_batcher = CaptionBatcher(options.train_path, tp,
                                  max_capacity_mb=options.img_capacity,
                                  max_img_per_batch=options.max_image)
-    print(f"Caption batches: {len(cap_batcher)}")
+    say(f"Caption batches: {len(cap_batcher)}")
     eval_set = (CaptionEvalSet(options.dev_path, tp)
                 if options.dev_path else None)
 
@@ -165,12 +176,12 @@ def main(argv=None):
         mt_batcher = MTBatcher(examples, pad_id=0,
                                max_batch=options.batch // 2,
                                capacity_mb=options.total_capacity // 2)
-        print(f"MT batches: {len(mt_batcher)}")
+        say(f"MT batches: {len(mt_batcher)}")
 
     os.makedirs(options.model_path, exist_ok=True)
     step, epoch = 0, 0
     while step < options.step and epoch < options.num_epochs:
-        print(f"train epoch {epoch}")
+        say(f"train epoch {epoch}")
         step = trainer.train_epoch(
             step, options.model_path, cap_batcher,
             image_root=options.image_dir, mt_batcher=mt_batcher,
@@ -178,7 +189,8 @@ def main(argv=None):
             eval_every=options.eval_every, save_every=options.save_every,
             epoch_seed=epoch)
         epoch += 1
-    print("Finished Training!")
+    say("Finished Training!")
+    leave(joined)
 
 
 if __name__ == "__main__":

@@ -9,7 +9,21 @@ flags and defaults, plus ``--device``.
 ``--reformer`` selects the long-document LM with local block attention at
 4096 positions. ``--pretrained`` starts from an LM checkpoint (its weights;
 the model is built from the flags, as in the JAX CLI). Checkpoints are the
-JAX package's directory layout. ``--mesh`` is refused (ROADMAP module 14b).
+JAX package's directory layout.
+
+``--mesh DxM`` under torchrun, one process a rank (D x M ranks): the BERT LM
+splits its heads, FFN and word table over the model axis and the rows over
+the data axis; the long-document LM (``--reformer``) splits the SEQUENCE
+over the model axis (context parallelism) and the rows over the data axis.
+The data axis must divide ``--batch``. Rank 0 logs and writes:
+
+    torchrun --nproc-per-node 4 -m imagetranslate_tpu_torch.cli.train_lm \
+        --mesh 2x2 --tok TOKDIR --model OUT --train BLOCKDIR ...
+    torchrun --nproc-per-node 4 -m imagetranslate_tpu_torch.cli.train_lm \
+        --reformer --mesh 1x4 ...
+
+Several machines: ``torchrun --nnodes 2 --node-rank i --master-addr HOST
+--master-port PORT --nproc-per-node N`` on each.
 """
 
 from __future__ import annotations
@@ -44,7 +58,7 @@ def get_parser() -> argparse.ArgumentParser:
                    help="reformer preset 1..3")
     p.add_argument("--dtype", default="bfloat16")
     p.add_argument("--mesh", dest="mesh_spec", default="",
-                   help="device mesh (not ported yet)")
+                   help="device mesh DxM (under torchrun)")
     p.add_argument("--device", default="cuda",
                    help="torch device to train on (cuda, cuda:N or cpu)")
     return p
@@ -52,15 +66,18 @@ def get_parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     options = get_parser().parse_args(argv)
-    if options.mesh_spec:
-        raise SystemExit("--mesh is not ported yet (multi-device training: "
-                         "ROADMAP module 14b)")
 
     from imagetranslate_tpu_torch.data.loader import DocBlockDataset
     from imagetranslate_tpu_torch.models.config import Seq2SeqConfig
     from imagetranslate_tpu_torch.text.processor import TextProcessor
     from imagetranslate_tpu_torch.train.checkpoint import load_checkpoint
 
+    from imagetranslate_tpu_torch.parallel.mesh import cli_mesh, leave
+
+    mesh, joined = cli_mesh(options.mesh_spec, options.device)
+    if mesh is not None and options.batch % mesh.n_data:
+        raise SystemExit(f"--batch {options.batch}: the mesh's data axis "
+                         f"({mesh.n_data}) must divide it")
     tp = TextProcessor(options.tokenizer_path)
 
     if options.reformer:
@@ -68,7 +85,7 @@ def main(argv=None):
             LongDocTrainer,
         )
 
-        trainer = LongDocTrainer.from_options(options, tp,
+        trainer = LongDocTrainer.from_options(options, tp, mesh=mesh,
                                               device=options.device)
     else:
         from imagetranslate_tpu_torch.train.trainer_lm import LMTrainer
@@ -90,13 +107,17 @@ def main(argv=None):
                 f"flag): pick a multiple of {cfg.num_heads}")
         trainer = LMTrainer(cfg, tp, lr=options.learning_rate,
                             warmup=options.warmup, clip=options.clip,
-                            mask_prob=options.mask_prob,
+                            mask_prob=options.mask_prob, mesh=mesh,
                             device=options.device)
+
+    def say(line):
+        if trainer.chief:
+            print(line, flush=True)
 
     if options.pretrained_path:
         params, _, meta = load_checkpoint(options.pretrained_path)
         trainer.set_reference_params(params)
-        print(f"Restored pretrained LM (step {meta.get('step', 0)})")
+        say(f"Restored pretrained LM (step {meta.get('step', 0)})")
 
     train_data = DocBlockDataset(options.train_path,
                                  max_cache_size=options.cache_size)
@@ -109,11 +130,12 @@ def main(argv=None):
     os.makedirs(options.model_path, exist_ok=True)
     step, epoch = 0, 1
     while step < options.step and epoch <= options.num_epochs:
-        print(f"train epoch {epoch}")
+        say(f"train epoch {epoch}")
         step = trainer.train_epoch(step, options.model_path, train_data,
                                    dev_data, options.batch, options.step)
         epoch += 1
-    print("Finished Training!")
+    say("Finished Training!")
+    leave(joined)
 
 
 if __name__ == "__main__":

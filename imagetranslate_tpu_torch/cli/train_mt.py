@@ -55,12 +55,14 @@ parallelism):
 
 A pipelined run's checkpoints hold the weights and the step: ``--cont`` with
 ``--pp-microbatches`` is refused, ``--pretrained`` resumes the schedule at
-the saved step.
+the saved step. The image stream (``--train``) takes ``--mesh`` and
+``--zero`` too (the pipeline is refused there):
+
+    torchrun --nproc-per-node 2 -m imagetranslate_tpu_torch.cli.train_mt \
+        --mesh 2x1 --zero --train CAPTIONS.bin --image IMGDIR ...
 
 Checkpoints are the JAX package's directory layout, so either package resumes
-from and translates with what the other trained. ``--mesh`` with the image
-stream (``--train``) stops the run with a message that names the ROADMAP
-module.
+from and translates with what the other trained.
 """
 
 from __future__ import annotations
@@ -156,9 +158,6 @@ def main(argv=None):
     if options.train_path is not None and options.lm_path is not None:
         raise SystemExit("--lm with --train: the image trainer starts from "
                          "--pretrained (the JAX CLI ignores --lm there)")
-    if options.mesh_spec and options.train_path is not None:
-        raise SystemExit("--mesh with --train (the image trainer) is not "
-                         "ported yet (ROADMAP module 14b)")
     if options.pp_microbatches and options.continue_train:
         raise SystemExit(
             "--cont with --pp-microbatches: optimizer moments are "
@@ -195,24 +194,10 @@ def main(argv=None):
         SEQ2SEQ,
     )
 
-    mesh = None
-    joined = False       # this run joined the process group (and leaves it)
-    if options.mesh_spec:
-        import torch.distributed as dist
+    from imagetranslate_tpu_torch.parallel.mesh import cli_mesh, leave
 
-        from imagetranslate_tpu_torch.parallel.mesh import (
-            init_distributed,
-            parse_mesh,
-        )
-
-        joined = not dist.is_initialized()
-        if not init_distributed(device=options.device):
-            raise SystemExit("--mesh runs one process a rank: launch with "
-                             "torchrun --nproc-per-node N")
-        try:
-            mesh = parse_mesh(options.mesh_spec, options.device)
-        except ValueError as e:
-            raise SystemExit(f"--mesh {options.mesh_spec}: {e}") from None
+    # joined: this run joined the process group (and leaves it).
+    mesh, joined = cli_mesh(options.mesh_spec, options.device)
     if options.zero and mesh is None:
         raise SystemExit("--zero shards optimizer state over the mesh's "
                          "data axis; pass --mesh (e.g. --mesh 8x1)")
@@ -273,7 +258,7 @@ def main(argv=None):
         trainer_kwargs["mesh"] = mesh
     if options.train_path is not None:
         trainer = ImageMTTrainer(cfg, tp, mm_mode=options.mm_mode,
-                                 **trainer_kwargs)
+                                 zero=options.zero, **trainer_kwargs)
     else:
         trainer = MTTrainer(cfg, tp, zero=options.zero,
                             pp_microbatches=options.pp_microbatches,
@@ -467,9 +452,9 @@ def main(argv=None):
                                  "forever")
             fepoch += 1
 
-    print("Finished Training!")
-    if joined:
-        dist.destroy_process_group()
+    if trainer.chief:
+        print("Finished Training!")
+    leave(joined)
 
 
 if __name__ == "__main__":

@@ -10,8 +10,14 @@ drawn from monolingual MASS shards (``--src-neg``/``--dst-neg``, the
 prefixes ``data.binarize.write_mt`` writes without a target file).
 ``--pretrained`` starts from a SenSim checkpoint. Checkpoints are the JAX
 package's layout, so ``cli.get_sen_sim`` of either package scores with what
-this one trained. A non-empty ``--mesh`` (ROADMAP module 14b) stops the run
-with a message.
+this one trained.
+
+``--mesh DxM`` under torchrun, one process a rank: the encoder splits over
+the model axis, the pairs and pools over the data axis (the InfoNCE columns
+gathered); rank 0 logs and writes. ``cli.train_txt2image`` takes it too:
+
+    torchrun --nproc-per-node 2 -m imagetranslate_tpu_torch.cli.train_sensim \
+        --mesh 2x1 --tok TOKDIR --model OUT --train_mt pairs.mt ...
 """
 
 from __future__ import annotations
@@ -50,20 +56,16 @@ def add_encoder_flags(p: argparse.ArgumentParser):
     p.add_argument("--dropout", type=float, default=0.1)
     p.add_argument("--dtype", default="bfloat16")
     p.add_argument("--mesh", dest="mesh_spec", default="",
-                   help="device mesh (not ported yet: one device)")
+                   help="device mesh DxM (under torchrun)")
     p.add_argument("--device", default="cuda",
                    help="torch device to train on (cuda, cuda:N or cpu)")
 
 
 def encoder_config(options, tp):
     """The text encoder's config from the flags, as the JAX CLIs build it;
-    ``--mesh`` and an ``--embed`` the head count does not divide stop the
-    run."""
+    An ``--embed`` the head count does not divide stops the run."""
     from imagetranslate_tpu_torch.models.config import Seq2SeqConfig
 
-    if options.mesh_spec:
-        raise SystemExit("--mesh is not ported yet (multi-device training: "
-                         "ROADMAP module 14b)")
     if tp.pad_token_id() != 0:
         raise SystemExit("the tokenizer's <pad> must have id 0")
     cfg = Seq2SeqConfig(
@@ -102,11 +104,14 @@ def main(argv=None):
     from imagetranslate_tpu_torch.text.processor import TextProcessor
     from imagetranslate_tpu_torch.train.trainer_sensim import SenSimTrainer
 
+    from imagetranslate_tpu_torch.parallel.mesh import cli_mesh, leave
+
     tp = TextProcessor(options.tokenizer_path)
     cfg = encoder_config(options, tp)
+    mesh, joined = cli_mesh(options.mesh_spec, options.device)
     trainer = SenSimTrainer(cfg, tp, lr=options.learning_rate,
                             warmup=options.warmup, clip=options.clip,
-                            device=options.device)
+                            mesh=mesh, device=options.device)
     if options.pretrained_path:
         load_pretrained(trainer, options.pretrained_path)
 
@@ -130,12 +135,13 @@ def main(argv=None):
     os.makedirs(options.model_path, exist_ok=True)
     step, epoch = 0, 0
     while step < options.step:
-        print(f"train epoch {epoch}")
+        trainer._log(f"train epoch {epoch}")
         step = trainer.train_epoch(step, options.model_path, mt_batcher,
                                    src_neg, dst_neg, dev_batcher,
                                    max_step=options.step, epoch_seed=epoch)
         epoch += 1
-    print("Finished Training!")
+    trainer._log("Finished Training!")
+    leave(joined)
 
 
 if __name__ == "__main__":

@@ -8,8 +8,9 @@ plus ``--device``.
 
 Caption2Image learns, by L2 regression, the image grid that the frozen
 captioner of ``--pretrained`` (a captioning checkpoint of either package)
-encodes each caption's image to. A non-empty ``--mesh`` (ROADMAP module 14b)
-stops the run with a message.
+encodes each caption's image to. ``--mesh DxM`` under torchrun splits the
+encoder over the model axis and the rows over the data axis, each rank
+encoding the target grids of its own rows (``cli.train_sensim``).
 """
 
 from __future__ import annotations
@@ -49,13 +50,18 @@ def main(argv=None):
         Caption2ImageTrainer,
     )
 
+    from imagetranslate_tpu_torch.parallel.mesh import cli_mesh, leave
+
     tp = TextProcessor(options.tokenizer_path)
     cfg = encoder_config(options, tp)
-    captioner = load_captioner(options.pretrained_path, options.device)
+    mesh, joined = cli_mesh(options.mesh_spec, options.device)
+    captioner = load_captioner(
+        options.pretrained_path,
+        options.device if mesh is None else mesh.device)
     trainer = Caption2ImageTrainer(cfg, tp, captioner,
                                    lr=options.learning_rate,
                                    warmup=options.warmup, clip=options.clip,
-                                   device=options.device)
+                                   mesh=mesh, device=options.device)
 
     cap_batcher, dev_batcher = (
         CaptionBatcher(path, tp, max_capacity_mb=options.img_capacity,
@@ -66,13 +72,14 @@ def main(argv=None):
     os.makedirs(options.model_path, exist_ok=True)
     step, epoch = 0, 0
     while step < options.step:
-        print(f"train epoch {epoch}")
+        trainer._log(f"train epoch {epoch}")
         step = trainer.train_epoch(step, options.model_path, cap_batcher,
                                    image_root=options.image_dir,
                                    dev_batcher=dev_batcher,
                                    max_step=options.step, epoch_seed=epoch)
         epoch += 1
-    print("Finished Training!")
+    trainer._log("Finished Training!")
+    leave(joined)
 
 
 if __name__ == "__main__":

@@ -220,6 +220,7 @@ def beam_search_dual(
     init_method=None,
     step_method=None,
     ref_ties: bool = True,
+    data_group=None,
 ):
     """Gated dual-stream beam search: every step decodes against the text
     encoding AND the image grid, each stream with its own KV cache, and
@@ -231,7 +232,8 @@ def beam_search_dual(
     ``decode_step_dual``) swap in another pair, e.g.
     ``ImageSeq2Seq.init_obj_dual_cache`` / ``decode_step_obj_dual`` for the
     grid + object decode, with ``enc_text`` = the image grid, ``grid`` = the
-    object states and ``grid_mask`` = the valid-detection mask."""
+    object states and ``grid_mask`` = the valid-detection mask.
+    ``data_group`` as in ``beam_search``."""
     B = enc_text.shape[0]
     K, L = beam_width, max_len
     lang_idx = first_lang(tgt_langs)
@@ -262,7 +264,8 @@ def beam_search_dual(
     return _beam_loop(step, list(cache.values()), first_tokens, max_lens,
                       beam_width=K, max_len=L,
                       len_penalty_ratio=len_penalty_ratio, pad_id=pad_id,
-                      eos_id=eos_id, ref_ties=ref_ties)
+                      eos_id=eos_id, ref_ties=ref_ties,
+                      data_group=data_group)
 
 
 def trim_outputs(best, lengths, remove_first_token: bool = False):

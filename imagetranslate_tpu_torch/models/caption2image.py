@@ -6,6 +6,8 @@ The text encoder and an attention pool give one vector a caption; an fp32
 Linear expands it into a 49-slot grid [B, 49, E], which training regresses
 onto a frozen captioner's image grid (``train/trainer_txt2image.py``) and
 ``cli/translate_img.py`` hands the captioner's decoder as encoder states.
+Under a mesh (``shard_``) the encoder holds this rank's shard of the JAX TP
+rules; the pool and the grid head stay whole on every rank.
 """
 
 from __future__ import annotations
@@ -15,7 +17,10 @@ from torch import nn
 
 from imagetranslate_tpu_torch.models.config import Seq2SeqConfig
 from imagetranslate_tpu_torch.models.seq2seq import AttentionPool
-from imagetranslate_tpu_torch.models.sensim import encode_pooled
+from imagetranslate_tpu_torch.models.sensim import (
+    encode_pooled,
+    shard_encoder_model_,
+)
 from imagetranslate_tpu_torch.models.transformer import (
     Encoder,
     dropout_stream,
@@ -30,6 +35,8 @@ class Caption2Image(nn.Module):
     config (the flax Dense without a dtype, on the pooled vector cast to
     fp32)."""
 
+    mesh = None   # set by shard_
+
     def __init__(self, cfg: Seq2SeqConfig, device=None, param_dtype=None):
         super().__init__()
         self.cfg = cfg
@@ -39,11 +46,13 @@ class Caption2Image(nn.Module):
         self.decoder = nn.Linear(E, GRID_SLOTS * E, device=device,
                                  dtype=torch.float32)
 
+    shard_ = shard_encoder_model_
+
     def forward(self, src_ids, src_mask, src_langs,
                 deterministic: bool = True, rng=None):
         """-> the pseudo grid [B, 49, E], fp32. ``rng`` feeds the dropout
         when ``deterministic`` is False."""
-        drop = dropout_stream(deterministic, rng, src_ids.device)
+        drop = dropout_stream(deterministic, rng, src_ids.device, self.mesh)
         pooled = encode_pooled(self, src_ids, src_mask, src_langs, drop)
         grid = self.decoder(pooled.to(torch.float32))
         return grid.reshape(src_ids.shape[0], GRID_SLOTS,

@@ -22,6 +22,13 @@ triple) only. Dropout in the training forwards sits where
 ``models/transformer.py`` puts it, plus the ResNet grid's two sites, all
 drawn from one ``dropout_stream``. ``decode_step_beams`` and the windowed
 caches are TPU scheduling devices and are not ported.
+
+Under a mesh (``shard_``) the text core and the object stream hold this
+rank's shard of the JAX TP rules; the ResNet, ``object_feat_fc``, the
+location embedding, the pools and the gates stay whole on every rank. With a
+data group the ResNet's BatchNorm normalises with the global batch's
+statistics (``models/resnet.py``), and ``contrastive_loss`` gathers the
+text vectors over it.
 """
 
 from __future__ import annotations
@@ -34,7 +41,8 @@ from torch import nn
 
 from imagetranslate_tpu_torch.data.images import normalize_uint8
 from imagetranslate_tpu_torch.models.config import Seq2SeqConfig
-from imagetranslate_tpu_torch.models.resnet import ResNetGrid
+from imagetranslate_tpu_torch.models.resnet import BatchNorm2d, ResNetGrid
+from imagetranslate_tpu_torch.models.sensim import gather_rows, infonce_mean
 from imagetranslate_tpu_torch.models.seq2seq import (
     AttentionPool,
     Seq2Seq,
@@ -50,6 +58,13 @@ from imagetranslate_tpu_torch.models.transformer import (
     causal_pad_bias,
     dropout_stream,
     pad_bias,
+)
+from imagetranslate_tpu_torch.parallel.comm import group_rank
+from imagetranslate_tpu_torch.parallel.mesh import (
+    Plan,
+    ProcessMesh,
+    module_plan,
+    shard_module_,
 )
 
 NUM_OBJECT_LABELS = 91      # COCO classes of the detector, 0 = padding
@@ -99,6 +114,33 @@ class ImageSeq2Seq(nn.Module):
                 object_feat_dim, cfg.hidden_size, bias=False, device=device,
                 dtype=_param_dtype(cfg, param_dtype))
 
+    @property
+    def mesh(self) -> Optional[ProcessMesh]:
+        return self.core.mesh
+
+    @property
+    def vocab_tp(self) -> Optional[ProcessMesh]:
+        return self.core.vocab_tp
+
+    def vocab_range(self):
+        return self.core.vocab_range()
+
+    def shard_(self, mesh: ProcessMesh) -> Plan:
+        """Keep this rank's shard of every parameter (the JAX TP rules over
+        the whole tree: the text core and the object stream split, the rest
+        whole), in place, and return the plan; BatchNorm takes the data
+        group's statistics."""
+        plan = module_plan(self, mesh, self.cfg)
+        shard_module_(self, mesh, plan)
+        self.core.bind_mesh(mesh, plan, "core.")
+        for mod in self.image_model.modules():
+            if isinstance(mod, BatchNorm2d):
+                mod.dp = mesh.data_group
+        return plan
+
+    def _drop(self, deterministic: bool, rng, device):
+        return dropout_stream(deterministic, rng, device, self.core.mesh)
+
     def _obj_decoder(self, lang_idx: int) -> Decoder:
         return (self.obj_decoder[lang_idx] if self.cfg.lang_dec
                 else self.obj_decoder)
@@ -127,7 +169,7 @@ class ImageSeq2Seq(nn.Module):
         ``cfg.freeze_image`` the grid carries no gradient."""
         if images.dtype == torch.uint8:
             images = normalize_uint8(images)
-        drop = dropout_stream(deterministic, rng, images.device)
+        drop = self._drop(deterministic, rng, images.device)
         grid = self.image_model(images, train=train, drop=drop)
         return grid.detach() if self.cfg.freeze_image else grid
 
@@ -166,7 +208,7 @@ class ImageSeq2Seq(nn.Module):
         with the batch's statistics and moves its running ones;
         ``deterministic=False`` turns dropout on, its seeds drawn from
         ``rng`` (a host torch.Generator)."""
-        drop = dropout_stream(deterministic, rng, captions.device)
+        drop = self._drop(deterministic, rng, captions.device)
         grid = self.encode_images(images, train, deterministic, rng=drop)
         logits, _ = self._decode_over(grid, None, captions, caption_mask,
                                       langs, tgt_positions, drop)
@@ -192,7 +234,7 @@ class ImageSeq2Seq(nn.Module):
         """Dual-stream captioning: the grid decoder and the object decoder
         (over the detections, padding masked), blended by
         sigmoid(multistream gate + 1e-7), projected once."""
-        drop = dropout_stream(deterministic, rng, captions.device)
+        drop = self._drop(deterministic, rng, captions.device)
         grid = self.encode_images(images, train, deterministic, rng=drop)
         obj_states, obj_keep = self.encode_objects(box_features,
                                                    object_labels)
@@ -220,7 +262,7 @@ class ImageSeq2Seq(nn.Module):
         corrupted caption's encoding and against the image grid, and the two
         decoder outputs are blended by sigmoid(multimodal gate + 1e-7)
         before the one vocab projection. fp32 logits [B, W-1, V]."""
-        drop = dropout_stream(deterministic, rng, src_ids.device)
+        drop = self._drop(deterministic, rng, src_ids.device)
         enc_states = self.core.encode(src_ids, src_mask, src_langs,
                                       deterministic, rng=drop)
         grid = self.encode_images(images, train, deterministic, rng=drop)
@@ -239,21 +281,27 @@ class ImageSeq2Seq(nn.Module):
     def contrastive_loss(self, images, captions, caption_mask, langs,
                          neg_samples, neg_mask, neg_langs,
                          train: bool = False, deterministic: bool = True,
-                         row_mask=None, rng=None):
+                         row_mask=None, rng=None, data_group=None,
+                         neg_group=None, count=None):
         """InfoNCE between the attention-pooled image grid and the pooled
         caption encodings, the text negatives as extra columns: a scalar,
         the mean over the rows ``row_mask`` keeps (all rows when None).
         Padding rows leave the anchors and the in-batch negative columns;
         their columns take -1e9, not -inf, whose 0-weighted product would
-        be NaN."""
-        drop = dropout_stream(deterministic, rng, captions.device)
+        be NaN. ``data_group`` / ``neg_group``: the group over which the
+        captions' / the negatives' rows are split (the text vectors are
+        gathered over it: ``cross = img_vec @ text_vecs.T`` over the global
+        [B, B + N]); ``count``: the divisor of the mean."""
+        drop = self._drop(deterministic, rng, captions.device)
         enc = self.core.encode(captions, caption_mask, langs, deterministic,
                                rng=drop)
         pos_vec = self.encoder_attention(enc, caption_mask)
         neg_enc = self.core.encode(neg_samples, neg_mask, neg_langs,
                                    deterministic, rng=drop)
         neg_vec = self.encoder_attention(neg_enc, neg_mask)
-        text_vecs = torch.cat([pos_vec, neg_vec], dim=0)
+        pos_all = gather_rows(pos_vec, data_group)
+        neg_all = gather_rows(neg_vec, neg_group)
+        text_vecs = torch.cat([pos_all, neg_all], dim=0)
         grid = self.encode_images(images, train, deterministic, rng=drop)
         img_vec = self.image_attention(grid, None)
 
@@ -262,19 +310,21 @@ class ImageSeq2Seq(nn.Module):
             return v / (torch.linalg.vector_norm(v, dim=-1, keepdim=True)
                         + 1e-4)
 
-        cross = l2norm(img_vec) @ l2norm(text_vecs).T        # [B, B + N]
+        cross = l2norm(img_vec) @ l2norm(text_vecs).T        # [B, Bg + N]
         B = pos_vec.shape[0]
         if row_mask is not None:
-            col_keep = torch.cat([row_mask, torch.ones(
-                neg_vec.shape[0], dtype=torch.bool, device=row_mask.device)])
+            col_keep = torch.cat([gather_rows(row_mask, data_group),
+                                  torch.ones(neg_all.shape[0],
+                                             dtype=torch.bool,
+                                             device=row_mask.device)])
             cross = torch.where(col_keep[None, :], cross, -1e9)
         denom = torch.log(torch.sum(torch.exp(cross), dim=-1) + 1e-4)
-        nom = torch.diagonal(cross[:, :B]) + 1e-4
-        if row_mask is None:
-            return torch.sum(denom - nom) / B
-        per = torch.where(row_mask, denom - nom, 0.0)
-        return torch.sum(per) / torch.clamp(
-            torch.sum(row_mask.to(torch.float32)), min=1.0)
+        first = 0 if data_group is None else group_rank(data_group) * B
+        rows = torch.arange(B, device=cross.device)
+        nom = cross[rows, first + rows] + 1e-4
+        keep = (torch.ones(B, dtype=torch.bool, device=cross.device)
+                if row_mask is None else row_mask)
+        return infonce_mean(denom - nom, keep, count)
 
     def forward(self, *args, **kw):
         """The text model's forward (the MT stream of multi-task

@@ -20,6 +20,12 @@ fp32 on fp32 parameters and statistics and casts back to the input's dtype
 config its later convolutions run in fp32; here they stay in the compute
 dtype). ``train=True`` normalises with the batch's statistics and moves the
 running ones with momentum 0.9, both with the biased variance, as flax does.
+Under a data group (``BatchNorm2d.dp``, set by ``ImageSeq2Seq.shard_``) the
+batch statistics are the global batch's, as XLA's cross-device reductions
+give them in JAX: the mean from the group's sums, then the variance from the
+group's sums of squared deviations from it (two passes, as the one-process
+variance), each summed with its gradient (``all_reduce_autograd``); the
+running statistics move alike on every rank.
 """
 
 from __future__ import annotations
@@ -27,6 +33,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from imagetranslate_tpu_torch.parallel.comm import all_reduce_autograd
 
 DEPTHS = {
     1: ("basic", (2, 2, 2, 2), 1, 64),       # resnet18
@@ -58,7 +66,10 @@ class Conv2d(nn.Conv2d):
 
 class BatchNorm2d(nn.Module):
     """Batch normalisation over [B, C, H, W] in fp32, cast back to the
-    input's dtype; ``train`` is an argument, not the module's mode."""
+    input's dtype; ``train`` is an argument, not the module's mode. ``dp``:
+    the data group whose global batch the statistics are taken over."""
+
+    dp = None
 
     def __init__(self, channels: int, device=None):
         super().__init__()
@@ -70,9 +81,19 @@ class BatchNorm2d(nn.Module):
 
     def forward(self, x, train: bool = False):
         xf = x.to(torch.float32)
-        if train:
+        if train and self.dp is not None:
+            n = xf.new_tensor([float(xf.numel() // xf.shape[1])])
+            sums = all_reduce_autograd(torch.cat([xf.sum(dim=(0, 2, 3)), n]),
+                                       self.dp)
+            count = sums[-1].detach()
+            mean = sums[:-1] / count
+            dev = xf - mean[None, :, None, None]
+            var = all_reduce_autograd((dev * dev).sum(dim=(0, 2, 3)),
+                                      self.dp) / count
+        elif train:
             mean = xf.mean(dim=(0, 2, 3))
             var = xf.var(dim=(0, 2, 3), unbiased=False)
+        if train:
             with torch.no_grad():
                 self.running_mean.mul_(BN_MOMENTUM).add_(
                     mean, alpha=1.0 - BN_MOMENTUM)

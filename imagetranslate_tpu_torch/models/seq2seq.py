@@ -19,14 +19,10 @@ import torch
 from torch import nn
 
 from imagetranslate_tpu_torch.models.config import Seq2SeqConfig
-from imagetranslate_tpu_torch.models.moe import MoEFeedForward
 from imagetranslate_tpu_torch.models.transformer import (
-    Attention,
     Cache,
     Decoder,
-    Embeddings,
     Encoder,
-    EncoderLayer,
     OutputLayer,
     _linear,
     causal_pad_bias,
@@ -41,8 +37,8 @@ from imagetranslate_tpu_torch.parallel.comm import tp_copy
 from imagetranslate_tpu_torch.parallel.mesh import (
     Plan,
     ProcessMesh,
-    shard_params,
-    shard_plan,
+    module_plan,
+    shard_module_,
 )
 
 
@@ -173,35 +169,21 @@ class Seq2Seq(nn.Module):
         afterwards. An MoE bank keeps its rank's experts (expert
         parallelism) and routes the data group's global batch
         (models/moe.py)."""
-        sd = self.state_dict()
-        plan = shard_plan({k: tuple(v.shape) for k, v in sd.items()}, mesh,
-                          self.cfg)
-        local = shard_params(sd, mesh, plan)
-        for name, param in self.named_parameters():
-            if plan[name] is not None:
-                param.data = local[name]
+        plan = module_plan(self, mesh, self.cfg)
+        shard_module_(self, mesh, plan)
+        self.bind_mesh(mesh, plan)
+        return plan
+
+    def bind_mesh(self, mesh: ProcessMesh, plan: Plan, prefix: str = ""):
+        """Record the mesh the model's shards belong to and whether the
+        vocab is split (``plan``'s keys under ``prefix``: the model's name
+        inside an enclosing module)."""
         self.mesh = mesh
-
-        def split(key):
-            return mesh if plan.get(key) is not None else None
-
-        for name, mod in self.named_modules():
-            pre = name + "." if name else ""
-            if isinstance(mod, Attention):
-                mod.tp = split(pre + "self.query.weight")
-            elif isinstance(mod, EncoderLayer):
-                mod.tp = split(pre + "intermediate.dense.weight")
-            elif isinstance(mod, Embeddings):
-                mod.tp = split(pre + "word_embeddings.weight")
-            elif isinstance(mod, MoEFeedForward):
-                mod.tp = split(pre + "wi")
-                mod.dp = mesh if mesh.data_group is not None else None
         out = ("encoder.embeddings.word_embeddings.weight"
                if self.cfg.tie_embed else
                ("output_layer.0.layer.weight" if self.cfg.lang_dec
                 else "output_layer.layer.weight"))
-        self.vocab_tp = split(out)
-        return plan
+        self.vocab_tp = mesh if plan.get(prefix + out) is not None else None
 
     # ---------------- encoding ----------------
 

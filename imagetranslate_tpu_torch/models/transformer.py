@@ -78,16 +78,22 @@ class DropoutRng:
     (which hold the same rows) drop the same replicated activations; an
     attention seed is shifted by the linear shard index where the heads are
     split (the JAX call site's shift) and by the data index's first shard
-    where they are not."""
+    where they are not. Under sequence parallelism (``seq``: the ranks of a
+    model group hold different positions of the same rows) the device
+    generator is shifted by the linear shard index. ``seed`` is the
+    unshifted seed, the same on every rank: draws that must be those of the
+    global batch (the MLM masks) start from it."""
 
     mesh = None
 
-    def __init__(self, generator: torch.Generator, device, mesh=None):
+    def __init__(self, generator: torch.Generator, device, mesh=None,
+                 seq: bool = False):
         self.host = generator
         self.mesh = mesh
         self.dev = torch.Generator(device=device)
-        self.dev.manual_seed(self.next_seed()
-                             + (0 if mesh is None else mesh.d))
+        self.seed = self.next_seed()
+        self.dev.manual_seed(self.seed + (0 if mesh is None else
+                                          mesh.rank if seq else mesh.d))
 
     def get_state(self):
         """Where the stream stands: both generators' states."""
@@ -117,8 +123,8 @@ class DropoutRng:
         return torch.where(keep, x / (1.0 - rate), 0.0)
 
 
-def dropout_stream(deterministic: bool, rng, device,
-                   mesh=None) -> Optional[DropoutRng]:
+def dropout_stream(deterministic: bool, rng, device, mesh=None,
+                   seq: bool = False) -> Optional[DropoutRng]:
     """The ``drop`` a model's forward hands down: None when deterministic,
     else ``rng`` itself if it is a DropoutRng, else a new one over ``rng``
     (the host torch.Generator the dropout seeds come from) for ``mesh``."""
@@ -128,7 +134,7 @@ def dropout_stream(deterministic: bool, rng, device,
         raise ValueError("deterministic=False needs rng, the "
                          "torch.Generator the dropout seeds come from")
     return (rng if isinstance(rng, DropoutRng)
-            else DropoutRng(rng, device, mesh))
+            else DropoutRng(rng, device, mesh, seq))
 
 
 def _group(tp):

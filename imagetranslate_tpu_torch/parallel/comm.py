@@ -163,3 +163,43 @@ def recv(shape, dtype: torch.dtype, device, src: int) -> torch.Tensor:
                       device="cpu" if host else device)
     dist.recv(out, src)
     return out.to(device) if host else out
+
+
+class _GatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_gather_stack(x.contiguous(), group).flatten(0, 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        n = group_size(ctx.group)
+        total = all_reduce_sum(g.contiguous().clone(), ctx.group)
+        return total.chunk(n)[group_rank(ctx.group)].contiguous(), None
+
+
+class _ReduceBoth(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_reduce_sum(x.contiguous().clone(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_sum(g.contiguous().clone(), ctx.group), None
+
+
+def all_gather_rows(x: torch.Tensor, group) -> torch.Tensor:
+    """The rows of every rank of the group, in rank order ([n * B, ...]
+    from each rank's [B, ...]); backward: each rank takes its own rows of
+    the group's summed gradient. The contrastive losses gather their
+    vectors through it: every rank's loss reads every rank's rows."""
+    return x if group is None else _GatherRows.apply(x, group)
+
+
+def all_reduce_autograd(x: torch.Tensor, group) -> torch.Tensor:
+    """Sum over the group forward, and the gradient summed over the group
+    backward (every rank's output reads every rank's input): the global
+    batch statistics of BatchNorm. Not ``tp_reduce``, whose backward is the
+    identity."""
+    return x if group is None else _ReduceBoth.apply(x, group)

@@ -1,7 +1,7 @@
 """Process meshes, the tensor-parallel rule table and batch sharding (port
 of imagetranslate_tpu/parallel/mesh.py: init_distributed, parse_mesh,
 make_mesh, model_axis_size, _TP_RULES / param_spec, param_shardings,
-shard_params and shard_batch_safe).
+shard_params, shard_batch_safe, seq_sharding and put_global).
 
 JAX runs one process over many devices; the port runs one process per rank
 (``torchrun --nproc-per-node N``). Rank r sits at grid position
@@ -14,6 +14,14 @@ of size 1 has no group (None).
 Backend: NCCL where every local rank has a card of its own, gloo where ranks
 share a card (NCCL refuses two ranks on one device) or run on the CPU. The
 choice is made from the device count, not from a caught error, and printed.
+Several machines: ``torchrun --nnodes N --node-rank i --master-addr A
+--master-port P`` on each (the counterpart of JAX's
+``JAX_COORDINATOR_ADDRESS``); each node picks its devices and backend from
+its own ``LOCAL_RANK`` and ``LOCAL_WORLD_SIZE``.
+
+Host staging (JAX ``put_global``): every process builds the same global
+batch on the host, and each rank copies only its rows (``host_rows``), so
+that a rank moves 1/D of the batch's host-to-device bytes.
 """
 
 from __future__ import annotations
@@ -139,6 +147,30 @@ def parse_mesh(spec: Optional[str], device="cuda") -> Optional[ProcessMesh]:
     return make_mesh(int(match.group(1)), int(match.group(2) or 1), device)
 
 
+def cli_mesh(spec: Optional[str], device="cuda"
+             ) -> Tuple[Optional[ProcessMesh], bool]:
+    """A training CLI's ``--mesh``: (the mesh, whether this call joined the
+    process group, so that the CLI leaves it at the end; a caller that
+    joined it before keeps it). No spec: (None, False). A spec outside a
+    multi-process run stops with the torchrun recipe."""
+    if not spec:
+        return None, False
+    joined = not dist.is_initialized()
+    if not init_distributed(device=device):
+        raise SystemExit("--mesh runs one process a rank: launch with "
+                         "torchrun --nproc-per-node N")
+    try:
+        return parse_mesh(spec, device), joined
+    except ValueError as e:
+        raise SystemExit(f"--mesh {spec}: {e}") from None
+
+
+def leave(joined: bool) -> None:
+    """The end of a CLI run that ``cli_mesh`` joined to the group."""
+    if joined:
+        dist.destroy_process_group()
+
+
 def model_axis_size(mesh: Optional[ProcessMesh]) -> int:
     return 1 if mesh is None else mesh.n_model
 
@@ -248,16 +280,97 @@ def gather_params(state_dict: Mapping[str, torch.Tensor], mesh: ProcessMesh,
     return out
 
 
+def shard_module_(module, mesh: ProcessMesh, plan: Plan) -> None:
+    """Keep this rank's shard of every parameter of ``module`` that the
+    plan splits (in place; the values are kept: load a full state through
+    ``shard_params`` afterwards), and tell each layer what it holds: an
+    ``Attention`` whose heads are split, an ``EncoderLayer`` whose FFN is
+    split, an ``Embeddings`` whose word rows are split (their ``tp``), an
+    MoE bank its experts (``tp``) and the data group it routes over
+    (``dp``). ``Seq2Seq``, ``LM``, ``SenSim``, ``Caption2Image`` and the
+    captioner's text core share it."""
+    from imagetranslate_tpu_torch.models.moe import MoEFeedForward
+    from imagetranslate_tpu_torch.models.transformer import (
+        Attention,
+        Embeddings,
+        EncoderLayer,
+    )
+
+    sd = module.state_dict()
+    local = shard_params({k: sd[k] for k, d in plan.items()
+                          if d is not None and k in sd}, mesh, plan)
+    for name, param in module.named_parameters():
+        if plan.get(name) is not None:
+            param.data = local[name]
+
+    def split(key):
+        return mesh if plan.get(key) is not None else None
+
+    for name, mod in module.named_modules():
+        pre = name + "." if name else ""
+        if isinstance(mod, Attention):
+            mod.tp = split(pre + "self.query.weight")
+        elif isinstance(mod, EncoderLayer):
+            mod.tp = split(pre + "intermediate.dense.weight")
+        elif isinstance(mod, Embeddings):
+            mod.tp = split(pre + "word_embeddings.weight")
+        elif isinstance(mod, MoEFeedForward):
+            mod.tp = split(pre + "wi")
+            mod.dp = mesh if mesh.data_group is not None else None
+
+
+def module_plan(module, mesh: ProcessMesh, cfg) -> Plan:
+    """``shard_plan`` over a module's state_dict."""
+    return shard_plan({k: tuple(v.shape)
+                       for k, v in module.state_dict().items()}, mesh, cfg)
+
+
+def seq_range(mesh: ProcessMesh, seq_len: int, block: int) -> Tuple[int, int]:
+    """[lo, hi) of the positions rank (d, m) holds under sequence
+    parallelism (JAX ``seq_sharding``: the model axis splits the sequence
+    dim, the data axis the rows): the m-th contiguous run of whole
+    ``block``s. The blocks must divide evenly over the model axis (GSPMD
+    would accept an uneven split; the port refuses it)."""
+    n = mesh.n_model
+    if seq_len % block or (seq_len // block) % n:
+        raise ValueError(
+            f"sequence parallelism over {n} ranks needs the {seq_len} "
+            f"positions to split into whole {block}-token blocks, the same "
+            f"number on every rank ({seq_len // block} blocks do not)")
+    run = seq_len // n
+    return mesh.m * run, (mesh.m + 1) * run
+
+
+def host_rows(n_rows: int, mesh: Optional[ProcessMesh]) -> slice:
+    """The rows of an ``n_rows``-row host array that this rank stages
+    (JAX ``put_global``: each process uploads only its own shard): the
+    rows of its data index, or all of them without a data group or where
+    the data axis does not divide them (``shard_batch_safe``'s rule)."""
+    if mesh is None or mesh.n_data == 1:
+        return slice(None)
+    if n_rows % mesh.n_data:
+        warnings.warn(
+            f"host_rows: {n_rows} rows, not divisible by the data axis "
+            f"({mesh.n_data}); replicating — data parallelism is lost for "
+            "this shape", stacklevel=2)
+        return slice(None)
+    rows = n_rows // mesh.n_data
+    return slice(mesh.d * rows, (mesh.d + 1) * rows)
+
+
 def shard_batch_safe(batch: Mapping[str, torch.Tensor], mesh: ProcessMesh
                      ) -> Dict[str, torch.Tensor]:
-    """The rows of this rank's data index of every array with a leading
-    dim. An array whose rows the data axis does not divide stays whole on
-    every rank (the step's global sum / count still counts it right: every
-    data rank adds the same sums), with a warning once per (key, rows)."""
+    """The rows of this rank's data index of every array (a tensor, or a
+    numpy array on the host before its copy) with a leading dim. An array
+    whose rows the data axis does not divide stays whole on every rank (the
+    step's global sum / count still counts it right: every data rank adds
+    the same sums), with a warning once per (key, rows), and is listed
+    under ``"_whole"`` (the InfoNCE steps gather only the split ones)."""
     n = mesh.n_data
     out = {}
+    whole = set(batch.get("_whole", ()))
     for k, v in batch.items():
-        if not isinstance(v, torch.Tensor) or v.ndim < 1 or n == 1:
+        if getattr(v, "ndim", 0) < 1 or n == 1 or k == "_whole":
             out[k] = v
         elif v.shape[0] % n == 0:
             rows = v.shape[0] // n
@@ -269,4 +382,7 @@ def shard_batch_safe(batch: Mapping[str, torch.Tensor], mesh: ProcessMesh
                     f"not divisible by the data axis ({n}); replicating — "
                     "data parallelism is lost for this shape", stacklevel=2)
             out[k] = v
+            whole.add(k)
+    if whole:
+        out["_whole"] = frozenset(whole)
     return out

@@ -42,12 +42,15 @@ MIN_SIZE = 4096
 
 # (pattern, how the flax layout reads the port's tensor): "qkv" [H D, E] ->
 # [E, H, D]; "qkv_bias" [H D] -> [H, D]; "attn_out" [E, H D] -> [H, D, E];
-# "linear" [out, in] -> [in, out]; anything else is laid out alike.
+# "linear" [out, in] -> [in, out]; "conv" (the captioner's ResNet)
+# [out, in, kh, kw] -> [kh, kw, in, out]; anything else is laid out alike.
 _VIEWS = [
     (r"\.self\.(query|key|value)\.weight$", "qkv"),
     (r"\.self\.(query|key|value)\.bias$", "qkv_bias"),
     (r"attention\.output\.dense\.weight$", "attn_out"),
     (r"(\.dense|output_layer(\.\d+)?\.layer|\.router)\.weight$", "linear"),
+    (r"(^|\.)(fc|object_feat_fc|w)\.weight$", "linear"),
+    (r"(^|\.)(conv\d|downsample\.0)\.weight$", "conv"),
 ]
 
 
@@ -67,6 +70,8 @@ def flax_view(name: str, shape: Sequence[int], head_dim: int
         return (shape[0], shape[1] // head_dim, head_dim), (1, 2, 0), (0, 1, 1)
     if kind == "linear" and len(shape) == 2:
         return shape, (1, 0), (0, 1)
+    if kind == "conv" and len(shape) == 4:
+        return shape, (2, 3, 1, 0), (0, 1, 2, 3)
     return shape, tuple(range(len(shape))), tuple(range(len(shape)))
 
 

@@ -26,6 +26,19 @@ that global count) are summed over the data group before the update. With
 the vocab split over the model group the loss is
 ``smoothed_nll_loss_vocab_parallel``; under pure data parallelism each rank
 holds the whole vocab and keeps the fused kernels where the config asks.
+
+The other families hold the same contract under a mesh: every sum JAX takes
+over the batch is global. The MLM step draws the global batch's masks from
+a seed every rank shares and takes its slice, switches to the
+masked-budget projection on the global B * T, and orders the global mask
+(``_mlm_positions``); under sequence parallelism (``LongDocLM`` over a
+model axis) the positions of a row are split over the model group as well,
+and the sums and the gradients are summed over it too. The contrastive,
+SenSim and Caption2Image steps divide by the global count of rows, the
+InfoNCE steps over vectors all-gathered over the data group. Under a data
+group a batch lists the arrays whose rows it did not split (the data axis
+does not divide them; each rank holds all of them) under ``"_whole"``
+(``shard_batch_safe``, ``mark_whole``).
 """
 
 from __future__ import annotations
@@ -51,7 +64,10 @@ from imagetranslate_tpu_torch.ops.masking import (
     mass_mask_core,
 )
 from imagetranslate_tpu_torch.ops.xent import smoothed_nll_loss_fused
-from imagetranslate_tpu_torch.parallel.comm import all_reduce_sum
+from imagetranslate_tpu_torch.parallel.comm import (
+    all_gather_stack,
+    all_reduce_sum,
+)
 from imagetranslate_tpu_torch.train.optimizer import (
     AnyOptState,
     MultiSteps,
@@ -116,7 +132,8 @@ def _plus(objective, aux):
     return objective if aux is None else objective + aux
 
 
-def _descend(state, optimizer: Optimizer, objective, mesh=None) -> None:
+def _descend(state, optimizer: Optimizer, objective, mesh=None,
+             seq: bool = False) -> None:
     """Backward of the scalar ``objective``, then ``apply_grads``."""
     params = list(state.params.values())
     grads = torch.autograd.grad(objective, params, allow_unused=True)
@@ -124,41 +141,79 @@ def _descend(state, optimizer: Optimizer, objective, mesh=None) -> None:
     # gets a zero gradient, as jax.grad gives it.
     grads = [torch.zeros_like(p) if g is None else g
              for p, g in zip(params, grads)]
-    apply_grads(state, optimizer, grads, mesh)
+    apply_grads(state, optimizer, grads, mesh, seq)
 
 
-def apply_grads(state, optimizer: Optimizer, grads, mesh=None) -> None:
+def _flat_sum(grads, group):
+    flat = all_reduce_sum(torch.cat([g.reshape(-1) for g in grads]), group)
+    return [f.view_as(g) for f, g in
+            zip(flat.split([g.numel() for g in grads]), grads)]
+
+
+def apply_grads(state, optimizer: Optimizer, grads, mesh=None,
+                seq: bool = False) -> None:
     """The gradients (one per ``state.params`` entry, this rank's) summed
     over the mesh's data group, the optimizer update in place. Under ZeRO-1
     (``optimizer.zero``) the split parameters' gradients are
-    reduce-scattered instead, and the update all-gathers their slices."""
+    reduce-scattered instead, and the update all-gathers their slices.
+    ``seq``: the model group holds other positions of the same rows
+    (sequence parallelism, the parameters whole on every rank), so the
+    gradients are summed over it too."""
+    if seq and mesh is not None and mesh.model_group is not None:
+        grads = _flat_sum(grads, mesh.model_group)
     if mesh is not None and mesh.data_group is not None:
         zero = getattr(optimizer, "zero", None)
         if zero is not None:
             grads = zero.reduce_grads(grads, list(state.params))
         else:
-            flat = all_reduce_sum(torch.cat([g.reshape(-1) for g in grads]),
-                                  mesh.data_group)
-            grads = [f.view_as(g) for f, g in
-                     zip(flat.split([g.numel() for g in grads]), grads)]
+            grads = _flat_sum(grads, mesh.data_group)
     optimizer.update(grads, state.opt_state, state.params)
     state.step += 1
 
 
+def _row_groups(mesh, seq: bool = False):
+    """The groups whose ranks hold other rows (or, under sequence
+    parallelism, other positions) of the global batch: a sum over the batch
+    is summed over them."""
+    if mesh is None:
+        return []
+    groups = [mesh.data_group]
+    if seq:
+        groups.append(mesh.model_group)
+    return [g for g in groups if g is not None]
+
+
+def _global(x: torch.Tensor, mesh, seq: bool = False) -> torch.Tensor:
+    """The batch-wide sum of this rank's share ``x`` (a new tensor, no
+    gradient)."""
+    x = x.detach().clone()
+    for g in _row_groups(mesh, seq):
+        x = all_reduce_sum(x, g)
+    return x
+
+
 def _update(state, optimizer: Optimizer, sum_l, n, weight: float = 1.0,
-            aux=None, mesh=None):
+            aux=None, mesh=None, seq: bool = False):
     """Backward of weight * sum_l / n (+ ``aux``, the weighted MoE term),
     the optimizer update in place, the metrics (the unweighted sum). Under
-    ``mesh`` n is the data group's count (at least 1) and the metrics the
-    group's sums."""
-    if mesh is not None and mesh.data_group is not None:
-        n = all_reduce_sum(n.detach().clone(), mesh.data_group)
-    n = torch.clamp(n, min=1.0)
-    _descend(state, optimizer, _plus(weight * sum_l / n, aux), mesh)
-    sum_l = sum_l.detach()
-    if mesh is not None and mesh.data_group is not None:
-        sum_l = all_reduce_sum(sum_l.clone(), mesh.data_group)
-    return state, {"sum_loss": sum_l, "ntokens": n}
+    ``mesh`` n is the batch-wide count (at least 1) and the metrics the
+    batch-wide sums."""
+    n = torch.clamp(_global(n, mesh, seq), min=1.0)
+    _descend(state, optimizer, _plus(weight * sum_l / n, aux), mesh, seq)
+    return state, {"sum_loss": _global(sum_l, mesh, seq), "ntokens": n}
+
+
+def _split(batch, key: str) -> bool:
+    """Were ``batch[key]``'s rows split over the data group?"""
+    return key not in batch.get("_whole", ())
+
+
+def mark_whole(batch: Dict, keys, rows: slice) -> Dict:
+    """Record that ``keys`` stayed whole on every rank when ``rows`` (the
+    host slice they were staged with) is all of them; returns ``batch``."""
+    if rows == slice(None):
+        batch["_whole"] = frozenset(batch.get("_whole", ())) | set(keys)
+    return batch
 
 
 def make_mt_train_step(model, optimizer: Optimizer,
@@ -256,6 +311,86 @@ def mlm_budget(n_tokens: int, mask_prob: float) -> int:
     return -(-int(n_tokens * min(1.0, 2.0 * mask_prob)) // 128) * 128
 
 
+def _mlm_nll(model) -> Callable:
+    """The MLM's plain NLL over the model's logits: vocab-parallel where
+    the model splits the vocab."""
+    tp = getattr(model, "vocab_tp", None)
+    if tp is None:
+        return nll_loss
+    lo = model.vocab_range()[0]
+
+    def vocab_parallel(logits, targets, mask):
+        return smoothed_nll_loss_vocab_parallel(
+            logits, targets, mask, 0.0, lo, model.cfg.vocab_size,
+            tp.model_group)
+
+    return vocab_parallel
+
+
+def _mlm_layout(model, texts):
+    """(mesh, seq, global B, global T, first row, first position) of this
+    rank's [B, T] share of the MLM batch. Under a data group the rows are
+    split (the LM trainers refuse batches the data axis does not divide);
+    under sequence parallelism (``seq``) the positions too."""
+    mesh = getattr(model, "mesh", None)
+    B, T = texts.shape
+    if mesh is None:
+        return None, False, B, T, 0, 0
+    seq = bool(getattr(model, "seq_parallel", False))
+    n_model = mesh.n_model if seq else 1
+    return (mesh, seq, B * mesh.n_data, T * n_model, mesh.d * B,
+            (mesh.m if seq else 0) * T)
+
+
+def _local_draws(draws: MLMDraws, layout, B: int, T: int) -> MLMDraws:
+    """This rank's [B, T] slice of the global batch's draws (draws of the
+    share itself pass through)."""
+    r0, c0 = layout[4:]
+    if tuple(draws.sel.shape) == (B, T):
+        return draws
+    return MLMDraws(*(d[r0:r0 + B, c0:c0 + T] for d in draws))
+
+
+def _mlm_draws(gen, layout, texts, n_specials: int,
+               vocab_size: int) -> MLMDraws:
+    """The draws of this rank's share: those of the global batch from
+    ``gen`` (seeded alike on every rank), sliced."""
+    Bg, Tg = layout[2:4]
+    full = draw_mlm(gen, texts.new_empty((Bg, Tg)), n_specials=n_specials,
+                    vocab_size=vocab_size)
+    return _local_draws(full, layout, *texts.shape)
+
+
+def _global_mask(mask: torch.Tensor, layout) -> torch.Tensor:
+    """The global [B, T] int8 mask from every rank's share."""
+    mesh, seq = layout[:2]
+    m = mask.to(torch.int8)
+    if seq and mesh.model_group is not None:
+        parts = all_gather_stack(m, mesh.model_group)        # [M, B, t]
+        m = parts.permute(1, 0, 2).reshape(m.shape[0], -1)
+    if mesh.data_group is not None:
+        m = all_gather_stack(m, mesh.data_group).flatten(0, 1)
+    return m
+
+
+def _mlm_positions(mask: torch.Tensor, budget: int, layout) -> torch.Tensor:
+    """Flat indices into this rank's [B * T] share of the positions the
+    budget projection takes: the first ``budget`` of the global order (the
+    masked positions first, each group in index order: a stable descending
+    sort of the 0/1 vector is what top_k gives in JAX, where torch.topk
+    promises no order among equals), those this rank holds."""
+    if layout[0] is None:
+        return torch.argsort(mask.reshape(-1).to(torch.int8),
+                             descending=True, stable=True)[:budget]
+    Tg, r0, c0 = layout[3:]
+    B, T = mask.shape
+    flat = _global_mask(mask, layout).reshape(-1)
+    order = torch.argsort(flat, descending=True, stable=True)[:budget]
+    rows, cols = order // Tg - r0, order % Tg - c0
+    held = (rows >= 0) & (rows < B) & (cols >= 0) & (cols < T)
+    return (rows * T + cols)[held]
+
+
 def make_mlm_train_step(model, optimizer: Optimizer, cfg,
                         mask_prob: float = 0.15, n_specials: int = 5,
                         mask_id: int = 3) -> Callable:
@@ -264,49 +399,58 @@ def make_mlm_train_step(model, optimizer: Optimizer, cfg,
 
     Masked-budget projection: the loss reads only about ``mask_prob`` of the
     positions, while projecting every position stores [B * T, V] fp32 logits.
-    From B * T >= 8192 the step gathers a fixed budget of positions (the
-    masked ones first, in index order; ``mlm_budget``) and projects only
-    those. A masked count above the budget (a many-sigma event at that size)
-    drops the masked positions of the highest indices, as the JAX step does.
-    Smaller batches project every position.
+    From B * T >= 8192 (of the global batch) the step gathers a fixed budget
+    of positions (the masked ones first, in index order; ``mlm_budget``)
+    and projects only those. A masked count above the budget (a many-sigma
+    event at that size) drops the masked positions of the highest indices,
+    as the JAX step does. Smaller batches project every position.
 
     Returns ``step_fn(state, batch, rng, draws=None) -> (state, metrics)``.
     ``batch``: ``lm_batch_to_device``'s dict (texts [B, T], pad_mask, langs,
-    row_mask). ``rng``: the host torch.Generator; it seeds the device
-    generator that the mask draws and the dropout masks come from. ``draws``:
-    an ``MLMDraws`` to use in place of drawing (the tests feed the JAX
-    package's draws)."""
+    row_mask), under the model's mesh this rank's share. ``rng``: the host
+    torch.Generator; it seeds the device generator that the mask draws and
+    the dropout masks come from (under a mesh the masks come from a
+    generator every rank seeds alike, drawn over the global shape).
+    ``draws``: an ``MLMDraws`` to use in place of drawing, of the global
+    batch or of this rank's share (the tests feed the JAX package's
+    draws)."""
+    loss_fn = _mlm_nll(model)
 
     def step_fn(state: TrainState, batch: Dict[str, torch.Tensor],
                 rng: torch.Generator, draws: Optional[MLMDraws] = None):
         texts = batch["texts"]
-        drop = DropoutRng(rng, texts.device)
-        if draws is None:
+        B, T = texts.shape
+        layout = _mlm_layout(model, texts)
+        mesh, seq, Bg, Tg = layout[:4]
+        drop = DropoutRng(rng, texts.device, mesh, seq)
+        if draws is not None:
+            draws = _local_draws(draws, layout, B, T)
+        elif mesh is None:
             draws = draw_mlm(drop.dev, texts, n_specials=n_specials,
                              vocab_size=cfg.vocab_size)
+        else:
+            gen = torch.Generator(device=texts.device)
+            gen.manual_seed(drop.seed)
+            draws = _mlm_draws(gen, layout, texts, n_specials,
+                               cfg.vocab_size)
         masked = mask_text_core(draws, texts, batch["pad_mask"], mask_prob,
                                 mask_id=mask_id, eos_id=cfg.eos_id)
         mask = masked.target_mask & batch["row_mask"][:, None]
-        B, T = texts.shape
-        if B * T >= MLM_BUDGET_MIN_TOKENS:
+        if Bg * Tg >= MLM_BUDGET_MIN_TOKENS:
             h, aux = _with_aux(model, model.encode, masked.texts,
                                batch["pad_mask"], batch["langs"],
                                deterministic=False, rng=drop)
-            flat = mask.reshape(-1)
-            # A stable descending sort of the 0/1 vector: the masked positions
-            # first, each group in index order (what top_k gives in JAX;
-            # torch.topk promises no order among equals).
-            order = torch.argsort(flat.to(torch.int8), descending=True,
-                                  stable=True)[:mlm_budget(B * T, mask_prob)]
-            logits = model.project_hidden(h.reshape(B * T, -1)[order])
-            sum_l, n = nll_loss(logits, texts.reshape(-1)[order], flat[order])
+            at = _mlm_positions(mask, mlm_budget(Bg * Tg, mask_prob), layout)
+            logits = model.project_hidden(h.reshape(B * T, -1)[at])
+            sum_l, n = loss_fn(logits, texts.reshape(-1)[at],
+                               mask.reshape(-1)[at])
         else:
             logits, aux = _with_aux(model, model, masked.texts,
                                     batch["pad_mask"], batch["langs"],
                                     deterministic=False, rng=drop)
-            sum_l, n = nll_loss(logits, texts, mask)
-        return _update(state, optimizer, sum_l, torch.clamp(n, min=1.0),
-                       aux=aux)
+            sum_l, n = loss_fn(logits, texts, mask)
+        return _update(state, optimizer, sum_l, n, aux=aux, mesh=mesh,
+                       seq=seq)
 
     return step_fn
 
@@ -316,22 +460,55 @@ def make_mlm_eval_step(model, cfg, mask_prob: float = 0.15,
     """Dev loss of the MLM. Returns ``eval_fn(batch, gen, draws=None) ->
     (sum_loss, count)``: ``gen`` is a generator on the batch's device that
     the mask draws come from; the model runs deterministically on all
-    positions, without gradients."""
+    positions, without gradients. Under the model's mesh the batch is this
+    rank's share, the draws are those of the global batch (``gen`` seeded
+    alike on every rank) and the sums global."""
+    loss_fn = _mlm_nll(model)
 
     @torch.no_grad()
     def eval_fn(batch: Dict[str, torch.Tensor], gen: Optional[torch.Generator],
                 draws: Optional[MLMDraws] = None):
         texts = batch["texts"]
-        if draws is None:
+        B, T = texts.shape
+        layout = _mlm_layout(model, texts)
+        if draws is not None:
+            draws = _local_draws(draws, layout, B, T)
+        elif layout[0] is None:
             draws = draw_mlm(gen, texts, n_specials=n_specials,
                              vocab_size=cfg.vocab_size)
+        else:
+            draws = _mlm_draws(gen, layout, texts, n_specials,
+                               cfg.vocab_size)
         masked = mask_text_core(draws, texts, batch["pad_mask"], mask_prob,
                                 mask_id=mask_id, eos_id=cfg.eos_id)
         logits = model(masked.texts, batch["pad_mask"], batch["langs"])
         mask = masked.target_mask & batch["row_mask"][:, None]
-        return nll_loss(logits, texts, mask)
+        sum_l, n = loss_fn(logits, texts, mask)
+        if layout[0] is None:
+            return sum_l, n
+        return (_global(sum_l, *layout[:2]), _global(n, *layout[:2]))
 
     return eval_fn
+
+
+def _row_count(batch, key: str, mesh):
+    """The batch-wide count of real rows (``row_mask``; all rows without
+    one), no gradient."""
+    if "row_mask" in batch:
+        n = batch["row_mask"].to(torch.float32).sum()
+    else:
+        n = torch.tensor(float(batch[key].shape[0]),
+                         device=batch[key].device)
+    return _global(n, mesh)
+
+
+def _data_group(model, batch, key: str):
+    """The data group when ``batch[key]``'s rows were split over it, else
+    None (each rank then holds all of them)."""
+    mesh = getattr(model, "mesh", None)
+    if mesh is None or mesh.data_group is None or not _split(batch, key):
+        return None
+    return mesh.data_group
 
 
 def make_sensim_train_step(model, optimizer: Optimizer) -> Callable:
@@ -342,11 +519,14 @@ def make_sensim_train_step(model, optimizer: Optimizer) -> Callable:
     and the same four ``tgt_neg*``). The metrics count rows: ``sum_loss`` =
     loss * n, ``ntokens`` = n, the real rows (all rows without a
     ``row_mask``); the loss includes the weighted MoE term, as the JAX
-    step's metric does."""
+    step's metric does. Under the model's mesh the pairs and pools whose
+    rows were split are gathered over the data group."""
+    mesh = getattr(model, "mesh", None)
 
     def step_fn(state: TrainState, batch: Dict[str, torch.Tensor],
                 rng: torch.Generator):
-        loss, aux = _with_aux(
+        n = _row_count(batch, "src", mesh)
+        share, aux = _with_aux(
             model, model, batch["src"], batch["src_mask"], batch["src_langs"],
             batch["dst"], batch["dst_mask"], batch["dst_langs"],
             batch.get("src_neg"), batch.get("src_neg_mask"),
@@ -354,15 +534,14 @@ def make_sensim_train_step(model, optimizer: Optimizer) -> Callable:
             batch.get("tgt_neg_mask"), batch.get("tgt_neg_langs"),
             deterministic=False, rng=rng, row_mask=batch.get("row_mask"),
             src_neg_row_mask=batch.get("src_neg_row_mask"),
-            tgt_neg_row_mask=batch.get("tgt_neg_row_mask"))
-        loss = _plus(loss, aux)
-        _descend(state, optimizer, loss)
-        if "row_mask" in batch:
-            n = batch["row_mask"].to(torch.float32).sum()
-        else:
-            n = torch.tensor(float(batch["src"].shape[0]),
-                             device=loss.device)
-        return state, {"sum_loss": loss.detach() * n, "ntokens": n}
+            tgt_neg_row_mask=batch.get("tgt_neg_row_mask"),
+            data_group=_data_group(model, batch, "src"),
+            neg_groups=(_data_group(model, batch, "src_neg"),
+                        _data_group(model, batch, "tgt_neg")),
+            count=None if mesh is None else n)
+        share = _plus(share, aux)
+        _descend(state, optimizer, share, mesh)
+        return state, {"sum_loss": _global(share, mesh) * n, "ntokens": n}
 
     return step_fn
 
@@ -373,7 +552,9 @@ def make_caption2image_train_step(model, optimizer: Optimizer) -> Callable:
     ``encode_images``, detached, read in fp32), summed over the grid and
     averaged over ``row_mask``, plus the weighted MoE term. ``batch``:
     ``src``, ``src_mask``, ``src_langs``, ``target_grid``, ``row_mask``. The
-    metrics count rows, the loss with its MoE term (as the JAX step's)."""
+    metrics count rows, the loss with its MoE term (as the JAX step's).
+    Under the model's mesh the average is over the global rows."""
+    mesh = getattr(model, "mesh", None)
 
     def step_fn(state: TrainState, batch: Dict[str, torch.Tensor],
                 rng: torch.Generator):
@@ -383,11 +564,10 @@ def make_caption2image_train_step(model, optimizer: Optimizer) -> Callable:
         target = batch["target_grid"].detach().to(torch.float32)
         per_row = torch.sum((grid - target) ** 2, dim=(1, 2))
         rm = batch["row_mask"].to(torch.float32)
-        loss = _plus(torch.sum(per_row * rm)
-                     / torch.clamp(torch.sum(rm), min=1.0), aux)
-        _descend(state, optimizer, loss)
-        n = rm.sum()
-        return state, {"sum_loss": loss.detach() * n, "ntokens": n}
+        n = _global(rm.sum(), mesh)
+        share = _plus(torch.sum(per_row * rm) / torch.clamp(n, min=1.0), aux)
+        _descend(state, optimizer, share, mesh)
+        return state, {"sum_loss": _global(share, mesh) * n, "ntokens": n}
 
     return step_fn
 
@@ -412,16 +592,23 @@ def create_caption_train_state(model, optimizer: Optimizer
                              opt_state=optimizer.init(params), step=0)
 
 
-def _caption_update(state: CaptionTrainState, optimizer: Optimizer, logits,
-                    targets, mask, label_smoothing: float,
+def _caption_update(state: CaptionTrainState, model, optimizer: Optimizer,
+                    logits, targets, mask, label_smoothing: float,
                     weight: float = 1.0, aux=None):
     """The caption-family steps' loss: ``smoothed_nll_loss`` itself, never
     the fused kernels (the JAX steps call it directly, whatever
-    ``use_pallas_xent`` says)."""
-    sum_l, n = smoothed_nll_loss(logits, targets, mask,
-                                 epsilon=label_smoothing)
-    return _update(state, optimizer, sum_l, torch.clamp(n, min=1.0), weight,
-                   aux)
+    ``use_pallas_xent`` says); vocab-parallel where the model splits the
+    vocab; global over the model's mesh."""
+    tp = getattr(model, "vocab_tp", None)
+    if tp is None:
+        sum_l, n = smoothed_nll_loss(logits, targets, mask,
+                                     epsilon=label_smoothing)
+    else:
+        sum_l, n = smoothed_nll_loss_vocab_parallel(
+            logits, targets, mask, label_smoothing, model.vocab_range()[0],
+            model.cfg.vocab_size, tp.model_group)
+    return _update(state, optimizer, sum_l, n, weight, aux,
+                   getattr(model, "mesh", None))
 
 
 def _caption_targets(batch):
@@ -446,7 +633,7 @@ def make_caption_train_step(model, optimizer: Optimizer,
             model, model.caption_forward, batch["images"], batch["captions"],
             batch["caption_mask"], batch["langs"], train=True,
             deterministic=False, rng=rng)
-        return _caption_update(state, optimizer, logits,
+        return _caption_update(state, model, optimizer, logits,
                                *_caption_targets(batch), label_smoothing,
                                loss_weight, aux)
 
@@ -466,7 +653,7 @@ def make_caption_obj_train_step(model, optimizer: Optimizer,
             batch["box_features"], batch["object_labels"], batch["captions"],
             batch["caption_mask"], batch["langs"], train=True,
             deterministic=False, rng=rng)
-        return _caption_update(state, optimizer, logits,
+        return _caption_update(state, model, optimizer, logits,
                                *_caption_targets(batch), label_smoothing,
                                aux=aux)
 
@@ -487,10 +674,9 @@ def make_caption_mt_train_step(model, optimizer: Optimizer,
             batch["dst_mask"], batch["src_langs"], batch["dst_langs"],
             deterministic=False, rng=rng)
         mask = batch["dst_mask"][:, 1:] & batch["row_mask"][:, None]
-        sum_l, n = smoothed_nll_loss(logits, batch["dst"][:, 1:], mask,
-                                     epsilon=label_smoothing)
-        return _update(state, optimizer, sum_l, torch.clamp(n, min=1.0),
-                       mtl_weight, aux)
+        return _caption_update(state, model, optimizer, logits,
+                               batch["dst"][:, 1:], mask, label_smoothing,
+                               mtl_weight, aux)
 
     return step_fn
 
@@ -512,7 +698,7 @@ def make_multimodal_mass_step(model, optimizer: Optimizer, cfg,
     def step_fn(state: CaptionTrainState, batch: Dict[str, torch.Tensor],
                 rng: torch.Generator, draws: Optional[MassDraws] = None):
         caps = batch["captions"]
-        drop = DropoutRng(rng, caps.device)
+        drop = DropoutRng(rng, caps.device, getattr(model, "mesh", None))
         if draws is None:
             draws = draw_mass(drop.dev, caps, batch["lengths"],
                               batch["mask_prob"], n_specials=n_specials,
@@ -528,7 +714,7 @@ def make_multimodal_mass_step(model, optimizer: Optimizer, cfg,
             masked.dec_inputs, dec_mask, masked.positions, train=True,
             deterministic=False, rng=drop)
         mask = dec_mask[:, 1:] & batch["row_mask"][:, None]
-        return _caption_update(state, optimizer, logits,
+        return _caption_update(state, model, optimizer, logits,
                                masked.dec_inputs[:, 1:], mask,
                                label_smoothing, aux=aux)
 
@@ -553,83 +739,98 @@ def make_contrastive_step(model, optimizer: Optimizer) -> Callable:
     ResNet in training mode). ``batch``: ``caption_batch_to_device``'s dict
     plus the text negatives ``neg`` [N, Tn], ``neg_mask`` and ``neg_langs``
     [N]. The metrics count rows: ``sum_loss`` = loss * B, ``ntokens`` = B
-    (all B rows, padding included)."""
+    (all B rows, padding included). Under the model's mesh the text vectors
+    and the negatives whose rows were split are gathered over the data
+    group, and B is the global count."""
+    mesh = getattr(model, "mesh", None)
 
     def step_fn(state: CaptionTrainState, batch: Dict[str, torch.Tensor],
                 rng: torch.Generator):
-        loss, aux = _with_aux(
+        n = _row_count({"captions": batch["captions"]}, "captions", mesh)
+        count = None
+        if mesh is not None:
+            count = (n if "row_mask" not in batch
+                     else _row_count(batch, "captions", mesh))
+        share, aux = _with_aux(
             model, model.contrastive_loss, batch["images"],
             batch["captions"], batch["caption_mask"], batch["langs"],
             batch["neg"], batch["neg_mask"], batch["neg_langs"], train=True,
-            deterministic=False, row_mask=batch.get("row_mask"), rng=rng)
-        _descend(state, optimizer, _plus(loss, aux))
-        n = torch.tensor(float(batch["captions"].shape[0]),
-                         device=loss.device)
-        return state, {"sum_loss": loss.detach() * n, "ntokens": n}
+            deterministic=False, row_mask=batch.get("row_mask"), rng=rng,
+            data_group=_data_group(model, batch, "captions"),
+            neg_group=_data_group(model, batch, "neg"), count=count)
+        _descend(state, optimizer, _plus(share, aux), mesh)
+        return state, {"sum_loss": _global(share, mesh) * n, "ntokens": n}
 
     return step_fn
 
 
-def _to(x, device) -> torch.Tensor:
-    return torch.as_tensor(x).to(device, non_blocking=True)
+def _to(x, device, rows: slice = slice(None)) -> torch.Tensor:
+    """``x[rows]`` (a host array, or a tensor) on ``device``: under a mesh
+    a rank copies only its rows (JAX ``put_global``)."""
+    return torch.as_tensor(x[rows]).to(device, non_blocking=True)
 
 
-def mt_batch_to_device(b, device, tgt_positions=None) -> Dict[str,
-                                                              torch.Tensor]:
+def mt_batch_to_device(b, device, tgt_positions=None,
+                       rows: slice = slice(None)) -> Dict[str, torch.Tensor]:
     """MTBatch (data/loader.py) -> dict of tensors on ``device`` for
-    ``make_mt_train_step``."""
-    out = {
-        "src": _to(b.src, device), "src_mask": _to(b.src_mask, device),
-        "dst": _to(b.dst, device), "dst_mask": _to(b.dst_mask, device),
-        "src_langs": _to(b.src_langs, device),
-        "dst_langs": _to(b.dst_langs, device),
-        "row_mask": _to(b.row_mask, device),
-    }
+    ``make_mt_train_step``; ``rows``: the rows to copy (all by default)."""
+    out = {name: _to(getattr(b, name), device, rows)
+           for name in ("src", "src_mask", "dst", "dst_mask", "src_langs",
+                        "dst_langs", "row_mask")}
     if tgt_positions is not None:
-        out["tgt_positions"] = _to(tgt_positions, device)
+        out["tgt_positions"] = _to(tgt_positions, device, rows)
     if getattr(b, "proposals", None) is not None:
-        out["proposals"] = _to(b.proposals, device)
-        out["proposal_mask"] = _to(b.proposal_mask, device)
+        out["proposals"] = _to(b.proposals, device, rows)
+        out["proposal_mask"] = _to(b.proposal_mask, device, rows)
     return out
 
 
-def packed_mt_batch_to_device(b, device) -> Dict[str, torch.Tensor]:
+def packed_mt_batch_to_device(b, device, rows: slice = slice(None)
+                              ) -> Dict[str, torch.Tensor]:
     """A packed batch (rows holding several examples: ``src``, ``src_seg``,
     ``src_pos``, ``dst``, ``dst_seg``, ``dst_pos``, ``src_langs``,
     ``dst_langs``) -> dict of tensors; ``make_mt_train_step`` dispatches on
     the ``src_seg`` key."""
-    return {name: _to(getattr(b, name), device)
+    return {name: _to(getattr(b, name), device, rows)
             for name in ("src", "src_seg", "src_pos", "dst", "dst_seg",
                          "dst_pos", "src_langs", "dst_langs")}
 
 
-def mass_batch_to_device(b, device) -> Dict[str, torch.Tensor]:
+def mass_batch_to_device(b, device, rows: slice = slice(None)
+                         ) -> Dict[str, torch.Tensor]:
     """MassBatch (data/loader.py) -> dict of tensors on ``device`` for
     ``make_mass_train_step``."""
-    return {name: _to(getattr(b, name), device)
+    return {name: _to(getattr(b, name), device, rows)
             for name in ("src", "src_mask", "langs", "lang_tokens",
                          "lengths", "row_mask")}
 
 
-def lm_batch_to_device(b: Dict, device) -> Dict[str, torch.Tensor]:
+def lm_batch_to_device(b: Dict, device, rows: slice = slice(None),
+                       cols: slice = slice(None)) -> Dict[str, torch.Tensor]:
     """A ``DocBlockDataset.batches`` dict of numpy arrays -> dict of tensors
-    on ``device`` for the MLM steps."""
-    return {name: _to(b[name], device)
+    on ``device`` for the MLM steps; only ``rows`` (and of a [B, T] array
+    ``cols``) are copied: this rank's share under a mesh."""
+    return {name: _to(b[name][:, cols] if b[name].ndim == 2 else b[name],
+                      device, rows)
             for name in ("texts", "pad_mask", "langs", "row_mask")}
 
 
-def caption_batch_to_device(b, images, device, objects=None
+def caption_batch_to_device(b, images, device, objects=None,
+                            rows: slice = slice(None)
                             ) -> Dict[str, torch.Tensor]:
     """A ``CaptionBatch`` (data/images.py) and its images [N, S, S, 3]
-    (uint8 or normalised float) -> dict of tensors on ``device`` for the
+    (uint8 or normalised float; a tensor is taken as staged already, its
+    rows those of ``rows``) -> dict of tensors on ``device`` for the
     caption steps; ``objects``: (box_features, object_labels) for the object
-    step."""
-    out = {"images": _to(images, device),
-           "captions": _to(b.captions, device),
-           "caption_mask": _to(b.caption_mask, device),
-           "langs": _to(b.langs, device),
-           "row_mask": _to(b.row_mask, device)}
+    step; ``rows``: the rows to copy (all by default)."""
+    staged = isinstance(images, torch.Tensor)
+    out = {"images": (images.to(device) if staged
+                      else _to(images, device, rows)),
+           "captions": _to(b.captions, device, rows),
+           "caption_mask": _to(b.caption_mask, device, rows),
+           "langs": _to(b.langs, device, rows),
+           "row_mask": _to(b.row_mask, device, rows)}
     if objects is not None:
-        out["box_features"] = _to(objects[0], device)
-        out["object_labels"] = _to(objects[1], device)
+        out["box_features"] = _to(objects[0], device, rows)
+        out["object_labels"] = _to(objects[1], device, rows)
     return out

@@ -26,7 +26,15 @@ The model holds fp32 master parameters and computes in ``cfg.dtype``. The
 dev decode runs on the same model: each weight is cast to the compute dtype
 where it is used, so under a bf16 config the projection + top-k kernel and
 (with ``decode_attention_impl="fused"``) the decode attention kernel launch.
-One device: a mesh is refused (ROADMAP module 14b).
+
+Under a mesh (``parallel.mesh.ProcessMesh``, one process a rank) the model
+keeps this rank's shard of the JAX TP rules (``ImageSeq2Seq.shard_``: the
+text core and the object stream split, the ResNet and the BatchNorm
+statistics whole, the statistics those of the global batch), each step
+copies this rank's rows from the host and holds the global batch semantics
+(train/step.py), and the dev decode splits its rows over the data group
+(K2 and K4 per rank, the early exit joined). Checkpoints hold the gathered
+one-device weights and statistics, written by rank 0. Only rank 0 logs.
 """
 
 from __future__ import annotations
@@ -55,10 +63,18 @@ from imagetranslate_tpu_torch.models.captioning import (
     ImageSeq2Seq,
 )
 from imagetranslate_tpu_torch.models.config import Seq2SeqConfig
+from imagetranslate_tpu_torch.parallel.comm import all_gather_stack
+from imagetranslate_tpu_torch.parallel.mesh import (
+    ProcessMesh,
+    gather_params,
+    host_rows,
+    shard_params,
+)
 from imagetranslate_tpu_torch.text.processor import TextProcessor
 from imagetranslate_tpu_torch.train.checkpoint import save_checkpoint
 from imagetranslate_tpu_torch.train.optimizer import (
     build_optimizer,
+    map_moments,
     set_schedule_step,
 )
 from imagetranslate_tpu_torch.train.step import (
@@ -69,6 +85,7 @@ from imagetranslate_tpu_torch.train.step import (
     make_caption_train_step,
     make_contrastive_step,
     make_multimodal_mass_step,
+    mark_whole,
     mt_batch_to_device,
     wrap_accum,
 )
@@ -98,26 +115,84 @@ def image_batch_draws(mm_mode: str, mask_prob: float, key: int
 
 
 def add_negatives(batch: Dict[str, torch.Tensor], negs: np.ndarray,
-                  lang: int, pad_id: int, device) -> None:
-    """The contrastive step's text negatives, in the batch's language."""
-    batch["neg"] = torch.as_tensor(negs).to(device)
+                  lang: int, pad_id: int, device, mesh=None) -> None:
+    """The contrastive step's text negatives, in the batch's language; under
+    ``mesh`` this rank's rows of them (all where the data axis does not
+    divide them, marked so: the step gathers the split ones)."""
+    rows = host_rows(negs.shape[0], mesh)
+    batch["neg"] = torch.as_tensor(negs[rows]).to(device)
     batch["neg_mask"] = batch["neg"] != pad_id
-    batch["neg_langs"] = torch.full((negs.shape[0],), lang,
+    batch["neg_langs"] = torch.full((batch["neg"].shape[0],), lang,
                                     dtype=torch.int32, device=device)
+    if mesh is not None and mesh.n_data > 1:
+        mark_whole(batch, ("neg", "neg_mask", "neg_langs"), rows)
 
 
 class CaptionVariables:
     """The weights of a trainer of an ``ImageSeq2Seq`` held as fp32 masters
     in ``self.model``: flax-layout ``{"params", "batch_stats"}`` in and out,
     an MT model grafted into the text core, checkpoints with the Adam
-    state."""
+    state. Under ``self.mesh`` the model holds this rank's shards
+    (``self.plan``); what goes out is gathered, what comes in sharded, and
+    rank 0 writes."""
+
+    mesh: Optional[ProcessMesh] = None
+    chief = True
+    plan = None
+    zero = None
+
+    def _shard_model(self, mesh: Optional[ProcessMesh]):
+        """Keep this rank's shard of the model under ``mesh`` and tell the
+        optimizer which tensors the model group splits."""
+        self.mesh = mesh
+        self.chief = mesh is None or mesh.rank == 0
+        if mesh is None:
+            return
+        self.plan = self.model.shard_(mesh)
+        split = [k for k, d in self.plan.items() if d is not None]
+        if split:
+            self.optimizer.set_tensor_parallel(mesh.model_group, split)
+
+    def _full(self, sd):
+        """This rank's tensors -> the one-device layout (collective over
+        the model group under a mesh)."""
+        return sd if self.mesh is None else gather_params(sd, self.mesh,
+                                                          self.plan)
+
+    def _local(self, sd, prefix: str = ""):
+        """Full tensors (keyed under ``prefix`` in the model) -> this
+        rank's shards."""
+        if self.mesh is None:
+            return sd
+        plan = {k: self.plan.get(prefix + k) for k in sd}
+        return shard_params(sd, self.mesh, plan)
+
+    def _full_moments(self, sd):
+        """A moment dict on this rank -> the one-device layout (ZeRO's
+        slices gathered over the data group first)."""
+        if self.zero is not None:
+            sd = self.zero.full_dict(sd, {k: p.shape for k, p in
+                                          self.state.params.items()})
+        return self._full(sd)
+
+    def _local_moments(self, sd):
+        sd = self._local(sd)
+        return sd if self.zero is None else self.zero.local_dict(sd)
+
+    def _staged(self, batch: Dict, rows: slice) -> Dict:
+        """Mark a staged batch whose rows stayed whole under a data
+        group."""
+        if self.mesh is not None and self.mesh.n_data > 1:
+            mark_whole(batch, list(batch), rows)
+        return batch
 
     def set_reference_variables(self, variables, step: int = 0):
         """Replace the weights and the BatchNorm statistics from a
-        flax-layout ``{"params", "batch_stats"}`` tree and reset the
-        optimizer state to match; ``step`` re-seats the LR schedule."""
-        self.model.load_state_dict(
-            CAPTION.state_dict_from_flax(variables, self.cfg), strict=True)
+        flax-layout ``{"params", "batch_stats"}`` tree (the full state;
+        sharded here under a mesh) and reset the optimizer state to match;
+        ``step`` re-seats the LR schedule."""
+        self.model.load_state_dict(self._local(
+            CAPTION.state_dict_from_flax(variables, self.cfg)), strict=True)
         self.state = create_caption_train_state(self.model, self.optimizer)
         if step:
             set_schedule_step(self.state.opt_state, step)
@@ -126,22 +201,25 @@ class CaptionVariables:
         """Copy a pretrained ``Seq2Seq`` parameter tree (``{"params": ...}``
         or the inner dict) into the text core, in place: the optimizer state
         is kept."""
-        self.model.core.load_state_dict(
-            state_dict_from_flax(mt_params, self.cfg), strict=True)
+        self.model.core.load_state_dict(self._local(
+            state_dict_from_flax(mt_params, self.cfg), "core."), strict=True)
 
     def variables(self) -> dict:
         """The fp32 masters and the running statistics as the flax-layout
-        ``{"params", "batch_stats"}``."""
-        return CAPTION.flax_from_state_dict(self.model.state_dict(),
-                                            self.cfg)
+        ``{"params", "batch_stats"}`` (gathered under a mesh: every rank
+        calls it)."""
+        return CAPTION.flax_from_state_dict(
+            self._full(self.model.state_dict()), self.cfg)
 
     def _save(self, path: str, step: int):
-        save_checkpoint(
-            path, self.cfg, self.variables(),
-            opt_state=flax_from_opt_state(self.state.opt_state,
-                                          self.optimizer, self.cfg,
-                                          CAPTION_PARAMS),
-            step=step, best_metric=self.best_bleu)
+        """Every rank gathers; rank 0 writes the one-device layout."""
+        variables = self.variables()
+        opt_state = flax_from_opt_state(
+            map_moments(self.state.opt_state, self._full_moments),
+            self.optimizer, self.cfg, CAPTION_PARAMS)
+        if self.chief:
+            save_checkpoint(path, self.cfg, variables, opt_state=opt_state,
+                            step=step, best_metric=self.best_bleu)
 
 
 class CaptionTrainer(CaptionVariables):
@@ -159,16 +237,13 @@ class CaptionTrainer(CaptionVariables):
         ``mask_prob`` is the floor of their span rate. ``img_size``
         overrides the config's, and the config (so every checkpoint) records
         it. ``device``: where the model trains; ``cuda`` fails without a
-        card."""
-        if mesh is not None:
-            raise NotImplementedError("a mesh: multi-device training is not "
-                                      "ported yet (ROADMAP module 14b)")
+        card; under a ``mesh`` the mesh's device."""
         if img_size is not None and img_size != cfg.img_size:
             cfg = dataclasses.replace(cfg, img_size=img_size)
         self.cfg = cfg
         self.img_size = cfg.img_size
         self.tp = tp
-        self.device = torch.device(device)
+        self.device = torch.device(device) if mesh is None else mesh.device
         self.model = ImageSeq2Seq(cfg, device=self.device,
                                   param_dtype=torch.float32,
                                   object_feat_dim=object_feat_dim)
@@ -180,6 +255,7 @@ class CaptionTrainer(CaptionVariables):
         self.optimizer = wrap_accum(
             build_optimizer(lr=lr, warmup_updates=warmup, clip_norm=clip),
             accum)
+        self._shard_model(mesh)
         self.cap_step = make_caption_train_step(
             self.model, self.optimizer, label_smoothing=label_smoothing)
         if cfg.use_obj:
@@ -243,18 +319,22 @@ class CaptionTrainer(CaptionVariables):
             # step on batch N.
             kind, b = item
             if kind == "mt":
-                return kind, b, mt_batch_to_device(b, self.device)
+                rows = host_rows(b.src.shape[0], self.mesh)
+                return kind, b, mt_batch_to_device(b, self.device, rows=rows)
             images = b.images(image_root, size=self.img_size, raw=True)
             objects = None
             if stage_objs:
                 objects = obj_store.lookup(b.image_paths,
                                            b.captions.shape[0])
-            batch = caption_batch_to_device(b, images, self.device, objects)
+            rows = host_rows(b.captions.shape[0], self.mesh)
+            batch = caption_batch_to_device(b, images, self.device, objects,
+                                            rows)
             if self.mm_mode is not None:
-                batch["lengths"] = torch.as_tensor(b.lengths).to(self.device)
-            return kind, b, batch
+                batch["lengths"] = torch.as_tensor(
+                    b.lengths[rows]).to(self.device)
+            return kind, b, self._staged(batch, rows)
 
-        meter = AsyncStepMeter(log_every=log_every)
+        meter = AsyncStepMeter(log_every=log_every, quiet=not self.chief)
         prefetcher = PrefetchIterator(interleaved(), stage, depth=3)
         try:
             for kind, b, batch in prefetcher:
@@ -270,7 +350,7 @@ class CaptionTrainer(CaptionVariables):
                 elif mode == "contrastive":
                     add_negatives(batch, cap_batcher.sample_negatives(
                         b.captions.shape[0], step + 1), int(b.langs[0]),
-                        self.tp.pad_token_id(), self.device)
+                        self.tp.pad_token_id(), self.device, self.mesh)
                     self.state, m = self.contrastive_step(self.state, batch,
                                                           self.rng)
                 elif stage_objs:
@@ -283,10 +363,9 @@ class CaptionTrainer(CaptionVariables):
                 # Device scalars: the meter syncs once per log window.
                 meter.update(step, m["sum_loss"], m["ntokens"])
                 if eval_set is not None and step % eval_every == 0:
-                    bleu = self.eval_caption_bleu(eval_set, image_root,
-                                                  saving_path,
-                                                  obj_store=obj_store)
-                    print(f"Captioning BLEU: {bleu:.2f}", flush=True)
+                    self._report(self.eval_caption_bleu(
+                        eval_set, image_root, saving_path,
+                        obj_store=obj_store))
                 if step % save_every == 0:
                     self._save(saving_path + ".latest", step)
                 if step >= max_step:
@@ -295,14 +374,19 @@ class CaptionTrainer(CaptionVariables):
             prefetcher.close()
 
         meter.finish(step)
-        print(f"Total loss in this epoch: {meter.epoch_loss():.4f}",
-              flush=True)
+        if self.chief:
+            print(f"Total loss in this epoch: {meter.epoch_loss():.4f}",
+                  flush=True)
         self._save(saving_path + ".latest", step)
         if eval_set is not None:
-            bleu = self.eval_caption_bleu(eval_set, image_root, saving_path,
-                                          obj_store=obj_store)
-            print(f"Captioning BLEU: {bleu:.2f}", flush=True)
+            self._report(self.eval_caption_bleu(eval_set, image_root,
+                                                saving_path,
+                                                obj_store=obj_store))
         return step
+
+    def _report(self, bleu: float):
+        if self.chief:
+            print(f"Captioning BLEU: {bleu:.2f}", flush=True)
 
     # ---------------- evaluation ----------------
 
@@ -314,9 +398,20 @@ class CaptionTrainer(CaptionVariables):
                        object_labels: Optional[np.ndarray] = None):
         """Beam-decode captions of a batch of images (uint8 or normalised)
         -> (tokens [N, max_len], lengths [N]) on the device; with
-        ``box_features``/``object_labels`` the grid + object decode."""
+        ``box_features``/``object_labels`` the grid + object decode. Under
+        a mesh whose data axis divides the rows each data rank decodes its
+        share of them (the loop's early exit joined over the data group)
+        and every rank returns all of them."""
+        mesh = self.mesh
+        n = np.asarray(first_tokens).shape[0]
+        rows = slice(None)
+        group = None
+        if mesh is not None and mesh.data_group is not None and \
+                n % mesh.n_data == 0:
+            rows, group = host_rows(n, mesh), mesh.data_group
+
         def dev(a):
-            return torch.as_tensor(np.asarray(a)).to(self.device)
+            return torch.as_tensor(np.asarray(a)[rows]).to(self.device)
 
         grid = self.model.encode_images(dev(images))
         img_mask = torch.ones(grid.shape[:2], dtype=torch.bool,
@@ -325,17 +420,23 @@ class CaptionTrainer(CaptionVariables):
                       max_len=max_len,
                       len_penalty_ratio=self.len_penalty_ratio,
                       pad_id=self.tp.pad_token_id(),
-                      eos_id=self.tp.sep_token_id())
+                      eos_id=self.tp.sep_token_id(), data_group=group)
         if box_features is not None:
             obj_states, obj_keep = self.model.encode_objects(
                 dev(box_features), dev(object_labels))
-            return beam_search_dual(
+            best, lengths = beam_search_dual(
                 self.model, grid, img_mask, obj_states, dev(first_tokens),
                 dev(tgt_langs), None, grid_mask=obj_keep,
                 init_method=ImageSeq2Seq.init_obj_dual_cache,
                 step_method=ImageSeq2Seq.decode_step_obj_dual, **common)
-        return beam_search(self.model, grid, img_mask, dev(first_tokens),
-                           dev(tgt_langs), None, **common)
+        else:
+            best, lengths = beam_search(self.model, grid, img_mask,
+                                        dev(first_tokens), dev(tgt_langs),
+                                        None, **common)
+        if group is not None:
+            best = all_gather_stack(best, group).flatten(0, 1)
+            lengths = all_gather_stack(lengths, group).flatten()
+        return best, lengths
 
     def _build_reference(self, eval_set: CaptionEvalSet):
         self.caption_reference = defaultdict(list)
@@ -384,6 +485,13 @@ class CaptionTrainer(CaptionVariables):
                     for n in range(max_reflen)]
         bleu = sacrebleu.corpus_bleu(outputs, all_refs, lowercase=True,
                                      tokenize="intl")
+        best = bleu.score > self.best_bleu
+        if best:
+            self.best_bleu = bleu.score
+            # Every rank gathers the state; rank 0 writes it.
+            self._save(saving_path, self.state.step)
+        if not self.chief:
+            return bleu.score
         os.makedirs(saving_path, exist_ok=True)
         transcript = "\n".join(
             "\nOutput:\n" + o + "\n\nReferences:\n"
@@ -392,11 +500,9 @@ class CaptionTrainer(CaptionVariables):
             for i, o in enumerate(outputs))
         with open(os.path.join(saving_path, "bleu.caption.output"), "w") as w:
             w.write(transcript)
-        if bleu.score > self.best_bleu:
-            self.best_bleu = bleu.score
+        if best:
             print(f"Saving best BLEU {self.best_bleu:.2f}", flush=True)
             with open(os.path.join(saving_path, "bleu.caption.best.output"),
                       "w") as w:
                 w.write(transcript)
-            self._save(saving_path, self.state.step)
         return bleu.score

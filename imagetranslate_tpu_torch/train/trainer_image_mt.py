@@ -19,6 +19,15 @@ step counter ``_host_step`` that ``MTTrainer.train_epoch`` sets before each
 step. In the fine-tune phase the MASS stream is back-translated while the
 image batches keep flowing. MT batches train at full weight (``--mtlw``
 belongs to the caption trainer).
+
+Under a mesh the model keeps this rank's shard of the JAX TP rules
+(``ImageSeq2Seq.shard_``; the ResNet and its statistics whole), the steps
+take this rank's rows of each batch (copied from the host alone) and hold
+the global batch semantics, and the back-translation decodes split their
+rows over the data group, as in ``MTTrainer``. ``zero=True`` (ZeRO-1,
+parallel/zero.py) keeps this rank's slices of the split tensors' Adam
+moments over the data group, as the JAX trainer's ``_maybe_zero`` places
+them; the numbers are those without it.
 """
 
 from __future__ import annotations
@@ -30,6 +39,8 @@ import torch
 
 from imagetranslate_tpu_torch.models.captioning import ImageSeq2Seq
 from imagetranslate_tpu_torch.models.config import Seq2SeqConfig
+from imagetranslate_tpu_torch.parallel.mesh import host_rows
+from imagetranslate_tpu_torch.parallel.zero import ZeroLayout
 from imagetranslate_tpu_torch.text.processor import TextProcessor
 from imagetranslate_tpu_torch.train.optimizer import build_optimizer
 from imagetranslate_tpu_torch.train.step import (
@@ -65,11 +76,8 @@ class ImageMTTrainer(CaptionVariables, MTTrainer):
         from (None: random, from ``seed``). ``img_size`` overrides the
         config's, and the config (so every checkpoint) records it.
         ``device``: where the model trains; ``cuda`` fails without a
-        card."""
-        if mesh is not None or zero:
-            raise NotImplementedError(
-                "mesh and zero: multi-device training is not ported yet "
-                "(ROADMAP module 14b)")
+        card; under a ``mesh`` the mesh's device. ``zero``: ZeRO-1 over
+        the mesh's data group."""
         if mm_mode not in MM_MODES:
             raise ValueError(f"mm_mode {mm_mode!r}: one of {MM_MODES}")
         if img_size is not None and img_size != cfg.img_size:
@@ -77,7 +85,7 @@ class ImageMTTrainer(CaptionVariables, MTTrainer):
         self.cfg = cfg
         self.img_size = cfg.img_size
         self.tp = tp
-        self.device = torch.device(device)
+        self.device = torch.device(device) if mesh is None else mesh.device
         self.model = ImageSeq2Seq(cfg, device=self.device,
                                   param_dtype=torch.float32)
         self.rng = torch.Generator().manual_seed(seed)  # the dropout seeds
@@ -95,6 +103,12 @@ class ImageMTTrainer(CaptionVariables, MTTrainer):
         self.optimizer = wrap_accum(
             build_optimizer(lr=lr, warmup_updates=warmup, clip_norm=clip),
             accum)
+        self._shard_model(mesh)
+        if zero and mesh is not None and mesh.n_data > 1:
+            self.zero = ZeroLayout(
+                {k: p.shape for k, p in self.model.named_parameters()}, mesh,
+                cfg, self.plan)
+            self.optimizer.set_zero(self.zero)
         specials = dict(n_specials=len(tp.special_tokens),
                         mask_id=tp.mask_token_id(),
                         label_smoothing=label_smoothing)
@@ -122,22 +136,27 @@ class ImageMTTrainer(CaptionVariables, MTTrainer):
         """Prefetch-thread hook: the batch's images decoded as uint8 and
         copied to the device (the heaviest host work of an image batch)."""
         images = b.images(image_root, size=self.img_size, raw=True)
-        return torch.as_tensor(images).to(self.device, non_blocking=True)
+        rows = host_rows(images.shape[0], self.mesh)
+        return torch.as_tensor(images[rows]).to(self.device,
+                                                non_blocking=True)
 
     def _img_step(self, b, image_root: str, rng, images=None):
         if images is None:
             images = self._stage_img(b, image_root)
-        batch = caption_batch_to_device(b, images, self.device)
+        rows = host_rows(b.captions.shape[0], self.mesh)
+        batch = self._staged(caption_batch_to_device(b, images, self.device,
+                                                     rows=rows), rows)
         mode, mask_prob = image_batch_draws(self.mm_mode, self.mask_prob,
                                             self._host_step + 1)
         if mode == "contrastive":
             negs = self._cur_img_batcher.sample_negatives(
                 b.captions.shape[0], self._host_step)
             add_negatives(batch, negs, int(b.langs[0]),
-                          self.tp.pad_token_id(), self.device)
+                          self.tp.pad_token_id(), self.device, self.mesh)
             self.state, m = self.contrastive_step(self.state, batch, rng)
         else:
-            batch["lengths"] = torch.as_tensor(b.lengths).to(self.device)
+            batch["lengths"] = torch.as_tensor(b.lengths[rows]).to(
+                self.device)
             batch["mask_prob"] = mask_prob
             self.state, m = self.mm_mass_step(self.state, batch, rng)
         return m

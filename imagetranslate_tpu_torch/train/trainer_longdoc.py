@@ -1,7 +1,13 @@
 """Long-document LM trainer, the ``--reformer`` path of the LM CLI (port of
 imagetranslate_tpu/train/trainer_longdoc.py): ``LMTrainer`` over the
-local-block-attention ``LongDocLM``. Sequence parallelism over a mesh is not
-ported (ROADMAP module 14b)."""
+local-block-attention ``LongDocLM``.
+
+Under a mesh whose model axis is greater than 1 the model axis splits the
+SEQUENCE (JAX ``seq_sharding``, context parallelism): rank (d, m) stages the
+rows of d and the m-th run of whole blocks of each (``seq_range``), the
+parameters stay whole on every rank, and their gradients are summed over
+both groups. Under a mesh of model axis 1 it is data parallelism.
+"""
 
 from __future__ import annotations
 
@@ -11,6 +17,7 @@ import torch
 
 from imagetranslate_tpu_torch.models.config import Seq2SeqConfig
 from imagetranslate_tpu_torch.models.longdoc import LongDocLM, longdoc_config
+from imagetranslate_tpu_torch.parallel.mesh import ProcessMesh, seq_range
 from imagetranslate_tpu_torch.train import weights
 from imagetranslate_tpu_torch.train.trainer_lm import LMTrainer
 
@@ -19,7 +26,17 @@ class LongDocTrainer(LMTrainer):
     bridge = weights.LONGDOC
 
     def build_model(self, cfg: Seq2SeqConfig):
-        return LongDocLM(cfg, device=self.device, param_dtype=torch.float32)
+        return LongDocLM(cfg, seq_sharding=self.mesh, device=self.device,
+                         param_dtype=torch.float32)
+
+    def shard_model(self, mesh: ProcessMesh):
+        """Nothing to split: the parameters are whole on every rank."""
+        return {}
+
+    def _cols(self, seq_len: int) -> slice:
+        if not self.model.seq_parallel:
+            return slice(None)
+        return slice(*seq_range(self.mesh, seq_len, self.model.block))
 
     @classmethod
     def from_options(cls, options, tp, mesh=None, device="cuda"):

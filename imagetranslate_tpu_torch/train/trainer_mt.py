@@ -22,12 +22,13 @@ The model holds fp32 master parameters and computes in ``cfg.dtype``.
 
 Under a mesh (``parallel.mesh.ProcessMesh``, one process a rank) the model
 keeps this rank's shard of the JAX TP rules, each step takes this rank's
-rows of the batch (every rank builds the same batches) and the steps hold
-the global batch semantics (train/step.py). The dev and back-translation
-decodes split the rows over the data group and decode through K2b across
-the model group. Checkpoints hold the gathered full state in the one-device
-layout, written by rank 0; every rank loads the full state and shards it.
-Only rank 0 logs.
+rows of the batch (every rank builds the same batches and copies only its
+rows to its device, as JAX ``put_global`` uploads only a process's shard)
+and the steps hold the global batch semantics (train/step.py). The dev
+and back-translation decodes split the rows over the data group and decode
+through K2b across the model group. Checkpoints hold the gathered full
+state in the one-device layout, written by rank 0; every rank loads the
+full state and shards it. Only rank 0 logs.
 
 ``zero=True`` (ZeRO-1, parallel/zero.py) keeps this rank's slices of the
 split tensors' Adam moments (and of the accumulated gradients under
@@ -61,7 +62,7 @@ from imagetranslate_tpu_torch.parallel.comm import all_gather_stack
 from imagetranslate_tpu_torch.parallel.mesh import (
     ProcessMesh,
     gather_params,
-    shard_batch_safe,
+    host_rows,
     shard_params,
 )
 from imagetranslate_tpu_torch.parallel.pipeline import (
@@ -249,11 +250,6 @@ class MTTrainer:
             self._merged = (key, model.eval())
         return self._merged[1]
 
-    def _shard(self, batch: Dict[str, torch.Tensor]):
-        """This rank's rows of a staged batch under a mesh."""
-        return batch if self.mesh is None else shard_batch_safe(batch,
-                                                                self.mesh)
-
     # ---------------- train loops ----------------
 
     def train_epoch(self, step: int, saving_path: str,
@@ -312,12 +308,13 @@ class MTTrainer:
             if kind == "mt":
                 to_dev = (packed_mt_batch_to_device if hasattr(b, "src_seg")
                           else mt_batch_to_device)
-                return kind, b, self._shard(to_dev(b, self.device))
+                return kind, b, to_dev(b, self.device, rows=host_rows(
+                    b.src.shape[0], self.mesh))
             if kind == "img":
                 return kind, b, self._stage_img(b, image_root)
             if not fine_tune:
-                return kind, b, self._shard(mass_batch_to_device(b,
-                                                                 self.device))
+                return kind, b, mass_batch_to_device(
+                    b, self.device, rows=host_rows(b.src.shape[0], self.mesh))
             return kind, b, None
 
         meter = AsyncStepMeter(log_every=log_every, quiet=not self.chief)
@@ -405,9 +402,10 @@ class MTTrainer:
             "src_langs": dst_lang_types, "dst_langs": b.langs,
             "row_mask": b.row_mask,
         }
-        batch = {k: torch.as_tensor(v).to(self.device)
+        rows = host_rows(N, self.mesh)
+        batch = {k: torch.as_tensor(v[rows]).to(self.device)
                  for k, v in batch.items()}
-        self.state, m = self.mt_step(self.state, self._shard(batch), rng)
+        self.state, m = self.mt_step(self.state, batch, rng)
         return m
 
     # ---------------- evaluation ----------------

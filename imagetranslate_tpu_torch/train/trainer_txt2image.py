@@ -7,8 +7,11 @@ captioner's own ``img_size`` (its location table has (img_size/32)^2 slots),
 in inference mode (running BatchNorm statistics, no gradient); a prefetch
 thread decodes each batch's images and runs that encode while the previous
 step trains. Dev loss, best-slot and ``.latest`` checkpoints as
-``SenSimTrainer`` has them (a strictly lower dev loss saves). One device: a
-mesh is refused (ROADMAP module 14b).
+``SenSimTrainer`` has them (a strictly lower dev loss saves).
+
+Under a mesh each rank decodes and encodes the target grids of its own rows
+only (the captioner is frozen and in inference mode: every row stands
+alone), and the step averages over the global rows (train/step.py).
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ import torch
 from imagetranslate_tpu_torch.data.images import CaptionBatcher
 from imagetranslate_tpu_torch.models.caption2image import Caption2Image
 from imagetranslate_tpu_torch.models.config import Seq2SeqConfig
+from imagetranslate_tpu_torch.parallel.mesh import host_rows
 from imagetranslate_tpu_torch.train.step import (
     _to,
     make_caption2image_train_step,
@@ -41,22 +45,28 @@ class Caption2ImageTrainer(BridgedTrainer):
         self.tp = tp
         self.caption_model = caption_model.eval()
         self.img_size = caption_model.cfg.img_size
-        model = Caption2Image(cfg, device=torch.device(device),
+        model = Caption2Image(cfg, device=torch.device(device)
+                              if mesh is None else mesh.device,
                               param_dtype=torch.float32)
         self._setup(model, cfg, params, lr, warmup, clip, mesh, seed,
                     make_caption2image_train_step)
 
     @torch.no_grad()
-    def _batch(self, b, image_root: str) -> Dict[str, torch.Tensor]:
+    def _batch(self, b, image_root: str,
+               split: bool = True) -> Dict[str, torch.Tensor]:
         """A CaptionBatch -> the step's dict on the device, its target grid
-        from the frozen captioner."""
+        from the frozen captioner; under a mesh (``split``) this rank's rows
+        alone, their images copied and encoded here."""
         dev = self.device
-        images = _to(b.images(image_root, size=self.img_size, raw=True), dev)
-        return {"src": _to(b.captions, dev),
-                "src_mask": _to(b.caption_mask, dev),
-                "src_langs": _to(b.langs, dev),
+        rows = (host_rows(b.captions.shape[0], self.mesh) if split
+                else slice(None))
+        images = _to(b.images(image_root, size=self.img_size, raw=True), dev,
+                     rows)
+        return {"src": _to(b.captions, dev, rows),
+                "src_mask": _to(b.caption_mask, dev, rows),
+                "src_langs": _to(b.langs, dev, rows),
                 "target_grid": self.caption_model.encode_images(images),
-                "row_mask": _to(b.row_mask, dev)}
+                "row_mask": _to(b.row_mask, dev, rows)}
 
     def train_epoch(self, step: int, saving_path: str,
                     cap_batcher: CaptionBatcher, image_root: str = "",
@@ -78,7 +88,7 @@ class Caption2ImageTrainer(BridgedTrainer):
         into ``saving_path``."""
         total, items = 0.0, 0
         for b in dev_batcher:
-            batch = self._batch(b, image_root)
+            batch = self._batch(b, image_root, split=False)
             grid = self.model(batch["src"], batch["src_mask"],
                               batch["src_langs"])
             err = torch.sum((grid - batch["target_grid"].to(torch.float32))

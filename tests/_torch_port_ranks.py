@@ -1,7 +1,8 @@
 """Rank functions for tests/test_torch_port_parallel.py,
 tests/test_torch_port_k2b.py, tests/test_torch_port_zero.py,
-tests/test_torch_port_pipeline.py and
-tests/test_torch_port_expert_parallel.py: each runs in a process of its own, spawned by
+tests/test_torch_port_pipeline.py, tests/test_torch_port_expert_parallel.py,
+tests/test_torch_port_mesh_lm.py and tests/test_torch_port_mesh_image.py:
+each runs in a process of its own, spawned by
 ``imagetranslate_tpu_torch.parallel.spawn.run_ranks`` and joined to its
 peers over gloo on the CPU. This module imports torch and the port only
 (never JAX), so that the ranks start quickly; inputs and results are numpy
@@ -309,3 +310,204 @@ def expert_parallel(rank, cfg, params, batches, meshes, opt_kw,
             model, enc, torch.tensor(mask), torch.tensor(first),
             torch.tensor(tgt_langs), torch.tensor(sizes), **beam_kw)
     return out, (best.numpy(), lengths.numpy())
+
+
+class SGD:
+    """params -= lr * grads (``optax.sgd``): a step's parameter change is its
+    gradient, which the mesh tests compare."""
+    chain = ()
+
+    def __init__(self, lr):
+        self.lr = lr
+
+    def init(self, params):
+        return None
+
+    @torch.no_grad()
+    def update(self, grads, state, params):
+        torch._foreach_add_(list(params.values()), grads, alpha=-self.lr)
+
+
+def mlm_mesh(rank, cases, opt_kw):
+    """Per (kind, cfg, params, batch, (n_data, n_model), draws) of
+    ``cases`` ("lm": ``LMTrainer``, "longdoc": ``LongDocTrainer``; a mesh of
+    two ranks in a world of four on ranks 0 and 1): the trainer stages this
+    rank's share of the global numpy ``batch`` and takes one MLM step with
+    the global ``draws`` (numpy sel, u, rand_tok; None: drawn). Returns per
+    case the global (sum_loss, ntokens), this rank's (d, m), its share of
+    the deterministic forward's logits (long-doc only) and (rank 0) the
+    gathered parameters and Adam first moments; None where the rank sat
+    out."""
+    from imagetranslate_tpu_torch.ops.masking import MLMDraws
+    from imagetranslate_tpu_torch.train.trainer_lm import LMTrainer
+    from imagetranslate_tpu_torch.train.trainer_longdoc import LongDocTrainer
+
+    torch.set_num_threads(1)
+    make = _meshes(rank)
+    out = []
+    for kind, cfg, params, batch, (n_data, n_model), draws in cases:
+        mesh = make(n_data, n_model)
+        if mesh is None:
+            out.append(None)
+            continue
+        cls = LongDocTrainer if kind == "longdoc" else LMTrainer
+        trainer = cls(cfg, Tok(), params=params, mesh=mesh, device="cpu",
+                      **opt_kw)
+        staged = trainer.stage(batch)
+        logits = None
+        if kind == "longdoc":
+            with torch.no_grad():
+                logits = trainer.model(staged["texts"], staged["pad_mask"],
+                                       staged["langs"]).numpy()
+        if draws is not None:
+            draws = MLMDraws(*(torch.tensor(a) for a in draws))
+        trainer.state, m = trainer.step_fn(
+            trainer.state, staged, torch.Generator().manual_seed(0),
+            draws=draws)
+        full = trainer._full(trainer.model.state_dict())
+        mu = trainer._full(trainer.state.opt_state.mu)
+        out.append((float(m["sum_loss"]), float(m["ntokens"]),
+                    (mesh.d, mesh.m), logits,
+                    _np(full) if rank == 0 else None,
+                    _np(mu) if rank == 0 else None))
+    return out
+
+
+def _caption_model(cfg, variables, mesh):
+    from imagetranslate_tpu_torch.models.captioning import ImageSeq2Seq
+    from imagetranslate_tpu_torch.train.weights import CAPTION
+
+    model = ImageSeq2Seq(cfg, param_dtype=torch.float32)
+    plan = model.shard_(mesh)
+    model.load_state_dict(shard_params(
+        CAPTION.state_dict_from_flax(variables, cfg), mesh, plan))
+    return model, plan
+
+
+def image_mesh(rank, cases, lr):
+    """Per (kind, cfg, variables, batch, (n_data, n_model)) of ``cases`` (a
+    mesh of two ranks in a world of four on ranks 0 and 1), from the
+    flax-layout ``variables`` and the global numpy ``batch``:
+
+    - "bn": the ResNet grid in training mode of this rank's rows, and the
+      running statistics after it;
+    - "caption", "contrastive": one ``make_caption_train_step`` /
+      ``make_contrastive_step`` step under SGD(``lr``);
+    - "sensim", "c2i": one ``make_sensim_train_step`` /
+      ``make_caption2image_train_step`` step under SGD(``lr``) (``variables``
+      the model's flax tree).
+
+    Returns per case the global (sum_loss, ntokens) (None for "bn"), this
+    rank's d, its share of the grid ("bn") and (rank 0) the gathered state
+    dict after the step; None where the rank sat out."""
+    from imagetranslate_tpu_torch.models.caption2image import Caption2Image
+    from imagetranslate_tpu_torch.models.sensim import SenSim
+    from imagetranslate_tpu_torch.train import step as pstep
+    from imagetranslate_tpu_torch.train.weights import CAPTION2IMAGE, SENSIM
+
+    torch.set_num_threads(1)
+    make = _meshes(rank)
+    out = []
+    for kind, cfg, variables, batch, (n_data, n_model) in cases:
+        mesh = make(n_data, n_model)
+        if mesh is None:
+            out.append(None)
+            continue
+        local = shard_batch_safe({k: torch.tensor(v) for k, v in
+                                  batch.items()}, mesh)
+        grid = metrics = None
+        if kind in ("sensim", "c2i"):
+            cls, bridge = ((SenSim, SENSIM) if kind == "sensim"
+                           else (Caption2Image, CAPTION2IMAGE))
+            model = cls(cfg, param_dtype=torch.float32)
+            plan = model.shard_(mesh)
+            model.load_state_dict(shard_params(
+                bridge.state_dict_from_flax(variables, cfg), mesh, plan))
+            state = pstep.create_train_state(dict(model.named_parameters()),
+                                             SGD(lr))
+        else:
+            model, plan = _caption_model(cfg, variables, mesh)
+            state = pstep.create_caption_train_state(model, SGD(lr))
+        if kind == "bn":
+            with torch.no_grad():
+                grid = model.encode_images(local["images"], train=True)
+            grid = grid.numpy()
+        else:
+            make_step = {"caption": pstep.make_caption_train_step,
+                         "contrastive": pstep.make_contrastive_step,
+                         "sensim": pstep.make_sensim_train_step,
+                         "c2i": pstep.make_caption2image_train_step}[kind]
+            step = make_step(model.train(), SGD(lr))
+            state, m = step(state, local, torch.Generator().manual_seed(0))
+            metrics = (float(m["sum_loss"]), float(m["ntokens"]))
+        full = gather_params(model.state_dict(), mesh, plan)
+        out.append((metrics, mesh.d, grid,
+                    _np(full) if rank == 0 else None))
+    return out
+
+
+def image_mt_zero(rank, cfg, variables, batches, opt_kw):
+    """An ``ImageMTTrainer`` over the 2 x 1 mesh of ranks 0 and 1, with and
+    without ZeRO-1 (its layout's ``min_size`` lowered to 512, so that the
+    tiny model's tensors split), takes the (kind, global numpy batch) of
+    ``batches``: "mt", "mass" (text MASS), "mm" (multimodal MASS) or
+    "contrastive". Returns per arm the losses, how many tensors this rank
+    holds a ZeRO slice of and (rank 0) the gathered parameters and Adam
+    first moments; None on ranks 2 and 3."""
+    from imagetranslate_tpu_torch.train.trainer_image_mt import (
+        ImageMTTrainer,
+    )
+
+    torch.set_num_threads(1)
+    mesh = _meshes(rank)(2, 1)
+    if mesh is None:
+        return None
+    out = []
+    for zero in (False, True):
+        trainer = ImageMTTrainer(cfg, Tok(), variables=variables, mesh=mesh,
+                                 device="cpu", **opt_kw)
+        if zero:
+            from imagetranslate_tpu_torch.parallel.zero import ZeroLayout
+
+            trainer.zero = ZeroLayout(
+                {k: p.shape for k, p in trainer.model.named_parameters()},
+                mesh, cfg, trainer.plan, min_size=512)
+            trainer.optimizer.set_zero(trainer.zero)
+            trainer.set_reference_variables(variables)
+        steps = {"mt": trainer.mt_step, "mass": trainer.mass_step,
+                 "mm": trainer.mm_mass_step,
+                 "contrastive": trainer.contrastive_step}
+        losses = []
+        for i, (kind, batch) in enumerate(batches):
+            local = shard_batch_safe({k: torch.tensor(v) if isinstance(
+                v, np.ndarray) else v for k, v in batch.items()}, mesh)
+            trainer.state, m = steps[kind](trainer.state, local,
+                                           torch.Generator().manual_seed(i))
+            losses.append(float(m["sum_loss"]) / float(m["ntokens"]))
+        shapes = {k: p.shape for k, p in trainer.state.params.items()}
+        full = trainer._full(trainer.model.state_dict())
+        mu = trainer._full_moments(trainer.state.opt_state.mu)
+        out.append((losses, 0 if trainer.zero is None
+                    else sum(map(trainer.zero.split, shapes)),
+                    _np(full) if rank == 0 else None,
+                    _np(mu) if rank == 0 else None))
+    return out
+
+
+def torchrun(n, module, *args, timeout=600):
+    """``python -m torch.distributed.run --standalone --nproc-per-node n -m
+    module args`` with this checkout on the path and one thread a rank;
+    asserts it succeeds, returns its standard output."""
+    import os
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=repo + os.pathsep
+               + os.environ.get("PYTHONPATH", ""), OMP_NUM_THREADS="1")
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", str(n), "-m", module, *args],
+        env=env, capture_output=True, text=True, timeout=timeout)
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+    return proc.stdout

@@ -381,7 +381,8 @@ def test_cli_train_txt2image(corpus, tmp_path):
             str(corpus / "train.bin"), "--embed", "48", "--intermediate",
             "96", "--enc", "1", "--max-image", "4", "--warmup", "2",
             "--dtype", "float32", "--device", "cpu"]
-    with pytest.raises(SystemExit, match="module 14"):
+    # --mesh is ported: outside torchrun it asks for it.
+    with pytest.raises(SystemExit, match="torchrun"):
         train_txt2image.main(base + ["--step", "1", "--mesh", "2x1"])
     assert not model.exists()
     train_txt2image.main(base + ["--step", "2", "--dev",
@@ -392,6 +393,28 @@ def test_cli_train_txt2image(corpus, tmp_path):
     assert ckpt.load_checkpoint(str(model))[2]["step"] in (1, 2)   # best
     cfg = ckpt.load_config(str(model))
     assert (cfg.hidden_size, cfg.enc_layers) == (48, 1)
+
+
+@pytest.mark.slow
+def test_cli_train_txt2image_under_torchrun(corpus, tmp_path):
+    """``cli.train_txt2image --mesh 2x1`` for two steps under torchrun: each
+    rank encodes the target grids of its own rows with the frozen
+    captioner; rank 0 writes the one-device checkpoint. Slow: one torchrun
+    launch of two ranks (~10 s)."""
+    import _torch_port_ranks as ranks
+
+    model = tmp_path / "m"
+    out = ranks.torchrun(
+        2, "imagetranslate_tpu_torch.cli.train_txt2image", "--tok",
+        str(corpus / "tok"), "--model", str(model), "--pretrained",
+        str(corpus / "captioner"), "--train", str(corpus / "train.bin"),
+        "--embed", "48", "--intermediate", "96", "--enc", "1", "--max-image",
+        "4", "--warmup", "2", "--dtype", "float32", "--device", "cpu",
+        "--step", "2", "--mesh", "2x1")
+    assert out.count("Finished Training!") == 1
+    _, opt_tree, meta = ckpt.load_checkpoint(str(model) + ".latest",
+                                             with_opt_state=True)
+    assert meta["step"] == 2 and opt_tree is not None
 
 
 @pytest.mark.parametrize("verbose", [False, True])

@@ -719,12 +719,34 @@ def test_cli_train_captioning_mixed_mode(corpus, tmp_path):
     assert meta["step"] == 2 and opt_tree is not None
 
 
-# --zero is ported: without --mesh it gets the JAX CLI's message. The ids
-# keep the names the cases had when it was refused as unported.
+@pytest.mark.slow
+def test_cli_train_mt_with_images_mesh_zero_under_torchrun(corpus, tmp_path):
+    """``cli.train_mt --train --mesh 2x1 --zero`` (the image trainer under
+    ZeRO-1) for two steps of MASS with the image stream under torchrun;
+    rank 0 writes the one-device checkpoint with the gathered optimizer
+    state. Slow: one torchrun launch of two ranks (~15 s)."""
+    import _torch_port_ranks as ranks
+
+    model = tmp_path / "m"
+    out = ranks.torchrun(
+        2, "imagetranslate_tpu_torch.cli.train_mt",
+        *_train_args(corpus, model, "--train", str(corpus / "caps.bin"),
+                     "--image", "", "--mass_train",
+                     f"{corpus}/mono_en,{corpus}/mono_fa", "--step", "2",
+                     "--mmode", "mixed", "--mesh", "2x1", "--zero"))
+    assert out.count("Finished Training!") == 1
+    params, opt_tree, meta = ckpt.load_checkpoint(str(model) + ".latest",
+                                                  with_opt_state=True)
+    assert meta["step"] == 2 and opt_tree is not None
+
+
+# --mesh and --zero are ported: outside torchrun a mesh asks for it, and
+# --zero without --mesh gets the JAX CLI's message. The ids keep the names
+# the cases had when they were refused as unported.
 @pytest.mark.parametrize("flags, message", [
     (["--lm", "x"], "--lm with --train"),
     (["--pp-microbatches", "2"], "text MT/MASS trainer only"),
-    (["--mesh", "2x1"], "module 14"),
+    (["--mesh", "2x1"], "torchrun"),
     (["--zero"], "data axis; pass --mesh"),
 ], ids=["flags0---lm with --train", "flags1-text MT/MASS trainer only",
         "flags2-module 14", "flags3-module 14"])

@@ -165,8 +165,18 @@ def test_longdoc_logits_match_flax():
         model.encode(torch.tensor(texts[:, :Tn - 1]).long(),
                      torch.tensor(mask[:, :Tn - 1]),
                      torch.tensor(langs).long())
-    with pytest.raises(NotImplementedError, match="module 14"):
-        longdoc.LongDocLM(cfg, seq_sharding=object())
+    # Sequence parallelism is taken (tests/test_torch_port_mesh_lm.py); a
+    # mesh without a model group splits nothing.
+    from imagetranslate_tpu_torch.parallel.mesh import ProcessMesh
+
+    one = longdoc.LongDocLM(cfg, block=block,
+                            seq_sharding=ProcessMesh(2, 1))
+    one.load_state_dict(model.state_dict())
+    assert not one.seq_parallel
+    with torch.no_grad():
+        again = one(torch.tensor(texts).long(), torch.tensor(mask),
+                    torch.tensor(langs).long())
+    assert torch.equal(again, got)
 
 
 @pytest.mark.parametrize("size", [1, 2, 3])

@@ -6,6 +6,11 @@ the port's ``cli.train_lm`` wrote, optimizer state included, and gives the
 same dev loss under the same mask draws, rtol 1e-4; and the reverse); the
 graft of ``--lm``; what the CLIs refuse; and the new CLI modules importing
 and running with jax, flax, optax and the JAX package impossible to import.
+``-m slow`` adds ``cli.train_lm`` under torchrun (``--mesh 2x2``, and
+``--reformer --mesh 1x4``: sequence parallelism), and a two-node run on
+localhost (two ``torchrun --nnodes 2 --node-rank i`` processes over gloo on
+the CPU; one card a machine would pick NCCL on each) whose checkpoint equals
+a one-process run's.
 """
 
 import json
@@ -314,7 +319,8 @@ def test_lm_trainer_validation_uses_the_same_masks_each_time(work):
 def test_clis_refuse_what_is_not_ported(work, tmp_path):
     base = ["--tok", str(work / "tok"), "--model", str(tmp_path / "m"),
             "--train", str(work / "train"), "--device", "cpu"]
-    with pytest.raises(SystemExit, match="module 14"):
+    # --mesh is ported: outside torchrun it asks for it.
+    with pytest.raises(SystemExit, match="torchrun"):
         train_lm.main(base + ["--mesh", "4x2"])
     with pytest.raises(SystemExit, match="multiple of 12"):
         train_lm.main(base + ["--embed", "32"])
@@ -332,10 +338,14 @@ def test_clis_refuse_what_is_not_ported(work, tmp_path):
         ckpt.load_config(str(work / "lm")).__class__(vocab_size=10,
                                                      moe_experts=2,
                                                      moe_top_k=3)
-    with pytest.raises(NotImplementedError, match="module 14"):
-        LMTrainer(ckpt.load_config(str(work / "lm")),
-                  TextProcessor(str(work / "tok")), mesh=object(),
-                  device="cpu")
+    # A mesh is taken (tests/test_torch_port_mesh_lm.py); one of a single
+    # rank splits nothing and writes.
+    from imagetranslate_tpu_torch.parallel.mesh import ProcessMesh
+
+    one = LMTrainer(ckpt.load_config(str(work / "lm")),
+                    TextProcessor(str(work / "tok")), mesh=ProcessMesh(1, 1),
+                    device="cpu")
+    assert one.chief and not any(one.plan.values())
 
 
 _NO_JAX = textwrap.dedent("""
@@ -372,3 +382,92 @@ def test_lm_clis_run_without_jax(work, tmp_path):
                     str(work / "dev.txt"), str(tmp_path)],
                    check=True, cwd=REPO, env=env, timeout=300)
     assert ckpt.load_checkpoint(str(tmp_path / "lm.latest"))[2]["step"] == 2
+
+
+# ---------------- under torchrun (slow) ----------------
+
+def _lm_flags(work, model, *extra):
+    return ["--tok", str(work / "tok"), "--model", str(model), "--train",
+            str(work / "train"), "--step", "2", "--batch", str(ROWS),
+            "--warmup", "4", "--lr", "0.002", "--dropout", "0.0",
+            "--device", "cpu", *WIDTH, *extra]
+
+
+@pytest.mark.slow
+def test_cli_train_lm_under_torchrun(work, tmp_path):
+    """``cli.train_lm --mesh 2x2`` with a dev set, and ``--reformer --size 1
+    --mesh 1x4`` on 512-token blocks (one 128-token block a rank), two
+    steps each under torchrun: rank 0 writes the one-device checkpoint.
+    Slow: two torchrun launches of four ranks (~25 s on 8 CPU cores)."""
+    import _torch_port_ranks as ranks
+
+    model = tmp_path / "lm"
+    out = ranks.torchrun(4, "imagetranslate_tpu_torch.cli.train_lm",
+                         *_lm_flags(work, model, "--mesh", "2x2", "--dev",
+                                    str(work / "dev")))
+    assert "Finished Training!" in out and out.count("Current dev loss") == 1
+    params, opt_tree, meta = ckpt.load_checkpoint(str(model) + ".latest",
+                                                  with_opt_state=True)
+    cfg = ckpt.load_config(str(model) + ".latest")
+    assert meta["step"] == 2 and opt_tree is not None
+    assert params["params"]["embeddings"]["word"]["embedding"].shape == (
+        cfg.vocab_size, 24)
+    create_batches.main(["--data", str(work / "train.txt"), "--cache",
+                         str(tmp_path / "long"), "--tok", str(work / "tok"),
+                         "--seq_len", "512"])
+    model = tmp_path / "longdoc"
+    out = ranks.torchrun(4, "imagetranslate_tpu_torch.cli.train_lm",
+                         "--tok", str(work / "tok"), "--model", str(model),
+                         "--train", str(tmp_path / "long"), "--step", "2",
+                         "--batch", "2", "--warmup", "4", "--dropout", "0.0",
+                         "--dtype", "float32", "--reformer", "--size", "1",
+                         "--mesh", "1x4", "--device", "cpu")
+    assert "Finished Training!" in out
+    params = ckpt.load_params(str(model) + ".latest")
+    assert params["params"]["position"]["embedding"].shape == (4096, 64)
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+@pytest.mark.slow
+def test_cli_train_lm_on_two_nodes_equals_one_process(work, tmp_path):
+    """Two "nodes" on localhost, one rank each (``torchrun --nnodes 2
+    --node-rank i --master-addr 127.0.0.1 --master-port P``, the counterpart
+    of JAX's ``JAX_COORDINATOR_ADDRESS``), ``cli.train_lm --mesh 2`` for two
+    steps over gloo on the CPU; the checkpoint equals a one-process run's
+    (the masks are the global batch's on both; parameters within 1e-6 +
+    rtol 1e-4, the attention key biases, whose gradient is rounding noise,
+    within two Adam steps). Slow: two torchrun processes (~15 s)."""
+    port = _free_port()
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep
+               + os.environ.get("PYTHONPATH", ""), OMP_NUM_THREADS="1")
+    two = tmp_path / "two"
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--nnodes", "2",
+         "--node-rank", str(i), "--nproc-per-node", "1", "--master-addr",
+         "127.0.0.1", "--master-port", str(port), "-m",
+         "imagetranslate_tpu_torch.cli.train_lm",
+         *_lm_flags(work, two, "--mesh", "2")],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for i in range(2)]
+    outs = [p.communicate(timeout=600)[0] for p in procs]
+    assert [p.returncode for p in procs] == [0, 0], outs[0][-3000:] + \
+        outs[1][-3000:]
+    assert "Finished Training!" in outs[0]
+    assert "Finished Training!" not in outs[1]      # rank 1 stays quiet
+    one = tmp_path / "one"
+    train_lm.main(_lm_flags(work, one))
+    cfg = ckpt.load_config(str(one) + ".latest")
+    got, want = (weights.LM.state_dict_from_flax(
+        ckpt.load_params(str(d) + ".latest"), cfg) for d in (two, one))
+    assert set(got) == set(want)
+    for name, leaf in want.items():
+        atol = 2 * 0.002 if name.endswith(".self.key.bias") else 1e-6
+        np.testing.assert_allclose(got[name].numpy(), leaf.numpy(),
+                                   rtol=1e-4, atol=atol, err_msg=name)

@@ -17,7 +17,8 @@ batches go through both packages, fp32, 2 encoder layers at E=48, dropout 0:
 - ``cli.train_sensim`` (2 steps, negative pools from MASS shards, a dev
   set) -> ``cli.get_sen_sim`` in the port, beside the JAX ``get_sen_sim``
   on the port's checkpoint: the same pairs, scores within 1e-5;
-  ``--pretrained`` and the ``--mesh`` refusal.
+  ``--pretrained``, and ``--mesh`` outside torchrun. ``-m slow`` adds
+  ``cli.train_sensim --mesh 2x1`` under torchrun.
 """
 
 import jax
@@ -412,10 +413,31 @@ def test_cli_train_sensim_then_get_sen_sim(corpus, tmp_path):
 def test_cli_train_sensim_refusals(corpus, tmp_path):
     from imagetranslate_tpu_torch.cli import train_sensim
 
-    with pytest.raises(SystemExit, match="module 14"):
+    # --mesh is ported: outside torchrun it asks for it.
+    with pytest.raises(SystemExit, match="torchrun"):
         train_sensim.main(_train_args(corpus, tmp_path / "m", "--step", "1",
                                       "--mesh", "2x1"))
     with pytest.raises(SystemExit, match="multiple of"):
         train_sensim.main(_train_args(corpus, tmp_path / "m", "--step", "1",
                                       "--embed", "50"))
     assert not (tmp_path / "m").exists()
+
+
+@pytest.mark.slow
+def test_cli_train_sensim_under_torchrun(corpus, tmp_path):
+    """``cli.train_sensim --mesh 2x1`` (the pairs and both pools split over
+    the data axis) for two steps with a dev set under torchrun: rank 0
+    writes the one-device checkpoint, and only rank 0 logs. Slow: one
+    torchrun launch of two ranks (~10 s)."""
+    import _torch_port_ranks as ranks
+
+    model = tmp_path / "m"
+    out = ranks.torchrun(2, "imagetranslate_tpu_torch.cli.train_sensim",
+                         *_train_args(corpus, model, "--step", "2", "--mesh",
+                                      "2x1", "--dev_mt",
+                                      str(corpus / "dev.mt")))
+    assert out.count("Finished Training!") == 1 and "Dev Loss" in out
+    params, opt_tree, meta = ckpt.load_checkpoint(str(model) + ".latest",
+                                                  with_opt_state=True)
+    assert meta["step"] == 2 and opt_tree is not None
+    SENSIM.state_dict_from_flax(params, setup_cfg(model))   # whole shapes
