@@ -26,8 +26,10 @@ expert parallelism, the other trainers and CLIs on meshes (the MLM, the
 long-document LM's sequence parallelism, SenSim, Caption2Image, captioning,
 image MT under ZeRO-1), layer and FFN recompute
 (remat, remat_ffn) in full-width training, the ITR1 record files through the
-binarizer, training and translation CLIs with the native host libraries, and
-the recipe ladder (cli.recipe_check), and checks that each path went through
+binarizer, training and translation CLIs with the native host libraries,
+the recipe ladder (cli.recipe_check) and the comparable-mining scoring
+(comparable.sim_calculator over fastText-width tables, then the mining
+chain through the tools' main()s), and checks that each path went through
 its kernels.
 
 Run from the root of a checkout, with one visible CUDA card:
@@ -447,6 +449,24 @@ Phases, each fatal on failure:
                c3 = cs.phase_kernel_flash(k3); e, c4 =
                cs.phase_kernel_decode_attention(cs.decode_path_shapes() +
                k4); print(cs.phase_mesh_families(card, set(), c5, c3, c4))"
+ 32. comparable — comparable.sim_calculator's scoring on the card (no custom
+               kernel: gathers, an fp32 bmm with TF32 off, masks, an fp64
+               sum): word-vector tables of 200000 words a language at 300
+               dimensions (fastText's published width) built in memory from
+               a numpy seed, 100000 candidate pairs of 1-40 words mixing
+               dictionary and identity hits, ASCII and Persian numbers
+               (--convert) and OOV words on both sides; the scores finite,
+               2000 of them within rtol = atol = 1e-5 of the CPU path;
+               pairs/s with the host and device seconds beside the card's
+               name and power limit. Then add_lang_id -> sim_calculator
+               --device cuda (within 1e-5 of --device cpu) ->
+               extract_best_comparable -> extract_parallel_using_dict
+               through their main()s on generated files (300 sources beside
+               4 candidates each, one a planted translation); the
+               mutual-best file must not be empty. sacrebleu is missing on
+               the card's machine, so no eval_*sacre* tool runs here. Alone,
+               ~30 s: python3 -c "import chip_smoke as cs; card =
+               cs.phase_device(); cs.phase_comparable(card)"
 
 ``--profile`` adds a phase after 4 (one more decode) and one after 7 (three
 more train steps) under torch.profiler, printing the device time by operation
@@ -7996,6 +8016,186 @@ def phase_mesh_families(card, checked, checked_xent, checked_flash,
     return tuple(totals)
 
 
+COMPARABLE_WORDS = 200_000   # words a language in the word-vector tables
+COMPARABLE_DIM = 300         # fastText's published word vectors
+COMPARABLE_PAIRS = 100_000
+COMPARABLE_CHECKED = 2_000   # pairs held against the CPU path
+
+
+def comparable_pairs(rng, n: int, vocab: int, nums):
+    """n candidate (src words, dst words) pairs of 1-40 words a side. Src
+    words: in the table (90%), OOV (5%), ASCII and Persian numbers (1%
+    each), tokens OOV on both sides (3%). Each dst word comes from a src word of its pair: its
+    translation (the table's twin word, a dictionary hit at even rows; a
+    Persian number's ASCII form), a copy, a random table word or an OOV
+    word."""
+    import numpy as np
+
+    persian = [s.translate(str.maketrans("0123456789", "۰۱۲۳۴۵۶۷۸۹"))
+               for s in nums]
+    ls, ld = rng.integers(1, 41, n), rng.integers(1, 41, n)
+    ks = rng.choice(5, int(ls.sum()), p=[0.9, 0.05, 0.01, 0.01, 0.03])
+    ix = rng.integers(0, vocab, len(ks))
+    nx = rng.integers(0, len(nums), len(ks))
+    src = [f"s{i}" if k == 0 else f"q{i}" if k == 1 else nums[j] if k == 2
+           else persian[j] if k == 3 else f"x{i % 5000}"
+           for k, i, j in zip(ks.tolist(), ix.tolist(), nx.tolist())]
+    starts = np.cumsum(ls) - ls
+    pair = np.repeat(np.arange(n), ld)
+    pos = starts[pair] + (rng.random(len(pair)) * ls[pair]).astype(np.int64)
+    kd = rng.choice(4, len(pos), p=[0.3, 0.05, 0.6, 0.05])
+    rd = rng.integers(0, vocab, len(pos))
+    ks, ix, nx = ks.tolist(), ix.tolist(), nx.tolist()
+    dst = []
+    for k, p, r in zip(kd.tolist(), pos.tolist(), rd.tolist()):
+        if k == 0 and ks[p] == 0:
+            dst.append(f"d{ix[p]}")
+        elif k == 0 and ks[p] == 3:
+            dst.append(nums[nx[p]])
+        elif k <= 1:
+            dst.append(src[p])
+        else:
+            dst.append(f"d{r}" if k == 2 else f"r{r}")
+    ends_s, ends_d = np.cumsum(ls).tolist(), np.cumsum(ld).tolist()
+    return ([src[a - b:a] for a, b in zip(ends_s, ls.tolist())],
+            [dst[a - b:a] for a, b in zip(ends_d, ld.tolist())])
+
+
+def _tool(module: str, argv):
+    """Runs a host tool's main() under ``argv``; returns its stdout."""
+    import importlib
+    import io
+
+    mod = importlib.import_module("imagetranslate_tpu_torch." + module)
+    old, out = sys.argv, io.StringIO()
+    sys.argv = [module] + [str(a) for a in argv]
+    try:
+        with contextlib.redirect_stdout(out):
+            mod.main()
+    finally:
+        sys.argv = old
+    return out.getvalue()
+
+
+def phase_comparable(card):
+    """Phase 32: comparable.sim_calculator's scoring on the card at
+    fastText's width over 200,000-word tables, held against the CPU path;
+    then the mining chain through the tools' main()s."""
+    import numpy as np
+    import torch
+
+    from imagetranslate_tpu_torch.comparable import sim_calculator as sc
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED)
+    V, D = COMPARABLE_WORDS, COMPARABLE_DIM
+    src_table = sc.embed_table(
+        rng.standard_normal((V, D), dtype=np.float32))
+    dst_table = sc.embed_table(
+        rng.standard_normal((V, D), dtype=np.float32))
+    src_idx = {f"s{i}": i + 1 for i in range(V)}
+    dst_idx = {f"d{i}": i + 1 for i in range(V)}
+    d = {f"s{i}": {f"d{i}"} for i in range(0, V, 2)}
+    nums = [str(x) for x in rng.integers(0, 10 ** 6, 2000)]
+    t0 = time.perf_counter()
+    src, dst = comparable_pairs(rng, COMPARABLE_PAIRS, V, nums)
+    n_words = sum(map(len, src)) + sum(map(len, dst))
+    log(f"[comparable] tables 2 x [{V + 1}, {D}] fp32 "
+        f"({src_table.nbytes / 2 ** 20:.0f} MiB each), {len(d)} dictionary "
+        f"entries, {len(src)} pairs of {n_words} words generated in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    scorer = sc.SimScorer(src_table, src_idx, dst_table, dst_idx, d, True,
+                          "cuda")
+    assert scorer.src_table.is_cuda and scorer.dst_table.is_cuda
+    scorer.score(src[:COMPARABLE_CHECKED], dst[:COMPARABLE_CHECKED])  # warm
+    scorer.host_seconds = scorer.device_seconds = 0.0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    scores = scorer.score(src, dst)
+    wall = time.perf_counter() - t0
+    if scores.shape != (len(src),) or not np.all(np.isfinite(scores)):
+        raise AssertionError("comparable: scores not finite or misshapen")
+    checked = np.sort(rng.choice(len(src), COMPARABLE_CHECKED,
+                                 replace=False))
+    cpu = sc.SimScorer(src_table, src_idx, dst_table, dst_idx, d, True,
+                       "cpu")
+    want = cpu.score([src[i] for i in checked], [dst[i] for i in checked])
+    err = float(np.max(np.abs(scores[checked] - want)))
+    np.testing.assert_allclose(scores[checked], want, rtol=1e-5, atol=1e-5)
+    poisoned = int(np.sum(scores < -50))
+    log(f"[comparable] {card}: {len(src)} pairs in {wall:.3f} s = "
+        f"{len(src) / wall:.0f} pairs/s (host {scorer.host_seconds:.3f} s "
+        f"building index tensors, device {scorer.device_seconds:.3f} s from "
+        f"upload to scores); {poisoned} pairs carry an unmatched number; "
+        f"card vs CPU path on {COMPARABLE_CHECKED} pairs: max abs err "
+        f"{err:.3g} (rtol = atol = 1e-5)")
+    del scorer, cpu
+    torch.cuda.empty_cache()
+
+    # The mining chain through the tools' main()s, on generated files: 300
+    # sources, each beside 4 candidates, one of them its translation (the
+    # twin words, whose vectors lie near the source words').
+    with tempfile.TemporaryDirectory() as wd:
+        n_words, dim = 2000, COMPARABLE_DIM
+        base = rng.standard_normal((n_words, dim), dtype=np.float32)
+        noisy = base + 0.5 * rng.standard_normal((n_words, dim),
+                                                 dtype=np.float32)
+        for name, prefix, vec in (("s.vec", "s", base), ("d.vec", "d", noisy)):
+            with open(os.path.join(wd, name), "w") as f:
+                f.write(f"{n_words} {dim}\n")
+                f.writelines(f"{prefix}{i} " + " ".join(f"{x:.5f}" for x in v)
+                             + "\n" for i, v in enumerate(vec))
+        with open(os.path.join(wd, "dict.tsv"), "w") as f:
+            f.writelines(f"s{i}\td{i}\n" for i in range(0, n_words, 3))
+        srcs = [rng.integers(0, n_words, rng.integers(5, 16))
+                for _ in range(300)]
+        with open(os.path.join(wd, "src.txt"), "w") as fs, \
+                open(os.path.join(wd, "dst.txt"), "w") as fd:
+            for k, ws in enumerate(srcs):
+                cands = [ws] + [srcs[(k + j * 37) % 300] for j in (1, 2, 3)]
+                for c in rng.permutation(4):
+                    fs.write(" ".join(f"s{i}" for i in ws) + "\n")
+                    fd.write(" ".join(f"d{i}" for i in cands[c]) + "\n")
+        p = lambda name: os.path.join(wd, name)  # noqa: E731
+        _tool("scripts.add_lang_id", [p("src.txt"), "en", p("src.tag")])
+        _tool("scripts.add_lang_id", [p("dst.txt"), "fa", p("dst.tag")])
+        args = ["--src", p("src.tag"), "--dst", p("dst.tag"), "--src-embed",
+                p("s.vec"), "--dst-embed", p("d.vec"), "--dict",
+                p("dict.tsv"), "--convert"]
+        t0 = time.perf_counter()
+        sc.main(args + ["--output", p("sc.cuda"), "--device", "cuda"])
+        t_cli = time.perf_counter() - t0
+        sc.main(args + ["--output", p("sc.cpu"), "--device", "cpu"])
+        got, want = (np.loadtxt(p(f"sc.{k}")) for k in ("cuda", "cpu"))
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+        _tool("comparable.extract_best_comparable",
+              ["--src", p("src.tag"), "--dst", p("dst.tag"), "--scores",
+               p("sc.cuda"), "--output", p("best")])
+        with open(p("best")) as r, open(p("pairs"), "w") as w:
+            best = r.read().splitlines()
+            w.writelines(b.split("\t")[0] + "\n" for b in best)
+        right = sum([w[1:] for w in b.split(" ||| ")[0].split(" ")[1:-1]]
+                    == [w[1:] for w in
+                        b.split("\t")[0].split(" ||| ")[1].split(" ")[1:-1]]
+                    for b in best)
+        _tool("comparable.extract_parallel_using_dict",
+              [p("dict.tsv"), p("pairs"), p("pairs"), p("para")])
+        with open(p("para")) as r:
+            para = r.read().splitlines()
+        if not best or not para:
+            raise AssertionError(f"comparable chain: {len(best)} mutual-best "
+                                 f"pairs, {len(para)} dictionary pairs")
+        log(f"[comparable] cli chain: add_lang_id -> sim_calculator --device "
+            f"cuda ({t_cli:.2f} s over 1200 pairs; within 1e-5 of --device "
+            f"cpu) -> extract_best_comparable ({len(best)} mutual-best pairs, "
+            f"{right} of them the planted translation) -> "
+            f"extract_parallel_using_dict ({len(para)} pairs); the eval_*sacre* "
+            "tools are not run here (sacrebleu is not installed on the card's "
+            "machine; tests/test_torch_port_scripts.py covers them on the CPU)")
+    log(f"[comparable] phase 32 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "imagetranslate_tpu_torch")):
         print("chip_smoke.py must run from a checkout of the repository "
@@ -8138,6 +8338,8 @@ def main() -> int:
     dec_attn_launches += z[5]
     flash_launches += z[6]
     done("31")
+    phase_comparable(card)
+    done("32")
     attn_src = "imagetranslate_tpu_torch/csrc/train_attention.cu"
     xent_src = "imagetranslate_tpu_torch/csrc/xent.cu"
     print(card)

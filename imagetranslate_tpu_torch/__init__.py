@@ -28,6 +28,10 @@ port imports neither jax nor the JAX package.
 - ``cli``       — ``translate``, ``train_mt``, the caption, LM, SenSim and
                   Caption2Image CLIs, ``translate_img``, the host tools and
                   the recipe ladder ``recipe_check``.
+- ``comparable``, ``scripts``, ``mmid`` — the corpus-mining toolbox and
+                  ``mmid_sim``: host tools with the JAX package's argv and
+                  output bytes; ``comparable.sim_calculator`` scores its
+                  candidate pairs on the card.
 """
 
 __version__ = "0.1.0"
