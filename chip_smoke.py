@@ -85,14 +85,21 @@ Phases, each fatal on failure:
                packed rows' B=64 at T=S=256, T=S=255 and T=255 over S=256,
                and the bucketed batches of the same pairs); bf16 outputs within
                2^-6 of the plain result's largest magnitude (a few bf16 ulps), fp32 dbias
-               within 1e-4 of it. S = 513 and fp32 inputs raise before a
-               launch; two launches on the same inputs give the same bits.
+               within 1e-4 of it; each case twice: with dbias asked for (the
+               backward's exact two-pass delta) against the exact plain
+               backward, and without (the model's path: saved keep bits,
+               delta = rowsum(g out)) against that formula's plain version,
+               the saved bits equal to the plain packing of keep_mask. S =
+               513 and fp32 inputs raise before a launch; two launches on
+               the same inputs give the same bits on both backward paths.
                Mask statistics straight from the kernel (keep rate within 4
                sigma, same seed -> same output, another seed -> another
                mask). Times of kernel, plain version and
                F.scaled_dot_product_attention (a yardstick, never on the
                path), forward and backward, taken in turns, at the training
-               and the MLM shape; kernel times at the packed shape.
+               shape, the MLM shape and the packed shape (B=64, T=S=256,
+               a [B, 1, T, S] bias), each at rate 0.1 and at rate 0: the
+               difference is the mask's cost.
   7. train   — MTTrainer at BERT-base width (fp32 masters, bf16 compute,
                dropout 0.1) on numpy batches of B=256, S=T=64 over the full
                vocabulary: 3 warm-up steps, 9 timed; the loss is finite and
@@ -365,7 +372,8 @@ Phases, each fatal on failure:
                recompute and with remat_ffn, 24 + 12 with remat (each
                attention's forward again in the backward, with its seed),
                K5 1 + 1, at shapes phase 6 held; ms/step and peak memory of
-               each arm.
+               each arm, and the MiB a step of the keep bits K1's forwards
+               save for the backward, with their share of the peak.
  28. itr1    — the native host libraries (librecordio and libbpe built by
                g++ on this host and in use; the JPEG decoder where
                jpeglib.h is found); a generated corpus through
@@ -1098,37 +1106,16 @@ def phase_kernel_attention(extra_shapes=()):
         q, k, v, bias, g = inputs(B, T, S, H, D, rows)
         if not ta.fused_attention_supported(q, k, bias):
             raise AssertionError(f"gate refuses {(B, T, S, H, D)}")
-        leaves = [t.clone().requires_grad_(True) for t in (q, k, v, bias)]
-        out = ta.fused_dropout_attention(*leaves, rate, seed)
-        grads = torch.autograd.grad(out, leaves, g)
-        torch.cuda.synchronize()
-        want = ta.fused_dropout_attention_reference(q, k, v, bias, rate, seed)
-        hand = ta.fused_dropout_attention_backward_reference(
-            q, k, v, bias, g, rate, seed)
-        errs = []
-        for name, got, ref in zip(("out", "dq", "dk", "dv", "dbias"),
-                                  (out, *grads), (want, *hand)):
-            if got.shape != ref.shape or got.dtype != ref.dtype:
-                raise AssertionError(f"{name}: {got.shape} {got.dtype} vs "
-                                     f"{ref.shape} {ref.dtype}")
-            if not torch.isfinite(got).all():
-                raise AssertionError(f"{name} is not finite")
-            err = (got.float() - ref.float()).abs().max().item()
-            scale = ref.float().abs().max().item()
-            tol = DBIAS_TOL if name == "dbias" else ATTN_TOL
-            if err > tol * scale:
-                raise AssertionError(
-                    f"kernel vs plain, {name} at {(B, T, S, H, D)} rows="
-                    f"{rows} rate={rate}: err {err:.3g} > {tol:.3g} * "
-                    f"{scale:.3g}")
-            errs.append(err / scale if scale else 0.0)
-            key = "fwd" if name == "out" else "bwd"
-            worst[key] = max(worst[key], err)
+        errs = k1_against_plain(q, k, v, bias, g, rate, seed,
+                                f"{(B, T, S, H, D)} rows={rows} rate={rate}")
+        absolute = {n[4:]: errs.pop(n) for n in list(errs)
+                    if n.startswith("abs ")}
+        worst["fwd"] = max(worst["fwd"], absolute.pop("out"))
+        worst["bwd"] = max(worst["bwd"], *absolute.values())
         checked.add((B, T, S, H, D, bias.shape[2]))
         log(f"[kernel K1] B={B} T={T} S={S} H={H} D={D} bias rows="
-            f"{T if rows else 1} rate={rate}: err/max out {errs[0]:.2e} dq "
-            f"{errs[1]:.2e} dk {errs[2]:.2e} dv {errs[3]:.2e} dbias "
-            f"{errs[4]:.2e}")
+            f"{T if rows else 1} rate={rate}: err/max "
+            + " ".join(f"{n} {e:.2e}" for n, e in errs.items()))
 
     shapes = [
         (256, 64, 64, 12, 64),    # the training shape: encoder layers
@@ -1175,22 +1162,27 @@ def phase_kernel_attention(extra_shapes=()):
         raise AssertionError("a refused call counted as a launch")
 
     # Bit-reproducible: two launches on the same inputs give the same bits,
-    # dbias included, at the MLM shape in both bias layouts.
+    # dbias included, at the MLM shape in both bias layouts, on both
+    # backward paths.
     for rows in (0, 1):
         q, k, v, bias, g = inputs(*MLM_SHAPE, rows)
         runs = []
         for _ in range(2):
-            out, stats = ta._launch_fwd(q, k, v, bias, RATE, 9)
-            runs.append((out, *ta._launch_bwd(q, k, v, bias, g, stats, RATE,
-                                              9, True)))
+            out, stats, bits = ta._launch_fwd(q, k, v, bias, RATE, 9, True)
+            saved = (q, k, v, bias, g, out, stats, bits, RATE)
+            runs.append((out, bits, *ta._launch_bwd(*saved, True),
+                         *ta._launch_bwd(*saved, False)[:3]))
         torch.cuda.synchronize()
-        for name, a, b in zip(("out", "dq", "dk", "dv", "dbias"), *runs):
+        for name, a, b in zip(("out", "bits", "dq", "dk", "dv", "dbias",
+                               "one-pass dq", "one-pass dk", "one-pass dv"),
+                              *runs):
             if not torch.equal(a, b):
                 raise AssertionError(f"{name} differs between two launches "
                                      f"on the same inputs (bias rows "
                                      f"{bias.shape[2]})")
-    log("[kernel K1] out, dq, dk, dv and dbias bit-equal across two launches "
-        "at the MLM shape, both bias layouts")
+    log("[kernel K1] out, the saved bits, dq, dk, dv and dbias bit-equal "
+        "across two launches at the MLM shape, both bias layouts, both "
+        "backward paths")
 
     # The Python gate repeats the kernels' shape limits: hold it against the
     # library's own answer over the (S, D) plane and at the grid's edge.
@@ -1244,12 +1236,13 @@ def phase_kernel_attention(extra_shapes=()):
         f"{count} draws (4 sigma = {4 * sigma:.2e}), same seed same mask, "
         f"equal to the plain version's, two seeds differ at {differ:.4f}")
 
-    def timed(B, T, S, H, D, rows, plain_iters):
+    def timed(B, T, S, H, D, rows, rate, plain_iters):
         """Kernel, plain version and F.scaled_dot_product_attention (the
-        library yardstick, never on the port's path), forward and backward,
-        cold L2, taken in turns: plain, kernel, SDPA, SDPA, kernel, plain."""
+        library yardstick, never on the port's path), forward and backward
+        (the model's path: bits saved, no dbias), cold L2, taken in turns:
+        plain, kernel, SDPA, SDPA, kernel, plain."""
         q, k, v, bias, g = inputs(B, T, S, H, D, rows)
-        _, stats = ta._launch_fwd(q, k, v, bias, RATE, 3)
+        out, stats, bits = ta._launch_fwd(q, k, v, bias, rate, 3, True)
         qh, kh, vh = (t.transpose(1, 2).detach().requires_grad_(True)
                       for t in (q, k, v))
         gh = g.transpose(1, 2)
@@ -1258,16 +1251,16 @@ def phase_kernel_attention(extra_shapes=()):
 
         def sdpa():
             held["out"] = F.scaled_dot_product_attention(
-                qh, kh, vh, attn_mask=mask, dropout_p=RATE)
+                qh, kh, vh, attn_mask=mask, dropout_p=rate)
 
         fns = {
-            "kernel": (lambda: ta._launch_fwd(q, k, v, bias, RATE, 3),
-                       lambda: ta._launch_bwd(q, k, v, bias, g, stats, RATE,
-                                              3, False), None, 50),
+            "kernel": (lambda: ta._launch_fwd(q, k, v, bias, rate, 3, True),
+                       lambda: ta._launch_bwd(q, k, v, bias, g, out, stats,
+                                              bits, rate, False), None, 50),
             "plain": (lambda: ta.fused_dropout_attention_reference(
-                q, k, v, bias, RATE, 3),
+                q, k, v, bias, rate, 3),
                 lambda: ta.fused_dropout_attention_backward_reference(
-                    q, k, v, bias, g, RATE, 3), None, plain_iters),
+                    q, k, v, bias, g, rate, 3), None, plain_iters),
             "sdpa": (sdpa, lambda: torch.autograd.grad(held["out"],
                                                        (qh, kh, vh), gh),
                      sdpa, 50),
@@ -1279,36 +1272,81 @@ def phase_kernel_attention(extra_shapes=()):
             runs[name][1].append(_time_ms(bwd_fn, iters=iters, setup=setup))
         elems = B * H * D
         nbias = bias.numel() * 4
-        # The forward reads q, k, v and the bias and writes out and the row
-        # statistics; the backward reads q, k, v, g, the bias and the
-        # statistics and writes dq, dk, dv (dbias is not asked for).
+        nbits = 0 if bits is None else bits.numel() * 4
+        # The function's own traffic: the forward reads q, k, v and the bias
+        # and writes out and the row statistics; the backward reads q, k, v,
+        # g, the bias and the statistics and writes dq, dk, dv (dbias is not
+        # asked for). Operations: the two products of the forward, the five
+        # of the backward. The keep bits (written by the forward, read by the
+        # backward) and the backward's read of out are this design's choices,
+        # not the function's: they are printed beside the bound, not in it.
         bounds = (bound(2 * elems * (2 * T + 2 * S) + nbias + 8 * B * H * T,
                         4.0 * B * H * T * S * D),
                   bound(2 * elems * (3 * T + 4 * S) + nbias + 8 * B * H * T,
                         10.0 * B * H * T * S * D))
+        design = (nbits, nbits + 2 * elems * T)
         mean = {name: (sum(f) / 2, sum(b) / 2) for name, (f, b) in
                 runs.items()}
         for i, what in enumerate(("forward", "backward")):
             log(f"[kernel K1] B={B} T={T} S={S} H={H} D={D} bias rows="
-                f"{bias.shape[2]} rate={RATE}, {what}: kernel "
+                f"{bias.shape[2]} rate={rate}, {what}: kernel "
                 f"{runs['kernel'][i]} ms, plain {runs['plain'][i]} ms, SDPA "
                 f"{runs['sdpa'][i]} ms, bound {bounds[i][0]:.4f} ms "
-                f"({bounds[i][1]}); kernel / SDPA "
+                f"({bounds[i][1]}); design traffic beyond the bound "
+                f"{design[i]} bytes ({1e3 * design[i] / HBM_BYTES_PER_S:.4f}"
+                f" ms at the memory rate); kernel / SDPA "
                 f"{mean['kernel'][i] / mean['sdpa'][i]:.3f}")
         return mean, bounds
 
-    mean, bounds = timed(256, 64, 64, 12, 64, 0, 10)   # the training shape
-    timed(*MLM_SHAPE, 0, 5)
+    timings = {}
+    for label, shape, rows, plain_iters in (
+            ("training", (256, 64, 64, 12, 64), 0, 10),
+            ("MLM", MLM_SHAPE, 0, 5),
+            ("packed", (64, 256, 256, 12, 64), 1, 5)):
+        for rate in (RATE, 0.0):
+            timings[label, rate] = timed(*shape, rows, rate, plain_iters)
+        with_mask, without = timings[label, RATE][0], timings[label, 0.0][0]
+        log(f"[kernel K1] {label} shape {shape}: the mask's cost (rate "
+            f"{RATE} minus rate 0, kernel) forward "
+            f"{with_mask['kernel'][0] - without['kernel'][0]:.4f} ms, "
+            f"backward {with_mask['kernel'][1] - without['kernel'][1]:.4f} "
+            f"ms; SDPA's {with_mask['sdpa'][0] - without['sdpa'][0]:.4f} / "
+            f"{with_mask['sdpa'][1] - without['sdpa'][1]:.4f} ms")
+    mean, bounds = timings["training", RATE]
 
-    # The packed shape (four query tiles, a per-query bias), kernels only.
-    pq, pk, pv, pbias, pg = inputs(32, 256, 256, 12, 64, 1)
-    _, pstats = ta._launch_fwd(pq, pk, pv, pbias, RATE, 3)
-    packed = [_time_ms(lambda: ta._launch_fwd(pq, pk, pv, pbias, RATE, 3)),
-              _time_ms(lambda: ta._launch_bwd(pq, pk, pv, pbias, pg, pstats,
-                                              RATE, 3, False))]
-    log(f"[kernel K1] B=32 T=S=256 H=12 D=64 bias rows=256 rate={RATE}: "
-        f"forward kernel {packed[0]:.4f} ms, backward kernel "
-        f"{packed[1]:.4f} ms")
+    # The backward's two kernels apart, from torch.profiler: device time a
+    # call, 10 calls a shape with a cold L2, at rate 0.1 without dbias (the
+    # mean of the launches the profiler saw: it can miss the first).
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    for label, shape, rows in (("training", (256, 64, 64, 12, 64), 0),
+                               ("MLM", MLM_SHAPE, 0),
+                               ("packed", (64, 256, 256, 12, 64), 1)):
+        q, k, v, bias, g = inputs(*shape, rows)
+        out, stats, bits = ta._launch_fwd(q, k, v, bias, RATE, 3, True)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                flush.zero_()
+                ta._launch_bwd(q, k, v, bias, g, out, stats, bits, RATE,
+                               False)
+            torch.cuda.synchronize()
+        split = {part: [e.time_range.elapsed_us() for e in prof.events()
+                        if e.device_type == DeviceType.CUDA
+                        and f"attn_bwd_{part}" in e.name]
+                 for part in ("dq", "dkdv")}
+        seen = {part: len(us) for part, us in split.items()}
+        if min(seen.values()) < 5:
+            log(f"[kernel K1] {label}: the profiler saw {seen} launches of "
+                "10: no split")
+            continue
+        mean_ms = {part: sum(us) / len(us) / 1e3
+                   for part, us in split.items()}
+        log(f"[kernel K1] {label} shape {shape} backward: dq kernel "
+            f"{mean_ms['dq']:.4f} ms, dk/dv kernel {mean_ms['dkdv']:.4f} ms "
+            f"a call (torch.profiler, the mean of {seen} launches)")
+    del flush
 
     def entry(i, err):
         return {"max_abs_err": err, "ms": mean["kernel"][i],
@@ -1316,6 +1354,91 @@ def phase_kernel_attention(extra_shapes=()):
                 "bound_by": bounds[i][1], "library_ms": mean["sdpa"][i]}
 
     return entry(0, worst["fwd"]), entry(1, worst["bwd"]), checked
+
+
+def k1_against_plain(q, k, v, bias, g, rate, seed, what):
+    """K1 forward and backward through autograd against the plain versions
+    at one input: with dbias asked for (the backward's exact two-pass delta)
+    against the exact plain backward, out and dbias included, and without
+    (the model's path: the keep bits the forward saved, delta = rowsum(g
+    out)) against that formula's plain version over the kernel's own output
+    and against the exact plain backward (within the budget that out's bf16
+    rounding gives delta, below); the saved bits against the plain packing
+    of keep_mask. Raises past ATTN_TOL (DBIAS_TOL for dbias) of the plain
+    result's largest magnitude; returns each error over that magnitude and
+    each absolute error. Against the saved formula the one-pass dq and dk
+    take that magnitude at least 2^-7 of dv's: where
+    they vanish (a single key: ds = p (dp - delta) is 0 in exact
+    arithmetic), delta = rowsum(g out) leaves the kernel and the plain
+    version with fp32 rounding noise that no share of a zero can hold."""
+    import torch
+
+    from imagetranslate_tpu_torch.ops import train_attention as ta
+
+    B, T, H, _ = q.shape
+    S = k.shape[1]
+    errs = {}
+
+    def hold(name, got, ref, tol, floor=0.0):
+        if got.shape != ref.shape or got.dtype != ref.dtype:
+            raise AssertionError(f"K1 {name} at {what}: {got.shape} "
+                                 f"{got.dtype} vs {ref.shape} {ref.dtype}")
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"K1 {name} at {what} is not finite")
+        err = (got.float() - ref.float()).abs().max().item()
+        scale = max(ref.float().abs().max().item(), floor)
+        if err > tol * scale:
+            raise AssertionError(f"K1 kernel vs plain, {name} at {what}: "
+                                 f"err {err:.3g} > {tol:.3g} * {scale:.3g}")
+        errs[name] = err / scale if scale else 0.0
+        errs[f"abs {name}"] = err
+
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v, bias)]
+    out = ta.fused_dropout_attention(*leaves, rate, seed)
+    grads = torch.autograd.grad(out, leaves, g)
+    one = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out1 = ta.fused_dropout_attention(*one, bias, rate, seed)
+    grads1 = torch.autograd.grad(out1, one, g)
+    _, _, bits = ta._launch_fwd(q, k, v, bias, rate, seed, True)
+    torch.cuda.synchronize()
+    want = ta.fused_dropout_attention_reference(q, k, v, bias, rate, seed)
+    exact = ta.fused_dropout_attention_backward_reference(q, k, v, bias, g,
+                                                          rate, seed)
+    words = None
+    if rate > 0.0:
+        words = ta.pack_keep_bits(ta.keep_mask(rate, seed, B, H, T, S,
+                                               q.device))
+        n = -(-S // 32)
+        if not torch.equal(bits[..., :n], words[..., :n]):
+            raise AssertionError(f"K1 saved keep bits at {what} are not the "
+                                 "plain packing of keep_mask")
+    saved = ta.fused_dropout_attention_backward_saved(q, k, v, bias, g, out1,
+                                                      words, rate)
+    for name, got, ref in zip(("out", "dq", "dk", "dv", "dbias"),
+                              (out, *grads), (want, *exact)):
+        hold(name, got, ref, DBIAS_TOL if name == "dbias" else ATTN_TOL)
+    floor = 2.0 ** -7 * saved[2].float().abs().max().item()
+    for name, got, ref in zip(("dq", "dk", "dv"), grads1, saved):
+        hold(f"one-pass {name}", got, ref, ATTN_TOL, floor)
+    # The model's path also against the exact plain backward, which reads
+    # neither the kernel's output nor its bits: at ATTN_TOL with the same
+    # 2^-7 floor. At a single key dq and dk are 0 in exact arithmetic, and
+    # what the one-pass path leaves there is out's bf16 rounding: delta_i =
+    # rowsum(g out) moves by at most 2^-8 sum_d |g_id out_id| (a bf16 ulp of
+    # each out, twice round-to-nearest's error), dq_i by scale max|k| that
+    # and dk by scale max|q| its sum over the queries (p = 1), which is the
+    # floor there instead.
+    floor = (2.0 ** -7 * exact[2].float().abs().max().item(),) * 2
+    if S == 1:
+        moved = 2.0 ** -8 * (g.float() * out1.float()).abs().sum(-1)
+        scale = ta.attention_scale(q.shape[-1]) / ATTN_TOL
+        floor = (scale * moved.max().item() * k.float().abs().max().item(),
+                 scale * moved.sum(1).max().item()
+                 * q.float().abs().max().item())
+    for name, got, ref, least in zip(("dq", "dk", "dv"), grads1, exact,
+                                     (*floor, 0.0)):
+        hold(f"one-pass {name} vs exact", got, ref, ATTN_TOL, least)
+    return errs
 
 
 XENT_ROWS_TOL = 1e-4          # loss rows, relative (+ 1e-6 absolute)
@@ -6015,8 +6138,6 @@ def hold_k1(what: str, seen, checked):
     it."""
     import torch
 
-    from imagetranslate_tpu_torch.ops import train_attention as ta
-
     gen = torch.Generator(device="cuda").manual_seed(SEED + 27)
     new = sorted(seen - checked)
     for shape in new:
@@ -6027,21 +6148,7 @@ def hold_k1(what: str, seen, checked):
         bias = torch.randn(B, 1, rows, S, generator=gen, device="cuda")
         masked = torch.rand(bias.shape, generator=gen, device="cuda") < 0.2
         bias = torch.where(masked, torch.full_like(bias, -10000.0), bias)
-        leaves = [t.clone().requires_grad_(True) for t in (q, k, v, bias)]
-        out = ta.fused_dropout_attention(*leaves, RATE, 5)
-        grads = torch.autograd.grad(out, leaves, g)
-        want = ta.fused_dropout_attention_reference(q, k, v, bias, RATE, 5)
-        hand = ta.fused_dropout_attention_backward_reference(
-            q, k, v, bias, g, RATE, 5)
-        for name, got, ref in zip(("out", "dq", "dk", "dv", "dbias"),
-                                  (out, *grads), (want, *hand)):
-            err = (got.float() - ref.float()).abs().max().item()
-            scale = ref.float().abs().max().item()
-            tol = DBIAS_TOL if name == "dbias" else ATTN_TOL
-            if got.shape != ref.shape or not err <= tol * scale:
-                raise AssertionError(f"[{what}] K1 vs plain, {name} at "
-                                     f"{shape}: err {err:.3g} > {tol:.3g} "
-                                     f"* {scale:.3g}")
+        k1_against_plain(q, k, v, bias, g, RATE, 5, f"[{what}] {shape}")
         checked.add(shape)
     log(f"[{what}] K1 shapes (B, T, S, H, D, bias rows) {sorted(seen)}: "
         f"{len(new)} of them held against the plain version here {new}, "
@@ -6145,14 +6252,27 @@ def phase_remat(card, checked, checked_xent, pack):
                 ta.FWD_LAUNCHES = ta.BWD_LAUNCHES = 0
                 xent.FWD_LAUNCHES = xent.BWD_LAUNCHES = 0
                 metrics = []
-                for i in range(n):
-                    if i == 1:
-                        torch.cuda.synchronize()
-                        t0 = time.perf_counter()
-                    trainer.state, m = trainer.mt_step(
-                        trainer.state, batches[i % len(batches)],
-                        trainer.rng)
-                    metrics.append(m)
+                bits_bytes = [0]    # the keep bits K1's forwards save
+                launch_fwd = ta._launch_fwd
+
+                def counting_fwd(*args):
+                    out = launch_fwd(*args)
+                    if out[2] is not None:
+                        bits_bytes[0] += out[2].numel() * 4
+                    return out
+
+                ta._launch_fwd = counting_fwd
+                try:
+                    for i in range(n):
+                        if i == 1:
+                            torch.cuda.synchronize()
+                            t0 = time.perf_counter()
+                        trainer.state, m = trainer.mt_step(
+                            trainer.state, batches[i % len(batches)],
+                            trainer.rng)
+                        metrics.append(m)
+                finally:
+                    ta._launch_fwd = launch_fwd
                 torch.cuda.synchronize()
                 ms = 1e3 * (time.perf_counter() - t0) / REMAT_STEPS
                 peak = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -6178,8 +6298,12 @@ def phase_remat(card, checked, checked_xent, pack):
                     f"launches a step; first-step loss sum {first[arm]!r}; "
                     f"objective {ref[0]!r}, largest gradient difference "
                     f"{worst:.3g} of a tensor's largest value against the "
-                    f"arm without recompute (deterministic algorithms) "
-                    f"({card})")
+                    f"arm without recompute (deterministic algorithms); "
+                    f"K1's saved keep bits {bits_bytes[0] / n / 2 ** 20:.2f} "
+                    f"MiB a step, {bits_bytes[0] / n / 2 ** 30 / peak:.2%} "
+                    f"of the peak (their size over the peak, not a measured "
+                    f"change: the peak grows by at most the bits of the "
+                    f"forwards held at once) ({card})")
                 del trainer, params, metrics
             if len(set(first.values())) != 1:
                 raise AssertionError(f"remat {label}: first-step losses "

@@ -101,23 +101,6 @@ __device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
   asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(bar) : "memory");
 }
 
-// max and sum of N values (a power of two) as trees (v is overwritten).
-template <int N>
-__device__ __forceinline__ float tree_max(float (&v)[N]) {
-#pragma unroll
-  for (int j = 0; j < N / 2; ++j) v[j] = fmaxf(v[j], v[j + N / 2]);
-  if constexpr (N == 2) return v[0];
-  else return tree_max<N / 2>(*reinterpret_cast<float(*)[N / 2]>(&v));
-}
-
-template <int N>
-__device__ __forceinline__ float tree_sum(float (&v)[N]) {
-#pragma unroll
-  for (int j = 0; j < N / 2; ++j) v[j] += v[j + N / 2];
-  if constexpr (N == 2) return v[0];
-  else return tree_sum<N / 2>(*reinterpret_cast<float(*)[N / 2]>(&v));
-}
-
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);

@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the port's TMA / wgmma kernels
-// (flash_attention.cu, topk_project.cu): register reallocation, mbarriers,
-// TMA tile loads, named barriers, wgmma descriptors and fences, and the
-// driver's cuTensorMapEncodeTiled reached through the runtime (so the link
-// needs no -lcuda). Everything is in an anonymous namespace: each source that
+// (flash_attention.cu, topk_project.cu, train_attention.cu): register
+// reallocation, mbarriers, TMA tile loads, named barriers, wgmma descriptors
+// and fences, row maxima and sums as trees, and the driver's
+// cuTensorMapEncodeTiled reached through the runtime (so the link needs no
+// -lcuda). Everything is in an anonymous namespace: each source that
 // includes this header gets its own copy.
 
 #pragma once
@@ -72,6 +73,17 @@ __device__ __forceinline__ void tma_load4(uint32_t dst, const CUtensorMap* map, 
       : "memory");
 }
 
+// A (c0, c1, c2) box of a 3-D tensor map into shared memory; completes its
+// bytes on `bar`.
+__device__ __forceinline__ void tma_load3(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                          int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
 // A (c0, c1) box of a 2-D tensor map into shared memory; completes its bytes
 // on `bar`.
 __device__ __forceinline__ void tma_load2(uint32_t dst, const CUtensorMap* map, uint32_t bar,
@@ -129,14 +141,33 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
     for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(r[i][e])::"memory");
 }
 
+// max and sum of N values (a power of two) as trees (v is overwritten).
+template <int N>
+__device__ __forceinline__ float tree_max(float (&v)[N]) {
+#pragma unroll
+  for (int j = 0; j < N / 2; ++j) v[j] = fmaxf(v[j], v[j + N / 2]);
+  if constexpr (N == 2) return v[0];
+  else return tree_max<N / 2>(*reinterpret_cast<float(*)[N / 2]>(&v));
+}
+
+template <int N>
+__device__ __forceinline__ float tree_sum(float (&v)[N]) {
+#pragma unroll
+  for (int j = 0; j < N / 2; ++j) v[j] += v[j + N / 2];
+  if constexpr (N == 2) return v[0];
+  else return tree_sum<N / 2>(*reinterpret_cast<float(*)[N / 2]>(&v));
+}
+
 // The accumulator operands of a wgmma: d[0 .. n).
 #define ACC4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
+#define ACC8(i) ACC4(i), ACC4(i + 4)
 #define ACC16(i) ACC4(i), ACC4(i + 4), ACC4(i + 8), ACC4(i + 12)
 #define ACC32(i) ACC16(i), ACC16(i + 16)
 #define ACC64(i) ACC32(i), ACC32(i + 32)
 #define OUT4(i) "=f"(d[i]), "=f"(d[i + 1]), "=f"(d[i + 2]), "=f"(d[i + 3])
 #define OUT16(i) OUT4(i), OUT4(i + 4), OUT4(i + 8), OUT4(i + 12)
-#define OUT64(i) OUT16(i), OUT16(i + 16), OUT16(i + 32), OUT16(i + 48)
+#define OUT32(i) OUT16(i), OUT16(i + 16)
+#define OUT64(i) OUT32(i), OUT32(i + 32)
 
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,

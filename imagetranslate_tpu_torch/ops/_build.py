@@ -118,15 +118,15 @@ def load() -> ctypes.CDLL:
         # val idx lse out_val out_idx out_lse | M n k | stream
         lib.itt_topk_merge.argtypes = [p] * 6 + [i] * 3 + [p]
         lib.itt_topk_merge.restype = ctypes.c_int
-        # q k v bias out stats | B T S H D bias_rows | scale keep_prob |
-        # threshold seed_lo seed_hi | stream
+        # q k v bias out stats bits | B T S H D bias_rows | scale
+        # keep_prob | threshold seed_lo seed_hi | stream
         lib.itt_fused_attn_fwd_bf16.argtypes = (
-            [p] * 6 + [i] * 6 + [f] * 2 + [u] * 3 + [p])
+            [p] * 7 + [i] * 6 + [f] * 2 + [u] * 3 + [p])
         lib.itt_fused_attn_fwd_bf16.restype = ctypes.c_int
-        # q k v bias g stats delta dq dk dv db_part dbias | then as the
-        # forward
+        # q k v bias g out stats bits delta dq dk dv db_part dbias | B T S
+        # H D bias_rows | scale keep_prob | stream
         lib.itt_fused_attn_bwd_bf16.argtypes = (
-            [p] * 12 + [i] * 6 + [f] * 2 + [u] * 3 + [p])
+            [p] * 14 + [i] * 6 + [f] * 2 + [p])
         lib.itt_fused_attn_bwd_bf16.restype = ctypes.c_int
         # B T S H D
         lib.itt_fused_attn_supported.argtypes = [i] * 5

@@ -13,9 +13,15 @@
   PNG (Pillow in both); the fallbacks of tests/test_imagedec.py (not a
   JPEG, a missing file, a truncated JPEG -> None, and a black image through
   ``load_image``); the libraries land in the port's build directory.
+
+The JAX side of the decoder comparison must run on JAX's native decoder:
+``jax_decoder`` waits for it to load (see there).
 """
 
+import fcntl
 import os
+import tempfile
+import time
 
 import numpy as np
 import pytest
@@ -102,9 +108,56 @@ def _image(path, shape, seed, **kw):
     return str(path)
 
 
+def _settled(path: str, quiet: float = 1.0, limit: float = 120.0):
+    """Wait until ``path`` exists and its size and mtime have not changed for
+    ``quiet`` seconds (a concurrent ``g++ -o path`` has finished)."""
+    deadline = time.monotonic() + limit
+    last, since = None, time.monotonic()
+    while time.monotonic() < deadline:
+        try:
+            st = os.stat(path)
+            now = (st.st_size, st.st_mtime_ns)
+        except FileNotFoundError:
+            now = None
+        if now != last:
+            last, since = now, time.monotonic()
+        elif now is not None and time.monotonic() - since >= quiet:
+            return
+        time.sleep(0.1)
+
+
+@pytest.fixture
+def jax_decoder():
+    """The JAX package's native JPEG decoder, loaded in this process.
+
+    Its ``build_lib`` runs ``g++ -o`` straight onto the shared
+    ``libimagedec.so``, with no lock across processes, and every test worker
+    imports tests/test_imagedec.py, whose skip condition calls ``get_lib()``
+    at import. A worker that loads the library while another worker's g++ is
+    rewriting it fails, ``get_lib`` keeps that failure for the life of the
+    process (``_lib_tried``), and the JAX ``load_image`` then takes Pillow:
+    the comparison below would hold the port against Pillow. So, under a
+    lock the port's test workers share, wait until the library file has
+    stopped changing and load it again; fail if it still does not load."""
+    if jdec.get_lib() is not None:
+        return
+    lock = os.path.join(tempfile.gettempdir(),
+                        "imagetranslate-jax-imagedec.lock")
+    with open(lock, "a") as fh:
+        fcntl.flock(fh, fcntl.LOCK_EX)
+        for _ in range(3):
+            _settled(jdec._LIB)
+            jdec._lib_tried = False
+            if jdec.get_lib() is not None:
+                return
+    pytest.fail(f"the JAX package's native JPEG decoder ({jdec._LIB}) does "
+                "not load in this process: its load_image would take Pillow")
+
+
 @pytest.mark.parametrize("kw", [dict(), dict(size=96), dict(raw=True),
                                 dict(size=224, resize_min=300, raw=True)])
-def test_load_image_equals_jax_default_path(tmp_path, monkeypatch, kw):
+def test_load_image_equals_jax_default_path(tmp_path, monkeypatch, kw,
+                                            jax_decoder):
     big = _image(tmp_path / "big.jpg", (1024, 1280, 3), 1, quality=90)
     gray = _image(tmp_path / "gray.jpg", (480, 640), 2, quality=90)
     png = _image(tmp_path / "img.png", (300, 500, 3), 3)

@@ -10,7 +10,11 @@ differ bit for bit by design, so the contract is the distribution: keep
 rate, unbiased mean over seeds, the same mask per seed, and autograd through
 the plain version equal to the hand-derived backward formulas under the same
 mask (atol 1e-5). At T = S = 512, the range the kernels newly admit, the
-plain version equals the Pallas kernel at rate 0 too. A bf16 LM in training
+plain version equals the Pallas kernel at rate 0 too. The keep bits the
+forward kernel saves for the backward are held to ``keep_mask`` through the
+plain packing, and the backward kernels' one-pass formulas (saved bits,
+delta = rowsum(g * out)) to the exact backward and, at rate 0, to the JAX
+kernel. A bf16 LM in training
 at T = 512 routes its attention to the fused op (on the ``meta`` device,
 routed as the card is). The Philox generator is held bit-exactly to the
 published known-answer vectors. The CUDA kernels themselves are compared with
@@ -177,6 +181,103 @@ def test_autograd_equals_hand_backward_under_the_same_mask(layout):
     lin = (torch.tensor(g) * (out2 - out.detach())).sum()
     np.testing.assert_allclose(lin.item(), (got[2] * 0.5).sum().item(),
                                rtol=1e-4)
+
+
+@pytest.mark.parametrize("S", [33, 64, 255, 257])
+def test_packed_keep_bits_equal_keep_mask(S):
+    """The words the forward kernel saves for the backward: bit i of word w
+    of a row is key 32 w + i of keep_mask, keys past S and the padding words
+    zero, a row padded to a multiple of four words (16 bytes)."""
+    b, h, t = 2, 3, 5
+    keep = ta.keep_mask(0.3, 77, b, h, t, S)
+    words = ta.pack_keep_bits(keep)
+    W = ta.keep_words(S)
+    assert W % 4 == 0 and 32 * (W - 4) < S <= 32 * W
+    assert words.shape == (b, h, t, W) and words.dtype == torch.int32
+    assert torch.equal(ta.unpack_keep_bits(words, S), keep)
+    u = words.to(torch.int64) & 0xFFFFFFFF
+    for bi, hi, ti, s in ((0, 0, 0, 0), (1, 2, 4, S - 1), (1, 1, 2, S // 2)):
+        assert (int(u[bi, hi, ti, s // 32]) >> (s % 32)) & 1 == int(
+            keep[bi, hi, ti, s])
+    tail = ta.unpack_keep_bits(words, 32 * W)[..., S:]
+    assert not tail.any()
+
+
+def _bf16_out(q, k, v, bias, rate, seed):
+    """The forward's output rounded to bf16, as the kernel saves it."""
+    out = ta.fused_dropout_attention_reference(
+        *map(torch.tensor, (q, k, v, bias)), rate, seed)
+    return out.to(torch.bfloat16).to(torch.float32)
+
+
+@pytest.mark.parametrize("layout", ["keys", "rows"])
+def test_saved_bits_backward_agrees_with_exact(layout):
+    """The backward kernels' one-pass formulas (the mask from the saved
+    words, delta = rowsum(g * out) over the bf16 output) against the exact
+    backward (delta = rowsum(p * dp) in fp32) under the same mask: within
+    2^-6 of the largest value of dq, dk and dv, the kernels' own tolerance
+    on the card (ATTN_TOL): delta moves by ~2^-9 of |g| |out| through out's
+    bf16 rounding, and p times that stays a few bf16 ulps of the result."""
+    q, k, v, bias, g = _inputs(layout, seed=5)
+    rate, seed = 0.1, 21
+    words = ta.pack_keep_bits(ta.keep_mask(rate, seed, B, H, T, S))
+    tq, tk, tv, tb, tg = map(torch.tensor, (q, k, v, bias, g))
+    got = ta.fused_dropout_attention_backward_saved(
+        tq, tk, tv, tb, tg, _bf16_out(q, k, v, bias, rate, seed), words,
+        rate)
+    want = ta.fused_dropout_attention_backward_reference(
+        tq, tk, tv, tb, tg, rate, seed)[:3]
+    for name, a, b_ in zip("q k v".split(), got, want):
+        assert a.shape == b_.shape, name
+        scale = b_.abs().max().item()
+        assert scale > 0, name
+        assert (a - b_).abs().max().item() <= 2.0 ** -6 * scale, name
+
+
+@pytest.mark.parametrize("rate", [2.0 ** -34, 2.0 ** -32])
+def test_saved_bits_follow_the_threshold(rate):
+    """Whether the kernels draw a mask (and so save and read keep bits) is
+    decided by the rounded threshold, not by rate > 0: below 2^-33 the
+    threshold is 0 and keep_mask keeps every key, the forward saves no
+    words, and the one-pass backward with no words still scales by
+    1 / (1 - rate) and equals the exact backward."""
+    assert ta.draws_mask(rate) == (ta._keep_threshold(rate) > 0)
+    assert not ta.draws_mask(0.0)
+    keep = ta.keep_mask(rate, 3, B, H, T, S)
+    if not ta.draws_mask(rate):
+        assert keep.all()
+        q, k, v, bias, g = map(torch.tensor, _inputs("keys", seed=8))
+        out = ta.fused_dropout_attention_reference(q, k, v, bias, rate, 3)
+        got = ta.fused_dropout_attention_backward_saved(q, k, v, bias, g,
+                                                        out, None, rate)
+        want = ta.fused_dropout_attention_backward_reference(
+            q, k, v, bias, g, rate, 3)[:3]
+        for name, a, b_ in zip("q k v".split(), got, want):
+            np.testing.assert_allclose(a.numpy(), b_.numpy(), 1e-5, 1e-6,
+                                       err_msg=name)
+
+
+@pytest.mark.parametrize("layout", ["keys", "rows"])
+def test_saved_bits_backward_rate0_matches_jax(layout):
+    """At rate 0 (no words) the one-pass backward over the fp32 output equals
+    the JAX kernel's ``_bwd_rule`` in Pallas interpret mode (through
+    ``jax.vjp``, as tests/test_train_attention.py runs it), as does the exact
+    plain backward: 2e-4, the JAX test's own tolerance."""
+    q, k, v, bias, g = _inputs(layout, seed=6)
+    tq, tk, tv, tb, tg = map(torch.tensor, (q, k, v, bias, g))
+    out = ta.fused_dropout_attention_reference(tq, tk, tv, tb, 0.0, 0)
+    got = ta.fused_dropout_attention_backward_saved(tq, tk, tv, tb, tg, out,
+                                                    None, 0.0)
+    exact = ta.fused_dropout_attention_backward_reference(tq, tk, tv, tb, tg,
+                                                          0.0, 0)[:3]
+    _, pull = jax.vjp(lambda *a: jax_fused(*a, 0.0, jnp.int32(7)),
+                      *map(jnp.asarray, (q, k, v, bias)))
+    want = pull(jnp.asarray(g))[:3]
+    for name, a, e, w in zip("q k v".split(), got, exact, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(w), 2e-4, 2e-4,
+                                   err_msg=name)
+        np.testing.assert_allclose(e.numpy(), np.asarray(w), 2e-4, 2e-4,
+                                   err_msg=name)
 
 
 def test_dispatch_order_and_gate():
