@@ -7,6 +7,8 @@ A worker thread pulls items from the source and runs ``transform`` on each
 overlaps the decode of batch N. ``depth`` bounds the finished items waiting
 in the queue. An exception in the worker is raised to the consumer at its
 next ``__next__``. ``close()`` (or the context manager) stops the worker.
+Spans (``utils/profiling.py``): ``data.stage`` around ``transform`` on the
+worker thread, ``data.wait`` around the consumer's wait for an item.
 
 ``ImageDecodePool`` decodes a batch's image files on a thread pool, in order
 (Pillow releases the GIL while it decodes and resizes).
@@ -20,6 +22,8 @@ import threading
 from typing import Callable, Iterable, Iterator, Optional, Sequence
 
 import numpy as np
+
+from imagetranslate_tpu_torch.utils.profiling import span
 
 _SENTINEL = object()
 
@@ -41,7 +45,8 @@ class PrefetchIterator:
                 if self._stop.is_set():
                     return
                 if self._transform is not None:
-                    item = self._transform(item)
+                    with span("data.stage"):
+                        item = self._transform(item)
                 self._put(item)
             self._put(_SENTINEL)
         except BaseException as e:  # noqa: BLE001 - raised in the consumer
@@ -62,7 +67,8 @@ class PrefetchIterator:
     def __next__(self):
         if self._stop.is_set():
             raise StopIteration
-        item = self._q.get()
+        with span("data.wait"):
+            item = self._q.get()
         if item is _SENTINEL:
             self._stop.set()
             raise StopIteration

@@ -22,6 +22,11 @@ Reference semantics kept exactly as the JAX decoder has them:
 - early exit once every beam of every row is finished; greedy (K=1) skips the
   penalty and the cache reorder.
 
+Spans and counters (``utils/profiling.py``): ``decode.search`` a call,
+``decode.step`` a loop iteration, ``decode.select`` the selection and the
+cache reorder, ``decode.exit_check`` the early exit's host sync;
+``decode.rows`` and ``decode.rows_live`` (``_beam_loop``).
+
 Under a tensor-parallel model (``Seq2Seq.shard_``) every rank of the model
 group gets the same merged triple from K2b, so the beams' bookkeeping, and
 the early exit that reads it, stay in lockstep with no further collective.
@@ -41,6 +46,8 @@ from imagetranslate_tpu_torch.models.seq2seq import first_lang
 from imagetranslate_tpu_torch.models.transformer import pad_bias
 from imagetranslate_tpu_torch.ops.topk_project import stable_topk
 from imagetranslate_tpu_torch.parallel.comm import all_reduce_max
+from imagetranslate_tpu_torch.utils import profiling
+from imagetranslate_tpu_torch.utils.profiling import span, spanned
 
 NEG = -1e9
 
@@ -74,10 +81,13 @@ def _max_lens(src_sizes, B: int, L: int, max_len_a: float, max_len_b: int,
 
 
 def _all_finished(finished: torch.Tensor, data_group) -> bool:
-    if data_group is None:
-        return bool(finished.all())
-    busy = (~finished).any().to(torch.int32).reshape(1)
-    return not bool(all_reduce_max(busy, data_group))
+    """The early exit's test: the loop's one host sync a step (span
+    ``decode.exit_check``)."""
+    with span("decode.exit_check"):
+        if data_group is None:
+            return bool(finished.all())
+        busy = (~finished).any().to(torch.int32).reshape(1)
+        return not bool(all_reduce_max(busy, data_group))
 
 
 def _beam_loop(step, caches, first_tokens, max_lens, *, beam_width: int,
@@ -87,7 +97,13 @@ def _beam_loop(step, caches, first_tokens, max_lens, *, beam_width: int,
     ``beam_search_dual``. ``step(prev [B*K, 1], index)`` decodes one token
     per beam and returns the project_topk triple; ``caches`` are the
     self-attention caches (lists of layer dicts) whose rows follow the
-    selected beams, all reordered together."""
+    selected beams, all reordered together.
+
+    Spans: ``decode.step`` an iteration, ``decode.select`` from the
+    candidates to the cache reorder. Counters: ``decode.rows`` (B * K a
+    step) and, while tracing, ``decode.rows_live`` (the rows neither
+    finished nor past their limit), whose per-step masks are summed on the
+    device and read once after the loop."""
     B = first_tokens.shape[0]
     K, L = beam_width, max_len
     dev = first_tokens.device
@@ -102,44 +118,57 @@ def _beam_loop(step, caches, first_tokens, max_lens, *, beam_width: int,
     finished = torch.zeros((B, K), dtype=torch.bool, device=dev)
     slot0 = torch.arange(K, device=dev)[None, None, :] == 0
     row_base = torch.arange(B, device=dev)[:, None] * K
+    frozen_masks = [] if profiling.tracing else None
 
     i = 1
     while i < L and not _all_finished(finished, data_group):
-        prev = tokens[:, :, i - 1].reshape(B * K, 1)
-        top_val, top_word, lse = step(prev, i - 1)
-        top_logp = (top_val - lse[:, None]).reshape(B, K, K)
-        top_word = top_word.reshape(B, K, K).to(torch.long)
+        with span("decode.step"):
+            prev = tokens[:, :, i - 1].reshape(B * K, 1)
+            top_val, top_word, lse = step(prev, i - 1)
+            with span("decode.select"):
+                top_logp = (top_val - lse[:, None]).reshape(B, K, K)
+                top_word = top_word.reshape(B, K, K).to(torch.long)
 
-        row_done = (max_lens < i + 1)[:, None]               # [B, 1]
-        frozen = finished | row_done                          # [B, K]
-        fz = frozen[:, :, None]
-        if ref_ties and K > 1:
-            cand_logp = torch.where(fz, 0.0, top_logp)
-        else:
-            cand_logp = torch.where(fz, torch.where(slot0, 0.0, NEG),
-                                    top_logp)
-        cand_word = torch.where(fz, pad_id, top_word)
-        cand = scores[:, :, None] + cand_logp
-        if K > 1:
-            penalty = torch.pow((sizes + 6.0) / 6.0, len_penalty_ratio)
-            cand = cand / penalty[:, :, None]
+                row_done = (max_lens < i + 1)[:, None]           # [B, 1]
+                frozen = finished | row_done                      # [B, K]
+                fz = frozen[:, :, None]
+                if ref_ties and K > 1:
+                    cand_logp = torch.where(fz, 0.0, top_logp)
+                else:
+                    cand_logp = torch.where(
+                        fz, torch.where(slot0, 0.0, NEG), top_logp)
+                cand_word = torch.where(fz, pad_id, top_word)
+                cand = scores[:, :, None] + cand_logp
+                if K > 1:
+                    penalty = torch.pow((sizes + 6.0) / 6.0,
+                                        len_penalty_ratio)
+                    cand = cand / penalty[:, :, None]
 
-        top_scores, top_idx = stable_topk(cand.reshape(B, K * K), K)
-        beam_idx = top_idx // K
-        word = torch.gather(cand_word.reshape(B, K * K), 1, top_idx)
-        if ref_ties and K > 1:
-            beam_idx = torch.where(row_done, 0, beam_idx)
-            word = torch.where(row_done, pad_id, word)
-            word = torch.where(finished, pad_id, word)
+                top_scores, top_idx = stable_topk(cand.reshape(B, K * K), K)
+                beam_idx = top_idx // K
+                word = torch.gather(cand_word.reshape(B, K * K), 1, top_idx)
+                if ref_ties and K > 1:
+                    beam_idx = torch.where(row_done, 0, beam_idx)
+                    word = torch.where(row_done, pad_id, word)
+                    word = torch.where(finished, pad_id, word)
 
-        tokens = torch.gather(tokens, 1, beam_idx[:, :, None].expand(B, K, L))
-        tokens[:, :, i] = word
-        sizes = torch.gather(sizes, 1, beam_idx) + (word != pad_id).float()
-        finished = torch.gather(frozen, 1, beam_idx) | (word == eos_id)
-        scores = top_scores
-        if K > 1:
-            reorder_caches(caches, (row_base + beam_idx).reshape(-1))
+                tokens = torch.gather(
+                    tokens, 1, beam_idx[:, :, None].expand(B, K, L))
+                tokens[:, :, i] = word
+                sizes = (torch.gather(sizes, 1, beam_idx)
+                         + (word != pad_id).float())
+                finished = torch.gather(frozen, 1, beam_idx) | (
+                    word == eos_id)
+                scores = top_scores
+                if K > 1:
+                    reorder_caches(caches, (row_base + beam_idx).reshape(-1))
+            profiling.count("decode.rows", B * K)
+            if frozen_masks is not None:
+                frozen_masks.append(frozen)
         i += 1
+    if frozen_masks:
+        profiling.count("decode.rows_live",
+                        int((~torch.stack(frozen_masks)).sum()))
 
     best = tokens[:, 0, :]
     is_eos = best == eos_id
@@ -150,6 +179,7 @@ def _beam_loop(step, caches, first_tokens, max_lens, *, beam_width: int,
 
 
 @torch.no_grad()
+@spanned("decode.search")
 def beam_search(
     model,                        # Seq2Seq or ImageSeq2Seq
     enc_states: torch.Tensor,     # [B, S, E] text states or an image grid
@@ -200,6 +230,7 @@ def beam_search(
 
 
 @torch.no_grad()
+@spanned("decode.search")
 def beam_search_dual(
     model,                        # ImageSeq2Seq
     enc_text: torch.Tensor,       # [B, S, E] text-encoder states

@@ -29,6 +29,10 @@ location embedding, the pools and the gates stay whole on every rank. With a
 data group the ResNet's BatchNorm normalises with the global batch's
 statistics (``models/resnet.py``), and ``contrastive_loss`` gathers the
 text vectors over it.
+
+Spans (``utils/profiling.py``): ``model.encode_images``, and
+``model.decode_step`` for the dual steps (the text step's and ``encode``'s
+are ``Seq2Seq``'s).
 """
 
 from __future__ import annotations
@@ -66,6 +70,7 @@ from imagetranslate_tpu_torch.parallel.mesh import (
     module_plan,
     shard_module_,
 )
+from imagetranslate_tpu_torch.utils.profiling import spanned
 
 NUM_OBJECT_LABELS = 91      # COCO classes of the detector, 0 = padding
 OBJECT_FEAT_DIM = 1031      # 1024 pooled box features + 7 geometry features
@@ -160,6 +165,7 @@ class ImageSeq2Seq(nn.Module):
 
     encode_text = encode
 
+    @spanned("model.encode_images")
     def encode_images(self, images, train: bool = False,
                       deterministic: bool = True, rng=None):
         """images [B, S, S, 3] -> grid [B, (S/32)^2, E]. uint8 input is
@@ -374,6 +380,7 @@ class ImageSeq2Seq(nn.Module):
             "img": self.core.init_cache(grid, batch, max_len, lang_idx),
         }
 
+    @spanned("model.decode_step")
     def decode_step_dual(self, prev_token, cache: DualCache, index: int,
                          cross_bias_text, cross_bias_img, tgt_langs,
                          lang_idx: Optional[int] = None,
@@ -400,6 +407,7 @@ class ImageSeq2Seq(nn.Module):
                                                           max_len),
         }
 
+    @spanned("model.decode_step")
     def decode_step_obj_dual(self, prev_token, cache: DualCache, index: int,
                              cross_bias_img, cross_bias_obj, tgt_langs,
                              lang_idx: Optional[int] = None,

@@ -9,6 +9,9 @@ host int, so the per-language decoders of ``lang_dec`` are plain indexing.
 Under a mesh (``shard_``) the model holds this rank's shard of the JAX TP
 rules; with the vocab split, ``project`` returns this rank's V/n logits
 columns and ``project_topk`` takes K2b (``sharded_project_topk``).
+
+``encode`` and ``decode_step`` are the spans ``model.encode`` and
+``model.decode_step`` (``utils/profiling.py``).
 """
 
 from __future__ import annotations
@@ -40,6 +43,7 @@ from imagetranslate_tpu_torch.parallel.mesh import (
     module_plan,
     shard_module_,
 )
+from imagetranslate_tpu_torch.utils.profiling import spanned
 
 
 def expand_langs(langs: torch.Tensor, seq_len: int) -> torch.Tensor:
@@ -187,6 +191,7 @@ class Seq2Seq(nn.Module):
 
     # ---------------- encoding ----------------
 
+    @spanned("model.encode")
     def encode(self, src_ids, src_mask, src_langs, deterministic: bool = True,
                src_positions=None, src_segments=None, rng=None):
         """With ``src_segments`` (packed rows) attention stays inside each
@@ -285,6 +290,7 @@ class Seq2Seq(nn.Module):
                    lang_idx: int = 0) -> Cache:
         return self._decoder(lang_idx).init_cache(enc_states, batch, max_len)
 
+    @spanned("model.decode_step")
     def decode_step(self, prev_token, cache: Cache, index: int, cross_bias,
                     tgt_langs, lang_idx: Optional[int] = None,
                     proposals=None, proposal_mask=None,

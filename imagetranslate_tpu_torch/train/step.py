@@ -14,6 +14,11 @@ optimizer state, IN PLACE (no second copy of the fp32 masters); it returns
 the same ``TrainState`` with ``step`` advanced. Metrics are device scalars
 (sum_loss, ntokens): nothing in a step waits for the device.
 
+Spans (``utils/profiling.py``): ``train.forward`` around the MT and MASS
+steps' model call and loss, ``train.backward`` around ``_descend``'s
+``autograd.grad`` (every step here), ``train.optimizer`` around
+``apply_grads``.
+
 A model with MoE FFNs (``cfg.moe_experts > 0``) adds ``cfg.moe_aux_weight``
 times the mean of its expert banks' load-balance losses to every training
 objective, as each JAX step does; a dense model's objective is what it was.
@@ -73,6 +78,7 @@ from imagetranslate_tpu_torch.train.optimizer import (
     MultiSteps,
     Optimizer,
 )
+from imagetranslate_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass
@@ -134,13 +140,15 @@ def _plus(objective, aux):
 
 def _descend(state, optimizer: Optimizer, objective, mesh=None,
              seq: bool = False) -> None:
-    """Backward of the scalar ``objective``, then ``apply_grads``."""
+    """Backward of the scalar ``objective`` (span ``train.backward``), then
+    ``apply_grads``."""
     params = list(state.params.values())
-    grads = torch.autograd.grad(objective, params, allow_unused=True)
-    # A parameter the batch did not reach (another language's decoder)
-    # gets a zero gradient, as jax.grad gives it.
-    grads = [torch.zeros_like(p) if g is None else g
-             for p, g in zip(params, grads)]
+    with span("train.backward"):
+        grads = torch.autograd.grad(objective, params, allow_unused=True)
+        # A parameter the batch did not reach (another language's decoder)
+        # gets a zero gradient, as jax.grad gives it.
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(params, grads)]
     apply_grads(state, optimizer, grads, mesh, seq)
 
 
@@ -158,16 +166,17 @@ def apply_grads(state, optimizer: Optimizer, grads, mesh=None,
     reduce-scattered instead, and the update all-gathers their slices.
     ``seq``: the model group holds other positions of the same rows
     (sequence parallelism, the parameters whole on every rank), so the
-    gradients are summed over it too."""
-    if seq and mesh is not None and mesh.model_group is not None:
-        grads = _flat_sum(grads, mesh.model_group)
-    if mesh is not None and mesh.data_group is not None:
-        zero = getattr(optimizer, "zero", None)
-        if zero is not None:
-            grads = zero.reduce_grads(grads, list(state.params))
-        else:
-            grads = _flat_sum(grads, mesh.data_group)
-    optimizer.update(grads, state.opt_state, state.params)
+    gradients are summed over it too. Span ``train.optimizer``."""
+    with span("train.optimizer"):
+        if seq and mesh is not None and mesh.model_group is not None:
+            grads = _flat_sum(grads, mesh.model_group)
+        if mesh is not None and mesh.data_group is not None:
+            zero = getattr(optimizer, "zero", None)
+            if zero is not None:
+                grads = zero.reduce_grads(grads, list(state.params))
+            else:
+                grads = _flat_sum(grads, mesh.data_group)
+        optimizer.update(grads, state.opt_state, state.params)
     state.step += 1
 
 
@@ -228,10 +237,8 @@ def make_mt_train_step(model, optimizer: Optimizer,
     loss_fn_impl = _loss_impl(model)
     mesh = getattr(model, "mesh", None)
 
-    def step_fn(state: TrainState, batch: Dict[str, torch.Tensor],
-                rng: torch.Generator):
-        packed = "src_seg" in batch
-        if packed:
+    def forward(batch, rng):
+        if "src_seg" in batch:
             logits, aux = _with_aux(
                 model, model,
                 batch["src"], batch["src_seg"] > 0, batch["dst"],
@@ -256,6 +263,12 @@ def make_mt_train_step(model, optimizer: Optimizer,
             mask = batch["dst_mask"][:, 1:] & batch["row_mask"][:, None]
         sum_l, n = loss_fn_impl(logits, batch["dst"][:, 1:], mask,
                                 epsilon=label_smoothing)
+        return sum_l, n, aux
+
+    def step_fn(state: TrainState, batch: Dict[str, torch.Tensor],
+                rng: torch.Generator):
+        with span("train.forward"):
+            sum_l, n, aux = forward(batch, rng)
         return _update(state, optimizer, sum_l, n, aux=aux, mesh=mesh)
 
     return step_fn
@@ -290,13 +303,15 @@ def make_mass_train_step(model, optimizer: Optimizer, cfg,
             draws, src, batch["lengths"], mask_prob, mask_id=mask_id,
             pad_id=cfg.pad_id, span_width=src.shape[1] // 2 + 1)
         dec_mask = masked.dec_inputs != cfg.pad_id
-        logits, aux = _with_aux(
-            model, model, masked.src, batch["src_mask"], masked.dec_inputs,
-            dec_mask, batch["langs"], batch["langs"],
-            tgt_positions=masked.positions, deterministic=False, rng=drop)
-        mask = dec_mask[:, 1:] & batch["row_mask"][:, None]
-        sum_l, n = loss_fn_impl(logits, masked.dec_inputs[:, 1:], mask,
-                                epsilon=label_smoothing)
+        with span("train.forward"):
+            logits, aux = _with_aux(
+                model, model, masked.src, batch["src_mask"],
+                masked.dec_inputs, dec_mask, batch["langs"], batch["langs"],
+                tgt_positions=masked.positions, deterministic=False,
+                rng=drop)
+            mask = dec_mask[:, 1:] & batch["row_mask"][:, None]
+            sum_l, n = loss_fn_impl(logits, masked.dec_inputs[:, 1:], mask,
+                                    epsilon=label_smoothing)
         return _update(state, optimizer, sum_l, n, aux=aux, mesh=mesh)
 
     return step_fn

@@ -264,10 +264,14 @@ class MTTrainer:
                     profile_dir: Optional[str] = None) -> int:
         """Train one epoch from ``step``; returns the step reached.
         ``profile_dir``: write a ``torch.profiler`` trace of steps step + 10
-        .. step + 15 there (``utils/profiling.py``)."""
+        .. step + 15 there, with the program's spans (``utils/profiling.py``).
+        Each step of any stream is a span ``train.step``."""
         from imagetranslate_tpu_torch.data.prefetch import PrefetchIterator
         from imagetranslate_tpu_torch.utils.metrics import AsyncStepMeter
-        from imagetranslate_tpu_torch.utils.profiling import StepProfiler
+        from imagetranslate_tpu_torch.utils.profiling import (
+            StepProfiler,
+            span,
+        )
 
         if img_batcher is not None and not hasattr(self, "_img_step"):
             raise ValueError("the image stream trains an ImageSeq2Seq: use "
@@ -324,16 +328,18 @@ class MTTrainer:
         try:
             for kind, b, staged in prefetcher:
                 self._host_step = step + 1     # the image stream's draws
-                if kind == "mt":
-                    self.state, m = self.mt_step(self.state, staged, self.rng)
-                elif kind == "img":
-                    m = self._img_step(b, image_root, self.rng,
-                                       images=staged)
-                elif not fine_tune:
-                    self.state, m = self.mass_step(self.state, staged,
-                                                   self.rng)
-                else:
-                    m = self._bt_step(b, lang_directions, self.rng)
+                with span("train.step"):
+                    if kind == "mt":
+                        self.state, m = self.mt_step(self.state, staged,
+                                                     self.rng)
+                    elif kind == "img":
+                        m = self._img_step(b, image_root, self.rng,
+                                           images=staged)
+                    elif not fine_tune:
+                        self.state, m = self.mass_step(self.state, staged,
+                                                       self.rng)
+                    else:
+                        m = self._bt_step(b, lang_directions, self.rng)
                 step += 1
                 profiler.tick(step)
                 # Device scalars: the meter syncs once per log window.

@@ -12,7 +12,8 @@ CPU.
   and each example's logits within 2e-5 of its own;
 - ``cli.train_mt --pack --profile DIR`` trains 16 packed steps (the
   batcher's budgets shrunk for the CPU) and writes a trace of steps 10-15;
-  ``StepProfiler`` and ``annotate`` stand alone.
+  ``StepProfiler`` stands alone, its trace holding the program's spans
+  (``span``) of its window.
 """
 
 import json
@@ -33,7 +34,7 @@ from imagetranslate_tpu_torch.train.weights import (
     random_params,
     state_dict_from_flax,
 )
-from imagetranslate_tpu_torch.utils.profiling import StepProfiler, annotate
+from imagetranslate_tpu_torch.utils.profiling import StepProfiler, span
 
 V = 48
 FIELDS = ("src", "src_seg", "src_pos", "dst", "dst_seg", "dst_pos",
@@ -183,7 +184,7 @@ def test_step_profiler_writes_the_window(tmp_path):
     prof = StepProfiler(str(tmp_path / "p"), start=2, stop=4)
     x = torch.ones(8, 8)
     for step in range(1, 7):
-        with annotate(f"step{step}"):
+        with span(f"step{step}"):
             x = x @ x / 8
         prof.tick(step)
         assert prof.active == (2 <= step < 4)
@@ -191,6 +192,17 @@ def test_step_profiler_writes_the_window(tmp_path):
     events = json.loads(open(prof.trace_path()).read())["traceEvents"]
     names = {e.get("name") for e in events}
     assert "step3" in names and "step1" not in names and "step5" not in names
+    # The program's spans: complete events of the host thread, around the
+    # operator calls they made.
+    spans = [e for e in events if e.get("cat") == "program_span"]
+    assert [e["name"] for e in spans] == ["step3", "step4"]
+    ops = sorted((e for e in events if e.get("name") == "aten::mm"),
+                 key=lambda e: e["ts"])
+    assert len(ops) == 2
+    for s, op in zip(spans, ops):
+        assert s["ph"] == "X" and s["tid"] == op["tid"]
+        assert s["ts"] - 50 <= op["ts"] <= op["ts"] + op["dur"] <= \
+            s["ts"] + s["dur"] + 50
     # No directory: nothing happens; close() ends a window the loop left.
     StepProfiler(None, start=0).tick(0)
     open_window = StepProfiler(str(tmp_path / "q"), start=1, stop=100)
