@@ -222,8 +222,22 @@ Phases, each fatal on failure:
                16, 32), at R=32, n=2048, R=3, H=2, n=20000 and R=2,
                n=40000, each also after a read flush of L2, and the sums
                over one MT and one caption decode.
+ 16b. kernel — the decode cross-attention kernel over deduplicated encoder
+     (K6)      K/V vs its plain version at the benchmark's decode shapes
+               (captions B=1536, K=4, S=49; translation B=1000, S=32 and
+               B=250, S=128 with padded tails), at the smoke's own decodes'
+               shapes and at edge shapes (K = 1, 5, 12; H = 6; D = 8, 24,
+               32, 128; S = 1, 2048 and 20000, whose scores go to the
+               scratch), within 2^-7 of the plain result's largest
+               magnitude; two launches bit-equal; fp32 q or K/V run the
+               plain version; what it cannot take raises before a launch;
+               times of kernel, plain version and
+               F.scaled_dot_product_attention on the K/V repeated per beam
+               (a yardstick, never on the path) at the benchmark's three
+               shapes, beside the bound (each source's K/V read once).
  17. decode  — phase 4's decode with decode_attention_impl="fused": K4
-     K4        launches = 3 per step, each at a shape phase 16 held; beside it
+     K4        launches = 3 per step, each at a shape phase 16 held, and as
+               many K6 launches (one a decoder layer and step); beside it
                the same decode with "onehot" on the same weights, blocks in
                the order fused, onehot, onehot, fused: tok/s of each, the
                share of equal tokens, and the two results' sequence scores
@@ -233,9 +247,9 @@ Phases, each fatal on failure:
                weights and batch statistics from a numpy seed: the bf16 grid
                against an fp32 model's on 4 images (within 2^-4 of the
                largest value); encode_images + beam_search at B=192, beam 4,
-               L=32 on uint8 images (K4 = 3 a step, K2 = 1 a step);
+               L=32 on uint8 images (K4 = K6 = 3 a step, K2 = 1 a step);
                beam_search_dual over text + image and over grid + objects
-               (K4 = 6 a step); cli.caption.caption_batches over batches
+               (K4 = K6 = 6 a step); cli.caption.caption_batches over batches
                built from arrays (a full batch, a tail, a tail with
                detections); images/s and peak memory of each; then, where
                Pillow is installed, cli.caption.main over a folder of 20
@@ -3096,6 +3110,12 @@ def require_decode_attention(what: str, seen, checked, launches: int,
             f"against the plain version: {sorted(seen - checked)[:8]}")
 
 
+def require_cross_attention(what: str, launches: int, want: int):
+    if launches != want:
+        raise AssertionError(f"{what}: {launches} K6 launches, want {want} "
+                             "(one a decoder layer, step and stream)")
+
+
 def phase_kernel_decode_attention(path_shapes):
     """Phase 16: the beam decode attention kernel against its plain version,
     and its times. ``path_shapes``: (R, H, D, n) of the later phases' gather
@@ -3350,6 +3370,138 @@ def time_decode_attention():
         timed(R, h, n)
 
 
+def k6_bound(B: int, K: int, S: int, H: int = 12, D: int = 64):
+    """K6's bound at one shape: each source's K and V read once, the fp32
+    bias once, q read and ctx written once, bf16; 4 operations a (beam row,
+    position, channel)."""
+    return bound(2 * B * S * H * D * 2 + 4 * B * S + 2 * B * K * H * D * 2,
+                 4.0 * B * K * S * H * D)
+
+
+# (B, K, S) of the benchmark's decodes: captions, translation's short and
+# long buckets.
+K6_CELLS = {"caption decode": (1536, 4, 49), "MT decode S=32": (1000, 4, 32),
+            "MT decode S=128": (250, 4, 128)}
+
+
+def phase_kernel_cross_attention():
+    """Phase 16b: the decode cross-attention kernel (K6) against its plain
+    version, and its times. Returns the kernels line's entry."""
+    import torch
+    import torch.nn.functional as F
+
+    from imagetranslate_tpu_torch.models.transformer import pad_bias
+    from imagetranslate_tpu_torch.ops import cross_attention as xa
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+
+    def inputs(B, K, S, H, D, padded):
+        q = torch.randn(B * K, H, D, generator=gen, device="cuda").bfloat16()
+        k, v = (torch.randn(B, S, H, D, generator=gen,
+                            device="cuda").bfloat16() for _ in range(2))
+        keep = torch.ones(B, S, dtype=torch.bool, device="cuda")
+        if padded:
+            lens = torch.randint(1, S + 1, (B,), generator=gen,
+                                 device="cuda")
+            keep = torch.arange(S, device="cuda")[None, :] < lens[:, None]
+        return q, k, v, pad_bias(keep)
+
+    worst = 0.0
+
+    def hold(what, B, K, S, H=12, D=64, padded=True):
+        nonlocal worst
+        q, k, v, bias = inputs(B, K, S, H, D, padded)
+        before = xa.LAUNCHES
+        out = xa.cross_attention(q, k, v, bias)
+        torch.cuda.synchronize()
+        want = xa.cross_attention_reference(q, k, v, bias)
+        if xa.LAUNCHES != before + 1 or out.shape != q.shape or not (
+                torch.isfinite(out).all()):
+            raise AssertionError(f"K6 at {what}: {xa.LAUNCHES - before} "
+                                 f"launches, output {tuple(out.shape)}")
+        err = (out.float() - want.float()).abs().max().item()
+        scale = want.float().abs().max().item()
+        if err > K4_TOL * scale:
+            raise AssertionError(f"K6 at {what}: err {err:.3g}, limit "
+                                 f"{K4_TOL * scale:.3g}")
+        worst = max(worst, err)
+        log(f"[kernel K6] {what}: B={B} K={K} S={S} H={H} D={D} "
+            f"({xa.work_plan(K, S, H, D)}): max abs err {err:.3g} "
+            f"({err / scale:.2e} of max)")
+
+    for name, (B, K, S) in K6_CELLS.items():
+        hold(name, B, K, S, padded=name != "caption decode")
+    # The smoke's own decodes: phase 4/17's B=64 at S=64, the caption
+    # phases' B=192 over 49 slots, the caption trainer's dev decode (beam 5).
+    hold("phase 17", MT_DECODE[0], MT_DECODE[2], MT_DECODE[1])
+    hold("phase 18", CAPTION_B, CAPTION_K, 49, padded=False)
+    hold("phase 19 dev decode", 16, 5, 49, padded=False)
+    for B, K, S, H, D in [(5, 1, 7, 12, 64), (7, 5, 49, 6, 64),
+                          (3, 4, 33, 4, 128), (3, 4, 17, 8, 32),
+                          (2, 12, 9, 12, 64), (3, 4, 11, 3, 8),
+                          (2, 3, 20, 5, 24), (4, 4, 1, 12, 64),
+                          (2, 4, 2048, 12, 64), (1, 4, 20000, 12, 64)]:
+        hold("edge", B, K, S, H, D)
+
+    q, k, v, bias = inputs(64, 4, 49, 12, 64, True)
+    if not torch.equal(xa.cross_attention(q, k, v, bias),
+                       xa.cross_attention(q, k, v, bias)):
+        raise AssertionError("K6: two launches differ")
+    before = xa.LAUNCHES
+    # Dtypes other than bf16 q and K/V (an fp32 model) run the plain version.
+    for plain in ((q.float(), k, v, bias), (q, k.float(), v.float(), bias)):
+        if not torch.equal(xa.cross_attention(*plain),
+                           xa.cross_attention_reference(*plain)):
+            raise AssertionError("K6: fp32 q or K/V did not take the plain "
+                                 "version")
+    for bad in ((q, k, v, bias.bfloat16()),
+                (q, k.transpose(1, 2).contiguous().transpose(1, 2), v, bias),
+                (q[:, :, :60].contiguous(), k[..., :60].contiguous(),
+                 v[..., :60].contiguous(), bias)):
+        try:
+            xa.cross_attention(*bad)
+        except (ValueError, TypeError):
+            continue
+        raise AssertionError("K6: a call the kernel cannot take launched")
+    if xa.LAUNCHES != before:
+        raise AssertionError("K6: a plain or refused call counted as a "
+                             "launch")
+    log("[kernel K6] two launches bit-equal; fp32 q or K/V run the plain "
+        "version; a bf16 bias, strided K and D % 8 != 0 raise before a "
+        "launch")
+
+    # Times, cold L2, kernel and plain version in turns; SDPA on the K/V and
+    # bias repeated per beam, the per-beam layout the decoder had.
+    entries = {}
+    for name, (B, K, S) in K6_CELLS.items():
+        H, D = 12, 64
+        q, k, v, bias = inputs(B, K, S, H, D, name != "caption decode")
+        runs = {"plain": [], "kernel": []}
+        for arm in ("plain", "kernel", "kernel", "plain"):
+            fn = (xa.cross_attention_reference if arm == "plain"
+                  else xa.cross_attention)
+            runs[arm].append(_time_ms(lambda: fn(q, k, v, bias), iters=20))
+        rep = lambda t: t.repeat_interleave(K, dim=0)   # noqa: E731
+        qs, ks, vs = (q[:, :, None, :], rep(k).transpose(1, 2),
+                      rep(v).transpose(1, 2))
+        mask = rep(bias).to(torch.bfloat16)
+        lib_ms = _time_ms(lambda: F.scaled_dot_product_attention(
+            qs, ks, vs, attn_mask=mask), iters=20)
+        del ks, vs, mask
+        bnd = k6_bound(B, K, S, H, D)
+        ms = sum(runs["kernel"]) / 2
+        log(f"[kernel K6] {name}: B={B} K={K} S={S} H={H} D={D}: kernel "
+            f"{runs['kernel']} ms ({bnd[0] / ms:.3f} of the bound "
+            f"{bnd[0]:.4f} ms by {bnd[1]}), plain version {runs['plain']} "
+            f"ms, SDPA on the repeated K/V {lib_ms:.4f} ms")
+        entries[name] = {"max_abs_err": worst, "ms": ms,
+                         "plain_ms": sum(runs["plain"]) / 2,
+                         "bound_ms": bnd[0], "bound_by": bnd[1],
+                         "library_ms": lib_ms}
+        torch.cuda.empty_cache()
+    return entries["caption decode"]
+
+
 def sequence_scores(model, src, best):
     """Log-probability of each decoded row ``best`` [B, L] given ``src``
     under ``model`` (teacher-forced, fp32 log-softmax of its logits)."""
@@ -3370,13 +3522,14 @@ def phase_decode_fused(card, checked_k4):
     """Phase 17: phase 4's decode with every step's self-attention through
     K4 (``decode_attention_impl="fused"``), beside the same decode with the
     plain attention over the masked buffer (``"onehot"``), on one set of
-    weights. Returns the K4 launches of the counted run."""
+    weights. Returns the K4 and K6 launches of the counted run."""
     import dataclasses
 
     import numpy as np
     import torch
 
     from imagetranslate_tpu_torch.models.seq2seq import Seq2Seq
+    from imagetranslate_tpu_torch.ops import cross_attention as xa
     from imagetranslate_tpu_torch.ops import decode_attention as da
     from imagetranslate_tpu_torch.ops import topk_project as tkp
 
@@ -3391,12 +3544,13 @@ def phase_decode_fused(card, checked_k4):
     models = {"fused": fused, "onehot": plain}
     for m in models.values():
         run_decode(m, B, S, K, device)                # warm-up
-    da.LAUNCHES = tkp.LAUNCHES = 0
+    da.LAUNCHES = tkp.LAUNCHES = xa.LAUNCHES = 0
     with recording_decode_attention() as seen:
         best_f, lengths, steps, _ = run_decode(fused, B, S, K, device)
-    launches = da.LAUNCHES
+    launches, k6 = da.LAUNCHES, xa.LAUNCHES
     require_decode_attention("MT decode", seen, checked_k4, launches,
                              cfg.dec_layers * steps)
+    require_cross_attention("MT decode", k6, cfg.dec_layers * steps)
     if tkp.LAUNCHES != steps:
         raise AssertionError(f"project_topk launched {tkp.LAUNCHES} times in "
                              f"{steps} decode steps")
@@ -3422,7 +3576,8 @@ def phase_decode_fused(card, checked_k4):
     tps = {arm: tokens / (sum(v) / 2) for arm, v in secs.items()}
     log(f"[decode K4] BERT-base bf16 B={B} S={S} beam={K} L={L}: {steps} "
         f"steps, {launches} K4 launches ({cfg.dec_layers} a step) at "
-        f"{len(seen)} shapes, all held by phase 16; {same:.4f} of the tokens "
+        f"{len(seen)} shapes, all held by phase 16, and {k6} K6 launches; "
+        f"{same:.4f} of the tokens "
         f"equal the onehot decode's, sequence scores within {rel:.2e} "
         f"(limit {DECODE_SCORE_RTOL:.0e}); encode + beam search in the order "
         f"fused, onehot, onehot, fused: fused {secs['fused']} s = "
@@ -3430,7 +3585,7 @@ def phase_decode_fused(card, checked_k4):
         f"{tps['onehot']:.1f} tok/s ({card})")
     del plain, fused
     torch.cuda.empty_cache()
-    return launches
+    return launches, k6
 
 
 class CaptionVocab(FullVocab):
@@ -3457,7 +3612,7 @@ def caption_config(vocab_size: int):
 
 
 def phase_caption(card, profile: bool, checked_k4):
-    """Phase 18: the captioning path at full width. Returns the (K4, K2)
+    """Phase 18: the captioning path at full width. Returns the (K4, K2, K6)
     launches of its counted runs."""
     import dataclasses
 
@@ -3470,6 +3625,7 @@ def phase_caption(card, profile: bool, checked_k4):
         beam_search_dual,
     )
     from imagetranslate_tpu_torch.models.captioning import ImageSeq2Seq
+    from imagetranslate_tpu_torch.ops import cross_attention as xa
     from imagetranslate_tpu_torch.ops import decode_attention as da
     from imagetranslate_tpu_torch.ops import topk_project as tkp
     from imagetranslate_tpu_torch.text.processor import TextProcessor
@@ -3564,25 +3720,27 @@ def phase_caption(card, profile: bool, checked_k4):
                                  f"every row at its limit {L}")
         return seconds, torch.cuda.max_memory_allocated() / 2 ** 30
 
-    k4_total = k2_total = 0
+    k4_total = k2_total = k6_total = 0
     steps = L - 1
     for name, fn, streams in (("beam_search over the grid", single, 1),
                               ("beam_search_dual text + image", dual, 2),
                               ("beam_search_dual grid + objects", obj_dual,
                                2)):
         timed(fn)                                      # warm-up
-        da.LAUNCHES = tkp.LAUNCHES = 0
+        da.LAUNCHES = tkp.LAUNCHES = xa.LAUNCHES = 0
         with recording_decode_attention() as seen:
             seconds, peak = timed(fn)
-        k4, k2 = da.LAUNCHES, tkp.LAUNCHES
+        k4, k2, k6 = da.LAUNCHES, tkp.LAUNCHES, xa.LAUNCHES
         require_decode_attention(name, seen, checked_k4, k4,
                                  streams * cfg.dec_layers * steps)
+        require_cross_attention(name, k6, streams * cfg.dec_layers * steps)
         if k2 != steps:
             raise AssertionError(f"{name}: {k2} K2 launches in {steps} steps")
         k4_total, k2_total = k4_total + k4, k2_total + k2
+        k6_total += k6
         log(f"[caption] {name}: B={B} beam={K} L={L}, {steps} steps, K4 "
-            f"launches {k4} ({streams * cfg.dec_layers} a step), K2 launches "
-            f"{k2}")
+            f"launches {k4} and K6 launches {k6} ("
+            f"{streams * cfg.dec_layers} a step each), K2 launches {k2}")
         log(f"[caption] {name}: {B / seconds:.1f} images/s "
             f"({B * (L - 1) / seconds:.1f} tok/s; encode + decode "
             f"{seconds:.3f} s), peak memory {peak:.2f} GiB ({card})")
@@ -3630,10 +3788,10 @@ def phase_caption(card, profile: bool, checked_k4):
         return n, writer.lines, time.perf_counter() - t0
 
     run_batches()                                     # warm-up
-    da.LAUNCHES = tkp.LAUNCHES = 0
+    da.LAUNCHES = tkp.LAUNCHES = xa.LAUNCHES = 0
     with recording_decode_attention() as seen:
         n, lines, seconds = run_batches()
-    k4, k2 = da.LAUNCHES, tkp.LAUNCHES
+    k4, k2, k6 = da.LAUNCHES, tkp.LAUNCHES, xa.LAUNCHES
     want_n = B + 2 * CAPTION_TAIL
     if n != want_n or len(lines) != want_n or not all(
             ln.startswith("image") and ln.endswith("\n")
@@ -3651,10 +3809,13 @@ def phase_caption(card, profile: bool, checked_k4):
             f"caption_batches: {k4} K4 and {k2} K2 launches, want {want_k4} "
             f"and {want_k2}; unchecked shapes "
             f"{sorted(seen - checked_k4)[:8]}")
+    require_cross_attention("caption_batches", k6, want_k4)
     k4_total, k2_total = k4_total + k4, k2_total + k2
+    k6_total += k6
     log(f"[caption] caption_batches over 3 batches from arrays ({B} images, "
         f"a tail of {CAPTION_TAIL} in 8 rows, the tail again with "
-        f"detections): {n} lines, K4 launches {k4}, K2 launches {k2}, "
+        f"detections): {n} lines, K4 launches {k4}, K6 launches {k6}, K2 "
+        f"launches {k2}, "
         f"{n / seconds:.1f} images/s, e.g. {lines[0]!r} ({card})")
     del model
     torch.cuda.empty_cache()
@@ -3667,7 +3828,7 @@ def phase_caption(card, profile: bool, checked_k4):
             "cli.caption.main over a folder of JPEGs was not run (no JPEG "
             "decoder; the array-driven caption_batches above is the same "
             "loop)")
-        return k4_total, k2_total
+        return k4_total, k2_total, k6_total
     with tempfile.TemporaryDirectory() as workdir:
         t0 = time.perf_counter()
         corpus = os.path.join(workdir, "corpus.txt")
@@ -3691,14 +3852,14 @@ def phase_caption(card, profile: bool, checked_k4):
                 13 + 2 * c)) for c in range(3)], axis=-1).astype(np.uint8)
             Image.fromarray(arr).save(os.path.join(folder, f"{i:03d}.jpg"))
         out = os.path.join(workdir, "captions.tsv")
-        da.LAUNCHES = tkp.LAUNCHES = 0
+        da.LAUNCHES = tkp.LAUNCHES = xa.LAUNCHES = 0
         with recording_decode_attention() as seen:
             cli.main(["--tok", tok, "--model", ckpt, "--input", folder,
                       "--output", out, "--target", "fa", "--max_len",
                       str(CAPTION_L), "--device", "cuda"])
         with open(out) as f:
             rows = [ln.split("\t") for ln in f.read().splitlines()]
-        k4, k2 = da.LAUNCHES, tkp.LAUNCHES
+        k4, k2, k6 = da.LAUNCHES, tkp.LAUNCHES, xa.LAUNCHES
         if len(rows) != CAPTION_JPEGS or not all(
                 len(r) == 2 and r[0].endswith(".jpg") for r in rows):
             raise AssertionError(f"cli.caption wrote {len(rows)} lines for "
@@ -3707,11 +3868,13 @@ def phase_caption(card, profile: bool, checked_k4):
             raise AssertionError(
                 f"cli.caption: {k4} K4 and {k2} K2 launches, unchecked "
                 f"shapes {sorted(seen - checked_k4)[:8]}")
+        require_cross_attention("cli.caption", k6, k4)
         log(f"[caption cli] {CAPTION_JPEGS} JPEGs -> cli.caption.main (vocab "
             f"{ccfg.vocab_size}, width 768, 6+3 layers, ResNet-18 at 224): "
-            f"{len(rows)} lines, K4 launches {k4}, K2 launches {k2}, in "
-            f"{time.perf_counter() - t0:.1f} s, e.g. {rows[0]!r}")
-    return k4_total + k4, k2_total + k2
+            f"{len(rows)} lines, K4 launches {k4}, K6 launches {k6}, K2 "
+            f"launches {k2}, in {time.perf_counter() - t0:.1f} s, e.g. "
+            f"{rows[0]!r}")
+    return k4_total + k4, k2_total + k2, k6_total + k6
 
 
 # ---------------- phase 19: caption training ----------------
@@ -8368,11 +8531,15 @@ def main() -> int:
                                                   + p31_k3)
         dec_attn, checked_k4 = phase_kernel_decode_attention(
             decode_path_shapes() + p31_k4)
-        done("9, 12, 16")
-        dec_attn_launches = phase_decode_fused(card, checked_k4)
+        cross_attn = phase_kernel_cross_attention()
+        done("9, 12, 16, 16b")
+        dec_attn_launches, cross_launches = phase_decode_fused(card,
+                                                               checked_k4)
         torch.cuda.empty_cache()
-        caption_k4, caption_k2 = phase_caption(card, profile, checked_k4)
+        caption_k4, caption_k2, caption_k6 = phase_caption(card, profile,
+                                                           checked_k4)
         dec_attn_launches += caption_k4
+        cross_launches += caption_k6
         torch.cuda.empty_cache()
         done("17-18")
         ct_fwd, ct_bwd, ct_k2, ct_k4 = phase_caption_train(
@@ -8496,6 +8663,11 @@ def main() -> int:
          "source": "imagetranslate_tpu_torch/csrc/decode_attention.cu",
          "replaces": "imagetranslate_tpu/ops/decode_attention.py:188",
          "launches": dec_attn_launches, **dec_attn},
+        {"name": "cross_attention", "route": "cuda",
+         "source": "imagetranslate_tpu_torch/csrc/cross_attention.cu",
+         "replaces": "none (imagetranslate_tpu/models/transformer.py:147, "
+                     "XLA einsums)",
+         "launches": cross_launches, **cross_attn},
         {"name": "sharded_project_topk", "route": "cuda",
          "source": "imagetranslate_tpu_torch/csrc/topk_project.cu",
          "replaces": "imagetranslate_tpu/ops/topk_project.py:305",

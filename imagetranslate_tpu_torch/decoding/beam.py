@@ -6,7 +6,10 @@ Each step decodes ONE token per beam against a [B*K, L, H, D] self-attention
 cache and reorders the cache rows by an index gather after the beam
 selection. (The JAX default is a windowed-consolidation cache that permutes
 index maps instead of the cache; its outputs equal the gather path's,
-tests/test_beam.py, and the port starts from the gather semantics.)
+tests/test_beam.py, and the port starts from the gather semantics.) The
+encoder states, their cross-attention K/V [B, S, H, D] and the cross bias
+[B, 1, 1, S] stay once a source, as in the JAX decoders: the K beams of a
+source read the one copy (``ops/cross_attention.py``).
 
 Reference semantics kept exactly as the JAX decoder has them:
 - the GNMT length penalty ((len + 6)/6)^alpha through the compounding
@@ -213,10 +216,10 @@ def beam_search(
     def rep(x):
         return None if x is None else x.repeat_interleave(K, dim=0)
 
-    cross_bias = pad_bias(rep(src_mask))
+    cross_bias = pad_bias(src_mask)
     langs_k, prop_k, pmask_k = rep(tgt_langs), rep(proposals), rep(
         proposal_mask)
-    cache = model.init_cache(rep(enc_states), B * K, L, lang_idx)
+    cache = model.init_cache(enc_states, B * K, L, lang_idx)
 
     def step(prev, index):
         return model.decode_step(prev, cache, index, cross_bias, langs_k,
@@ -275,18 +278,14 @@ def beam_search_dual(
     max_lens = _max_lens(src_sizes, B, L, max_len_a, max_len_b,
                          enc_text.device)
 
-    def rep(x):
-        return x.repeat_interleave(K, dim=0)
-
-    grid_k = rep(grid)
-    cb_text = pad_bias(rep(text_mask))
+    cb_text = pad_bias(text_mask)
     if grid_mask is None:
-        cb_img = pad_bias(torch.ones(grid_k.shape[:2], dtype=torch.bool,
+        cb_img = pad_bias(torch.ones(grid.shape[:2], dtype=torch.bool,
                                      device=grid.device))
     else:
-        cb_img = pad_bias(rep(grid_mask))
-    langs_k = rep(tgt_langs)
-    cache = init_method(model, rep(enc_text), grid_k, B * K, L, lang_idx)
+        cb_img = pad_bias(grid_mask)
+    langs_k = tgt_langs.repeat_interleave(K, dim=0)
+    cache = init_method(model, enc_text, grid, B * K, L, lang_idx)
 
     def step(prev, index):
         return step_method(model, prev, cache, index, cb_text, cb_img,

@@ -56,14 +56,16 @@ from imagetranslate_tpu_torch.ops.attention import (
     dot_product_attention,
     make_attention_bias,
 )
+from imagetranslate_tpu_torch.ops.cross_attention import cross_attention
 from imagetranslate_tpu_torch.ops.decode_attention import (
     decode_attention,
     kernel_dtypes,
 )
 from imagetranslate_tpu_torch.parallel.comm import tp_copy, tp_reduce
 
-# Per decoder layer: self-attention K/V buffers "k", "v" [B, L, H, D] in the
-# cache dtype, and the once-projected encoder K/V "ek", "ev" [B, S, H, D].
+# Per decoder layer: self-attention K/V buffers "k", "v" [B * K, L, H, D] in
+# the cache dtype, a row a beam, and the encoder K/V "ek", "ev" [B, S, H, D],
+# projected once a source and read by all K of its beams.
 Cache = List[Dict[str, torch.Tensor]]
 
 
@@ -272,8 +274,10 @@ class Attention(nn.Module):
         see ``Decoder.fused_decode_step``), positions ``0 .. index`` through
         ``ops/decode_attention.py`` in the cache's own dtype, ``bias`` unread.
         With ``precomputed_kv`` = (k, v) the projections are skipped
-        (cross-attention in decode). ``drop`` turns on the
-        attention-probability and output dropout."""
+        (cross-attention in decode): one query token a row of B * K rows
+        reads k, v [B, S, H, D], once a source, under ``bias`` [B, 1, 1, S]
+        through ``ops/cross_attention.py``.
+        ``drop`` turns on the attention-probability and output dropout."""
         cfg = self.cfg
         g = _group(self.tp)
         xin = tp_copy(x, g)
@@ -281,6 +285,10 @@ class Attention(nn.Module):
         ctx = None
         if precomputed_kv is not None:
             k, v = precomputed_kv
+            if q.shape[1] != 1:
+                raise ValueError("decode cross-attention takes one query "
+                                 f"token a row, got {q.shape[1]}")
+            ctx = cross_attention(q[:, 0], k, v, bias)[:, None]
         else:
             k, v = self.project_kv(xin if kv is x else tp_copy(kv, g))
             if cache is not None:
@@ -456,7 +464,12 @@ class Decoder(nn.Module):
         return x
 
     def init_cache(self, enc_states, batch: int, max_len: int) -> Cache:
-        """Zeroed self-attention K/V buffers + once-projected encoder K/V."""
+        """Zeroed self-attention K/V buffers of ``batch`` rows (B * K: rows
+        b * K .. b * K + K - 1 are the beams of source b) + the encoder K/V of
+        ``enc_states`` [B, S, E], projected once a source."""
+        if batch % enc_states.shape[0]:
+            raise ValueError(f"{batch} cache rows are not beams of each of "
+                             f"{enc_states.shape[0]} sources")
         cfg = self.cfg
         cache = []
         for layer in self.decoder.layer:

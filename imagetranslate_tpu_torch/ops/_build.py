@@ -150,6 +150,10 @@ def load() -> ctypes.CDLL:
             [p] * 9 + [i] * 7 + [ctypes.c_longlong] * 2 + [f] + [i] * 7
             + [p])
         lib.itt_decode_attn_bf16.restype = ctypes.c_int
+        # q k v bias out scratch | B K S H D | scale | heads spos depth
+        # scratch | stream
+        lib.itt_cross_attn_bf16.argtypes = [p] * 6 + [i] * 5 + [f] + [i] * 4 + [p]
+        lib.itt_cross_attn_bf16.restype = ctypes.c_int
         lib.itt_error_string.argtypes = [i]
         lib.itt_error_string.restype = ctypes.c_char_p
         _lib = lib

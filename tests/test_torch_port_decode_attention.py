@@ -358,7 +358,8 @@ def test_split_emulation_matches_reference_and_xla(case, clusters):
 
 def _meta_decoder(monkeypatch, **kw):
     """A one-layer decoder on the ``meta`` device (not the CPU, so routed as
-    the card is) with the op replaced by a recorder."""
+    the card is) with the op replaced by a recorder (and the cross-attention
+    kernel's op, which has no meta version, by a stand-in)."""
     cfg = tiny_config(**{"dec_layers": 1, "decode_attention_impl": "fused",
                          **kw})
     dec = tr.Decoder(cfg, device="meta")
@@ -369,6 +370,8 @@ def _meta_decoder(monkeypatch, **kw):
         return torch.empty_like(q)
 
     monkeypatch.setattr(tr, "decode_attention", recorder)
+    monkeypatch.setattr(tr, "cross_attention",
+                        lambda q, k, v, bias: torch.empty_like(q))
     enc = torch.empty(3, 5, cfg.hidden_size, dtype=cfg.compute_dtype,
                       device="meta")
     return cfg, dec, dec.init_cache(enc, 3, 8), calls
