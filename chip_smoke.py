@@ -489,6 +489,23 @@ Phases, each fatal on failure:
                the card's machine, so no eval_*sacre* tool runs here. Alone,
                ~30 s: python3 -c "import chip_smoke as cs; card =
                cs.phase_device(); cs.phase_comparable(card)"
+ 33. nllb    — the NLLB-MoE layout at its published widths (2048 wide, 16
+               heads of 128, FFN 8192, an MoE layer every 4th of 4 + 4
+               layers, 128 experts top-2 routed without drops, ReLU,
+               sinusoidal positions, a tied head without a bias): the
+               grouped expert products (torch._grouped_mm) against the
+               loop at segments of 0 to ~1000 rows, their kernels' names in
+               the device trace, their times at the decode shape (2664
+               rows, 5328 choices) and an encode shape (42624 choices)
+               beside their bound; the bank with the card's sync debug mode
+               at "error" (no host sync), then a whole decode step so;
+               then a checkpoint of that model at a tokenizer's vocabulary
+               (about 18 GB) through cli.translate.main on 40 lines: K4 and
+               K6 one launch a decoder layer and step, K2 one a step, the
+               grouped products two a MoE bank's call and the capacity
+               path never. Alone, ~5 min: python3 -c "import chip_smoke as
+               cs; card = cs.phase_device(); cs.phase_build();
+               print(cs.phase_nllb_moe(card))"
 
 ``--profile`` adds a phase after 4 (one more decode) and one after 7 (three
 more train steps) under torch.profiler, printing the device time by operation
@@ -8364,6 +8381,244 @@ def _tool(module: str, argv):
     return out.getvalue()
 
 
+NLLB_MOE = dict(hidden_size=2048, num_heads=16, intermediate_size=8192,
+                max_position_embeddings=1024, enc_layers=4, dec_layers=4,
+                layer_norm_eps=1e-5, tie_embed=True, dropout=0.1,
+                attention_dropout=0.1, dtype="bfloat16",
+                kv_cache_dtype="bfloat16", decode_attention_impl="fused",
+                moe_experts=128, moe_top_k=2, moe_every=4,
+                pre_layer_norm=True, activation="relu",
+                embedding="nllb", output_bias=False, moe_inference="dropless",
+                moe_inference_scale=0.8)
+
+
+def nllb_moe_config(vocab_size: int, **kw):
+    """NLLB-MoE 54B's published widths, one period of each stack (4 + 4
+    layers, the MoE in the 4th), at ``vocab_size``."""
+    from imagetranslate_tpu_torch.models.config import Seq2SeqConfig
+
+    return Seq2SeqConfig(vocab_size=vocab_size, num_languages=2,
+                         **{**NLLB_MOE, **kw})
+
+
+def _route_rows(n_tokens: int, experts: int, seed: int):
+    """Offsets [experts] int32 on the card for ``n_tokens`` top-2 choices
+    spread as a random router spreads them (two distinct experts a
+    token)."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    scores = torch.rand(n_tokens, experts, generator=gen)
+    top2 = torch.topk(scores, 2, dim=-1).indices.flatten()
+    counts = torch.bincount(top2, minlength=experts)
+    return torch.cumsum(counts, 0).to(torch.int32).cuda(), counts
+
+
+def phase_nllb_moe(card):
+    """Phase 33 (module docstring). Returns the K2, K4 and K6 launches of
+    its cli.translate run."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from imagetranslate_tpu_torch.models import moe
+
+    E, F, N_EXP = 2048, 8192, 128
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    # 1. The grouped products against the loop, segments of 0 to ~1000.
+    counts = torch.tensor([0, 1, 17, 0, 999, 64, 3, 0] * 2)
+    offs = torch.cumsum(counts, 0).to(torch.int32).cuda()
+    x = torch.randn(int(counts.sum()), E, device="cuda",
+                    generator=gen).bfloat16()
+    w16 = (0.02 * torch.randn(16, E, F, device="cuda",
+                              generator=gen)).bfloat16()
+    got = moe.expert_product(x, w16, offs).float().cpu()
+    want = moe.expert_product(x.float().cpu(), w16.float().cpu(),
+                              offs.cpu())
+    err = (got - want).abs().max().item() / want.abs().max().item()
+    if err > 2.0 ** -7:
+        raise AssertionError(f"grouped product vs loop: {err:.3g}")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        moe.expert_product(x, w16, offs)
+        torch.cuda.synchronize()
+    names = sorted({e.name for e in prof.events()
+                    if e.device_type == DeviceType.CUDA})
+    log(f"[nllb] grouped product vs loop {err:.3g} of the largest; its "
+        f"kernels: {[n[:200] for n in names]}")
+    del w16, x
+    # 2. Times at the decode and an encode shape, beside the bound.
+    wi = (0.02 * torch.randn(N_EXP, E, F, device="cuda",
+                             generator=gen)).bfloat16()
+    wo = (0.02 * torch.randn(N_EXP, F, E, device="cuda",
+                             generator=gen)).bfloat16()
+    times = {}
+    for what, tokens in (("decode", 2664), ("encode", 21312)):
+        offs, c = _route_rows(tokens, N_EXP, SEED + tokens)
+        rows = int(c.sum())
+        xs = torch.randn(rows, E, device="cuda", generator=gen).bfloat16()
+        h = torch.randn(rows, F, device="cuda", generator=gen).bfloat16()
+        for name, a, w in (("fc1", xs, wi), ("fc2", h, wo)):
+            ms = _time_ms(lambda a=a, w=w: moe.expert_product(a, w, offs),
+                          iters=20, clean=True)
+            K, M = w.shape[1], w.shape[2]
+            b_ms, by = bound((w.numel() + rows * (K + M)) * 2,
+                             2.0 * rows * K * M)
+            times[f"{what}.{name}"] = (ms, b_ms)
+            log(f"[nllb] {what} {name}: {rows} rows over {N_EXP} experts "
+                f"(largest segment {int(c.max())}), {ms:.4f} ms, bound "
+                f"{b_ms:.4f} ms ({by}), {b_ms / ms:.3f} of it")
+    # 3. The bank, then a whole decode step, with no host sync.
+    cfg = nllb_moe_config(42704)
+    bank = moe.MoEFeedForward(cfg, device="cuda").eval()
+    with torch.no_grad():
+        bank.wi.copy_(wi)
+        bank.wo.copy_(wo)
+        bank.router.weight.normal_(0.0, 0.02, generator=gen)
+        xb = torch.randn(2664, 1, E, device="cuda",
+                         generator=gen).bfloat16()
+        bank(xb)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            bank(xb)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    log("[nllb] the bank without drops made no host sync (2664 tokens)")
+    del bank, wi, wo, xs, h
+    torch.cuda.empty_cache()
+    # 4. A checkpoint of the model through cli.translate.
+    return _nllb_cli(card)
+
+
+def _nllb_cli(card):
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from imagetranslate_tpu_torch.cli.translate import main
+    from imagetranslate_tpu_torch.models import moe
+    from imagetranslate_tpu_torch.models.seq2seq import Seq2Seq
+    from imagetranslate_tpu_torch.models.transformer import pad_bias
+    from imagetranslate_tpu_torch.ops import cross_attention as xa
+    from imagetranslate_tpu_torch.ops import decode_attention as da
+    from imagetranslate_tpu_torch.ops import topk_project as tkp
+    from imagetranslate_tpu_torch.text.processor import TextProcessor
+    from imagetranslate_tpu_torch.train.checkpoint import save_params
+    from imagetranslate_tpu_torch.train.weights import flax_from_state_dict
+
+    n_lines = 40
+    with tempfile.TemporaryDirectory() as workdir:
+        free = shutil.disk_usage(workdir).free / 2 ** 30
+        rng = np.random.RandomState(SEED)
+        corpus = os.path.join(workdir, "corpus.txt")
+        with open(corpus, "w") as f:
+            f.write("\n".join(" ".join(WORDS[j] for j in rng.randint(
+                0, len(WORDS), rng.randint(2, 9))) for _ in range(400)))
+        tok = os.path.join(workdir, "tok")
+        TextProcessor().train_tokenizer([corpus], 300, tok,
+                                        {"<en>": 0, "<fa>": 1})
+        tp = TextProcessor(tok)
+        cfg = nllb_moe_config(tp.vocab_size(), pad_id=tp.pad_token_id())
+        model = Seq2Seq(cfg, device="cuda")
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            for name, p in model.state_dict().items():
+                leaf = name.rsplit(".", 1)[-1]
+                if "LayerNorm" in name or ".ln." in name:
+                    p.fill_(1.0 if leaf == "weight" else 0.0)
+                elif leaf in ("bias", "bi", "bo"):
+                    p.zero_()
+                else:
+                    p.normal_(0.0, 0.02, generator=gen)
+            # A decode step with the card's sync debug mode at "error".
+            src = torch.randint(5, cfg.vocab_size, (8, 12), device="cuda")
+            keep = torch.ones_like(src, dtype=torch.bool)
+            enc = model.encode(src, keep, torch.zeros(8, dtype=torch.long,
+                                                      device="cuda"))
+            cache = model.init_cache(enc, 32, 32)
+            langs = torch.ones(32, dtype=torch.long, device="cuda")
+            prev = torch.full((32, 1), 6, device="cuda")
+            model.decode_step(prev, cache, 0, pad_bias(keep), langs, 0,
+                              topk=4)
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                model.decode_step(prev, cache, 1, pad_bias(keep), langs, 0,
+                                  topk=4)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        log("[nllb] a whole decode step (8 sources x 4 beams) made no host "
+            "sync")
+        ckpt = os.path.join(workdir, "model")
+        tree = flax_from_state_dict(model.state_dict(), cfg)
+        del model, cache, enc
+        torch.cuda.empty_cache()
+        save_params(ckpt, cfg, tree)
+        del tree
+        size = sum(os.path.getsize(os.path.join(ckpt, f))
+                   for f in os.listdir(ckpt)) / 2 ** 30
+        log(f"[nllb] checkpoint {size:.2f} GiB written in "
+            f"{time.perf_counter() - t0:.1f} s ({free:.0f} GiB were free)")
+        inp = os.path.join(workdir, "in.txt")
+        with open(inp, "w") as f:
+            f.write("\n".join(" ".join(WORDS[j] for j in rng.randint(
+                0, len(WORDS), rng.randint(1, 12))) for _ in range(n_lines)))
+        out = os.path.join(workdir, "out.txt")
+        products, capacity, encodes = [0], [0], [0]
+        product, cap = moe.expert_product, moe.MoEFeedForward._capacity
+        encode = Seq2Seq.encode
+
+        def counted_product(*a):
+            products[0] += 1
+            return product(*a)
+
+        def counted_capacity(*a):
+            capacity[0] += 1
+            return cap(*a)
+
+        def counted_encode(*a, **kw):
+            encodes[0] += 1
+            return encode(*a, **kw)
+
+        moe.expert_product = counted_product
+        moe.MoEFeedForward._capacity = counted_capacity
+        Seq2Seq.encode = counted_encode
+        k2, k4, k6 = tkp.LAUNCHES, da.LAUNCHES, xa.LAUNCHES
+        t0 = time.perf_counter()
+        try:
+            with counting_decode_steps() as steps:
+                main(["--tok", tok, "--model", ckpt, "--input", inp,
+                      "--output", out, "--src", "en", "--target", "fa",
+                      "--device", "cuda", "--verbose"])
+        finally:
+            moe.expert_product = product
+            moe.MoEFeedForward._capacity = cap
+            Seq2Seq.encode = encode
+        seconds = time.perf_counter() - t0
+        with open(out) as f:
+            lines = f.read().splitlines()
+    k2, k4, k6 = tkp.LAUNCHES - k2, da.LAUNCHES - k4, xa.LAUNCHES - k6
+    n = steps[0]
+    L = cfg.dec_layers
+    if len(lines) != n_lines or not all(" ||| " in ln for ln in lines):
+        raise AssertionError(f"translate wrote {len(lines)} lines for "
+                             f"{n_lines} inputs")
+    if (k2, k4, k6) != (n, L * n, L * n):
+        raise AssertionError(f"{n} decode steps: K2 {k2}, K4 {k4}, K6 {k6}; "
+                             f"want {n}, {L * n}, {L * n}")
+    if products[0] != 2 * (encodes[0] + n) or capacity[0]:
+        raise AssertionError(f"{products[0]} grouped products for "
+                             f"{encodes[0]} encodes and {n} steps, "
+                             f"{capacity[0]} capacity-path calls")
+    log(f"[nllb] cli.translate: {n_lines} lines in {seconds:.1f} s (with "
+        f"the checkpoint's load), {n} decode steps: K2 {k2}, K4 {k4}, K6 "
+        f"{k6}, {products[0]} grouped products, 0 capacity-path calls; "
+        f"e.g. {lines[0]!r}")
+    return k2, k4, k6
+
+
 def phase_comparable(card):
     """Phase 32: comparable.sim_calculator's scoring on the card at
     fastText's width over 200,000-word tables, held against the CPU path;
@@ -8631,6 +8886,12 @@ def main() -> int:
     done("31")
     phase_comparable(card)
     done("32")
+    torch.cuda.empty_cache()
+    n_k2, n_k4, n_k6 = phase_nllb_moe(card)
+    launches += n_k2
+    dec_attn_launches += n_k4
+    cross_launches += n_k6
+    done("33")
     attn_src = "imagetranslate_tpu_torch/csrc/train_attention.cu"
     xent_src = "imagetranslate_tpu_torch/csrc/xent.cu"
     print(card)

@@ -28,7 +28,8 @@ Reference semantics kept exactly as the JAX decoder has them:
 Spans and counters (``utils/profiling.py``): ``decode.search`` a call,
 ``decode.step`` a loop iteration, ``decode.select`` the selection and the
 cache reorder, ``decode.exit_check`` the early exit's host sync;
-``decode.rows`` and ``decode.rows_live`` (``_beam_loop``).
+``decode.rows`` and ``decode.rows_live`` (``_beam_loop``), which also
+settles the device counters its steps kept (``moe.max_load``).
 
 Under a tensor-parallel model (``Seq2Seq.shard_``) every rank of the model
 group gets the same merged triple from K2b, so the beams' bookkeeping, and
@@ -172,6 +173,8 @@ def _beam_loop(step, caches, first_tokens, max_lens, *, beam_width: int,
     if frozen_masks:
         profiling.count("decode.rows_live",
                         int((~torch.stack(frozen_masks)).sum()))
+    if profiling.tracing:
+        profiling.settle()      # the MoE banks' loads (models/moe.py)
 
     best = tokens[:, 0, :]
     is_eos = best == eos_id

@@ -1,7 +1,10 @@
 """Typed model configuration (port of imagetranslate_tpu/models/config.py).
 
-Same fields, defaults and JSON as the JAX ``Seq2SeqConfig``, so a
-``config.json`` written by either package loads in the other.
+The JAX ``Seq2SeqConfig``'s fields, defaults and JSON, so a ``config.json``
+written by either package loads in the other, plus fields of the port's own
+(below), whose defaults are the JAX model's layout: the JAX package ignores
+them when it loads a port's ``config.json``, and a JAX ``config.json`` lacks
+them and so gets that layout.
 ``fused_attn_dropout`` routes training attention through the fused dropout
 kernel (``ops/train_attention.py``), ``use_pallas_xent`` routes the train
 steps' loss through the fused cross-entropy kernels (``ops/xent.py``; the key
@@ -19,6 +22,18 @@ encoder and decoder layer's FFN (``models/moe.py``; the ``moe_*`` fields).
 ``remat`` recomputes every encoder and decoder layer in the backward, and
 ``remat_ffn`` (without ``remat``) only the FFN (``models/remat.py``), with
 the dropout stream replayed, so neither changes the loss or the gradients.
+The port's own fields lay out an NLLB-MoE-style encoder-decoder
+(``pre_layer_norm``: each block normalises its input and adds its output to
+the residual, and each stack ends in a final LayerNorm; ``moe_every = n``: an
+MoE bank in layer i only where (i + 1) % n == 0; ``activation`` "relu" in
+the FFN and the experts; ``embedding`` "nllb": word rows times
+sqrt(hidden_size) plus fairseq's sinusoid offset by ``pad_id`` (a real token
+at ``pad_id`` + its rank among the row's real tokens), with no LayerNorm and
+no language rows (the JAX layout's "bert": learned positions, language
+rows, a LayerNorm); ``output_bias`` off: a projection without a bias;
+``moe_inference`` "dropless": every inference call routes each token to its
+top-k experts without a capacity, the expert outputs scaled by
+``moe_inference_scale``, and training such a bank raises).
 The other knobs that select TPU kernels or XLA lowerings
 (``dense_decode_cross``, ``fused_project_topk``) are read and kept but have
 no effect here: the port has one path per operation.
@@ -89,6 +104,15 @@ class Seq2SeqConfig:
     moe_group_size: int = 256
     moe_aux_weight: float = 0.01
     use_pallas_xent: bool = False
+    # The port's own fields (module docstring); the defaults are the JAX
+    # model's layout.
+    pre_layer_norm: bool = False
+    moe_every: int = 1
+    activation: str = "gelu"
+    embedding: str = "bert"
+    output_bias: bool = True
+    moe_inference: str = "capacity"
+    moe_inference_scale: float = 1.0
 
     def __post_init__(self):
         if self.moe_experts and not (1 <= self.moe_top_k <= self.moe_experts):
@@ -98,6 +122,19 @@ class Seq2SeqConfig:
         if self.moe_experts and self.moe_group_size < 0:
             # 0 is one global group (O(T^2) dispatch, for parity checks).
             raise ValueError("moe_group_size must be >= 0")
+        for name, allowed in (("activation", ("gelu", "relu")),
+                              ("embedding", ("bert", "nllb")),
+                              ("moe_inference", ("capacity", "dropless"))):
+            if getattr(self, name) not in allowed:
+                raise ValueError(f"{name}={getattr(self, name)!r}; expected "
+                                 f"one of {allowed}")
+        if self.moe_every < 1:
+            raise ValueError(f"moe_every={self.moe_every} must be >= 1")
+
+    def is_moe_layer(self, index: int) -> bool:
+        """Does layer ``index`` (0-based, in either stack) hold an MoE bank
+        in its FFN's place?"""
+        return bool(self.moe_experts) and (index + 1) % self.moe_every == 0
 
     @property
     def head_dim(self) -> int:
@@ -112,13 +149,23 @@ class Seq2SeqConfig:
         return torch_dtype(self.kv_cache_dtype)
 
     def to_json(self) -> str:
-        return json.dumps(dataclasses.asdict(self), indent=2, sort_keys=True)
+        """The JSON of every field, but the port's own at their defaults:
+        a config of the JAX model's layout writes the JAX package's JSON."""
+        raw = dataclasses.asdict(self)
+        for f in dataclasses.fields(self):
+            if f.name in PORT_FIELDS and raw[f.name] == f.default:
+                del raw[f.name]
+        return json.dumps(raw, indent=2, sort_keys=True)
 
     @classmethod
     def from_json(cls, text: str) -> "Seq2SeqConfig":
         raw = json.loads(text)
         fields = {f.name for f in dataclasses.fields(cls)}
         return cls(**{k: v for k, v in raw.items() if k in fields})
+
+
+PORT_FIELDS = ("pre_layer_norm", "moe_every", "activation", "embedding",
+               "output_bias", "moe_inference", "moe_inference_scale")
 
 
 def tiny_config(vocab_size: int = 128, num_languages: int = 2,

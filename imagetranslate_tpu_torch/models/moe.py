@@ -21,8 +21,9 @@ module's, number for number:
   ``collect_aux`` block is open (the JAX module sows it into the "moe"
   collection, which only the train steps make mutable), and not again when
   a checkpointed block recomputes in the backward (``models/remat.py``);
-- the expert products in the compute dtype, exact gelu, dropout on the
-  output, then the post-LN residual, as ``FeedForward``.
+- the expert products in the compute dtype, exact gelu (relu with
+  ``cfg.activation``), dropout on the output, then the post-LN residual, as
+  ``FeedForward``.
 
 The JAX module dispatches through [G, S, E, C] one-hot einsums. Here a
 token's row is copied to its (expert, group, slot) row of the expert input
@@ -43,6 +44,28 @@ only this rank's experts, so theirs are summed over the group
 (``tp_copy``); the load-balance loss reads the router's probabilities
 whole on every rank and its gradient is not summed. The router's gradient is
 thus the one-process gradient on every rank.
+
+Inference without drops (``cfg.moe_inference == "dropless"``, NLLB-MoE's
+routing at inference; ``_dropless``): every call outside autograd routes
+each token to its top-k experts with no capacity, all on the device and
+with no host sync: an fp32 router without a bias and a softmax, a greedy
+top-k by ``argmax``, the gates p_e / sum of the chosen p; the k T choices
+sorted by expert (``torch.argsort``, stable), counted into device offsets
+(a scatter and ``cumsum``), the rows gathered, one grouped product over the
+experts' segments for ``wi`` (``expert_product``: ``torch._grouped_mm`` for
+bf16 on the card, a loop over the segments elsewhere), bias and the
+activation, one for ``wo`` and its bias, each output scaled by its gate and
+``cfg.moe_inference_scale``, and ``index_add`` back into the tokens' rows in
+fp32, rounded once. Padding tokens are routed like any other token. Under
+autograd it raises: its training (a capacity, token dropout, the router's
+losses) is not built. Its spans are ``moe.route``, ``moe.dispatch`` (sort,
+offsets, gather), ``moe.experts`` (both products) and ``moe.combine``; its
+counters ``moe.choices`` (k T a call) and, while tracing, ``moe.max_load``
+(the largest segment a call, kept on the device and read once after the
+decode loop, ``profiling.count_later``).
+
+With ``cfg.pre_layer_norm`` the bank's ``ln`` normalises its input and the
+output (after dropout) is added to the residual, on either path.
 
 Data parallelism (a mesh with a data group): JAX routes the global batch, so
 a group of tokens may span two data ranks, and the load-balance loss is
@@ -74,6 +97,31 @@ from imagetranslate_tpu_torch.parallel.comm import (
     tp_copy,
     tp_reduce,
 )
+from imagetranslate_tpu_torch.utils import profiling
+from imagetranslate_tpu_torch.utils.profiling import span
+
+
+def activation(cfg: Seq2SeqConfig):
+    """The FFN's and the experts' nonlinearity: exact gelu or relu."""
+    return F.relu if cfg.activation == "relu" else F.gelu
+
+
+def expert_product(x: torch.Tensor, w: torch.Tensor,
+                   offs: torch.Tensor) -> torch.Tensor:
+    """x [N, K] rows sorted by expert, w [E, K, M], offs [E] int32 (the end
+    of each expert's run of rows) -> [N, M], row r times its expert's w:
+    one ``torch._grouped_mm`` for bf16 on the card (offsets read there, no
+    host sync); elsewhere a loop over the experts' segments, their ends read
+    on the host."""
+    if x.is_cuda and x.dtype == torch.bfloat16:
+        return torch._grouped_mm(x, w, offs=offs)
+    out = x.new_zeros((x.shape[0], w.shape[-1]))
+    start = 0
+    for e, end in enumerate(offs.tolist()):
+        if end > start:
+            out[start:end] = x[start:end] @ w[e]
+        start = end
+    return out
 
 
 def _group_size(n_tokens: int, requested: int) -> int:
@@ -177,6 +225,89 @@ class MoEFeedForward(nn.Module):
 
     def forward(self, x: torch.Tensor, drop=None) -> torch.Tensor:
         cfg = self.cfg
+        dtype = cfg.compute_dtype
+        h = (self.ln(x.to(torch.float32)).to(dtype) if cfg.pre_layer_norm
+             else x)
+        if cfg.moe_inference == "dropless":
+            if torch.is_grad_enabled():
+                raise NotImplementedError(
+                    "moe_inference='dropless' (an NLLB-MoE-style config: "
+                    f"{cfg.moe_experts} experts, top-{cfg.moe_top_k}, an MoE "
+                    f"layer every {cfg.moe_every}) routes without drops at "
+                    "inference only; its training (an expert capacity, "
+                    "token dropout, the router's z-loss and aux loss) is "
+                    "not built, and the capacity path does not stand in "
+                    "for it")
+            if self.tp is not None or self.dp is not None:
+                raise NotImplementedError(
+                    "moe_inference='dropless' runs the whole bank on one "
+                    "device: no expert or data parallelism")
+            out = self._dropless(h)
+        else:
+            out = self._capacity(h)
+        if drop is not None:
+            out = drop.dropout(out, cfg.dropout)
+        if cfg.pre_layer_norm:
+            return x + out
+        return self.ln((out + x).to(torch.float32)).to(dtype)
+
+    def _dropless(self, x: torch.Tensor) -> torch.Tensor:
+        """The bank without a capacity (module docstring): x [..., H] in
+        the compute dtype -> the experts' gated sum [..., H]."""
+        cfg = self.cfg
+        E, k, dtype = cfg.moe_experts, cfg.moe_top_k, cfg.compute_dtype
+        H = x.shape[-1]
+        tokens = x.reshape(-1, H)
+        T = tokens.shape[0]
+        with span("moe.route"):
+            idxs, gates = self.route_dropless(tokens)
+        with span("moe.dispatch"):
+            expert = torch.cat(idxs)                 # choice j T + t
+            order = torch.argsort(expert, stable=True)
+            # A scatter, not bincount: bincount on the card reads its
+            # input's largest value on the host.
+            counts = torch.zeros(E, dtype=torch.long,
+                                 device=x.device).scatter_add_(
+                0, expert, torch.ones_like(expert))
+            offs = torch.cumsum(counts, 0).to(torch.int32)
+            token = order % T
+            e_sorted = expert.index_select(0, order)
+            xs = tokens.to(dtype).index_select(0, token)
+        with span("moe.experts"):
+            h = expert_product(xs, self.wi.to(dtype), offs)
+            h = activation(cfg)(h + self.bi.to(dtype).index_select(
+                0, e_sorted))
+            y = expert_product(h, self.wo.to(dtype), offs)
+            y = y + self.bo.to(dtype).index_select(0, e_sorted)
+        with span("moe.combine"):
+            scale = torch.cat(gates).index_select(
+                0, order) * cfg.moe_inference_scale
+            out = torch.zeros((T, H), dtype=torch.float32, device=x.device)
+            out.index_add_(0, token, y.to(torch.float32) * scale[:, None])
+        profiling.count("moe.choices", k * T)
+        if profiling.tracing:
+            profiling.count_later("moe.max_load", counts.max())
+        return out.to(dtype).reshape(x.shape)
+
+    def route_dropless(self, tokens: torch.Tensor):
+        """tokens [T, H] -> (per choice j: expert index [T], gate [T] fp32):
+        the fp32 router's softmax, a greedy top-k by ``argmax`` (ties to the
+        lowest index), the gates p_e over the sum of the chosen p."""
+        probs = torch.softmax(F.linear(tokens.to(torch.float32),
+                                       self.router.weight), dim=-1)
+        remaining, idxs, gates = probs, [], []
+        for _ in range(self.cfg.moe_top_k):
+            idx = torch.argmax(remaining, dim=-1)          # the first max
+            idxs.append(idx)
+            gates.append(torch.gather(probs, -1, idx[:, None])[:, 0])
+            remaining = remaining.scatter(-1, idx[:, None], -1.0)
+        denom = sum(gates)
+        return idxs, [g / denom for g in gates]
+
+    def _capacity(self, x: torch.Tensor) -> torch.Tensor:
+        """The GShard bank (module docstring): x [..., H] -> the experts'
+        gated sum [..., H], before the dropout and the residual."""
+        cfg = self.cfg
         E, dtype = cfg.moe_experts, cfg.compute_dtype
         H = x.shape[-1]
         tokens = x.reshape(-1, H)
@@ -214,8 +345,8 @@ class MoEFeedForward(nn.Module):
         for r in rows:
             xin = xin.index_copy(0, r, src)
         xin = xin[:trash].reshape(n, G * C, H)
-        h = F.gelu(torch.bmm(xin, self.wi.to(dtype))
-                   + self.bi.to(dtype)[:, None, :])
+        h = activation(cfg)(torch.bmm(xin, self.wi.to(dtype))
+                            + self.bi.to(dtype)[:, None, :])
         y = torch.bmm(h, self.wo.to(dtype)) + self.bo.to(dtype)[:, None, :]
         y = torch.cat([y.reshape(trash, H), y.new_zeros((1, H))])
         # The combine in fp32 on compute-dtype gates and outputs (the JAX
@@ -223,10 +354,7 @@ class MoEFeedForward(nn.Module):
         out = sum(g.reshape(-1, 1).to(dtype).to(torch.float32)
                   * y.index_select(0, r).to(torch.float32)
                   for g, r in zip(gates, rows))
-        out = tp_reduce(out, self._group()).to(dtype).reshape(x.shape)
-        if drop is not None:
-            out = drop.dropout(out, cfg.dropout)
-        return self.ln((out + x).to(torch.float32)).to(dtype)
+        return tp_reduce(out, self._group()).to(dtype).reshape(x.shape)
 
 
 @contextlib.contextmanager

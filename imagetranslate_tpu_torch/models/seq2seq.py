@@ -12,6 +12,11 @@ columns and ``project_topk`` takes K2b (``sharded_project_topk``).
 
 ``encode`` and ``decode_step`` are the spans ``model.encode`` and
 ``model.decode_step`` (``utils/profiling.py``).
+
+The positions follow ``cfg.embedding`` (``token_positions``,
+``step_position``): learned ones count from 0, sinusoidal ones (NLLB's) from
+``pad_id`` + 1 over a row's real tokens, so a left-aligned row's positions
+agree between ``encode``/``forward`` and the decode steps.
 """
 
 from __future__ import annotations
@@ -33,6 +38,8 @@ from imagetranslate_tpu_torch.models.transformer import (
     layer_norm,
     pad_bias,
     segment_bias,
+    step_position,
+    token_positions,
 )
 from imagetranslate_tpu_torch.ops import topk_project as tkp
 from imagetranslate_tpu_torch.ops.attention import NEG_INF
@@ -200,10 +207,9 @@ class Seq2Seq(nn.Module):
         ``deterministic`` is False."""
         B, S = src_ids.shape
         drop = self._drop(deterministic, rng, src_ids.device)
-        if src_positions is None:
-            pos = torch.arange(S, device=src_ids.device)[None, :].expand(B, S)
-        else:
-            pos = src_positions
+        pos = token_positions(
+            self.cfg, src_mask if src_segments is None else src_segments > 0,
+            src_positions)
         x = self.embeddings(src_ids, pos, expand_langs(src_langs, S), drop)
         bias = (pad_bias(src_mask) if src_segments is None
                 else segment_bias(src_segments, src_segments))
@@ -263,11 +269,10 @@ class Seq2Seq(nn.Module):
         # Only per-language decoders need the language on the host (a device
         # sync); the shared decoder's step stays asynchronous.
         lang_idx = first_lang(tgt_langs) if self.cfg.lang_dec else 0
-        if tgt_positions is None:
-            pos = torch.arange(T - 1, device=tgt_ids.device)[None, :].expand(
-                B, T - 1)
-        else:
-            pos = tgt_positions[:, :-1]
+        pos = token_positions(
+            self.cfg, (tgt_mask if tgt_segments is None
+                       else tgt_segments > 0)[:, :-1],
+            None if tgt_positions is None else tgt_positions[:, :-1])
         x = self.embeddings(tgt_ids[:, :-1], pos,
                             expand_langs(tgt_langs, T)[:, :-1], drop)
         if tgt_segments is None:
@@ -301,8 +306,8 @@ class Seq2Seq(nn.Module):
         B = prev_token.shape[0]
         if lang_idx is None:
             lang_idx = first_lang(tgt_langs)
-        positions = torch.full((B, 1), index, dtype=torch.long,
-                               device=prev_token.device)
+        positions = torch.full((B, 1), step_position(self.cfg, index),
+                               dtype=torch.long, device=prev_token.device)
         x = self.embeddings(prev_token, positions, expand_langs(tgt_langs, 1))
         hidden = self._decoder(lang_idx).step(x, cache, index, cross_bias)
         if self.cfg.use_proposals and proposals is not None:

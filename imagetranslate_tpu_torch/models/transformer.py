@@ -5,11 +5,20 @@ segment_bias).
 
 Post-LayerNorm blocks, exact-gelu FFN, additive -10000 masks, the language
 id as a per-token token-type embedding and learned positions: the math of HF
-``transformers==2.9.0`` BertModel. Modules are laid out so that their
-``state_dict`` keys are the reference's HF-2.9 names
-(``attention.self.query.weight``, ``output.LayerNorm.weight``, ...), which
-``imagetranslate_tpu/train/torch_import.py::import_seq2seq`` maps onto the
-flax tree.
+``transformers==2.9.0`` BertModel. The port's own config fields
+(``models/config.py``) lay out NLLB-MoE's blocks with the same modules and
+names: with ``pre_layer_norm`` each block's LayerNorm (``output.LayerNorm``,
+an MoE bank's ``ln``) normalises the block's input and the block adds its
+output to the residual, and each stack ends in a final LayerNorm
+(``{encoder,decoder}.{encoder,decoder}.LayerNorm``); a layer holds an MoE
+bank only where ``cfg.is_moe_layer(i)``; ``activation`` "relu";
+``embedding`` "nllb" (scaled word rows and ``sinusoid_table``, a buffer
+outside the state_dict, with no LayerNorm and no language rows); without
+``output_bias`` the head's bias is a zero buffer outside the state_dict.
+Modules are laid out so that their ``state_dict`` keys are the reference's
+HF-2.9 names (``attention.self.query.weight``, ``output.LayerNorm.weight``,
+...), which ``imagetranslate_tpu/train/torch_import.py::import_seq2seq``
+maps onto the flax tree.
 
 Dtypes follow the JAX modules (flax ``param_dtype`` / ``dtype``): Linear and
 Embedding weights are STORED in ``param_dtype`` and cast to the compute dtype
@@ -43,6 +52,7 @@ summed over the model group before the replicated bias is added once;
 
 from __future__ import annotations
 
+import math
 from typing import Dict, List, Optional
 
 import torch
@@ -50,7 +60,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from imagetranslate_tpu_torch.models.config import Seq2SeqConfig
-from imagetranslate_tpu_torch.models.moe import MoEFeedForward
+from imagetranslate_tpu_torch.models.moe import MoEFeedForward, activation
 from imagetranslate_tpu_torch.models.remat import checkpointed
 from imagetranslate_tpu_torch.ops.attention import (
     dot_product_attention,
@@ -193,9 +203,51 @@ def layer_norm(ln: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
     return ln(x.to(torch.float32)).to(x.dtype)
 
 
+def sinusoid_table(n: int, dim: int, pad_id: int, device=None
+                   ) -> torch.Tensor:
+    """fairseq's sinusoidal positions (NLLB's): row p is [sin(p f), cos(p
+    f)] with f_i = exp(-i ln(10000) / (dim/2 - 1)), fp32, and row ``pad_id``
+    zero. Positions count from ``pad_id`` + 1 (``token_positions``)."""
+    half = dim // 2
+    f = torch.exp(torch.arange(half, dtype=torch.float32, device=device)
+                  * -(math.log(10000.0) / (half - 1)))
+    ang = torch.arange(n, dtype=torch.float32, device=device)[:, None] * f
+    table = torch.cat([torch.sin(ang), torch.cos(ang)], dim=1)
+    table[pad_id] = 0.0
+    return table
+
+
+def token_positions(cfg: Seq2SeqConfig, mask: torch.Tensor,
+                    positions: Optional[torch.Tensor] = None
+                    ) -> torch.Tensor:
+    """The position ids of a [B, T] batch (``mask``: True at a real token).
+    Learned positions (``embedding`` "bert"): ``positions``, else 0 ..
+    T-1. Sinusoidal ones ("nllb"):
+    ``pad_id`` + a real token's rank among its row's real tokens (its
+    example's, from the 0-based ``positions`` of packed rows), ``pad_id``
+    at padding."""
+    B, T = mask.shape
+    if cfg.embedding == "bert":
+        if positions is not None:
+            return positions
+        return torch.arange(T, device=mask.device)[None, :].expand(B, T)
+    mask = mask.to(torch.long)
+    rank = (torch.cumsum(mask, dim=1) if positions is None
+            else positions.to(torch.long) + 1)
+    return cfg.pad_id + rank * mask
+
+
+def step_position(cfg: Seq2SeqConfig, index: int) -> int:
+    """The position id of the token a decode step writes at ``index``."""
+    if cfg.embedding == "bert":
+        return index
+    return cfg.pad_id + 1 + index
+
+
 class Embeddings(nn.Module):
     """word + position + language (token-type) embeddings -> LayerNorm ->
-    dropout."""
+    dropout; with ``embedding`` "nllb": word rows times sqrt(hidden) +
+    sinusoidal positions -> dropout."""
 
     tp = None   # the mesh when the word table's rows are split
 
@@ -206,6 +258,11 @@ class Embeddings(nn.Module):
         kw = dict(device=device, dtype=_param_dtype(cfg, param_dtype))
         cd = cfg.compute_dtype
         self.word_embeddings = Embedding(cfg.vocab_size, E, cd, **kw)
+        if cfg.embedding == "nllb":
+            self.register_buffer("sinusoid", sinusoid_table(
+                cfg.max_position_embeddings + cfg.pad_id + 1, E, cfg.pad_id,
+                device), persistent=False)
+            return
         self.position_embeddings = Embedding(cfg.max_position_embeddings, E,
                                              cd, **kw)
         self.token_type_embeddings = Embedding(max(1, cfg.num_languages), E,
@@ -227,16 +284,23 @@ class Embeddings(nn.Module):
 
     def forward(self, input_ids, position_ids, lang_ids,
                 drop: Optional[DropoutRng] = None):
-        x = (self.embed_words(input_ids)
-             + self.position_embeddings(position_ids)
-             + self.token_type_embeddings(lang_ids))
-        x = layer_norm(self.LayerNorm, x)
-        return x if drop is None else drop.dropout(x, self.cfg.dropout)
+        cfg = self.cfg
+        if cfg.embedding == "nllb":
+            x = (self.embed_words(input_ids) * math.sqrt(cfg.hidden_size)
+                 + self.sinusoid[position_ids].to(cfg.compute_dtype))
+        else:
+            x = (self.embed_words(input_ids)
+                 + self.position_embeddings(position_ids)
+                 + self.token_type_embeddings(lang_ids))
+            x = layer_norm(self.LayerNorm, x)
+        return x if drop is None else drop.dropout(x, cfg.dropout)
 
 
 class Attention(nn.Module):
     """BertSelfAttention + BertSelfOutput: multi-head attention with a
-    post-LN residual block, and an optional KV cache for one-token decode."""
+    post-LN residual block (with ``cfg.pre_layer_norm``: the LayerNorm on
+    the queries' input, and on the keys' where they are the queries'), and
+    an optional KV cache for one-token decode."""
 
     tp = None   # the mesh when the heads are split
 
@@ -280,7 +344,10 @@ class Attention(nn.Module):
         ``drop`` turns on the attention-probability and output dropout."""
         cfg = self.cfg
         g = _group(self.tp)
-        xin = tp_copy(x, g)
+        self_kv = kv is x
+        h = (layer_norm(self.output["LayerNorm"], x) if cfg.pre_layer_norm
+             else x)
+        xin = tp_copy(h, g)
         q = self._heads(self.self["query"](xin))
         ctx = None
         if precomputed_kv is not None:
@@ -290,7 +357,7 @@ class Attention(nn.Module):
                                  f"token a row, got {q.shape[1]}")
             ctx = cross_attention(q[:, 0], k, v, bias)[:, None]
         else:
-            k, v = self.project_kv(xin if kv is x else tp_copy(kv, g))
+            k, v = self.project_kv(xin if self_kv else tp_copy(kv, g))
             if cache is not None:
                 T = k.shape[1]
                 cache["k"][:, index:index + T] = k.to(cache["k"].dtype)
@@ -317,23 +384,28 @@ class Attention(nn.Module):
                            ctx.reshape(*ctx.shape[:2], -1), self.tp)
         if drop is not None:
             out = drop.dropout(out, cfg.dropout)
+        if cfg.pre_layer_norm:
+            return x + out
         return layer_norm(self.output["LayerNorm"], out + x)
 
 
 class EncoderLayer(nn.Module):
     """BertLayer: self-attention, then the dense-gelu-dense FFN with a
-    post-LN residual (BertIntermediate + BertOutput), or with
-    ``cfg.moe_experts > 0`` the routed expert bank ``moe``
-    (``models/moe.py``, the JAX ``make_ffn``) in the FFN's place."""
+    post-LN residual (BertIntermediate + BertOutput), or where
+    ``cfg.is_moe_layer(index)`` (every layer with ``cfg.moe_experts > 0``
+    and ``moe_every`` 1) the routed expert bank ``moe`` (``models/moe.py``,
+    the JAX ``make_ffn``) in the FFN's place."""
 
     tp = None   # the mesh when the FFN's F is split
 
-    def __init__(self, cfg: Seq2SeqConfig, device=None, param_dtype=None):
+    def __init__(self, cfg: Seq2SeqConfig, device=None, param_dtype=None,
+                 index: int = 0):
         super().__init__()
         self.cfg = cfg
         E, FF = cfg.hidden_size, cfg.intermediate_size
         self.attention = Attention(cfg, device, param_dtype)
-        if cfg.moe_experts:
+        self.is_moe = cfg.is_moe_layer(index)
+        if self.is_moe:
             self.moe = MoEFeedForward(cfg, device, param_dtype)
             return
         self.intermediate = nn.ModuleDict({
@@ -352,13 +424,19 @@ class EncoderLayer(nn.Module):
         return self._ffn(x, drop)
 
     def _ffn(self, x, drop: Optional[DropoutRng] = None):
-        if self.cfg.moe_experts:
+        cfg = self.cfg
+        if self.is_moe:
             return self.moe(x, drop)
-        h = F.gelu(self.intermediate["dense"](tp_copy(x, _group(self.tp))))
-        out = row_parallel(self.output["dense"], h, self.tp)  # exact gelu
+        ln = self.output["LayerNorm"]
+        h = layer_norm(ln, x) if cfg.pre_layer_norm else x
+        h = activation(cfg)(self.intermediate["dense"](
+            tp_copy(h, _group(self.tp))))
+        out = row_parallel(self.output["dense"], h, self.tp)
         if drop is not None:
-            out = drop.dropout(out, self.cfg.dropout)
-        return layer_norm(self.output["LayerNorm"], out + x)
+            out = drop.dropout(out, cfg.dropout)
+        if cfg.pre_layer_norm:
+            return x + out
+        return layer_norm(ln, out + x)
 
     def forward(self, x, bias, drop: Optional[DropoutRng] = None):
         return self.ffn(self.attention(x, x, bias, drop=drop), drop)
@@ -367,8 +445,9 @@ class EncoderLayer(nn.Module):
 class DecoderLayer(EncoderLayer):
     """BertLayer with cross-attention over the encoder states."""
 
-    def __init__(self, cfg: Seq2SeqConfig, device=None, param_dtype=None):
-        super().__init__(cfg, device, param_dtype)
+    def __init__(self, cfg: Seq2SeqConfig, device=None, param_dtype=None,
+                 index: int = 0):
+        super().__init__(cfg, device, param_dtype, index)
         self.crossattention = Attention(cfg, device, param_dtype)
 
     def forward(self, x, enc, self_bias, cross_bias,
@@ -390,11 +469,20 @@ class DecoderLayer(EncoderLayer):
 
 
 class LayerStack(nn.Module):
-    """HF BertEncoder: holds the layers under ``.layer``."""
+    """HF BertEncoder: holds the layers under ``.layer``; with
+    ``cfg.pre_layer_norm`` the stack's final LayerNorm (``LayerNorm``,
+    ``norm``)."""
 
-    def __init__(self, layers):
+    def __init__(self, layers, cfg: Seq2SeqConfig, device=None):
         super().__init__()
         self.layer = nn.ModuleList(layers)
+        if cfg.pre_layer_norm:
+            self.LayerNorm = _layer_norm(cfg, device)
+
+    def norm(self, x: torch.Tensor) -> torch.Tensor:
+        if not hasattr(self, "LayerNorm"):
+            return x
+        return layer_norm(self.LayerNorm, x)
 
 
 def pad_bias(pad_mask: torch.Tensor) -> torch.Tensor:
@@ -434,15 +522,16 @@ class Encoder(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.embeddings = Embeddings(cfg, device, param_dtype)
-        self.encoder = LayerStack([EncoderLayer(cfg, device, param_dtype)
-                                   for _ in range(cfg.enc_layers)])
+        self.encoder = LayerStack([EncoderLayer(cfg, device, param_dtype, i)
+                                   for i in range(cfg.enc_layers)], cfg,
+                                  device)
 
     def forward(self, x, bias, drop: Optional[DropoutRng] = None):
         remat = self.cfg.remat and torch.is_grad_enabled()
         for layer in self.encoder.layer:
             x = (checkpointed(layer, drop, x, bias) if remat
                  else layer(x, bias, drop))
-        return x
+        return self.encoder.norm(x)
 
 
 class Decoder(nn.Module):
@@ -452,8 +541,9 @@ class Decoder(nn.Module):
     def __init__(self, cfg: Seq2SeqConfig, device=None, param_dtype=None):
         super().__init__()
         self.cfg = cfg
-        self.decoder = LayerStack([DecoderLayer(cfg, device, param_dtype)
-                                   for _ in range(cfg.dec_layers)])
+        self.decoder = LayerStack([DecoderLayer(cfg, device, param_dtype, i)
+                                   for i in range(cfg.dec_layers)], cfg,
+                                  device)
 
     def forward(self, x, enc, self_bias, cross_bias,
                 drop: Optional[DropoutRng] = None):
@@ -461,7 +551,7 @@ class Decoder(nn.Module):
         for layer in self.decoder.layer:
             x = (checkpointed(layer, drop, x, enc, self_bias, cross_bias)
                  if remat else layer(x, enc, self_bias, cross_bias, drop))
-        return x
+        return self.decoder.norm(x)
 
     def init_cache(self, enc_states, batch: int, max_len: int) -> Cache:
         """Zeroed self-attention K/V buffers of ``batch`` rows (B * K: rows
@@ -512,7 +602,7 @@ class Decoder(nn.Module):
             self_bias = make_attention_bias(keep)[None, None, None, :]
         for layer, c in zip(self.decoder.layer, cache):
             x = layer.step(x, c, index, cross_bias, self_bias, fused)
-        return x
+        return self.decoder.norm(x)
 
 
 class OutputLayer(nn.Module):
@@ -520,7 +610,9 @@ class OutputLayer(nn.Module):
     ``layer.weight`` [V, E] (stored in ``param_dtype``) and ``layer.bias``
     [V] (fp32, the precision the projection adds it in). With ``tie_embed``
     the weight is the word-embedding table and only the bias is a parameter
-    here. ``Seq2Seq.project``/``project_topk`` do the math."""
+    here; without ``cfg.output_bias`` the bias is a zero buffer outside the
+    state_dict, so that the projection kernel's call is the same.
+    ``Seq2Seq.project``/``project_topk`` do the math."""
 
     def __init__(self, cfg: Seq2SeqConfig, device=None, param_dtype=None):
         super().__init__()
@@ -529,5 +621,8 @@ class OutputLayer(nn.Module):
         if not cfg.tie_embed:
             self.layer.weight = nn.Parameter(torch.zeros(
                 (V, E), dtype=_param_dtype(cfg, param_dtype), device=device))
-        self.layer.bias = nn.Parameter(torch.zeros(
-            V, dtype=torch.float32, device=device))
+        bias = torch.zeros(V, dtype=torch.float32, device=device)
+        if cfg.output_bias:
+            self.layer.bias = nn.Parameter(bias)
+        else:
+            self.layer.register_buffer("bias", bias, persistent=False)

@@ -133,6 +133,10 @@ def check_pipeline(cfg: Seq2SeqConfig, mesh: Optional[ProcessMesh]) -> None:
         raise ValueError(
             "pipeline parallelism supports the shared-decoder model without "
             "proposal attention")
+    if cfg.pre_layer_norm or cfg.embedding != "bert":
+        raise ValueError(
+            "pipeline parallelism stages the JAX model's layout: no "
+            "pre_layer_norm stack (its final LayerNorm) or nllb embedding")
     if mesh is None or mesh.n_model <= 1:
         raise ValueError("pipeline parallelism needs a model-axis size > 1")
 
@@ -164,11 +168,11 @@ class PipelineStage(Seq2Seq):
         self.encoder = nn.Module()
         self.encoder.embeddings = Embeddings(cfg, device, param_dtype)
         self.encoder.encoder = _Stack({
-            i: EncoderLayer(cfg, device, param_dtype)
+            i: EncoderLayer(cfg, device, param_dtype, i)
             for i in stage_layers(cfg.enc_layers, S, s)})
         self.decoder = nn.Module()
         self.decoder.decoder = _Stack({
-            i: DecoderLayer(cfg, device, param_dtype)
+            i: DecoderLayer(cfg, device, param_dtype, i)
             for i in stage_layers(cfg.dec_layers, S, s)})
         self.output_layer = OutputLayer(cfg, device, param_dtype)
 

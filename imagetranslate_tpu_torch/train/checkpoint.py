@@ -12,9 +12,10 @@ package loads and decodes in the other:
 Neither flax nor the msgpack package is needed: this module reads and writes
 the subset of msgpack that flax emits for a parameter tree — nested maps with
 str keys, ints, floats, and arrays as ext type 1 whose payload is the msgpack
-triple [shape, dtype name, raw C-order bytes]. flax splits arrays above
-1 GiB into ``__msgpack_chunked_array__`` maps; the models here stay far below
-that (the BERT-base embedding is 98 MB), so such a map is refused.
+triple [shape, dtype name, raw C-order bytes]. An array above 1 GiB (an
+NLLB-MoE bank's stacked experts, 4.3 GB in bf16) travels as flax chunks it:
+a map ``{"__msgpack_chunked_array__": true, "shape": {"0": d0, ...},
+"chunks": {"0": a0, ...}}`` of the flattened array cut every 1 GiB.
 """
 
 from __future__ import annotations
@@ -64,6 +65,8 @@ class _Reader:
         b = self.take(1)[0]
         if b <= 0x7f:
             return b
+        if b in (0xc2, 0xc3):
+            return b == 0xc3
         if b >= 0xe0:
             return b - 0x100
         if 0x80 <= b <= 0x8f:
@@ -104,7 +107,11 @@ class _Reader:
             key = self.obj()
             out[key] = self.obj()
         if "__msgpack_chunked_array__" in out:
-            raise ValueError("chunked (> 1 GiB) arrays are not supported")
+            shape = tuple(out["shape"][str(i)]
+                          for i in range(len(out["shape"])))
+            chunks = [out["chunks"][str(i)].reshape(-1)
+                      for i in range(len(out["chunks"]))]
+            return torch.cat(chunks).reshape(shape)
         return out
 
     @staticmethod
@@ -143,7 +150,14 @@ def _pack(out: bytearray, obj: Any):
             raise ValueError(f"unsupported array dtype {t.dtype}")
         nbytes = t.numel() * t.element_size()
         if nbytes > _CHUNK_LIMIT:
-            raise ValueError("arrays above 1 GiB are not supported")
+            per = max(1, _CHUNK_LIMIT // t.element_size())
+            flat = t.reshape(-1)
+            _pack(out, {
+                "__msgpack_chunked_array__": True,
+                "shape": {str(i): int(d) for i, d in enumerate(t.shape)},
+                "chunks": {str(i): flat[lo:lo + per] for i, lo in
+                           enumerate(range(0, flat.numel(), per))}})
+            return
         raw = t.reshape(-1).view(torch.uint8).numpy().tobytes()
         payload = bytearray()
         _pack(payload, [list(t.shape), _DTYPE_NAMES[t.dtype], raw])
@@ -172,7 +186,9 @@ def _pack(out: bytearray, obj: Any):
     elif isinstance(obj, bytes):
         _pack_len(out, len(obj), None, 0, (0xc4, 0xc5, 0xc6))
         out += obj
-    elif isinstance(obj, int) and not isinstance(obj, bool):
+    elif isinstance(obj, bool):
+        out.append(0xc3 if obj else 0xc2)
+    elif isinstance(obj, int):
         if 0 <= obj <= 0x7f or -32 <= obj < 0:
             out += struct.pack(">b" if obj < 0 else ">B", obj)
         else:

@@ -22,7 +22,12 @@ layout maps as the parameters.
 
 A layer whose ``ffn`` is an MoE bank (``router``, ``wi``, ``bi``, ``wo``,
 ``bo``, ``ln``) maps to keys under ``{layer}.moe``; every other key is the
-dense model's.
+dense model's. The layout of the port's own config fields (an NLLB-MoE-style
+model, ``models/config.py``) has no flax counterpart; its tree is the port's
+own: the embeddings' ``position``, ``lang`` and ``ln`` entries only where the
+model has them (not with ``embedding`` "nllb"), a stack's final LayerNorm as
+``final_ln`` in the ``encoder`` and ``decoders_d`` trees, no ``out_bias_d``
+or ``proj.bias`` without an output bias.
 
 One ``Bridge`` per model: ``SEQ2SEQ``, ``LM``, ``LONGDOC``, ``SENSIM``,
 ``CAPTION2IMAGE`` and ``CAPTION`` (the
@@ -94,12 +99,25 @@ def _ffn(sd, prefix: str, p: Mapping):
 
 
 def _embeddings_sd(sd, emb: str, ep: Mapping):
-    """An ``Embeddings`` sub-tree -> the keys under ``emb``."""
+    """An ``Embeddings`` sub-tree -> the keys under ``emb`` (the position,
+    language and LayerNorm entries where the tree has them)."""
     sd[f"{emb}.word_embeddings.weight"] = _t(ep["word"]["embedding"])
-    sd[f"{emb}.position_embeddings.weight"] = _t(ep["position"]["embedding"])
-    sd[f"{emb}.token_type_embeddings.weight"] = _t(ep["lang"]["embedding"])
-    sd[f"{emb}.LayerNorm.weight"] = _t(ep["ln"]["scale"])
-    sd[f"{emb}.LayerNorm.bias"] = _t(ep["ln"]["bias"])
+    if "position" in ep:
+        sd[f"{emb}.position_embeddings.weight"] = _t(
+            ep["position"]["embedding"])
+    if "lang" in ep:
+        sd[f"{emb}.token_type_embeddings.weight"] = _t(
+            ep["lang"]["embedding"])
+    if "ln" in ep:
+        sd[f"{emb}.LayerNorm.weight"] = _t(ep["ln"]["scale"])
+        sd[f"{emb}.LayerNorm.bias"] = _t(ep["ln"]["bias"])
+
+
+def _final_ln_sd(sd, stack: str, p: Mapping):
+    """A stack's final LayerNorm (``pre_layer_norm``), where it has one."""
+    if "final_ln" in p:
+        sd[f"{stack}.LayerNorm.weight"] = _t(p["final_ln"]["scale"])
+        sd[f"{stack}.LayerNorm.bias"] = _t(p["final_ln"]["bias"])
 
 
 def _decoder_sd(sd, dec: str, p: Mapping, cfg: Seq2SeqConfig):
@@ -109,6 +127,7 @@ def _decoder_sd(sd, dec: str, p: Mapping, cfg: Seq2SeqConfig):
         _attn(sd, f"{pre}.attention", lp["self_attn"], cfg.hidden_size)
         _attn(sd, f"{pre}.crossattention", lp["cross_attn"], cfg.hidden_size)
         _ffn(sd, pre, lp["ffn"])
+    _final_ln_sd(sd, f"{dec}.decoder", p)
 
 
 def _encoder_sd(sd, p: Mapping, cfg: Seq2SeqConfig):
@@ -121,6 +140,7 @@ def _encoder_sd(sd, p: Mapping, cfg: Seq2SeqConfig):
         lp, pre = p["encoder"][f"layers_{i}"], f"encoder.encoder.layer.{i}"
         _attn(sd, f"{pre}.attention", lp["self_attn"], E)
         _ffn(sd, pre, lp["ffn"])
+    _final_ln_sd(sd, "encoder.encoder", p["encoder"])
 
 
 def _contiguous_sd(sd):
@@ -141,11 +161,13 @@ def state_dict_from_flax(params: Mapping,
         out = f"output_layer.{d}.layer" if cfg.lang_dec else "output_layer.layer"
         _decoder_sd(sd, dec, p[f"decoders_{d}"], cfg)
         if cfg.tie_embed:
-            sd[f"{out}.bias"] = _t(p[f"out_bias_{d}"])
+            if cfg.output_bias:
+                sd[f"{out}.bias"] = _t(p[f"out_bias_{d}"])
         else:
             proj = p[f"output_layers_{d}"]["proj"]
             sd[f"{out}.weight"] = _t(proj["kernel"]).T
-            sd[f"{out}.bias"] = _t(proj["bias"])
+            if cfg.output_bias:
+                sd[f"{out}.bias"] = _t(proj["bias"])
 
     if cfg.use_proposals:
         pa = p["proposal_attn"]
@@ -201,11 +223,21 @@ def _ln_tree(sd, prefix: str) -> dict:
 
 
 def _embeddings_tree(sd, emb: str) -> dict:
-    return {
-        "word": {"embedding": sd[f"{emb}.word_embeddings.weight"]},
-        "position": {"embedding": sd[f"{emb}.position_embeddings.weight"]},
-        "lang": {"embedding": sd[f"{emb}.token_type_embeddings.weight"]},
-        "ln": _ln_tree(sd, f"{emb}.LayerNorm")}
+    tree = {"word": {"embedding": sd[f"{emb}.word_embeddings.weight"]}}
+    if f"{emb}.position_embeddings.weight" in sd:
+        tree["position"] = {
+            "embedding": sd[f"{emb}.position_embeddings.weight"]}
+    if f"{emb}.token_type_embeddings.weight" in sd:
+        tree["lang"] = {"embedding": sd[f"{emb}.token_type_embeddings.weight"]}
+    if f"{emb}.LayerNorm.weight" in sd:
+        tree["ln"] = _ln_tree(sd, f"{emb}.LayerNorm")
+    return tree
+
+
+def _final_ln_tree(sd, stack: str, tree: dict) -> dict:
+    if f"{stack}.LayerNorm.weight" in sd:
+        tree["final_ln"] = _ln_tree(sd, f"{stack}.LayerNorm")
+    return tree
 
 
 def _decoder_tree(sd, dec: str, cfg: Seq2SeqConfig) -> dict:
@@ -217,7 +249,7 @@ def _decoder_tree(sd, dec: str, cfg: Seq2SeqConfig) -> dict:
             "self_attn": _attn_tree(sd, f"{pre}.attention", H, D),
             "cross_attn": _attn_tree(sd, f"{pre}.crossattention", H, D),
             "ffn": _ffn_tree(sd, pre)}
-    return tree
+    return _final_ln_tree(sd, f"{dec}.decoder", tree)
 
 
 def _encoder_tree(sd, cfg: Seq2SeqConfig) -> dict:
@@ -231,6 +263,7 @@ def _encoder_tree(sd, cfg: Seq2SeqConfig) -> dict:
         p["encoder"][f"layers_{i}"] = {
             "self_attn": _attn_tree(sd, f"{pre}.attention", H, D),
             "ffn": _ffn_tree(sd, pre)}
+    _final_ln_tree(sd, "encoder.encoder", p["encoder"])
     return p
 
 
@@ -253,10 +286,13 @@ def flax_from_state_dict(sd: Mapping[str, torch.Tensor],
         out = f"output_layer.{d}.layer" if cfg.lang_dec else "output_layer.layer"
         p[f"decoders_{d}"] = _decoder_tree(sd, dec, cfg)
         if cfg.tie_embed:
-            p[f"out_bias_{d}"] = sd[f"{out}.bias"]
+            if cfg.output_bias:
+                p[f"out_bias_{d}"] = sd[f"{out}.bias"]
         else:
             p[f"output_layers_{d}"] = {"proj": {
-                "kernel": sd[f"{out}.weight"].T, "bias": sd[f"{out}.bias"]}}
+                "kernel": sd[f"{out}.weight"].T}}
+            if cfg.output_bias:
+                p[f"output_layers_{d}"]["proj"]["bias"] = sd[f"{out}.bias"]
     if cfg.use_proposals:
         p["proposal_attn"] = {"gate": sd["proposal_attn.gate"],
                               "ln": _ln_tree(sd, "proposal_attn.LayerNorm")}
@@ -268,7 +304,8 @@ def random_params(cfg: Seq2SeqConfig, seed: int = 0) -> dict:
     ``numpy.random.RandomState(seed)``, with the JAX model's initializers:
     normal(initializer_range) for kernels and embeddings (an MoE bank's
     router and experts too), zero biases, unit LayerNorm scales, a 0.1
-    proposal gate. fp32 numpy leaves."""
+    proposal gate. fp32 numpy leaves. The port's own layout draws only the
+    entries its model has (the module docstring)."""
     rng = np.random.RandomState(seed)
     E, H, D = cfg.hidden_size, cfg.num_heads, cfg.head_dim
     FF, V = cfg.intermediate_size, cfg.vocab_size
@@ -289,8 +326,8 @@ def random_params(cfg: Seq2SeqConfig, seed: int = 0) -> dict:
         return {**qkv, "out": {"kernel": normal(H, D, E), "bias": zeros(E)},
                 "ln": ln()}
 
-    def ffn():
-        if cfg.moe_experts:
+    def ffn(i):
+        if cfg.is_moe_layer(i):
             n = cfg.moe_experts
             return {"router": {"kernel": normal(E, n)},
                     "wi": normal(n, E, FF), "bi": zeros(n, FF),
@@ -299,24 +336,32 @@ def random_params(cfg: Seq2SeqConfig, seed: int = 0) -> dict:
                 "output": {"kernel": normal(FF, E), "bias": zeros(E)},
                 "ln": ln()}
 
-    p = {"embeddings": {
-        "word": {"embedding": normal(V, E)},
-        "position": {"embedding": normal(cfg.max_position_embeddings, E)},
-        "lang": {"embedding": normal(max(1, cfg.num_languages), E)},
-        "ln": ln()}}
-    p["encoder"] = {f"layers_{i}": {"self_attn": attn(), "ffn": ffn()}
+    emb = {"word": {"embedding": normal(V, E)}}
+    if cfg.embedding == "bert":
+        emb["position"] = {"embedding": normal(cfg.max_position_embeddings,
+                                               E)}
+        emb["lang"] = {"embedding": normal(max(1, cfg.num_languages), E)}
+        emb["ln"] = ln()
+    p = {"embeddings": emb}
+    p["encoder"] = {f"layers_{i}": {"self_attn": attn(), "ffn": ffn(i)}
                     for i in range(cfg.enc_layers)}
+    if cfg.pre_layer_norm:
+        p["encoder"]["final_ln"] = ln()
     n_dec = cfg.num_languages if cfg.lang_dec else 1
     for d in range(n_dec):
         p[f"decoders_{d}"] = {
             f"layers_{i}": {"self_attn": attn(), "cross_attn": attn(),
-                            "ffn": ffn()}
+                            "ffn": ffn(i)}
             for i in range(cfg.dec_layers)}
+        if cfg.pre_layer_norm:
+            p[f"decoders_{d}"]["final_ln"] = ln()
         if cfg.tie_embed:
-            p[f"out_bias_{d}"] = zeros(V)
+            if cfg.output_bias:
+                p[f"out_bias_{d}"] = zeros(V)
         else:
-            p[f"output_layers_{d}"] = {"proj": {"kernel": normal(E, V),
-                                                "bias": zeros(V)}}
+            p[f"output_layers_{d}"] = {"proj": {"kernel": normal(E, V)}}
+            if cfg.output_bias:
+                p[f"output_layers_{d}"]["proj"]["bias"] = zeros(V)
     if cfg.use_proposals:
         p["proposal_attn"] = {"gate": np.full((1, E), 0.1, np.float32),
                               "ln": ln()}

@@ -10,13 +10,17 @@ The tracer records named host spans and counters from inside the program:
     profiling.count("decode.rows", n)
     if profiling.tracing:            # guard an argument that costs work
         profiling.count("decode.rows_live", costly())
+    profiling.count_later("moe.max_load", device_scalar)
 
 ``enable()`` turns it on, ``disable()`` off, ``drain()`` returns (and
 clears) the closed spans, each ``(name, start_ns, end_ns, parent, thread)``
 on ``time.perf_counter_ns``'s clock (``parent``: the name of the span that
 was open around it on the same thread, or None; ``thread``: the thread's
 native id), and the counters. Spans time the host only: nothing here
-synchronises with a device or reads a device value.
+synchronises with a device or reads a device value, but ``settle``, which
+reads the device scalars ``count_later`` kept (each counter's stacked and
+summed on the device, one read a counter): the decode loop settles after
+the loop, and ``drain`` settles what is left.
 
 Off (the default), ``span`` costs one check of a module-level flag and
 returns one shared object whose ``with`` does nothing; ``count`` costs the
@@ -49,6 +53,7 @@ tracing = False
 _spans: List[tuple] = []
 _counts: Dict[str, float] = {}
 _counts_lock = threading.Lock()
+_later: Dict[str, list] = {}
 _offset_ns = 0
 _local = threading.local()
 
@@ -127,6 +132,31 @@ def count(name: str, n: float = 1) -> None:
             _counts[name] = _counts.get(name, 0) + n
 
 
+def count_later(name: str, value) -> None:
+    """Keeps the device scalar ``value`` for the counter ``name`` while
+    tracing is on, unread until ``settle``."""
+    if tracing:
+        with _counts_lock:
+            _later.setdefault(name, []).append(value)
+
+
+def settle() -> None:
+    """Adds the values ``count_later`` kept to their counters: one device
+    read a counter."""
+    with _counts_lock:
+        later = dict(_later)
+        _later.clear()
+    if not later:
+        return
+    import torch
+
+    for name, values in later.items():
+        total = float(torch.stack([v.reshape(()).to(torch.float64)
+                                   for v in values]).sum())
+        with _counts_lock:
+            _counts[name] = _counts.get(name, 0) + total
+
+
 def _anchor(pairs: int = 7) -> int:
     """time_ns - perf_counter_ns: the median over ``pairs`` readings of
     the wall clock between two of the span clock."""
@@ -154,7 +184,8 @@ def disable() -> None:
 
 def drain() -> Tuple[List[tuple], Dict[str, float]]:
     """The spans closed since the last drain, in the order they started,
-    and the counters; clears both."""
+    and the counters (``settle``d); clears both."""
+    settle()
     with _counts_lock:
         counts = dict(_counts)
         _counts.clear()
